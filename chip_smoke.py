@@ -14,16 +14,32 @@ Phases, one output line each:
    at the operating point's shapes, with the tolerance it must meet, its
    time (CUDA events), the plain version's time and the work counts its
    bound is computed from.
-3. ``frame``: the RPNN neural frame driven the way a user would drive it
+3. ``K4``: the path tracer's bounce loop against its plain version on the
+   256^3 scene: a two-subframe tick over the whole 512^2 frame (the main
+   path's shapes), and one subframe per render mode over a strided subset
+   of 16,384 pixels, with the work counts (paths, steps, bounces).
+4. ``frame``: the RPNN neural frame driven the way a user would drive it
    (build the scene, bake the in-scatter field, init ``DisneyModel`` from
    ``torch.Generator(566)``, render) at the reference's ``renderCloud``
    point: the 256^3 procedural cumulus of seed 11, 2000 m, uint8 textures,
-   512 x 256.  Kernel launch counts are set to 0 just before and read just
-   after; every kernel must have launched.  Frames must be finite,
+   512 x 256.  Kernel launch counts are set to 0 just before each path
+   (the neural frame, the path tracer, the probe) and read just after;
+   every kernel must have launched on its path.  Frames must be finite,
    deterministic per seed and different across seeds.
-4. ``frame vs plain``: the frame against one computed with every kernel's
+5. ``frame vs plain``: the frame against one computed with every kernel's
    plain version, on every pixel whose scatter flag agrees.
-5. ``profile``: the frame's device time by kernel (torch.profiler).
+6. ``profile``: the frame's device time by kernel (torch.profiler).
+7. ``PT``: ``ProgressiveRenderer`` driven the way a user would drive it
+   (build, bake, ticks of 2 subframes at 512^2, ``run()`` with a small
+   ``ProgressiveConfig``, ``display_image``) at 256^3 and 64^3: Mrays/s,
+   steps/s, image mean, launches, peak memory, and the device time of 10
+   ticks by kernel (torch.profiler).  The image mean must lie
+   in (0.1, 10), be finite, repeat for the same seed and differ across
+   seeds.
+8. ``P1`` / ``P2``: the row-gather probe's entry point
+   (``probes.gather.main``) at the Pallas probe's cases, each kernel's sums
+   equal to its plain version's; then P1 at a table the size of the 256^3
+   texture beside K4's step rate (the path tracer's gather ceiling).
 
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
@@ -33,6 +49,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -55,9 +72,23 @@ K1_OPS_PER_RAY = 130
 K3_OPS_PER_STEP = 70
 K2_OPS_PER_SAMPLE = 103
 K2_OPS_PER_HI_LEVEL = 56
+#: K4: per march step (K1's step work plus the in-box test), per in-box
+#: scatter (back-correction, NEE with the in-scatter trilinear and the
+#: phase lerp, two hashes and the inverse-CDF / azimuth / frame rotation of
+#: the new direction, the next free-flight hash), per sample (seed, first
+#: hash, Welford fold).
+K4_OPS_PER_STEP = 80
+K4_OPS_PER_BOUNCE = 270
+K4_OPS_PER_SAMPLE = 35
 
 SEED_WEIGHTS = 566
 WIDTH, HEIGHT = 512, 256
+#: The path tracer's operating point (bench.py): 512^2, 2 subframes a tick.
+PT_SIZE = 512
+PT_SUBFRAMES = 2
+PT_SEED = 5
+PT_SECONDS = 3.0
+K4_SUBSET_STRIDE = 16  # 16,384 of the 262,144 pixels
 
 
 class Failed(Exception):
@@ -104,13 +135,14 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops) -> dict:
+def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
+               library_ms=None) -> dict:
     """One entry of the kernels line; the bound is the larger of the bytes
     over the HBM rate and the operations over the float32 peak."""
     tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(tb, to),
-                bound_by="bytes" if tb >= to else "operations", library_ms=None)
+                bound_by="bytes" if tb >= to else "operations", library_ms=library_ms)
 
 
 def phase_build(cuda_build) -> None:
@@ -241,15 +273,16 @@ def plain_frame(params, static, model, basis, seed):
     return neural.composite(pred, cs, miss, hit).reshape(HEIGHT, WIDTH, 3), ok
 
 
-def phase_profile(renderer, params, static, basis, frame_ms: float) -> None:
-    """Device time of one frame by kernel.  Diagnostic only: a profiler
+def phase_profile(label: str, fn, unprofiled_ms: float) -> None:
+    """Device time of ``fn()`` by kernel, against ``unprofiled_ms`` (the
+    same work timed without the profiler).  Diagnostic only: a profiler
     that cannot trace the card prints ``unavailable`` and the run goes on."""
     try:
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            renderer.render_frame(params, static, WIDTH, HEIGHT, basis, seed=3)
+            fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         # Device-side events only: a CPU op's self device time repeats its
@@ -257,14 +290,196 @@ def phase_profile(renderer, params, static, basis, frame_ms: float) -> None:
         evs = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     except (RuntimeError, AttributeError) as exc:
-        print(f"profile: unavailable ({exc})", flush=True)
+        print(f"{label}: unavailable ({exc})", flush=True)
         return
     evs.sort(key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
     top = [[e.key[:70], round(e.self_device_time_total / 1e3, 3), e.count] for e in evs[:12]]
-    print(f"profile: kernels_ms={dev_ms:.3f} profiled_wall_ms={wall:.3f} "
-          f"idle_share_vs_unprofiled_frame={1 - dev_ms / frame_ms:.3f} top={json.dumps(top)}",
+    print(f"{label}: kernels_ms={dev_ms:.3f} profiled_wall_ms={wall:.3f} unprofiled_ms={unprofiled_ms:.3f} "
+          f"idle_share_vs_unprofiled={1 - dev_ms / unprofiled_ms:.3f} top={json.dumps(top)}",
           flush=True)
+
+
+def pt_rays(cam, params, static, dev):
+    """The path tracer's 512^2 rays: (entry, dirs, hit, ray ids)."""
+    from deepestscatter_tpu_torch import config
+
+    basis = cam.camera_basis(config.CameraConfig(width=PT_SIZE, height=PT_SIZE))
+    o, d = cam.generate_rays(basis, PT_SIZE, PT_SIZE, params.bbox_size.device)
+    hit, t_hit = cam.intersect_box(o, d, static, params.bbox_size)
+    entry = cam.entry_points(o, d, t_hit, params.bbox_size)
+    return entry, d, hit, torch.arange(o.shape[0], device=d.device)
+
+
+def k4_compare(pt, params, static, args, tol_share: float = 0.999):
+    """K4 and its plain version on the same inputs → (kernel result, plain
+    result, plain host ms, max abs err, share of pixels with equal step
+    counts).  Tolerance: step counts equal on >= 99.9 % of pixels; on
+    those, mean within 1e-5 and m2 within 1e-4 of their largest values."""
+    k = pt.scatter_loop(params, static, *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = pt.scatter_loop_plain(params, static, *args)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    same = k.steps == r.steps
+    share = same.float().mean().item()
+    err = max((k.mean - r.mean).abs().max().item(), (k.m2 - r.m2).abs().max().item())
+    ok = torch.equal(k.count, r.count) and share >= tol_share
+    for a, b, tol in ((k.mean, r.mean, 1e-5), (k.m2, r.m2, 1e-4)):
+        ok = ok and (a - b)[same].abs().max().item() <= tol * (b.abs().max().item() + 1e-12)
+    require(ok, f"K4 disagrees with its plain version (steps equal on {share:.6f})")
+    return k, r, plain, err, share
+
+
+def phase_k4(pt, cam, modes, params, static) -> dict:
+    """K4 against its plain version on the 256^3 scene: the main path's
+    two-subframe tick over all 512^2 pixels, then one subframe per render
+    mode over a strided subset.  Returns the kernel row."""
+    entry, d, hit, ids = pt_rays(cam, params, static, params.bbox_size.device)
+    args = (entry, d, hit, ids, PT_SEED, 1, PT_SUBFRAMES)
+    k, r, plain, err, share = k4_compare(pt, params, static, args)
+    ms = time_ms(lambda: pt.scatter_loop(params, static, *args), 5)
+    n, n_hit = entry.shape[0], int(hit.sum().item())
+    steps, bounces = int(r.steps.sum().item()), int(r.bounces.sum().item())
+    print(f"K4 bounce loop: tick pixels={n} subframes={PT_SUBFRAMES} paths={n_hit * PT_SUBFRAMES} "
+          f"steps={steps} bounces={bounces} max_pixel_steps={int(r.steps.max().item())} "
+          f"steps_equal={share:.6f} (tol 0.999) max_abs_err={err:.3g} (tol mean 1e-5, m2 1e-4 of max) "
+          f"ms={ms:.3f} plain_ms={plain:.1f}", flush=True)
+    sub = torch.arange(0, n, K4_SUBSET_STRIDE, device=entry.device)
+    sargs = (entry[sub].contiguous(), d[sub].contiguous(), hit[sub].contiguous(),
+             ids[sub].contiguous(), PT_SEED, 3, 1)
+    for mode in modes:
+        st = dataclasses.replace(static, mode=mode)
+        km, rm, plain_m, err_m, share_m = k4_compare(pt, params, st, sargs)
+        err = max(err, err_m)
+        print(f"K4 {mode.name}: pixels={sub.numel()} paths={int(sargs[2].sum().item())} "
+              f"steps={int(rm.steps.sum().item())} bounces={int(rm.bounces.sum().item())} "
+              f"steps_equal={share_m:.6f} max_abs_err={err_m:.3g} plain_ms={plain_m:.1f}", flush=True)
+    tex = 2 * params.density_mips[0].numel() * params.density_mips[0].element_size()
+    tables = (params.phase.eval_rows.numel() + params.phase.inv_cdf_rows.numel()) * 4
+    n_bytes = tex + tables + n * (12 + 12 + 1 + 8) + n * (12 + 12 + 4 + 16)
+    n_ops = (steps * K4_OPS_PER_STEP + bounces * K4_OPS_PER_BOUNCE
+             + n_hit * PT_SUBFRAMES * K4_OPS_PER_SAMPLE)
+    return kernel_row("K4 path-trace bounce loop", "deepestscatter_tpu_torch/csrc/pathtrace.cu",
+                      "deepestscatter_tpu/render/pathtracer.py:671", err, ms, plain, n_bytes, n_ops)
+
+
+def pt_scene(port, config, procedural, res, dev):
+    """bench.py's path-tracing point: cumulus of seed 11 at ``res``^3, 2000 m,
+    uint8 textures, all-scatter, max_depth 2000, step 1/512, 512^2."""
+    cfg = config.SceneConfig(
+        cloud=config.CloudModel(size_m=2000.0),
+        camera=config.CameraConfig(width=PT_SIZE, height=PT_SIZE),
+        rendering=config.CloudRendering(march_dtype="uint8"),
+        progressive=config.ProgressiveConfig(subframes_per_tick=PT_SUBFRAMES),
+    )
+    params, static = port.build_scene(cfg, procedural.cumulus(resolution=res, seed=11), device=dev)
+    return cfg, port.with_baked_inscatter(params, static, device=dev), static
+
+
+def phase_pt(port, config, procedural, pt, prog, res, dev) -> dict:
+    """The progressive path tracer at one grid size, as a user drives it.
+    Returns the scene and the mean seconds per tick."""
+    k4_before = pt.scatter_loop.launches
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cfg, params, static = pt_scene(port, config, procedural, res, dev)
+    r = port.ProgressiveRenderer(cfg, params, static, seed=PT_SEED, device=dev)
+    r.tick()  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    first_mean = float(r.state.mean.mean().item())
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    t_start = time.perf_counter()
+    while time.perf_counter() - t_start < PT_SECONDS or len(times) < 5:
+        t0 = time.perf_counter()
+        r.tick()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    hdr = r.hdr_image()
+    mean = float(hdr.mean())
+    n_prof = 10
+
+    def ticks():
+        for _ in range(n_prof):
+            r.tick()
+
+    phase_profile(f"PT {res}^3 profile ({n_prof} ticks)", ticks, n_prof * 1e3 * float(np.mean(times)))
+    # Determinism: the same seed repeats the first tick, another seed differs.
+    same = port.ProgressiveRenderer(cfg, params, static, seed=PT_SEED, device=dev)
+    same.tick()
+    other = port.ProgressiveRenderer(cfg, params, static, seed=PT_SEED + 1, device=dev)
+    other.tick()
+    same_mean = float(same.state.mean.mean().item())
+    other_mean = float(other.state.mean.mean().item())
+    # The convergence gate and the display path, with a small configuration.
+    small = dataclasses.replace(cfg, progressive=config.ProgressiveConfig(
+        subframes_per_tick=PT_SUBFRAMES, min_subframes=4, max_subframes=8))
+    short = port.ProgressiveRenderer(small, params, static, seed=PT_SEED, device=dev)
+    short_hdr = short.run()
+    disp = short.display_image()
+    unconverged = int(prog.unconverged_count(short.state, small.progressive))
+    tick_s = float(np.mean(times))
+    rays = PT_SIZE * PT_SIZE * PT_SUBFRAMES
+    print(f"PT {res}^3: setup(build+bake+warm tick)={setup_s:.2f}s ticks={len(times)} "
+          f"s_per_tick_mean={tick_s:.6f} min={min(times):.6f} Mrays_per_s={rays / tick_s / 1e6:.3f} "
+          f"K4_launches={pt.scatter_loop.launches - k4_before} image_mean={mean:.6f} "
+          f"first_tick_mean={first_mean:.6f} same_seed_mean={same_mean:.6f} other_seed_mean={other_mean:.6f} "
+          f"subframes={r.state.subframe_id} peak_mem_mb={peak / 2**20:.1f} "
+          f"run(min 4, max 8): subframes={short.state.subframe_id} unconverged={unconverged} "
+          f"display={disp.shape} {disp.dtype}", flush=True)
+    require(0.1 < mean < 10.0, f"PT {res}^3 image mean {mean} outside (0.1, 10)")
+    require(bool(np.isfinite(hdr).all()) and bool(np.isfinite(short_hdr).all()),
+            f"PT {res}^3 image has a non-finite pixel")
+    require(same_mean == first_mean, f"PT {res}^3: the same seed gave a different mean")
+    require(other_mean != first_mean, f"PT {res}^3: two seeds gave the same mean")
+    require(disp.shape == (PT_SIZE, PT_SIZE, 3) and disp.dtype == np.uint8
+            and short.state.subframe_id >= 4, f"PT {res}^3: run()/display_image failed")
+    return dict(tick_s=tick_s, params=params, static=static)
+
+
+def pt_work(pt, cam, res, run) -> float:
+    """Steps of one tick of the path tracer's scene (the kernel's own step
+    counts, from one launch outside the counted path) → steps/s."""
+    params, static = run["params"], run["static"]
+    entry, d, hit, ids = pt_rays(cam, params, static, params.bbox_size.device)
+    work = pt.scatter_loop(params, static, entry, d, hit, ids, PT_SEED, 1, PT_SUBFRAMES)
+    steps, bounces = int(work.steps.sum().item()), int(work.bounces.sum().item())
+    print(f"PT {res}^3 work: steps_per_tick={steps} bounces_per_tick={bounces} "
+          f"paths_per_tick={int(hit.sum().item()) * PT_SUBFRAMES} "
+          f"steps_per_s={steps / run['tick_s']:.6g}", flush=True)
+    return steps / run["tick_s"]
+
+
+def phase_probe(gather, k4_steps_per_s: float):
+    """The probe's entry point, counted; returns the P1 and P2 rows."""
+    for f in (gather.per_lane, gather.coalesced):
+        f.launches = 0
+    report = gather.main([])
+    launches = {"P1": gather.per_lane.launches, "P2": gather.coalesced.launches}
+    print(f"P1/P2 probe: cases={len(report['results'])} launches={json.dumps(launches)} "
+          f"(sums equal to the plain versions in every case)", flush=True)
+    require(all(n > 0 for n in launches.values()), f"a probe kernel never launched: {launches}")
+    by = {(r["kind"], r["nrows"]): r for r in report["results"]}
+    rows = {}
+    for key, kind, name, fn, line in (
+        ("P1", "per_lane", "P1 row-gather probe, per lane", "_per_lane_kernel", 39),
+        ("P2", "coalesced_32", "P2 row-gather probe, coalesced runs of 32", "_coalesced_kernel", 79),
+    ):
+        r = by[(kind, gather.CASES[-1][0])]
+        rows[key] = dict(name=name, route="cuda", source="deepestscatter_tpu_torch/csrc/gather_probe.cu",
+                         replaces=f"tools/pallas_gather_probe.py:{line}", max_abs_err=r["max_abs_err"],
+                         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
+                         library_ms=r["library_ms"], launches=launches[key])
+    texture_rows = (1 << 24) // 16
+    ceil = gather.measure("per_lane", texture_rows, 16, 1 << 18)
+    print(f"PT gather ceiling: P1 over a 16 MiB table (the 256^3 uint8 density texture), 16-B rows: "
+          f"{ceil['mrows_per_s']:.1f} Mrows/s; K4 at 256^3: {k4_steps_per_s / 1e6:.1f} Msteps/s "
+          f"(8 texel reads a step)", flush=True)
+    return rows
 
 
 def run() -> dict:
@@ -276,9 +491,12 @@ def run() -> dict:
     from deepestscatter_tpu_torch.ops import descriptor as desc_ops
     from deepestscatter_tpu_torch.ops import grid as grid_ops
     from deepestscatter_tpu_torch.ops import march as march_ops
+    from deepestscatter_tpu_torch.probes import gather
     from deepestscatter_tpu_torch.render import camera as cam
     from deepestscatter_tpu_torch.render import inscatter as ins_ops
     from deepestscatter_tpu_torch.render import neural
+    from deepestscatter_tpu_torch.render import pathtracer as pt
+    from deepestscatter_tpu_torch.render import progressive as prog
 
     dev = torch.device("cuda")
     print(f"env: card={card_line()!r} torch={torch.__version__} cuda={torch.version.cuda} "
@@ -309,9 +527,11 @@ def run() -> dict:
     rows["K2"] = phase_k2(desc_ops, grid_ops, baked, static,
                           scat.scatter_pos[scat.ok].contiguous(),
                           scat_dirs[scat.ok].contiguous())
-    del baked, scat, scat_dirs
+    del scat, scat_dirs
+    rows["K4"] = phase_k4(pt, cam, list(config.RenderMode), baked, static)
+    del baked
 
-    # -- the main path, counted --------------------------------------------
+    # -- the neural frame's main path, counted ------------------------------
     counters = {"K1": march_ops.camera_march, "K2": desc_ops.network_inputs,
                 "K3": ins_ops.sun_transmittance}
     for f in counters.values():
@@ -367,8 +587,27 @@ def run() -> dict:
           f"mean={flat.mean().item():.6f}", flush=True)
     require(flags_ok >= 0.995 and pix_ok >= 0.999, "the frame disagrees with its plain counterpart")
 
-    phase_profile(renderer, params, static, basis, frame_ms)
-    return [dict(rows[k], launches=launches[k]) for k in ("K1", "K2", "K3")]
+    phase_profile("profile", lambda: renderer.render_frame(params, static, WIDTH, HEIGHT, basis, seed=3),
+                  frame_ms)
+    del params, model, renderer, frames, warm, again, ref
+    kernels = [dict(rows[k], launches=launches[k]) for k in ("K1", "K2", "K3")]
+
+    # -- the path tracer's main path, counted --------------------------------
+    for f in (pt.scatter_loop, ins_ops.sun_transmittance):
+        f.launches = 0
+    pt_runs = {res: phase_pt(port, config, procedural, pt, prog, res, dev) for res in (256, 64)}
+    pt_launches = {"K4": pt.scatter_loop.launches, "K3": ins_ops.sun_transmittance.launches}
+    print(f"PT launches: {json.dumps(pt_launches)} (K3 once per scene, K4 once per tick)", flush=True)
+    require(all(n > 0 for n in pt_launches.values()),
+            f"a kernel of the path tracer never launched: {pt_launches}")
+    kernels.append(dict(rows["K4"], launches=pt_launches["K4"]))
+    steps_per_s = {res: pt_work(pt, cam, res, run) for res, run in pt_runs.items()}
+    del pt_runs
+
+    # -- the probe's path, counted -------------------------------------------
+    probe_rows = phase_probe(gather, steps_per_s[256])
+    kernels += [probe_rows["P1"], probe_rows["P2"]]
+    return kernels
 
 
 def main() -> int:

@@ -1,5 +1,5 @@
 """Typed configuration: the part of the reference configuration the RPNN
-neural frame reads.
+neural frame and the progressive path tracer read.
 
 A copy of ``deepestscatter_tpu.config`` (the JAX package's settings) cut to
 what this package uses, kept as its own module so that the port imports
@@ -55,17 +55,30 @@ class CloudModel:
 
 @dataclasses.dataclass(frozen=True)
 class CloudRendering:
-    """March settings the neural frame reads.
+    """March and bounce-loop settings (reference: SceneDescription.h
+    Cloud::Rendering; MAX_DEPTH 2000, cloudRadianceMaterials.cu:4).
 
     ``march_dtype`` is the texture storage: "float32", or "uint8" (the
-    reference's own storage, values x255).  The JAX package's brick-row
-    layout (``march_brick``) is a gather-rate choice for the TPU whose
-    values equal the cell layout's; this package keeps raw ``[Z, Y, X]``
-    grids and has no such field.
+    reference's own storage, values x255).  ``sample_sky`` samples sky and
+    sun light where a path leaves the box (all-scatter mode only; off in
+    the reference).  ``rr_start_depth`` > 0 turns on Russian roulette from
+    that bounce on, survivors reweighted by ``1 / rr_survival``.
+
+    The JAX package's TPU scheduling fields are left out, because the CUDA
+    bounce loop runs one thread per pixel and has no lockstep batch to
+    schedule: ``march_deferred``, ``march_substeps``,
+    ``march_resolve_frac``, ``march_check_every``, ``march_pipeline``,
+    ``march_resolve_every``, the brick-row layout ``march_brick`` (a
+    gather-rate choice whose values equal the cell layout's; this package
+    keeps raw ``[Z, Y, X]`` grids) and ``occupancy_skipping``.
     """
 
     sample_step: float = 1.0 / 512.0
     mode: RenderMode = RenderMode.SUN_AND_SKY_ALL_SCATTER
+    max_depth: int = 2000
+    sample_sky: bool = False
+    rr_start_depth: int = 0
+    rr_survival: float = 0.98
     march_dtype: str = "float32"
 
 
@@ -87,6 +100,23 @@ class CameraConfig:
     look_at: Vec3 = (0.0, 0.0, 0.0)
     up: Vec3 = (0.0, 1.0, 0.0)
     hfov_deg: float = 30.0
+    exposure: float = 0.4
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgressiveConfig:
+    """Progressive estimation and its convergence gate (reference:
+    Camera.cpp:189-268)."""
+
+    subframes_per_tick: int = 10
+    snapshot_every: int = 40
+    min_subframes: int = 100
+    #: 95% CI gates: converged if relative < rel_tol or absolute < abs_tol.
+    rel_tol: float = 0.02
+    abs_tol: float = 1e-2
+    #: Frame converged when fewer than this many pixels are unconverged.
+    max_unconverged_pixels: int = 500
+    max_subframes: int = 7000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +126,9 @@ class SceneConfig:
     rendering: CloudRendering = dataclasses.field(default_factory=CloudRendering)
     sky: SkyConfig = dataclasses.field(default_factory=SkyConfig)
     camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
+    progressive: ProgressiveConfig = dataclasses.field(
+        default_factory=ProgressiveConfig
+    )
 
     @property
     def density_multiplier(self) -> float:

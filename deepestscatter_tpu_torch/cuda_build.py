@@ -28,7 +28,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("march", "descriptor", "inscatter")
+SOURCES = ("march", "descriptor", "inscatter", "pathtrace", "gather_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",

@@ -15,6 +15,7 @@ import math
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from .blocks import DisneyBlock
 
 BLOCK_DIMENSION = 200
@@ -46,10 +47,13 @@ class DisneyModel(nn.Module):
         return nn.functional.leaky_relu(self.fc2(out), negative_slope=0.01)
 
 
-def init_disney_model(seed: int, device="cpu") -> DisneyModel:
+def init_disney_model(seed: int, device="cuda") -> DisneyModel:
     """A ``DisneyModel`` with weights drawn from a ``torch.Generator``
     seeded with ``seed``: every Linear uniform in +-1/sqrt(fan_in), the
-    PyTorch default rule, made reproducible."""
+    PyTorch default rule, made reproducible.  The weights are drawn on the
+    CPU and moved to ``device`` (the card unless the caller asks for the
+    CPU; raises if there is no card)."""
+    dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     model = DisneyModel()
     with torch.no_grad():
@@ -58,4 +62,4 @@ def init_disney_model(seed: int, device="cpu") -> DisneyModel:
                 bound = 1.0 / math.sqrt(mod.in_features)
                 for p in (mod.weight, mod.bias):
                     p.copy_((torch.rand(p.shape, generator=gen) * 2.0 - 1.0) * bound)
-    return model.to(device).eval()
+    return model.to(dev).eval()

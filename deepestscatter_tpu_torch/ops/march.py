@@ -19,7 +19,6 @@ import torch
 
 from .. import cuda_build
 from ..device import check_on
-from ..render.pathtracer import in_scattering
 from ..scene import SceneParams, SceneStatic, is_in_box
 from . import grid as grid_ops
 from . import rng as rng_ops
@@ -148,10 +147,13 @@ def camera_march_plain(
         return CameraMarch(
             next_scattering_event(params, static, od, entry, dirs).transmittance
         )
+    # Late import: the path tracer imports this module.
+    from ..render.pathtracer import in_scattering
+
     od = conditional_optical_distance(seed, ray_ids, trans_total)
     ev = next_scattering_event(params, static, od, entry, dirs)
     ok = ev.has_scattered & is_in_box(ev.scatter_pos, params.bbox_size)
-    direct = in_scattering(params, static, ev.scatter_pos, dirs)
+    direct = in_scattering(params, static, ev.scatter_pos, dirs, False)
     direct = torch.where(ok[:, None], direct, torch.zeros_like(direct))
     return CameraMarch(ev.transmittance, ev.scatter_pos, ok, direct)
 

@@ -2,7 +2,8 @@
 
 The port of ``deepestscatter_tpu.render.camera``: ray generation through
 eye/U/V/W (sutil::calculateCameraVariables), the slab test against the
-centered cloud box, and the sun-disc / sky-gradient miss radiance.
+centered cloud box, the sun disc and the sun-disc / sky-gradient miss
+radiance.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ..config import CameraConfig, fov_tan_halves
+from ..ops.grid import true_div
 from ..scene import SceneParams, SceneStatic
 
 
@@ -45,7 +47,7 @@ def camera_basis(cfg: CameraConfig) -> CameraBasis:
     )
 
 
-def _norm3(d: torch.Tensor) -> torch.Tensor:
+def norm3(d: torch.Tensor) -> torch.Tensor:
     """Euclidean norm over the last axis of size 3, summed in index order."""
     sq = d * d
     return torch.sqrt(sq[..., 0] + sq[..., 1] + sq[..., 2])
@@ -65,7 +67,7 @@ def generate_rays(
         return torch.as_tensor(a, dtype=f32, device=device)
 
     d = dx[..., None] * vec(basis.u) + dy[..., None] * vec(basis.v) + vec(basis.w)
-    d = d / _norm3(d)[..., None]
+    d = d / norm3(d)[..., None]
     origins = vec(basis.eye).expand(d.shape)
     return origins.reshape(-1, 3), d.reshape(-1, 3)
 
@@ -98,8 +100,8 @@ def entry_points(
 
 
 def sky_gradient(params: SceneParams, directions: torch.Tensor) -> torch.Tensor:
-    """Ground-to-sky lerp on direction.y."""
-    t = torch.clamp((directions[..., 1] + 0.5) / 1.5, 0.0, 1.0)[..., None]
+    """Ground-to-sky lerp on direction.y (cloud.cuh sampleSky:124-132)."""
+    t = torch.clamp(true_div(directions[..., 1] + 0.5, 1.5), 0.0, 1.0)[..., None]
     return params.ground_intensity * (1.0 - t) + params.sky_intensity * t
 
 
@@ -109,13 +111,31 @@ def cos_to_sun(light_dir: torch.Tensor, directions: torch.Tensor) -> torch.Tenso
     return p[..., 0] + p[..., 1] + p[..., 2]
 
 
+def in_sun_disc(
+    params: SceneParams, static: SceneStatic, directions: torch.Tensor
+) -> torch.Tensor:
+    """[...] bool: the direction looks into the sun disc."""
+    return cos_to_sun(params.light_dir, directions) > static.sun_cos_half_angle
+
+
+def sun_disc(
+    params: SceneParams, static: SceneStatic, directions: torch.Tensor
+) -> torch.Tensor:
+    """Full sun radiance inside the disc, else 0 (cloud.cuh
+    sampleSun:134-144)."""
+    return torch.where(
+        in_sun_disc(params, static, directions)[..., None],
+        params.light_radiance.expand(directions.shape),
+        torch.zeros_like(directions),
+    )
+
+
 def miss_radiance(
     params: SceneParams, static: SceneStatic, directions: torch.Tensor
 ) -> torch.Tensor:
-    """Sun disc else sky gradient."""
-    in_sun = cos_to_sun(params.light_dir, directions) > static.sun_cos_half_angle
+    """Sun disc else sky gradient (pathTracingCamera.cu:31-51)."""
     return torch.where(
-        in_sun[..., None],
-        params.light_radiance.expand(directions.shape),
+        in_sun_disc(params, static, directions)[..., None],
+        sun_disc(params, static, directions),
         sky_gradient(params, directions),
     )

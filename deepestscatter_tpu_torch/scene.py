@@ -1,7 +1,7 @@
 """Scene state: device tensors plus static (host) scene facts.
 
 The port of ``deepestscatter_tpu.scene``, cut to what the RPNN neural frame
-reads.  ``SceneParams`` holds the tensors (mip pyramid, in-scatter grid,
+and the path tracer read.  ``SceneParams`` holds the tensors (mip pyramid, in-scatter grid,
 light and sky vectors, phase tables); ``SceneStatic`` holds hashable host
 facts (shapes, step sizes, the cloud's tight AABB) and host copies of the
 few vectors the CUDA kernels take as launch constants.
@@ -58,16 +58,39 @@ class SceneStatic:
     #: (lo_xyz + hi_xyz).  The camera march clips to it: density outside is
     #: exactly zero.
     cloud_aabb: Tuple[float, ...]
-    #: Host copies (float32 values) of bbox_size, light_dir, light_radiance.
+    #: Host copies (float32 values) of bbox_size, light_dir, light_radiance,
+    #: sky_intensity and ground_intensity.
     bbox: Tuple[float, float, float]
     light_direction: Tuple[float, float, float]
     light_rgb: Tuple[float, float, float]
+    sky_rgb: Tuple[float, float, float]
+    ground_rgb: Tuple[float, float, float]
     minimal_ray_distance: float = 1e-4
+    #: Bounce cap of the path tracer (config.CloudRendering.max_depth).
+    max_depth: int = 2000
+    #: Russian roulette (config.CloudRendering.rr_*; 0 = off).
+    rr_start_depth: int = 0
+    rr_survival: float = 0.98
+    #: Sky / sun light where a path leaves the box (all-scatter mode).
+    sample_sky: bool = False
 
     @property
     def max_march_steps(self) -> int:
         """Upper bound on fixed-step march steps (box diagonal)."""
         return int(math.ceil(math.sqrt(3.0) / self.sample_step)) + 4
+
+    @property
+    def max_total_steps(self) -> int:
+        """Step cap of one path-traced sample: ``max_depth`` bounces of a
+        mean free flight plus three steps each, and two box crossings.  A
+        sample that reaches it is cut there and counts as a sample."""
+        mean_segment_steps = max(
+            1.0 / (self.density_multiplier * self.sample_step), 1.0
+        )
+        return int(
+            math.ceil(self.max_depth * (mean_segment_steps + 3.0))
+            + 2 * self.max_march_steps
+        )
 
 
 def _tight_aabb(density: np.ndarray, bbox: np.ndarray) -> Tuple[float, ...]:
@@ -147,6 +170,12 @@ def build_scene(
         bbox=tuple(float(v) for v in bbox),
         light_direction=tuple(float(v) for v in light_dir),
         light_rgb=tuple(float(v) for v in light_rgb),
+        sky_rgb=tuple(float(v) for v in np.asarray(cfg.sky.sky_intensity, np.float32)),
+        ground_rgb=tuple(float(v) for v in np.asarray(cfg.sky.ground_intensity, np.float32)),
+        max_depth=cfg.rendering.max_depth,
+        rr_start_depth=cfg.rendering.rr_start_depth,
+        rr_survival=cfg.rendering.rr_survival,
+        sample_sky=cfg.rendering.sample_sky,
     )
 
     if inscatter is None:

@@ -7,8 +7,14 @@ on a host without one they skip.  Run them on the card with
 Tolerances: the bake within 1e-5 (T in [0, 1]) and its uint8 texture equal
 on all but 0.1 % of voxels; the march's T within 1e-5, ok flags equal on
 >= 99.5 % of rays, positions within 1e-4 where they agree; the descriptor
-within 1e-5.
+within 1e-5; the path tracer's bounce loop (K4) with the same per-pixel
+step counts on >= 99 % of pixels, and on those the mean within 1e-5 and
+m2 within 1e-4 of their largest values (both kernels and plain versions
+are compiled without FMA contraction, so bitwise is the goal); the gather
+probe's sums exactly equal.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -17,7 +23,8 @@ import torch
 from deepestscatter_tpu_torch import build_scene, config, with_baked_inscatter
 from deepestscatter_tpu_torch.data import procedural
 from deepestscatter_tpu_torch.ops import descriptor, march
-from deepestscatter_tpu_torch.render import camera, inscatter
+from deepestscatter_tpu_torch.probes import gather
+from deepestscatter_tpu_torch.render import camera, inscatter, pathtracer
 
 
 @pytest.fixture(scope="module")
@@ -90,3 +97,75 @@ def test_wrappers_count_launches(scene):
     inscatter.sun_transmittance(params, static)
     inscatter.sun_transmittance_plain(params, static)
     assert inscatter.sun_transmittance.launches == before + 1
+
+
+@pytest.mark.parametrize("mode", list(config.RenderMode))
+def test_pathtrace_kernel_matches_plain(scene, card, mode):
+    cfg, params, static = scene
+    params = with_baked_inscatter(params, static, device=card)
+    static = dataclasses.replace(static, mode=mode, max_depth=40)
+    o, d = camera.generate_rays(camera.camera_basis(cfg.camera), cfg.camera.width, cfg.camera.height, card)
+    hit, t_hit = camera.intersect_box(o, d, static, params.bbox_size)
+    entry = camera.entry_points(o, d, t_hit, params.bbox_size)
+    ids = torch.arange(o.shape[0], device=card)
+    got = pathtracer.scatter_loop(params, static, entry, d, hit, ids, 5, 1, 3)
+    ref = pathtracer.scatter_loop_plain(params, static, entry, d, hit, ids, 5, 1, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got.count, ref.count)
+    assert int(ref.bounces.sum()) > 0
+    same = got.steps == ref.steps
+    assert same.float().mean().item() >= 0.99
+    for a, b, tol in ((got.mean, ref.mean, 1e-5), (got.m2, ref.m2, 1e-4)):
+        scale = b.abs().max().item() + 1e-12
+        assert (a - b)[same].abs().max().item() <= tol * scale
+
+
+def test_pathtrace_kernel_step_cap(scene, card):
+    """A sample cut at the step cap still counts: every hit pixel folds
+    all its samples, and no sample marches past the cap."""
+    cfg, params, static = scene
+    params = with_baked_inscatter(params, static, device=card)
+    o, d = camera.generate_rays(camera.camera_basis(cfg.camera), cfg.camera.width, cfg.camera.height, card)
+    hit, t_hit = camera.intersect_box(o, d, static, params.bbox_size)
+    entry = camera.entry_points(o, d, t_hit, params.bbox_size)
+    ids = torch.arange(o.shape[0], device=card)
+    got = pathtracer.scatter_loop(params, static, entry, d, hit, ids, 5, 1, 2, max_steps=30)
+    ref = pathtracer.scatter_loop_plain(params, static, entry, d, hit, ids, 5, 1, 2, max_steps=30)
+    assert torch.equal(got.count, ref.count)
+    assert torch.equal(got.count[hit], torch.full_like(got.count[hit], 2.0))
+    assert int(got.steps.max()) <= 60
+    assert torch.equal(got.steps, ref.steps)
+
+
+@pytest.mark.parametrize("kind, run", [("per_lane", 0), ("coalesced", 8), ("coalesced", 32)])
+@pytest.mark.parametrize("width", [16, 1024])
+def test_gather_probe_kernels_match_plain(card, kind, run, width):
+    rows, idx = gather.make_case(kind, 4096, width, 8192, run=run or 32, device=card)
+    if kind == "per_lane":
+        got, ref = gather.per_lane(idx, rows, width), gather.per_lane_plain(idx, rows, width)
+    else:
+        got, ref = gather.coalesced(idx, rows, width, run), gather.coalesced_plain(idx, rows, width, run)
+    torch.cuda.synchronize()
+    assert got.shape == (8, 1)
+    assert torch.equal(got, ref)
+
+
+def test_new_wrappers_count_launches(scene, card):
+    cfg, params, static = scene
+    params = with_baked_inscatter(params, static, device=card)
+    entry = torch.full((4, 3), 0.5, device=card)
+    dirs = torch.tensor([[0.0, 0.0, 1.0]] * 4, device=card)
+    hit = torch.ones(4, dtype=torch.bool, device=card)
+    ids = torch.arange(4, device=card)
+    before = pathtracer.scatter_loop.launches
+    pathtracer.scatter_loop(params, static, entry, dirs, hit, ids, 0, 1, 1)
+    pathtracer.scatter_loop_plain(params, static, entry, dirs, hit, ids, 0, 1, 1)
+    assert pathtracer.scatter_loop.launches == before + 1
+    rows, idx = gather.make_case("per_lane", 64, 16, 1024, device=card)
+    _, cidx = gather.make_case("coalesced", 64, 16, 1024, run=8, device=card)
+    p0, c0 = gather.per_lane.launches, gather.coalesced.launches
+    gather.per_lane(idx, rows, 16)
+    gather.coalesced(cidx, rows, 16, 8)
+    gather.per_lane_plain(idx, rows, 16)
+    gather.coalesced_plain(cidx, rows, 16, 8)
+    assert (gather.per_lane.launches, gather.coalesced.launches) == (p0 + 1, c0 + 1)

@@ -151,8 +151,8 @@ def test_convert_transposes_every_kernel():
 
 
 def test_init_disney_model_is_seeded():
-    a = init_disney_model(566).state_dict()
-    b = init_disney_model(566).state_dict()
-    c = init_disney_model(567).state_dict()
+    a = init_disney_model(566, device="cpu").state_dict()
+    b = init_disney_model(566, device="cpu").state_dict()
+    c = init_disney_model(567, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["fc0.weight"], c["fc0.weight"])

@@ -22,7 +22,10 @@ from deepestscatter_tpu_torch import config as tconfig
 from deepestscatter_tpu_torch import cuda_build
 from deepestscatter_tpu_torch.data import procedural
 from deepestscatter_tpu_torch.models.rpnn import init_disney_model
+from deepestscatter_tpu_torch.ops import welford
+from deepestscatter_tpu_torch.probes import gather
 from deepestscatter_tpu_torch.render import camera as tcam
+from deepestscatter_tpu_torch.render import progressive
 
 PKG = Path(port.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepestscatter_tpu")
@@ -39,7 +42,8 @@ def _torch_threads():
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, deepestscatter_tpu_torch, deepestscatter_tpu_torch.render.neural, "
-        "deepestscatter_tpu_torch.models.convert\n"
+        "deepestscatter_tpu_torch.models.convert, deepestscatter_tpu_torch.render.progressive, "
+        "deepestscatter_tpu_torch.probes.gather, deepestscatter_tpu_torch.utils.compare\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -66,7 +70,9 @@ def _imports(path):
 
 def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) > 10
+    names = {str(f.relative_to(PKG)) for f in files}
+    assert {"render/pathtracer.py", "render/progressive.py", "probes/gather.py",
+            "ops/welford.py", "ops/tonemap.py", "utils/compare.py"} <= names
     bad = [
         (str(f.relative_to(PKG)), m)
         for f in files
@@ -106,12 +112,59 @@ def test_bake_defaults_to_the_card(no_card):
 
 def test_render_entry_points_default_to_the_card(no_card):
     cfg, params, static = _cpu_scene()
-    model = init_disney_model(0)
+    model = init_disney_model(0, device="cpu")
     origins, directions = tcam.generate_rays(tcam.camera_basis(cfg.camera), 8, 4, "cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         port.render_disney(params, static, model, origins, directions)
     with pytest.raises(RuntimeError, match="CUDA"):
         port.DisneyRenderer(model)
+
+
+def test_init_disney_model_defaults_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_disney_model(0)
+    assert next(init_disney_model(0, device="cpu").parameters()).device.type == "cpu"
+
+
+def test_path_tracer_entry_points_default_to_the_card(no_card):
+    cfg, params, static = _cpu_scene()
+    origins, directions = tcam.generate_rays(tcam.camera_basis(cfg.camera), 8, 4, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.render_subframe(params, static, origins, directions, 0, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.trace_tick_moments(params, static, origins, directions, 0, 0, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.ProgressiveRenderer(cfg, params, static)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        progressive.init_state(32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        welford.Welford.zeros((4,))
+
+
+def test_probe_entry_points_default_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gather.make_case("per_lane", 64, 16, 1024)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gather.measure("per_lane", 64, 16, 1024)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gather.main([])
+
+
+def test_probe_measures_on_the_card_only():
+    """Asked for the CPU, the probe's measurement refuses: its numbers are
+    device times."""
+    with pytest.raises(RuntimeError, match="card"):
+        gather.measure("per_lane", 64, 16, 1024, device="cpu")
+
+
+def test_path_tracer_on_the_cpu_is_finite():
+    cfg, params, static = _cpu_scene()
+    params = port.with_baked_inscatter(params, static, device="cpu")
+    r = port.ProgressiveRenderer(cfg, params, static, seed=1, device="cpu")
+    r.tick()
+    hdr = r.hdr_image()
+    assert hdr.shape == (4, 8, 3) and np.all(np.isfinite(hdr))
+    assert r.display_image().dtype == np.uint8
 
 
 def test_tensors_on_another_device_are_refused():
@@ -134,7 +187,7 @@ def test_build_without_a_cuda_compiler_raises(monkeypatch, tmp_path):
 def test_frame_on_the_cpu_is_finite():
     cfg, params, static = _cpu_scene()
     params = port.with_baked_inscatter(params, static, device="cpu")
-    renderer = port.DisneyRenderer(init_disney_model(0), device="cpu")
+    renderer = port.DisneyRenderer(init_disney_model(0, device="cpu"), device="cpu")
     frame = renderer.render_frame(params, static, 8, 4, tcam.camera_basis(cfg.camera), seed=1)
     assert frame.shape == (4, 8, 3)
     assert np.all(np.isfinite(frame.numpy()))
