@@ -10,6 +10,7 @@
 // bits of each weight.
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 #ifndef DS_HOST_EMULATION
 #include <cuda_runtime.h>
@@ -26,6 +27,19 @@ __device__ __forceinline__ float texel(const uint8_t* __restrict__ g, int64_t i)
 
 __device__ __forceinline__ float texel(const float* __restrict__ g, int64_t i) {
   return g[i];
+}
+
+// 1 / b where b is a power of two, else 0 (host side, for div_exact).
+inline float pow2_recip(float b) {
+  int e;
+  return std::frexp(b, &e) == 0.5f ? 1.0f / b : 0.0f;
+}
+
+// x / b, as a product where recip = pow2_recip(b) is not 0: dividing by a
+// power of two and multiplying by its exact reciprocal round the same
+// exact value once, so the two are equal bitwise.
+__device__ __forceinline__ float div_exact(float x, float b, float recip) {
+  return recip != 0.0f ? x * recip : x / b;
 }
 
 struct AxisCell {
@@ -66,6 +80,32 @@ __device__ __forceinline__ float trilinear(const T* __restrict__ g, int nx, int 
   for (int k = 0; k < 8; ++k) {
     const int ix = k & 1, iy = (k >> 1) & 1, iz = k >> 2;
     const int64_t idx = ((int64_t)zs[iz] * ny + ys[iy]) * nx + xs[ix];
+    const float term = texel(g, idx) * ((wz[iz] * wy[iy]) * wx[ix]);
+    acc = k == 0 ? term : acc + term;
+  }
+  return acc;
+}
+
+// trilinear() with 32-bit index math: the cell's base offset once, the
+// eight taps at the constant strides 1, nx and nx * ny (0 where the +1
+// corner is clamped).  The same taps, weights and sum order, so the same
+// value; the caller guarantees nx * ny * nz < 2^31.
+template <typename T>
+__device__ __forceinline__ float trilinear_strided(const T* __restrict__ g, int nx, int ny,
+                                                   int nz, float ux, float uy, float uz) {
+  const AxisCell cx = axis_cell(ux * (float)nx - 0.5f, nx);
+  const AxisCell cy = axis_cell(uy * (float)ny - 0.5f, ny);
+  const AxisCell cz = axis_cell(uz * (float)nz - 0.5f, nz);
+  const float wx[2] = {1.0f - cx.frac, cx.frac};
+  const float wy[2] = {1.0f - cy.frac, cy.frac};
+  const float wz[2] = {1.0f - cz.frac, cz.frac};
+  const int base = (cz.i0 * ny + cy.i0) * nx + cx.i0;
+  const int sx = cx.i1 - cx.i0, sy = (cy.i1 - cy.i0) * nx, sz = (cz.i1 - cz.i0) * (nx * ny);
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int ix = k & 1, iy = (k >> 1) & 1, iz = k >> 2;
+    const int idx = base + (ix ? sx : 0) + (iy ? sy : 0) + (iz ? sz : 0);
     const float term = texel(g, idx) * ((wz[iz] * wy[iy]) * wx[ix]);
     acc = k == 0 ? term : acc + term;
   }

@@ -57,7 +57,7 @@ def nvcc() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in sorted(CSRC.glob("*.cu*")):  # a source may include another
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]

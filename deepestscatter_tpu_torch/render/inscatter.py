@@ -85,15 +85,24 @@ _ARGTYPES = [
 ]
 
 
-def _launch(params, static, early_out) -> torch.Tensor:
+#: The longest x-row K3 takes: its block stages four rows of float32 in the
+#: 227 KB of shared memory a block may use.
+MAX_ROW = 14336
+
+
+def _launch(params, static, early_out, lib=None) -> torch.Tensor:
+    """K3 on the scene's device.  ``lib``: another library with the same
+    ``ds_bake`` entry point (the tests' host build of the kernel's device
+    functions, the alternatives ``probes/march_variants.py`` times)."""
     dens = params.density_mips[0]
     if dens.dtype not in (torch.uint8, torch.float32) or not dens.is_contiguous():
         raise ValueError("density must be a contiguous uint8 or float32 grid")
-    lib = cuda_build.load("inscatter")
-    fn = lib.ds_bake
+    nz, ny, nx = static.grid_shape
+    if dens.numel() >= 2**31 or nx > MAX_ROW:
+        raise ValueError(f"K3 takes fewer than 2^31 voxels and rows of at most {MAX_ROW}")
+    fn = (lib or cuda_build.load("inscatter")).ds_bake
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    nz, ny, nx = static.grid_shape
     out = torch.empty((dens.numel(),), dtype=torch.float32, device=dens.device)
     consts = (ctypes.c_float * 9)(
         *static.bbox, *static.light_direction, static.sample_step,

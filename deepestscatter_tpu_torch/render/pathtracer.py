@@ -23,11 +23,13 @@ and still counts as a sample.  Sample ``k`` of a pixel uses the seed
 ``seed_base ^ ((sub_first + k) * 0x9E3779B1)``; its Welford fold happens in
 sample order.
 
-The JAX package's TPU scheduling (deferred resolves, lane regeneration,
-compaction cascade, empty-cell jumps) is not ported: the kernel runs one
-thread per pixel over its samples.  ``scatter_loop`` is the kernel's
-wrapper: K4 for CUDA tensors, ``scatter_loop_plain`` (the same function in
-lockstep PyTorch) for CPU tensors.
+The JAX package's TPU scheduling (deferred resolves, compaction cascade,
+empty-cell jumps) is not ported: the kernel's warps take (pixel, sample)
+items from a queue, march them a few steps at a time, write one record a
+sample and fold the records per pixel in sample order (notes in
+``csrc/pathtrace.cu``).  ``scatter_loop`` is the kernel's wrapper: K4 for
+CUDA tensors, ``scatter_loop_plain`` (the same function in lockstep
+PyTorch) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -304,13 +306,21 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p,
 ]
 
 
 def _launch(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first,
-            n_samples, max_steps) -> PixelMoments:
+            n_samples, max_steps, lib=None) -> PixelMoments:
+    """K4 on the inputs' device.  ``lib``: another library with the same
+    ``ds_pathtrace`` entry point (the tests' host build of the kernel's
+    device functions, the alternatives ``probes/march_variants.py`` times).
+
+    Besides the outputs it allocates per-sample records of 20 bytes a
+    (pixel, sample), ``N x n_samples`` of them: 10.5 MB for a 512^2 tick of
+    2 subframes, growing linearly with ``n_samples``."""
     cuda_build.require_vec3(entry=entry, dirs=dirs)
     n = entry.shape[0]
     dev = entry.device
@@ -319,6 +329,8 @@ def _launch(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first,
         raise ValueError("density and in-scatter textures must share uint8 or float32")
     if not (dens.is_contiguous() and insc.is_contiguous()):
         raise ValueError("textures must be contiguous")
+    if dens.numel() >= 2**31:
+        raise ValueError("K4 indexes textures in 32 bits: fewer than 2^31 texels")
     if hit.shape != (n,) or ray_ids.shape != (n,) or ray_ids.dtype != torch.int64:
         raise ValueError("hit must be [N] and ray_ids int64 [N]")
     if n_samples < 1:
@@ -326,8 +338,7 @@ def _launch(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first,
     ph = params.phase
     check_on(dev, dirs, hit, ray_ids, dens, insc, ph.eval_rows, ph.inv_cdf_rows)
     mode = _mode(static)
-    lib = cuda_build.load("pathtrace")
-    fn = lib.ds_pathtrace
+    fn = (lib or cuda_build.load("pathtrace")).ds_pathtrace
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     hit8 = hit.to(torch.uint8).contiguous()
@@ -336,6 +347,11 @@ def _launch(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first,
     m2 = torch.empty((n, 3), dtype=torch.float32, device=dev)
     count = torch.empty((n,), dtype=torch.float32, device=dev)
     work = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    # Per-sample records (radiance; steps, in-box scatters), folded per
+    # pixel in sample order; the queue head and the warps' step slots.
+    rec_rad = torch.empty((n_samples, n, 3), dtype=torch.float32, device=dev)
+    rec_work = torch.empty((n_samples, n, 2), dtype=torch.int32, device=dev)
+    counters = torch.empty((2,), dtype=torch.int64, device=dev)
     consts = (ctypes.c_float * 17)(
         *static.bbox, static.sample_step, static.density_multiplier,
         *static.light_direction, *static.light_rgb, static.sun_solid_angle_ratio,
@@ -356,13 +372,15 @@ def _launch(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first,
             cuda_build.ptr(entry), cuda_build.ptr(dirs), cuda_build.ptr(hit8),
             cuda_build.ptr(ray_ids), n, consts, ground, cap, static.max_depth,
             static.rr_start_depth, flags, int(seed_base) & 0xFFFFFFFF,
-            int(sub_first) & 0xFFFFFFFF, int(n_samples), cuda_build.ptr(mean),
+            int(sub_first) & 0xFFFFFFFF, int(n_samples), cuda_build.ptr(rec_rad),
+            cuda_build.ptr(rec_work), cuda_build.ptr(counters), cuda_build.ptr(mean),
             cuda_build.ptr(m2), cuda_build.ptr(count), cuda_build.ptr(work),
             cuda_build.stream_handle(),
         ),
         "path-trace kernel",
     )
     scatter_loop.launches += 1
+    scatter_loop.last_counters = counters
     return PixelMoments(mean, m2, count, work[:, 0], work[:, 1])
 
 
@@ -389,6 +407,11 @@ def scatter_loop(
 
 #: Kernel launches so far (counted where K4 is launched, nowhere else).
 scatter_loop.launches = 0
+#: The last launch's device counters [2] int64: work items taken from the
+#: queue (at least N x n_samples) and the warps' step slots, the lookahead's
+#: steps for each loop iteration of a warp (SIMT efficiency = steps / (32 x
+#: step slots)).
+scatter_loop.last_counters = None
 
 
 def _default_ids(n: int, device) -> torch.Tensor:

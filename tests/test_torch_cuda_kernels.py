@@ -11,7 +11,9 @@ within 1e-5; the path tracer's bounce loop (K4) with the same per-pixel
 step counts on >= 99 % of pixels, and on those the mean within 1e-5 and
 m2 within 1e-4 of their largest values (both kernels and plain versions
 are compiled without FMA contraction, so bitwise is the goal); the gather
-probe's sums exactly equal.
+probe's sums exactly equal.  The tests of the redesigned K4 (item queue,
+lookahead march, per-sample records) hold step and scatter counts equal on
+every pixel.
 """
 
 import dataclasses
@@ -148,6 +150,97 @@ def test_gather_probe_kernels_match_plain(card, kind, run, width):
     torch.cuda.synchronize()
     assert got.shape == (8, 1)
     assert torch.equal(got, ref)
+
+
+def _k4_equal_steps(params, static, entry, dirs, hit, ids, n_samples, max_steps=None):
+    """K4 against its plain version: counts and step counts equal, mean
+    and m2 within the tolerances above."""
+    got = pathtracer.scatter_loop(params, static, entry, dirs, hit, ids, 5, 1, n_samples, max_steps)
+    ref = pathtracer.scatter_loop_plain(params, static, entry, dirs, hit, ids, 5, 1, n_samples,
+                                        max_steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got.count, ref.count)
+    assert torch.equal(got.steps, ref.steps)
+    assert torch.equal(got.bounces, ref.bounces)
+    for a, b, tol in ((got.mean, ref.mean, 1e-5), (got.m2, ref.m2, 1e-4)):
+        assert (a - b).abs().max().item() <= tol * (b.abs().max().item() + 1e-12)
+    return got, ref
+
+
+def _pt_rays(cfg, params, static, card):
+    o, d = camera.generate_rays(camera.camera_basis(cfg.camera), cfg.camera.width, cfg.camera.height, card)
+    hit, t_hit = camera.intersect_box(o, d, static, params.bbox_size)
+    entry = camera.entry_points(o, d, t_hit, params.bbox_size)
+    return entry, d, hit, torch.arange(o.shape[0], device=card)
+
+
+@pytest.mark.parametrize("n_samples", [1, 4])
+def test_pathtrace_kernel_sample_counts(scene, card, n_samples):
+    cfg, params, static = scene
+    params = with_baked_inscatter(params, static, device=card)
+    static = dataclasses.replace(static, max_depth=40)
+    got, _ = _k4_equal_steps(params, static, *_pt_rays(cfg, params, static, card), n_samples)
+    assert int(got.bounces.sum()) > 0
+
+
+@pytest.mark.parametrize("n", [7, 45, 1000])
+def test_pathtrace_kernel_ragged_pixel_counts(scene, card, n):
+    """N below one warp and N not a multiple of 32 (hit and missed pixels
+    mixed)."""
+    cfg, params, static = scene
+    params = with_baked_inscatter(params, static, device=card)
+    static = dataclasses.replace(static, max_depth=40)
+    entry, d, hit, ids = _pt_rays(cfg, params, static, card)
+    # A run of neighbouring pixels from just before the first box hit.
+    start = max(int(torch.nonzero(hit)[0, 0]) - n // 4, 0)
+    rays = [t[start:start + n].contiguous() for t in (entry, d, hit, ids)]
+    assert bool(rays[2].any()) and rays[0].shape[0] == n
+    _k4_equal_steps(params, static, *rays, 3)
+
+
+def test_pathtrace_kernel_all_pixels_miss(scene, card):
+    cfg, params, static = scene
+    params = with_baked_inscatter(params, static, device=card)
+    entry, d, hit, ids = _pt_rays(cfg, params, static, card)
+    got, _ = _k4_equal_steps(params, static, entry, d, torch.zeros_like(hit), ids, 2)
+    assert int(got.count.sum()) == 0 and int(got.steps.sum()) == 0
+    assert pathtracer.scatter_loop.last_counters[0].item() >= entry.shape[0] * 2
+
+
+@pytest.mark.parametrize("max_steps", [1, 27, 30])
+def test_pathtrace_kernel_cap_inside_a_chunk(scene, card, max_steps):
+    """A step cap that ends samples inside a lookahead chunk."""
+    cfg, params, static = scene
+    params = with_baked_inscatter(params, static, device=card)
+    rays = _pt_rays(cfg, params, static, card)
+    got, _ = _k4_equal_steps(params, static, *rays, 3, max_steps)
+    full = pathtracer.scatter_loop(params, static, *rays, 5, 1, 3)
+    assert bool((got.steps < full.steps).any())
+    assert int(got.steps.max()) <= 3 * max_steps
+
+
+@pytest.mark.parametrize("light", [(0.0, -1.0, 0.0), (0.48, -0.6, 0.64)], ids=["axis", "mixed"])
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_bake_kernel_non_cubic_grid(card, dtype, light):
+    """K3 on a 20 x 28 x 40 grid (rows of 40: not a multiple of the
+    16-byte staging, and one block segment) and a 24 x 16 x 1040 grid (rows
+    longer than one block's voxels), early-out on and off: bitwise equal
+    to the plain version."""
+    rng = np.random.default_rng(7)
+    for shape in ((20, 28, 40), (24, 16, 1040)):
+        raw = rng.random(shape).astype(np.float32)
+        density = np.clip(raw * 1.5 - 0.5, 0.0, None)
+        cfg = config.SceneConfig(
+            cloud=config.CloudModel(size_m=2000.0),
+            light=config.DirectionalLight(direction=light),
+            rendering=config.CloudRendering(march_dtype=dtype),
+        )
+        params, static = build_scene(cfg, density, device=card)
+        for early_out in (True, False):
+            got = inscatter.sun_transmittance(params, static, early_out)
+            ref = inscatter.sun_transmittance_plain(params, static, early_out)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (shape, early_out)
 
 
 def test_new_wrappers_count_launches(scene, card):
