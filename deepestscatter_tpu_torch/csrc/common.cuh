@@ -42,6 +42,12 @@ __device__ __forceinline__ float div_exact(float x, float b, float recip) {
   return recip != 0.0f ? x * recip : x / b;
 }
 
+// Inside the box [0, b] with the JAX package's 0.01 margin.
+__device__ __forceinline__ bool in_box(float x, float y, float z, const float* b) {
+  return x >= -0.01f && x <= b[0] + 0.01f && y >= -0.01f && y <= b[1] + 0.01f &&
+         z >= -0.01f && z <= b[2] + 0.01f;
+}
+
 struct AxisCell {
   int i0;
   int i1;

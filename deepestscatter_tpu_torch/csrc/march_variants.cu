@@ -1,18 +1,28 @@
-// Alternatives of the two march kernels, for probes/march_variants.py:
-// K4's item queue at other lookaheads, K4 as one thread per pixel over its
-// samples (the mapping it replaced), and K3's row kernel at other numbers
-// of voxels a thread.  Every alternative computes the same values as the
-// kernels the package runs.
+// Alternatives of the package's march and descriptor kernels, for
+// probes/march_variants.py: K4's item queue at other lookaheads, K4 as one
+// thread per pixel over its samples (the mapping it replaced), K3's row
+// kernel at other numbers of voxels a thread; K1 as one thread per ray (its
+// first design) and with other numbers of lanes a ray; K2 as one thread per
+// element (its first design) and with the light frame staged in shared
+// memory.  Every alternative computes the same values as the kernels the
+// package runs.
 //
 // The package's entry points are renamed where they are included; the
-// ds_pathtrace and ds_bake here take the same arguments and run the
-// alternative ds_variant chose, so the wrappers' _launch(lib=) drives them.
+// ds_pathtrace, ds_bake, ds_march and ds_descriptor here take the same
+// arguments and run the alternative ds_variant / ds_neural_variant chose,
+// so the wrappers' _launch(lib=) drives them.
 #define ds_pathtrace ds_pathtrace_package
 #define ds_bake ds_bake_package
+#define ds_march ds_march_package
+#define ds_descriptor ds_descriptor_package
 #include "pathtrace.cu"
 #include "inscatter.cu"
+#include "march.cu"
+#include "descriptor.cu"
 #undef ds_pathtrace
 #undef ds_bake
+#undef ds_march
+#undef ds_descriptor
 
 namespace {
 
@@ -21,6 +31,8 @@ int g_pixel = 0;  // K4: 0 the item queue, 1 one thread per pixel
 // (int64 tap offsets and IEEE divisions, as before the queue).
 int g_lookahead = ds::kLookahead;
 int g_voxels = ds::kBakeVoxels;  // K3's voxels a thread
+int g_lanes = ds::kMarchLanes;  // K1's lanes a ray; 0: one thread per ray
+int g_desc = 1;  // K2: 0 a thread per element, 1 the package's, 2 staged frames
 
 }  // namespace
 
@@ -103,7 +115,144 @@ static int pathtrace_pixels(const void* dens, const void* insc, int is_u8, int n
   return (int)cudaGetLastError();
 }
 
+// K1's first design: one thread per ray over march_ray (int64 taps, IEEE
+// divisions by bbox in the step loop).
+template <typename T>
+__global__ void __launch_bounds__(kMarchThreads) march_ray_kernel(
+    const T* __restrict__ dens, const T* __restrict__ insc, int nx, int ny, int nz,
+    const float* __restrict__ eval_rows, const float* __restrict__ entry,
+    const float* __restrict__ dirs, const int64_t* __restrict__ ray_ids,
+    const float* __restrict__ trans_total, uint32_t seed, int64_t n, ds::MarchConsts c,
+    float* __restrict__ t_out, float* __restrict__ pos_out,
+    uint8_t* __restrict__ ok_out, float* __restrict__ direct_out) {
+  const int64_t r = (int64_t)blockIdx.x * kMarchThreads + threadIdx.x;
+  if (r >= n) return;
+  ds::march_ray(r, dens, insc, nx, ny, nz, eval_rows, entry, dirs, ray_ids, trans_total,
+                seed, c, t_out, pos_out, ok_out, direct_out);
+}
+
+// K2's first design: one thread per output element.
+template <typename T>
+__global__ void __launch_bounds__(kDescThreads) descriptor_element_kernel(
+    const T* __restrict__ mips, const float* __restrict__ pos,
+    const float* __restrict__ dirs, const float* __restrict__ ez,
+    const float* __restrict__ light, int64_t total, ds::DescConsts c,
+    float* __restrict__ out) {
+  const int64_t gid = (int64_t)blockIdx.x * kDescThreads + threadIdx.x;
+  if (gid >= total) return;
+  out[gid] = ds::descriptor_element(gid, mips, pos, dirs, ez, light, c);
+}
+
+// The package's K2 with the light frames of the block's points (at most
+// three: 256 threads over rows of 226) computed once and staged in shared
+// memory.
+template <typename T>
+__global__ void __launch_bounds__(kDescThreads) descriptor_staged_kernel(
+    const T* __restrict__ mips, const float* __restrict__ pos,
+    const float* __restrict__ dirs, const float* __restrict__ ez,
+    const float* __restrict__ light, int total, ds::DescConsts c,
+    float* __restrict__ out) {
+  static_assert(kDescThreads <= 2 * ds::kRowWidth + 1, "a block spans at most 3 points");
+  __shared__ ds::PointFrame frames[3];
+  const int base = blockIdx.x * kDescThreads;
+  const int first = base / ds::kRowWidth;
+  const int end = base + kDescThreads < total ? base + kDescThreads : total;
+  const int last = (end - 1) / ds::kRowWidth;
+  const int t = threadIdx.x;
+  if (t <= last - first) {
+    const int p = first + t;
+    frames[t] = ds::point_frame(ez, dirs[3 * p], dirs[3 * p + 1], dirs[3 * p + 2]);
+  }
+  __syncthreads();
+  const int gid = base + t;
+  if (gid >= total) return;
+  const int p = gid / ds::kRowWidth;
+  const int col = gid - p * ds::kRowWidth;
+  ds::descriptor_column(p, col, mips, pos, dirs, light, c, frames[p - first], out);
+}
+
 extern "C" {
+
+// K1: lanes 0 (one thread per ray), 4, 8, 16 or 32; K2: design 0 (a thread per
+// element), 1 (the package's) or 2 (staged frames).  Another choice makes
+// the entry points return -1.
+void ds_neural_variant(int lanes, int desc) {
+  g_lanes = lanes;
+  g_desc = desc;
+}
+
+int ds_march(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
+             const float* eval_rows, int n_phase, const float* entry, const float* dirs,
+             const int64_t* ray_ids, const float* trans_total, uint32_t seed, int64_t n,
+             const float* consts, int max_steps, float* t_out, float* pos_out,
+             uint8_t* ok_out, float* direct_out, unsigned long long* counters,
+             void* stream) {
+#define DS_LANES(G)                                                                        \
+  march_lanes<G>(dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, entry, dirs, ray_ids,    \
+                 trans_total, seed, n, consts, max_steps, t_out, pos_out, ok_out,            \
+                 direct_out, counters, stream)
+  switch (g_lanes) {
+    case 4: return DS_LANES(4);
+    case 8: return DS_LANES(8);
+    case 16: return DS_LANES(16);
+    case 32: return DS_LANES(32);
+    case 0: break;
+    default: return -1;
+  }
+#undef DS_LANES
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = (int)cudaMemsetAsync(counters, 0, 2 * sizeof(unsigned long long), s);
+  if (err != 0 || n <= 0) return err;
+  const ds::MarchConsts c = ds::march_consts(consts, max_steps, n_phase);
+  const unsigned blocks = (unsigned)((n + kMarchThreads - 1) / kMarchThreads);
+  if (is_u8) {
+    march_ray_kernel<uint8_t><<<blocks, kMarchThreads, 0, s>>>(
+        (const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz, eval_rows, entry, dirs,
+        ray_ids, trans_total, seed, n, c, t_out, pos_out, ok_out, direct_out);
+  } else {
+    march_ray_kernel<float><<<blocks, kMarchThreads, 0, s>>>(
+        (const float*)dens, (const float*)insc, nx, ny, nz, eval_rows, entry, dirs,
+        ray_ids, trans_total, seed, n, c, t_out, pos_out, ok_out, direct_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+int ds_descriptor(const void* mips, int is_u8, const float* pos, const float* dirs,
+                  const float* ez, const float* light, int64_t m, int n_layers,
+                  int n_levels, const float* fconsts, const int64_t* iconsts, float* out,
+                  void* stream) {
+  if (g_desc == 1) {
+    return ds_descriptor_package(mips, is_u8, pos, dirs, ez, light, m, n_layers, n_levels,
+                                 fconsts, iconsts, out, stream);
+  }
+  if (g_desc != 0 && g_desc != 2) return -1;
+  if (!ds::desc_args_ok(m, n_layers, n_levels)) return (int)cudaErrorInvalidValue;
+  if (m <= 0) return 0;
+  const ds::DescConsts c = ds::desc_consts(fconsts, iconsts, n_layers, n_levels);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (g_desc == 0) {
+    const int64_t total = m * n_layers * ds::kRowWidth;
+    const unsigned blocks = (unsigned)((total + kDescThreads - 1) / kDescThreads);
+    if (is_u8) {
+      descriptor_element_kernel<uint8_t><<<blocks, kDescThreads, 0, s>>>(
+          (const uint8_t*)mips, pos, dirs, ez, light, total, c, out);
+    } else {
+      descriptor_element_kernel<float><<<blocks, kDescThreads, 0, s>>>(
+          (const float*)mips, pos, dirs, ez, light, total, c, out);
+    }
+  } else {
+    const int total = (int)(m * ds::kRowWidth);
+    const unsigned blocks = (unsigned)((total + kDescThreads - 1) / kDescThreads);
+    if (is_u8) {
+      descriptor_staged_kernel<uint8_t><<<blocks, kDescThreads, 0, s>>>(
+          (const uint8_t*)mips, pos, dirs, ez, light, total, c, out);
+    } else {
+      descriptor_staged_kernel<float><<<blocks, kDescThreads, 0, s>>>(
+          (const float*)mips, pos, dirs, ez, light, total, c, out);
+    }
+  }
+  return (int)cudaGetLastError();
+}
 
 // K4: pixel 0 (the queue) with lookahead 1, 2, 4 or 8, or pixel 1 with
 // lookahead 0, 1 or 2; K3: voxels 1, 2, 4 or 8.  Another choice makes the

@@ -123,11 +123,6 @@ enum : int { kSingle = 1, kResample = 2, kChopped1 = 4, kSky = 8 };
 // float32(2 pi), as torch rounds the Python constant 2 * math.pi.
 constexpr float kTwoPi = (float)(2.0 * 3.141592653589793);
 
-__device__ __forceinline__ bool in_box(float x, float y, float z, const float* b) {
-  return x >= -0.01f && x <= b[0] + 0.01f && y >= -0.01f && y <= b[1] + 0.01f &&
-         z >= -0.01f && z <= b[2] + 0.01f;
-}
-
 // Lerp cell of t = u * n - 0.5 (ops/phase.py::_row_index).
 __device__ __forceinline__ int row_index(float t, int n, float& frac) {
   const float t0 = floorf(t);

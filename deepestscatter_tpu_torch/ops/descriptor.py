@@ -10,8 +10,9 @@ one mip voxel outside the box; the view-to-light angle omega appended to
 every layer.
 
 ``network_inputs`` is the kernel's wrapper and returns the [M, L, 226]
-tensor ``DisneyModel`` consumes: on CUDA tensors it launches K2, on CPU
-tensors it runs ``network_inputs_plain``.
+tensor ``DisneyModel`` consumes: on CUDA tensors it launches K2 (a thread
+per point and stencil column, over the layers), on CPU tensors it runs
+``network_inputs_plain``.
 """
 
 from __future__ import annotations
@@ -168,14 +169,20 @@ _ARGTYPES = [
 ]
 
 
-def _launch(params, static, pos, dirs) -> torch.Tensor:
+def _launch(params, static, pos, dirs, lib=None) -> torch.Tensor:
+    """K2 on the inputs' device.  ``lib``: another library with the same
+    ``ds_descriptor`` entry point (the tests' host build of the kernel's
+    device functions, the alternatives ``probes/march_variants.py`` times)."""
     cuda_build.require_vec3(pos=pos, dirs=dirs)
     mips = params.mip_flat
     if mips.dtype not in (torch.uint8, torch.float32):
         raise ValueError("mip pyramid must be uint8 or float32")
+    if not mips.is_contiguous():
+        raise ValueError("mip pyramid must be contiguous")
+    if mips.numel() >= 2**31 or pos.shape[0] * (LAYER_SIZE + 1) >= 2**31:
+        raise ValueError("K2 indexes in 32 bits: fewer than 2^31 texels and points x 226")
     check_on(pos.device, dirs, mips, params.light_dir)
-    lib = cuda_build.load("descriptor")
-    fn = lib.ds_descriptor
+    fn = (lib or cuda_build.load("descriptor")).ds_descriptor
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
 

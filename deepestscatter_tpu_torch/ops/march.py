@@ -5,9 +5,10 @@ The port of ``deepestscatter_tpu.ops.march.next_scattering_event`` in the
 configuration the neural camera runs it (``march_pipeline=True``,
 ``stop_at_scatter=False``, the cloud-AABB clip, no empty-space skip), plus
 ``back_correct_distance``.  ``camera_march`` is the kernel's wrapper: on a
-CUDA tensor it launches K1, which fuses the march with next-event
-estimation; on a CPU tensor it runs ``camera_march_plain``, the same
-function in plain PyTorch, which is also the kernel's test oracle.
+CUDA tensor it launches K1 (8 lanes a ray on its consecutive steps), which
+fuses the march with next-event estimation; on a CPU tensor it runs
+``camera_march_plain``, the same function in plain PyTorch, which is also
+the kernel's test oracle.
 """
 
 from __future__ import annotations
@@ -163,19 +164,25 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int64,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
 
 
-def _launch(params, static, entry, dirs, seed, ray_ids, trans_total) -> CameraMarch:
+def _launch(params, static, entry, dirs, seed, ray_ids, trans_total, lib=None) -> CameraMarch:
+    """K1 on the inputs' device.  ``lib``: another library with the same
+    ``ds_march`` entry point (the tests' host build of the kernel's device
+    functions, the alternatives ``probes/march_variants.py`` times)."""
     cuda_build.require_vec3(entry=entry, dirs=dirs)
     dens = params.density_mips[0]
     insc = params.inscatter
     if dens.dtype != insc.dtype or dens.dtype not in (torch.uint8, torch.float32):
         raise ValueError("density and in-scatter textures must share uint8 or float32")
+    if not (dens.is_contiguous() and insc.is_contiguous()):
+        raise ValueError("textures must be contiguous")
+    if dens.numel() >= 2**31:
+        raise ValueError("K1 indexes textures in 32 bits: fewer than 2^31 texels")
     check_on(entry.device, dirs, dens, insc, params.phase.eval_rows)
-    lib = cuda_build.load("march")
-    fn = lib.ds_march
+    fn = (lib or cuda_build.load("march")).ds_march
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     n = entry.shape[0]
@@ -194,6 +201,7 @@ def _launch(params, static, entry, dirs, seed, ray_ids, trans_total) -> CameraMa
         pos_out = torch.empty((n, 3), dtype=torch.float32, device=dev)
         ok_out = torch.empty((n,), dtype=torch.uint8, device=dev)
         direct_out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    counters = torch.empty((2,), dtype=torch.int64, device=dev)
     consts = (ctypes.c_float * 18)(
         *static.bbox, *static.cloud_aabb[:3], *static.cloud_aabb[3:],
         static.sample_step, static.density_multiplier,
@@ -208,12 +216,13 @@ def _launch(params, static, entry, dirs, seed, ray_ids, trans_total) -> CameraMa
             cuda_build.ptr(dirs), cuda_build.ptr(ray_ids if pass2 else None),
             cuda_build.ptr(trans_total), int(seed) & 0xFFFFFFFF, n, consts,
             static.max_march_steps, cuda_build.ptr(t_out), cuda_build.ptr(pos_out),
-            cuda_build.ptr(ok_out), cuda_build.ptr(direct_out),
+            cuda_build.ptr(ok_out), cuda_build.ptr(direct_out), cuda_build.ptr(counters),
             cuda_build.stream_handle(),
         ),
         "march kernel",
     )
     camera_march.launches += 1
+    camera_march.last_counters = counters
     if not pass2:
         return CameraMarch(t_out)
     return CameraMarch(t_out, pos_out, ok_out.to(torch.bool), direct_out)
@@ -239,3 +248,8 @@ def camera_march(
 
 #: Kernel launches so far (counted where K1 is launched, nowhere else).
 camera_march.launches = 0
+#: The last launch's device counters [2] int64: the warps' lane-step slots
+#: (32 a loop iteration of a warp, whose groups of lanes take their rays'
+#: consecutive steps) and the steps taken (lane utilisation = steps /
+#: slots).
+camera_march.last_counters = None

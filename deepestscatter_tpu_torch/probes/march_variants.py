@@ -1,4 +1,5 @@
-"""Alternatives of the two march kernels, timed on one card.
+"""Alternatives of the package's march and descriptor kernels, timed on
+one card.
 
 ``csrc/march_variants.cu`` builds, beside the kernels the package runs:
 
@@ -8,14 +9,24 @@
   the march it had before the queue (``trace_sample``: int64 tap offsets,
   IEEE divisions by the box size);
 - K3 (``csrc/inscatter.cu``) with each number of voxels a thread in
-  ``VOXELS``.
+  ``VOXELS``;
+- K1 (``csrc/march.cu``) in each design of ``K1_DESIGNS``: each number of
+  lanes a ray in ``LANES``, 0 being its first design, one thread per ray
+  over ``march_ray`` (int64 taps, IEEE divisions by the box size in the
+  step loop), reported with its SIMT efficiency (rays in groups of 32, each
+  group as long as its longest ray);
+- K2 (``csrc/descriptor.cu``) in each design of ``DESCRIPTOR``: one thread
+  per output element (its first design), the package's thread per point
+  and column with the light frame computed a thread, and the same with the
+  frame staged in shared memory.
 
 Every alternative runs at the main paths' operating point (the 256^3
 procedural cumulus of seed 11, 2000 m, uint8 textures; K4 on the 512^2
-tick of 2 subframes, K3 on the whole grid with early-out) and must equal
-the package's kernel bitwise.  Times are CUDA-event means over 20 calls
-(K4) or 3 (K3), the alternatives timed in turns, forward then backward,
-twice.
+tick of 2 subframes, K3 on the whole grid with early-out, K1 on both passes
+of the 512 x 256 neural frame's rays, K2 on that frame's shading points in
+one launch) and must equal the package's kernel bitwise.  Times are
+CUDA-event means over 20 calls (K4, K1, K2) or 3 (K3), the alternatives
+timed in turns, forward then backward, twice.
 
 Run on the card::
 
@@ -39,6 +50,7 @@ import torch
 
 from .. import config, cuda_build
 from ..data import procedural
+from ..ops import descriptor, march
 from ..render import camera, inscatter, pathtracer
 from ..render.inscatter import with_baked_inscatter
 from ..scene import build_scene
@@ -46,8 +58,16 @@ from ..scene import build_scene
 QUEUE_LOOKAHEADS = (1, 2, 4, 8)
 PIXEL_LOOKAHEADS = (0, 1, 2)
 VOXELS = (1, 2, 4, 8)
+LANES = (0, 4, 8, 16, 32)
+#: K1's alternatives: lanes a ray by name, 0 for a thread per ray.  The
+#: package runs 8 lanes.
+K1_DESIGNS = {"one thread per ray": 0, **{f"G={g}": g for g in LANES if g}}
+#: K2's alternatives: the design by name.
+DESCRIPTOR = {"element": 0, "column": 1, "column_staged_frame": 2}
 SIZE = 512
 SUBFRAMES = 2
+#: The neural frame (chip_smoke.py's): 512 x 256.
+NEURAL_WIDTH, NEURAL_HEIGHT = 512, 256
 
 
 def time_ms(fn: Callable[[], object], reps: int) -> float:
@@ -101,6 +121,80 @@ def simt_per_pixel(steps: torch.Tensor) -> float:
     return float(s.sum() / (32.0 * s.amax(dim=1).sum()))
 
 
+def neural_inputs(params, static, dev):
+    """The neural frame's march passes and shading points, as chip_smoke.py
+    drives K1 and K2: pass 1 over the box hits, pass 2 over its T < 1 rays
+    (seed 1), the points where pass 2 scattered in the box."""
+    basis = camera.camera_basis(config.CameraConfig(width=NEURAL_WIDTH, height=NEURAL_HEIGHT))
+    o, d = camera.generate_rays(basis, NEURAL_WIDTH, NEURAL_HEIGHT, dev)
+    hit, t_hit = camera.intersect_box(o, d, static, params.bbox_size)
+    idx = torch.nonzero(hit).flatten()
+    entry = camera.entry_points(o, d, t_hit, params.bbox_size)[idx].contiguous()
+    dirs = d[idx].contiguous()
+    pass1 = (entry, dirs, 0, None, None)
+    t1 = march._launch(params, static, *pass1).transmittance
+    sel = torch.nonzero(t1 < 1.0).flatten()
+    pass2 = (entry[sel].contiguous(), dirs[sel].contiguous(), 1, idx[sel].contiguous(),
+             t1[sel].contiguous())
+    m2 = march._launch(params, static, *pass2)
+    points = (m2.scatter_pos[m2.ok].contiguous(), pass2[1][m2.ok].contiguous())
+    return pass1, pass2, points
+
+
+def k1_variants(lib, params, static, pass1, pass2) -> Dict[str, dict]:
+    """K1 in each design of K1_DESIGNS against the package's, both passes."""
+    refs, steps, simt = [], [], []
+    for a in (pass1, pass2):
+        refs.append(march._launch(params, static, *a))
+        steps.append(int(march.camera_march.last_counters[1].item()))
+        od = torch.zeros(a[0].shape[0], device=a[0].device)
+        simt.append(simt_per_pixel(march.next_scattering_event(params, static, od, *a[:2]).steps))
+    out: Dict[str, dict] = {}
+    fns = {}
+    for key, g in K1_DESIGNS.items():
+        def run(g=g):
+            lib.ds_neural_variant(g, 1)  # (K2's choice unused here)
+            return [march._launch(params, static, *a, lib=lib) for a in (pass1, pass2)]
+
+        got = run()
+        equal = all(all(x is None and y is None or torch.equal(x, y) for x, y in zip(a, b))
+                    for a, b in zip(got, refs))
+        row = dict(equal=equal)
+        if g == 0:
+            row["simt_efficiency"] = simt
+        else:
+            row["lane_utilisation"] = []
+            for a in (pass1, pass2):
+                march._launch(params, static, *a, lib=lib)
+                slots, n_steps = (int(v) for v in march.camera_march.last_counters.tolist())
+                row["lane_utilisation"].append(n_steps / slots)
+        out[key] = row
+        fns[key] = run
+    for key, ms in in_turns(fns, 20).items():
+        out[key]["ms"] = ms
+        print(f"K1 {key}: {json.dumps(out[key])}", flush=True)
+    out["steps"] = steps
+    return out
+
+
+def k2_variants(lib, params, static, points) -> Dict[str, dict]:
+    """K2 in each design of DESCRIPTOR against the package's, one launch."""
+    ref = descriptor._launch(params, static, *points)
+    out: Dict[str, dict] = {}
+    fns = {}
+    for key, design in DESCRIPTOR.items():
+        def run(design=design):
+            lib.ds_neural_variant(8, design)  # (K1's lanes unused here)
+            return descriptor._launch(params, static, *points, lib=lib)
+
+        out[key] = dict(equal=torch.equal(run(), ref))
+        fns[key] = run
+    for key, ms in in_turns(fns, 20).items():
+        out[key]["ms"] = ms
+        print(f"K2 {key}: {json.dumps(out[key])}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("march_variants: needs a CUDA card", file=sys.stderr)
@@ -108,10 +202,12 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     t0 = time.time()
-    cuda_build.build(["pathtrace", "inscatter", "march_variants"])
+    cuda_build.build(["pathtrace", "inscatter", "march", "descriptor", "march_variants"])
     lib = cuda_build.load("march_variants")
     lib.ds_variant.argtypes = [ctypes.c_int] * 3
     lib.ds_variant.restype = None
+    lib.ds_neural_variant.argtypes = [ctypes.c_int] * 2
+    lib.ds_neural_variant.restype = None
     regs = ptxas((cuda_build.BUILD_DIR / "march_variants.log").read_text())
     print(f"build: {time.time() - t0:.1f}s ptxas={json.dumps(regs)}", flush=True)
 
@@ -170,9 +266,21 @@ def main() -> int:
         k3[key]["ms"] = ms
         print(f"K3 {key}: {json.dumps(k3[key])}", flush=True)
 
+    pass1, pass2, points = neural_inputs(params, static, dev)
+    print(f"neural frame: pass1_rays={pass1[0].shape[0]} pass2_rays={pass2[0].shape[0]} "
+          f"points={points[0].shape[0]}", flush=True)
+    k1 = k1_variants(lib, params, static, pass1, pass2)
+    k2 = k2_variants(lib, params, static, points)
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            timeout=60).stdout.strip()
+    print(f"sm clock, max: {clocks}", flush=True)
+    ok = ok and all(r["equal"] for k, r in k1.items() if k != "steps")
+    ok = ok and all(r["equal"] for r in k2.values())
+
     print(card, flush=True)
-    print(json.dumps({"card": card, "steps": steps, "K4": k4, "K3": k3, "ptxas": regs,
-                      "ok": ok}), flush=True)
+    print(json.dumps({"card": card, "sm_clock_mhz": clocks, "steps": steps, "K4": k4, "K3": k3,
+                      "K1": k1, "K2": k2, "ptxas": regs, "ok": ok}), flush=True)
     return 0 if ok else 1
 
 

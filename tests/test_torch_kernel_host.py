@@ -1,11 +1,13 @@
-"""K4 (path-trace bounce loop) and K3 (in-scatter bake) on the host.
+"""K4 (path-trace bounce loop), K3 (in-scatter bake), K1 (camera march)
+and K2 (descriptor stencil) on the host.
 
 ``tests/torch_kernel_host.cpp`` compiles the kernels' device functions
-(``csrc/pathtrace.cu``, ``csrc/inscatter.cu``) with g++ under
-``-DDS_HOST_EMULATION`` into a library with the device entry points'
-signatures; the wrappers' ``_launch`` drives it on CPU tensors.  What the
-warp-level queue and the block-level staging leave to the device is not
-here: this pins the arithmetic the kernels share with their host build.
+(``csrc/pathtrace.cu``, ``csrc/inscatter.cu``, ``csrc/march.cu``,
+``csrc/descriptor.cu``) with g++ under ``-DDS_HOST_EMULATION`` into a
+library with the device entry points' signatures; the wrappers' ``_launch``
+drives it on CPU tensors.  What the warp-level queue, shuffles and ballots
+and the block-level staging leave to the device is not here: this pins the
+arithmetic the kernels share with their host build.
 
 - K4's work items (pixel, sample) traced in a shuffled order into per-sample
   records and then folded equal, bitwise, the per-pixel loop
@@ -14,12 +16,25 @@ here: this pins the arithmetic the kernels share with their host build.
 - K3's row formulation ``bake_row`` equals the per-voxel ``bake_voxel``,
   bitwise, on a 20 x 28 x 36 grid, for four sun directions, with early-out
   on and off, on both texture types.
-- Both match the plain PyTorch versions within the tolerances of
+- K1's chunked march (G lanes a ray, a chunk's lanes emulated one after the
+  other; G = 1, 8 (the kernel's ``kMarchLanes``) and 32) equals the per-ray loop
+  ``march_ray`` bitwise in both passes, on the 48^3 cumulus and a
+  20 x 28 x 36 grid (whose box is not a power of two: IEEE divisions), for
+  every camera ray (box misses included), rays that start outside the box
+  or miss the cloud AABB, and axis-parallel rays; also with a step cap that
+  ends rays inside a chunk, and with crossings placed on a chunk's first and
+  last lanes.  Its step counter equals the plain version's steps.
+- K2's column formulation ``descriptor_column`` equals the per-element
+  ``descriptor_element`` bitwise for every (point, layer, column), on both
+  grids and texture types, at points inside and outside the box.
+- All match the plain PyTorch versions within the tolerances of
   ``test_torch_cuda_kernels.py``: glibc's ``expf``/``logf``/``sinf``/
-  ``cosf`` are not torch's, so step counts agree on >= 99 % of pixels
-  (mean within 1e-5, m2 within 1e-4 of their largest values there) and the
-  bake within 1e-5 (quantized values on all but 0.1 % of voxels).  The
-  path tracer is held there at ``max_depth`` 10: over tens of bounces the
+  ``cosf``/``acosf`` are not torch's, so step counts agree on >= 99 % of
+  pixels (mean within 1e-5, m2 within 1e-4 of their largest values there),
+  the bake within 1e-5 (quantized values on all but 0.1 % of voxels), the
+  march's T within 1e-5 (scatter flags on >= 99.5 % of rays, positions
+  within 1e-4 where both scatter) and the descriptor within 1e-5.  The path
+  tracer is held there at ``max_depth`` 10: over tens of bounces the
   ulps of the two libraries' direction samples move NEE taps with the
   step counts still equal (measured at ``max_depth`` 40 in the
   multiple-scatter mode: 9.2e-5 of the image's largest mean, on 2 of 1,024
@@ -40,6 +55,8 @@ import torch
 
 from deepestscatter_tpu_torch import build_scene, config, cuda_build, with_baked_inscatter
 from deepestscatter_tpu_torch.data import procedural
+from deepestscatter_tpu_torch.ops import descriptor, march
+from deepestscatter_tpu_torch.ops import rng as rng_ops
 from deepestscatter_tpu_torch.render import camera, inscatter, pathtracer
 
 HOST_SOURCE = Path(__file__).with_name("torch_kernel_host.cpp")
@@ -64,6 +81,8 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     lib.host_set_pathtrace.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.host_set_bake.argtypes = [ctypes.c_int]
+    lib.host_set_march.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.host_set_descriptor.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -159,14 +178,19 @@ LIGHTS = {
 }
 
 
-@pytest.fixture(scope="module", params=["uint8", "float32"])
-def bake_density(request):
-    """A 20 x 28 x 36 ([Z, Y, X]) grid of smooth random density (marched
-    at step 1/128, about a third of a cell)."""
+def _smooth_grid() -> np.ndarray:
+    """A 20 x 28 x 36 ([Z, Y, X]) grid of smooth random density."""
     rng = np.random.default_rng(7)
     raw = rng.random((20, 28, 36)).astype(np.float32)
     smooth = (raw + np.roll(raw, 1, 0) + np.roll(raw, 1, 1) + np.roll(raw, 1, 2)) / 4.0
-    return request.param, np.clip(smooth * 1.5 - 0.5, 0.0, None).astype(np.float32)
+    return np.clip(smooth * 1.5 - 0.5, 0.0, None).astype(np.float32)
+
+
+@pytest.fixture(scope="module", params=["uint8", "float32"])
+def bake_density(request):
+    """The 20 x 28 x 36 grid (marched at step 1/128, about a third of a
+    cell)."""
+    return request.param, _smooth_grid()
 
 
 @pytest.mark.parametrize("early_out", [True, False], ids=["early_out", "full"])
@@ -191,3 +215,173 @@ def test_k3_row_equals_voxel(host_lib, bake_density, light, early_out):
     assert (got - plain).abs().max().item() <= 1e-5
     q = lambda t: torch.floor(t * 255.0) / 255.0  # noqa: E731
     assert (q(got) != q(plain)).float().mean().item() <= 1e-3
+
+
+GRIDS = {"cumulus48": lambda: procedural.cumulus(48, seed=11), "grid20x28x36": _smooth_grid}
+
+
+@pytest.fixture(scope="module", params=[(g, t) for g in GRIDS for t in ("uint8", "float32")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def neural_rig(request):
+    """A scene at 2000 m, step 1/512, with a stand-in in-scatter field (the
+    density flipped along z: kernels and plain versions read the same
+    texture); every ray of a 48 x 24 camera, then four more: one from
+    outside the box, one inside the box that misses the cloud AABB, and two
+    axis-parallel ones through the middle."""
+    grid, dtype = request.param
+    cfg = config.SceneConfig(
+        cloud=config.CloudModel(size_m=2000.0),
+        camera=config.CameraConfig(width=48, height=24),
+        rendering=config.CloudRendering(march_dtype=dtype),
+    )
+    params, static = build_scene(cfg, GRIDS[grid](), device="cpu")
+    params = params._replace(inscatter=params.density_mips[0].flip(0).contiguous())
+    o, d = camera.generate_rays(camera.camera_basis(cfg.camera), 48, 24, "cpu")
+    hit, t_hit = camera.intersect_box(o, d, static, params.bbox_size)
+    entry = camera.entry_points(o, d, t_hit, params.bbox_size)
+    b = [float(v) for v in params.bbox_size]
+    extra_entry = torch.tensor([[-0.2, 0.5 * b[1], 0.5 * b[2]], [0.0, 0.0, 0.0],
+                                [0.5 * b[0], 0.5 * b[1], 0.0], [0.45 * b[0], b[1], 0.55 * b[2]]])
+    extra_dirs = torch.tensor([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0], [0.0, 0.0, 1.0],
+                               [0.0, -1.0, 0.0]])
+    entry = torch.cat([entry, extra_entry]).contiguous()
+    dirs = torch.cat([d, extra_dirs]).contiguous()
+    ids = torch.arange(entry.shape[0])
+    return params, static, (entry, dirs, ids)
+
+
+class _Capped:
+    """``static`` with another march step cap: the C entry's ``max_steps``
+    argument, which the wrappers fill from ``static.max_march_steps``."""
+
+    def __init__(self, static, cap):
+        self._static, self.max_march_steps = static, cap
+
+    def __getattr__(self, name):
+        return getattr(self._static, name)
+
+
+def _march(lib, params, static, rays, mode, lanes=0, trans_total=None):
+    """K1's host build: ``mode`` 0 ``march_ray``, 1 chunks of ``lanes``
+    lanes (0: the kernel's); pass 2 where ``trans_total`` is given."""
+    lib.host_set_march(mode, lanes)
+    entry, dirs, ids = rays
+    if trans_total is None:
+        return march._launch(params, static, entry, dirs, 0, None, None, lib=lib)
+    return march._launch(params, static, entry, dirs, SEED, ids, trans_total, lib=lib)
+
+
+def _assert_march_equal(got, ref):
+    for name, a, b in zip(ref._fields, got, ref):
+        assert (a is None) == (b is None), name
+        assert a is None or torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+def test_k1_lanes_equal_the_ray_loop(host_lib, neural_rig, lanes):
+    """G = 1, 8 (the kernel's ``kMarchLanes``) and a whole warp."""
+    assert host_lib.ds_march_lanes() in (1, 8, 32)
+    params, static, rays = neural_rig
+    ref1 = _march(host_lib, params, static, rays, 0)
+    got1 = _march(host_lib, params, static, rays, 1, lanes)
+    _assert_march_equal(got1, ref1)
+    slots, steps = (int(v) for v in march.camera_march.last_counters)
+    plain = march.next_scattering_event(params, static, torch.zeros_like(ref1.transmittance),
+                                        *rays[:2])
+    assert steps == int(plain.steps.sum()) and steps > 0
+    assert steps <= slots < steps + lanes * rays[0].shape[0]
+    assert bool((ref1.transmittance == 1.0).any()) and bool((ref1.transmittance < 1.0).any())
+    ref2 = _march(host_lib, params, static, rays, 0, trans_total=ref1.transmittance)
+    got2 = _march(host_lib, params, static, rays, 1, lanes, ref1.transmittance)
+    _assert_march_equal(got2, ref2)
+    assert bool(ref2.ok.any()) and bool((~ref2.ok).any())
+
+
+@pytest.mark.parametrize("cap", [45, 100])
+def test_k1_cap_inside_a_chunk(host_lib, neural_rig, cap):
+    """Caps of 45 and 100 steps: neither a multiple of 8 nor of 32."""
+    params, static, rays = neural_rig
+    capped = _Capped(static, cap)
+    full = _march(host_lib, params, static, rays, 0)
+    ref = _march(host_lib, params, capped, rays, 0)
+    assert bool((ref.transmittance != full.transmittance).any())  # the cap cut rays
+    for lanes in (1, 8, 32):
+        _assert_march_equal(_march(host_lib, params, capped, rays, 1, lanes), ref)
+        ref2 = _march(host_lib, params, capped, rays, 0, trans_total=full.transmittance)
+        got2 = _march(host_lib, params, capped, rays, 1, lanes, full.transmittance)
+        _assert_march_equal(got2, ref2)
+    plain = march.camera_march_plain(params, capped, *rays[:2])
+    assert (ref.transmittance - plain.transmittance).abs().max().item() <= 1e-5
+
+
+def test_k1_crossing_on_a_chunks_first_and_last_lane(host_lib, neural_rig):
+    """The longest ray with 0.01 < T < 0.99, twice: od placed between T
+    after steps 32 j and 32 j + 1, j >= 1 (the crossing on lane 0 of a
+    chunk at G = 8 and 32), and between T after steps 32 j + 31 and
+    32 j + 32, j >= 0 (its last lane at both G)."""
+    params, static, rays = neural_rig
+    plain = march.next_scattering_event(params, static, torch.zeros(rays[0].shape[0]),
+                                        *rays[:2])
+    partial = (plain.transmittance > 0.01) & (plain.transmittance < 0.99)
+    r = int(torch.where(partial, plain.steps, torch.zeros_like(plain.steps)).argmax())
+    one = tuple(t[r:r + 1].contiguous() for t in rays)
+
+    def t_after(k):
+        return _march(host_lib, params, _Capped(static, k), one, 0).transmittance[0]
+
+    trans_total = []
+    for lane in (0, 31):
+        for s in range(lane or 32, int(plain.steps[r]) - 1, 32):
+            before, after = t_after(s), t_after(s + 1)
+            if float(before - after) > 1e-6:
+                break
+        else:
+            pytest.fail(f"no step of lane {lane} with density on the ray")
+        od = (before + after) / 2.0
+        tt = 1.0 - (1.0 - od) / rng_ops.hash_uniform(SEED, one[2], 0)[0]  # od = 1 - u (1 - tt)
+        got_od = march.conditional_optical_distance(SEED, one[2], tt.reshape(1))[0]
+        assert after < got_od <= before, (lane, s)
+        trans_total.append(float(tt))
+    two = tuple(torch.cat([t, t]).contiguous() for t in one)
+    tt = torch.tensor(trans_total, dtype=torch.float32)
+    ref = _march(host_lib, params, static, two, 0, trans_total=tt)
+    assert bool(ref.ok.all())
+    for lanes in (8, 32):
+        _assert_march_equal(_march(host_lib, params, static, two, 1, lanes, tt), ref)
+
+
+def test_k1_host_build_matches_plain(host_lib, neural_rig):
+    params, static, rays = neural_rig
+    got1 = _march(host_lib, params, static, rays, 1)
+    ref1 = march.camera_march_plain(params, static, *rays[:2])
+    assert (got1.transmittance - ref1.transmittance).abs().max().item() <= 1e-5
+    got2 = _march(host_lib, params, static, rays, 1, trans_total=ref1.transmittance)
+    ref2 = march.camera_march_plain(params, static, *rays[:2], SEED, rays[2], ref1.transmittance)
+    assert (got2.transmittance - ref2.transmittance).abs().max().item() <= 1e-5
+    assert (got2.ok == ref2.ok).float().mean().item() >= 0.995
+    both = got2.ok & ref2.ok
+    assert int(both.sum()) > 0
+    assert (got2.scatter_pos - ref2.scatter_pos)[both].abs().max().item() <= 1e-4
+    assert (got2.direct - ref2.direct)[both].abs().max().item() <= 1e-3 * ref2.direct.abs().max().item()
+
+
+def test_k2_column_equals_element(host_lib, neural_rig):
+    """192 points from 5 % outside to 5 % beyond the box (the fade), random
+    view directions: every (point, layer, column) bitwise; the plain version
+    within 1e-5."""
+    params, static, _ = neural_rig
+    rng = np.random.default_rng(3)
+    b = params.bbox_size.numpy()
+    pos = torch.as_tensor((rng.uniform(-0.05, 1.05, (192, 3)) * b).astype(np.float32))
+    view = rng.normal(size=(192, 3)).astype(np.float32)
+    view = torch.as_tensor(view / np.linalg.norm(view, axis=-1, keepdims=True))
+    host_lib.host_set_descriptor(0)
+    ref = descriptor._launch(params, static, pos, view, lib=host_lib)
+    host_lib.host_set_descriptor(1)
+    got = descriptor._launch(params, static, pos, view, lib=host_lib)
+    assert got.shape == (192, 10, 226)
+    assert torch.equal(got, ref)
+    assert bool((got[:, :, :225] == 0.0).any()) and bool((got[:, :, :225] > 0.0).any())
+    plain = descriptor.network_inputs_plain(params, static, pos, view)
+    assert (got - plain).abs().max().item() <= 1e-5
+

@@ -1,13 +1,15 @@
-// Host build of the path-trace (K4) and in-scatter bake (K3) kernels'
-// device functions, for tests/test_torch_kernel_host.py:
+// Host build of the path-trace (K4), in-scatter bake (K3), camera march
+// (K1) and descriptor (K2) kernels' device functions, for
+// tests/test_torch_kernel_host.py:
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off -DDS_HOST_EMULATION
 //       -D__device__= -D__forceinline__=inline
 //       -I deepestscatter_tpu_torch/csrc tests/torch_kernel_host.cpp
 //
-// It exports ds_pathtrace and ds_bake with the signatures of the device
-// entry points, so the wrappers' _launch drives it on CPU tensors;
-// host_set_pathtrace and host_set_bake choose what they compute.
+// It exports ds_pathtrace, ds_bake, ds_march and ds_descriptor with the
+// signatures of the device entry points, so the wrappers' _launch drives
+// it on CPU tensors; host_set_pathtrace, host_set_bake, host_set_march and
+// host_set_descriptor choose what they compute.
 #include <math.h>
 #include <stdint.h>
 
@@ -15,6 +17,8 @@
 
 #include "pathtrace.cu"
 #include "inscatter.cu"
+#include "march.cu"
+#include "descriptor.cu"
 
 namespace {
 
@@ -22,6 +26,9 @@ int pt_mode = 1;  // 0: pathtrace_pixel over the pixels; 1: items, then the fold
 int pt_lookahead = ds::kLookahead;
 const int64_t* pt_order = nullptr;  // the items' order (nullptr: 0, 1, 2, ...)
 int bake_mode = 1;  // 0: bake_voxel over the voxels; 1: bake_row over the rows
+int march_mode = 1;  // 0: march_ray a ray; 1: chunks of march_lanes lanes a ray
+int march_lanes = ds::kMarchLanes;  // 1, 8 or 32
+int desc_mode = 1;  // 0: descriptor_element an element; 1: descriptor_column a column
 
 template <int K, typename T>
 void trace_items(const T* dens, const T* insc, int nx, int ny, int nz,
@@ -92,6 +99,84 @@ void bake(const T* dens, int nx, int ny, int nz, const ds::BakeConsts& c, int n_
   }
 }
 
+// The rays in chunks of G lanes: each chunk's lanes computed one after the
+// other into arrays (what the card's shuffles and ballots deliver).
+template <int G, typename T>
+void march_chunks(const T* dens, const T* insc, int nx, int ny, int nz, const float* eval_rows,
+                  const float* entry, const float* dirs, const int64_t* ray_ids,
+                  const float* trans_total, uint32_t seed, int64_t n, const ds::MarchConsts& c,
+                  float* t_out, float* pos_out, uint8_t* ok_out, float* direct_out,
+                  unsigned long long* counters) {
+  for (int64_t r = 0; r < n; ++r) {
+    ds::Ray R;
+    ds::ray_begin(R, r, entry, dirs, ray_ids, trans_total, seed, c);
+    while (R.active) {
+      counters[0] += G;  // lane-step slots
+      ds::LaneStep S[G];
+      for (int l = 0; l < G; ++l) S[l] = ds::lane_step<G>(R, l, dens, nx, ny, nz, c);
+      for (int l = 0; l < G; ++l) {
+        S[l].tn = ds::lane_transmittance<G>(R.trans, l, [&](int k) { return S[k].e; });
+      }
+      unsigned leaves = 0u, crosses = 0u;
+      for (int l = 0; l < G; ++l) {
+        leaves |= (unsigned)ds::lane_leaves(S[l], c) << l;
+        crosses |= (unsigned)ds::lane_crosses(R, S[l]) << l;
+      }
+      ds::chunk_update(R, ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G),
+                       [&](int k) { return S[k]; });
+    }
+    counters[1] += (unsigned long long)R.steps;
+    ds::ray_end(R, r, insc, nx, ny, nz, eval_rows, c, t_out, pos_out, ok_out, direct_out);
+  }
+}
+
+template <typename T>
+int march(const T* dens, const T* insc, int nx, int ny, int nz, const float* eval_rows,
+          const float* entry, const float* dirs, const int64_t* ray_ids,
+          const float* trans_total, uint32_t seed, int64_t n, const ds::MarchConsts& c,
+          float* t_out, float* pos_out, uint8_t* ok_out, float* direct_out,
+          unsigned long long* counters) {
+  if (march_mode == 0) {
+    for (int64_t r = 0; r < n; ++r) {
+      ds::march_ray(r, dens, insc, nx, ny, nz, eval_rows, entry, dirs, ray_ids, trans_total,
+                    seed, c, t_out, pos_out, ok_out, direct_out);
+    }
+    return 0;
+  }
+#define DS_CHUNKS(G)                                                                       \
+  march_chunks<G>(dens, insc, nx, ny, nz, eval_rows, entry, dirs, ray_ids, trans_total, seed, \
+                  n, c, t_out, pos_out, ok_out, direct_out, counters)
+  if (march_lanes == 1) {
+    DS_CHUNKS(1);
+  } else if (march_lanes == 8) {
+    DS_CHUNKS(8);
+  } else if (march_lanes == 32) {
+    DS_CHUNKS(32);
+  } else {
+    return -1;
+  }
+#undef DS_CHUNKS
+  return 0;
+}
+
+template <typename T>
+void descriptor(const T* mips, const float* pos, const float* dirs, const float* ez,
+                const float* light, int64_t m, const ds::DescConsts& c, float* out) {
+  if (desc_mode == 0) {
+    const int64_t total = m * c.n_layers * ds::kRowWidth;
+    for (int64_t g = 0; g < total; ++g) {
+      out[g] = ds::descriptor_element(g, mips, pos, dirs, ez, light, c);
+    }
+    return;
+  }
+  for (int p = 0; p < (int)m; ++p) {
+    const ds::PointFrame F = ds::point_frame(ez, dirs[3 * p], dirs[3 * p + 1], dirs[3 * p + 2]);
+    for (int col = 0; col < ds::kRowWidth; ++col) {
+      ds::descriptor_column(p, col, mips, pos, dirs, light, c, F, out);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -107,6 +192,17 @@ void host_set_pathtrace(int mode, int lookahead, const int64_t* order) {
 
 // mode 0: bake_voxel a voxel; mode 1: bake_row a row.
 void host_set_bake(int mode) { bake_mode = mode; }
+
+// mode 0: march_ray a ray; mode 1: chunks of `lanes` lanes (1, 8 or 32; 0
+// for the kernel's kMarchLanes).
+void host_set_march(int mode, int lanes) {
+  march_mode = mode;
+  march_lanes = lanes > 0 ? lanes : ds::kMarchLanes;
+}
+
+// mode 0: descriptor_element an element; mode 1: descriptor_column a
+// column.
+void host_set_descriptor(int mode) { desc_mode = mode; }
 
 int ds_pathtrace(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
                  const float* eval_rows, int n_phase, const float* inv_rows, int n_inv,
@@ -138,6 +234,40 @@ int ds_bake(const void* dens, int is_u8, int nx, int ny, int nz, const float* co
     bake((const uint8_t*)dens, nx, ny, nz, c, n_steps, early_out, out);
   } else {
     bake((const float*)dens, nx, ny, nz, c, n_steps, early_out, out);
+  }
+  return 0;
+}
+
+int ds_march_lanes() { return ds::kMarchLanes; }
+
+int ds_march(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
+             const float* eval_rows, int n_phase, const float* entry, const float* dirs,
+             const int64_t* ray_ids, const float* trans_total, uint32_t seed, int64_t n,
+             const float* consts, int max_steps, float* t_out, float* pos_out,
+             uint8_t* ok_out, float* direct_out, unsigned long long* counters,
+             void* /*stream*/) {
+  counters[0] = 0;
+  counters[1] = 0;
+  const ds::MarchConsts c = ds::march_consts(consts, max_steps, n_phase);
+  if (is_u8) {
+    return march((const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz, eval_rows, entry,
+                 dirs, ray_ids, trans_total, seed, n, c, t_out, pos_out, ok_out, direct_out,
+                 counters);
+  }
+  return march((const float*)dens, (const float*)insc, nx, ny, nz, eval_rows, entry, dirs,
+               ray_ids, trans_total, seed, n, c, t_out, pos_out, ok_out, direct_out, counters);
+}
+
+int ds_descriptor(const void* mips, int is_u8, const float* pos, const float* dirs,
+                  const float* ez, const float* light, int64_t m, int n_layers,
+                  int n_levels, const float* fconsts, const int64_t* iconsts, float* out,
+                  void* /*stream*/) {
+  if (!ds::desc_args_ok(m, n_layers, n_levels)) return 1;
+  const ds::DescConsts c = ds::desc_consts(fconsts, iconsts, n_layers, n_levels);
+  if (is_u8) {
+    descriptor((const uint8_t*)mips, pos, dirs, ez, light, m, c, out);
+  } else {
+    descriptor((const float*)mips, pos, dirs, ez, light, m, c, out);
   }
   return 0;
 }
