@@ -9,7 +9,7 @@ Phases, one output line each:
 
 1. ``env`` / ``build``: the card, torch and CUDA versions; the kernels
    built from ``deepestscatter_tpu_torch/csrc`` (one nvcc per source, in
-   parallel) with their ptxas register reports.
+   parallel, P1's designs included) with their ptxas register reports.
 2. ``K3`` / ``K1`` / ``K2``: each kernel against its plain PyTorch version
    at the operating point's shapes, with the tolerance it must meet, its
    time (CUDA events), the plain version's time and the work counts its
@@ -29,23 +29,35 @@ Phases, one output line each:
    ``torch.Generator(566)``, render) at the reference's ``renderCloud``
    point: the 256^3 procedural cumulus of seed 11, 2000 m, uint8 textures,
    512 x 256.  Kernel launch counts are set to 0 just before each path
-   (the neural frame, the path tracer, the probe) and read just after;
-   every kernel must have launched on its path.  Frames must be finite,
-   deterministic per seed and different across seeds.
+   (the neural frame, the BNN frame, the path tracer, the probe) and read
+   just after; every kernel must have launched on its path.  Frames must be
+   finite, deterministic per seed and different across seeds.
 5. ``frame vs plain``: the frame against one computed with every kernel's
    plain version, on every pixel whose scatter flag agrees.
 6. ``profile``: the frame's device time by kernel (torch.profiler).
-7. ``PT``: ``ProgressiveRenderer`` driven the way a user would drive it
+7. ``BNN bake`` / ``BNN frame``: the baked light-probe renderer on the same
+   scene, driven the way a user drives it (``LightProbeModel`` and
+   ``ProbeRendererModel`` from ``torch.Generator(566)``, ``BakedRenderer``
+   bakes its 35^3 probe lattice through K2 at 9 layers, then frames through
+   K1, K5 and K2 at 3 layers): the bake's seconds and launches, the probes
+   equal to a bake through K2's plain version, the mean of 6 frames beside
+   the RPNN's of this run, the same frame gates; ``BNN frame vs plain`` and
+   ``BNN profile`` as for the RPNN; ``K2 3 layers`` / ``K2 9 layers`` and
+   ``K5``: the kernels against their plain versions (bitwise) at the BNN's
+   shapes, K5 with its ``index_select`` + ``bmm`` yardstick.
+8. ``PT``: ``ProgressiveRenderer`` driven the way a user would drive it
    (build, bake, ticks of 2 subframes at 512^2, ``run()`` with a small
    ``ProgressiveConfig``, ``display_image``) at 256^3 and 64^3: Mrays/s,
    steps/s, image mean, launches, peak memory, and the device time of 10
    ticks by kernel (torch.profiler).  The image mean must lie
    in (0.1, 10), be finite, repeat for the same seed and differ across
    seeds.
-8. ``P1`` / ``P2``: the row-gather probe's entry point
+9. ``P1`` / ``P2``: the row-gather probe's entry point
    (``probes.gather.main``) at the Pallas probe's cases, each kernel's sums
    equal to its plain version's; then P1 at a table the size of the 256^3
-   texture beside K4's step rate (the path tracer's gather ceiling).
+   texture beside K4's step rate (the path tracer's gather ceiling), and
+   ``P1 designs``: P1's three designs (``probes.gather.variants``) timed in
+   turns.
 
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
@@ -94,6 +106,12 @@ K2_OPS_PER_HI_LEVEL = 56
 K4_OPS_PER_STEP = 80
 K4_OPS_PER_BOUNCE = 270
 K4_OPS_PER_SAMPLE = 35
+#: K5: per point the lattice cell and local position, up to four half-space
+#: tests, five scalar triple products and a reciprocal for the weights, the
+#: corners' clamps and indices, omega and alpha (two light frames, two
+#: acos); per latent channel four dequantized corners weighted and summed.
+K5_OPS_PER_POINT = 330
+K5_OPS_PER_CHANNEL = 15
 
 SEED_WEIGHTS = 566
 WIDTH, HEIGHT = 512, 256
@@ -105,7 +123,7 @@ PT_SECONDS = 3.0
 K4_SUBSET_STRIDE = 16  # 16,384 of the 262,144 pixels
 #: Times before each kernel's redesign, quoted from PERF.md (this script on
 #: an H100 80GB HBM3 at 700 W) on the human-readable lines only.
-PREV_MS = {"K3": 61.05, "K4": 6.105, "K1": 1.481, "K2": 2.861}
+PREV_MS = {"K3": 61.05, "K4": 6.105, "K1": 1.481, "K2": 2.861, "P1": 0.1479}
 
 
 class Failed(Exception):
@@ -144,6 +162,26 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, kernel: str = "") -> float:
+    """Mean device time a call of ``fn`` spends in kernels whose name holds
+    ``kernel`` (every kernel for ""), from torch.profiler over ``reps``
+    calls after a warm-up: for launches shorter than their host-side cost,
+    which CUDA events would time instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+           and kernel in e.key]
+    require(bool(evs), f"the profiler saw no device time of {kernel or 'any kernel'}")
+    return sum(e.self_device_time_total for e in evs) / 1e3 / reps
+
+
 def host_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -162,12 +200,17 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
                 bound_by="bytes" if tb >= to else "operations", library_ms=library_ms)
 
 
+#: Sources built beside the package's: P1's designs (probes.gather.variants).
+EXTRA_SOURCES = ("gather_variants",)
+
+
 def phase_build(cuda_build) -> None:
     t0 = time.time()
-    secs = cuda_build.build()
+    names = cuda_build.SOURCES + EXTRA_SOURCES
+    secs = cuda_build.build(names)
     ptxas = {}
     keep = ("entry function", "spill", "Used")
-    for name in cuda_build.SOURCES:
+    for name in names:
         log = cuda_build.BUILD_DIR / f"{name}.log"
         lines = log.read_text().splitlines() if log.is_file() else []
         ptxas[name] = [ln.split("ptxas info    : ")[-1].strip() for ln in lines
@@ -261,6 +304,18 @@ def phase_k1(march_ops, cuda_build, params, static, entry, dirs, ids):
     return row, k2, d2
 
 
+def k2_work(desc_ops, grid_ops, params, static, m: int, layers: int):
+    """K2's work on ``m`` points at ``layers`` layers → (bytes: the pyramid,
+    the points and the output once; operations: 103 a stencil sample and 56
+    a second mip level)."""
+    n_hi = sum(1 for _, _, lod in desc_ops.layer_plan(static, layers)
+               if grid_ops.mip_lerp_levels(static.n_mips, lod)[4])
+    n_ops = m * 225 * (layers * K2_OPS_PER_SAMPLE + n_hi * K2_OPS_PER_HI_LEVEL)
+    n_bytes = (params.mip_flat.numel() * params.mip_flat.element_size() + m * 24
+               + m * layers * 226 * 4)
+    return n_bytes, n_ops
+
+
 def phase_k2(desc_ops, grid_ops, params, static, pts, dirs) -> dict:
     """K2 against its plain version on the frame's shading points, in one
     launch: bitwise (max abs err 0)."""
@@ -274,19 +329,155 @@ def phase_k2(desc_ops, grid_ops, params, static, pts, dirs) -> dict:
           f"ms={ms:.3f} elements_per_s={kd.numel() / (ms * 1e-3):.4g} "
           f"before_redesign_ms(PERF.md)={PREV_MS['K2']} plain_ms={plain:.1f}", flush=True)
     require(err == 0.0, "K2 disagrees with its plain version")
-    layers = desc_ops.DISNEY_LAYERS
-    n_hi = sum(1 for _, _, lod in desc_ops.layer_plan(static, layers)
-               if grid_ops.mip_lerp_levels(static.n_mips, lod)[4])
-    n_ops = m * 225 * (layers * K2_OPS_PER_SAMPLE + n_hi * K2_OPS_PER_HI_LEVEL)
-    n_bytes = params.mip_flat.numel() * params.mip_flat.element_size() + m * 24 + kd.numel() * 4
+    n_bytes, n_ops = k2_work(desc_ops, grid_ops, params, static, m, desc_ops.DISNEY_LAYERS)
     return kernel_row("K2 descriptor stencil", "deepestscatter_tpu_torch/csrc/descriptor.cu",
                       "deepestscatter_tpu/ops/descriptor.py:92", err, ms, plain, n_bytes, n_ops)
 
 
-def plain_frame(params, static, model, basis, seed):
-    """The frame computed with every kernel's plain version on the card →
-    (image, scatter flags)."""
-    from deepestscatter_tpu_torch.ops import descriptor as desc_ops
+def phase_k2_baked(desc_ops, grid_ops, baked, params, static, pts, dirs, lattice) -> None:
+    """K2 at the BNN's layer counts against its plain version, bitwise: 3
+    layers on the BNN frame's shading points (one launch), 9 layers in the
+    probe direction's frame on every probe of the lattice (one launch; the
+    bake runs it in chunks)."""
+    probes_pos = baked.probe_positions(static, lattice, pts.device)
+    frames = baked.probe_frames(probes_pos.shape[0], pts.device)
+    for label, pos, d, layers, frame in (
+        ("3 layers (BNN realtime)", pts, dirs, desc_ops.BAKED_REALTIME_LAYERS, None),
+        ("9 layers (probe bake)", probes_pos, frames, desc_ops.LIGHTPROBE_LAYERS, frames),
+    ):
+        kd = desc_ops.network_inputs(params, static, pos, d, layers, frame)
+        pd = desc_ops.network_inputs_plain(params, static, pos, d, layers, frame)
+        err = (kd - pd).abs().max().item()
+        ms = time_ms(lambda: desc_ops.network_inputs(params, static, pos, d, layers, frame), 5)
+        n_bytes, n_ops = k2_work(desc_ops, grid_ops, params, static, pos.shape[0], layers)
+        row = kernel_row("", "", "", err, ms, 0.0, n_bytes, n_ops)
+        print(f"K2 {label}: points={pos.shape[0]} out={tuple(kd.shape)} max_abs_err={err:.3g} "
+              f"(tol 0) ms={ms:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+              f"elements_per_s={kd.numel() / (ms * 1e-3):.4g}", flush=True)
+        require(err == 0.0, f"K2 at {layers} layers disagrees with its plain version")
+
+
+def phase_k5(baked, params, static, probes, pts, dirs) -> dict:
+    """K5 against its plain version on the BNN frame's shading points:
+    bitwise.  Its yardstick (``library_ms``): ``index_select`` of the 4 N
+    corner rows of a float32 copy of the lattice and one ``torch.bmm`` with
+    the [N, 1, 4] weights (the corners and weights from the plain version,
+    outside the timing).  Both are timed on the device by the profiler: a
+    K5 launch takes less device time than its wrapper takes on the host."""
+    k = baked.interpolate_probes(params, static, probes, pts, dirs)
+    p = baked.interpolate_probes_plain(params, static, probes, pts, dirs)
+    err = (k - p).abs().max().item()
+    require(torch.equal(k, p), f"K5 disagrees with its plain version (max abs err {err:.3g})")
+    launch = lambda: baked.interpolate_probes(params, static, probes, pts, dirs)  # noqa: E731
+    ms = device_ms(launch, 20, "probes_kernel")
+    wrapper_ms = time_ms(launch, 20)
+    plain = host_ms(lambda: baked.interpolate_probes_plain(params, static, probes, pts, dirs))
+    n = pts.shape[0]
+    idx, w = baked.probe_corners(probes.shape, static, pts)
+    rows = probes.reshape(-1, baked.PROBE_LENGTH).to(torch.float32)
+    if probes.dtype == torch.uint8:
+        rows = rows / 256.0
+    flat_idx = idx.reshape(-1)
+
+    def library():
+        return torch.bmm(w[:, None, :], rows.index_select(0, flat_idx).view(n, 4, -1))
+
+    lib_err = (library()[:, 0] - k[:, : baked.PROBE_LENGTH]).abs().max().item()
+    library_ms = device_ms(library, 20)
+    distinct = int(torch.unique(flat_idx).numel())
+    out_bytes = n * baked.PROBE_IN_WIDTH * 4
+    n_bytes = distinct * baked.PROBE_LENGTH * probes.element_size() + n * 24 + out_bytes
+    corner_bytes = n * 4 * baked.PROBE_LENGTH * probes.element_size() + n * 24 + out_bytes
+    n_ops = n * (K5_OPS_PER_POINT + baked.PROBE_LENGTH * K5_OPS_PER_CHANNEL)
+    row = kernel_row("K5 probe interpolation", "deepestscatter_tpu_torch/csrc/probes.cu",
+                     "deepestscatter_tpu/render/baked.py:125", err, ms, plain, n_bytes, n_ops,
+                     library_ms)
+    print(f"K5 probe interpolation: points={n} lattice={tuple(probes.shape)} {probes.dtype} "
+          f"distinct_probes={distinct} max_abs_err={err:.3g} (tol 0, torch.equal) "
+          f"ms(device, profiler)={ms:.4f} wrapper_ms(CUDA events, launches back to back)="
+          f"{wrapper_ms:.4f} plain_ms={plain:.3f} library_ms(index_select+bmm, device)={library_ms:.4f} "
+          f"(latents within {lib_err:.3g} of K5's) bound_ms={row['bound_ms']:.4f} ({row['bound_by']}: "
+          f"distinct probes once, {n_bytes / 1e6:.1f} MB) bound_ms(4 corners a point read)="
+          f"{corner_bytes / HBM_BYTES_PER_S * 1e3:.4f}", flush=True)
+    return row
+
+
+def plain_bake(baked, desc_ops, params, static, model, lattice):
+    """The probe bake with K2's plain version in the kernel's place, with
+    the bake's own chunking."""
+    kernel = desc_ops.network_inputs
+    desc_ops.network_inputs = desc_ops.network_inputs_plain
+    try:
+        return baked.bake_probes(params, static, model, lattice)
+    finally:
+        desc_ops.network_inputs = kernel
+
+
+def phase_bnn(port, baked, desc_ops, grid_ops, march_ops, params, static, basis, dev,
+              rpnn_ms: float) -> dict:
+    """The baked-probe (BNN) frame driven the way a user drives it, on the
+    neural frame's scene: both models from ``torch.Generator(566)``, the
+    probe bake at construction, a warm-up frame, 6 timed frames.  Launch
+    counts are set to 0 just before the renderer is built and read after
+    the timed frames; K1, K2 and K5 must each have launched.  Returns K5's
+    kernel row with its launches."""
+    from deepestscatter_tpu_torch.models.probes import (init_light_probe_model,
+                                                        init_probe_renderer_model)
+
+    counters = {"K1": march_ops.camera_march, "K2": desc_ops.network_inputs,
+                "K5": baked.interpolate_probes}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    probe_model = init_light_probe_model(SEED_WEIGHTS, device=dev)
+    renderer_model = init_probe_renderer_model(SEED_WEIGHTS, device=dev)
+    renderer = port.BakedRenderer(params, static, probe_model, renderer_model, device=dev)
+    torch.cuda.synchronize()
+    bake_s = time.time() - t0
+    bake_k2 = desc_ops.network_inputs.launches
+    render = lambda seed: renderer.render_frame(params, static, WIDTH, HEIGHT, basis, seed=seed)  # noqa: E731
+    warm = render(1)
+    frames, times, peak = timed_frames(render)
+    launches = {k: f.launches for k, f in counters.items()}
+    n_rays, n_hit, n_scat = renderer.last_counts
+    bnn_ms = float(np.mean(times))
+    probes = renderer.probes
+    same_bake = torch.equal(probes, plain_bake(baked, desc_ops, params, static, probe_model,
+                                               renderer.lattice))
+    print(f"BNN bake: lattice={renderer.lattice} (expect (35, 35, 35)) probes={tuple(probes.shape)} "
+          f"{probes.dtype} setup(init+bake)={bake_s:.3f}s K2_launches(9 layers, chunks of "
+          f"{baked.BAKE_CHUNK})={bake_k2} probe_mean={probes.float().mean().item():.4f} "
+          f"equal_to_plain_K2_bake={same_bake}", flush=True)
+    require(same_bake, "the probe bake disagrees with the bake through K2's plain version")
+    tiles = -(-n_scat // renderer.TILE)
+    print(f"BNN frame: frames={len(times)} ms_per_frame_mean={bnn_ms:.3f} ms_min={min(times):.3f} "
+          f"ms_all={[round(t, 3) for t in times]} rpnn_ms_per_frame_mean(this run)={rpnn_ms:.3f} "
+          f"frac_hit={n_hit / n_rays:.4f} frac_scattered={n_scat / n_rays:.4f} "
+          f"peak_mem_mb={peak / 2**20:.1f} launches={json.dumps(launches)} (bake: K2 {bake_k2}; "
+          f"per frame: K1 2, K2 {tiles}, K5 {tiles})", flush=True)
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the BNN path never launched: {launches}")
+    check_frames("BNN frame", [warm] + frames, render(2), frames)
+
+    def shade_plain(p, d):
+        probe_in = baked.interpolate_probes_plain(params, static, probes, p, d)
+        realtime = desc_ops.network_inputs_plain(params, static, p, d,
+                                                 desc_ops.BAKED_REALTIME_LAYERS)
+        return renderer_model(probe_in, realtime)[:, 0]
+
+    k_cs, d = against_plain("BNN frame vs plain", params, static, frames[0], basis, shade_plain)
+    phase_profile("BNN profile", lambda: render(3), bnn_ms)
+    pts = k_cs.scatter_pos[k_cs.has_scattered].contiguous()
+    pdirs = d[k_cs.has_scattered].contiguous()
+    phase_k2_baked(desc_ops, grid_ops, baked, params, static, pts, pdirs, renderer.lattice)
+    return dict(phase_k5(baked, params, static, probes, pts, pdirs), launches=launches["K5"])
+
+
+def plain_frame(params, static, shade_plain, basis, seed):
+    """The frame computed with every kernel's plain version on the card,
+    ``shade_plain(pos, dirs)`` giving the scattered points' predicted
+    radiance → (image, scatter flags)."""
     from deepestscatter_tpu_torch.ops import march as march_ops
     from deepestscatter_tpu_torch.render import camera as cam
     from deepestscatter_tpu_torch.render import neural
@@ -310,10 +501,59 @@ def plain_frame(params, static, model, basis, seed):
     pred = torch.zeros(n, device=dev)
     idx3 = torch.nonzero(ok).flatten()
     with torch.inference_mode():
-        pred[idx3] = model(desc_ops.network_inputs_plain(params, static, pos[idx3], d[idx3]))[:, 0]
+        pred[idx3] = shade_plain(pos[idx3], d[idx3])
     cs = neural.ConditionalScatter(trans, pos, ok, direct)
     miss = cam.miss_radiance(params, static, d)
     return neural.composite(pred, cs, miss, hit).reshape(HEIGHT, WIDTH, 3), ok
+
+
+def timed_frames(render, seeds=range(2, 8)):
+    """``render(seed)`` for each seed, each timed by the host clock around
+    a synchronized frame → (frames, ms, peak device bytes)."""
+    torch.cuda.reset_peak_memory_stats()
+    frames, times = [], []
+    for seed in seeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames.append(render(seed))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return frames, times, torch.cuda.max_memory_allocated()
+
+
+def check_frames(label: str, images, again, frames) -> None:
+    """Every image finite and of the frame's shape; ``again`` (seed 2
+    rendered anew) equal to ``frames[0]``; seeds 2 and 3 different."""
+    require(all(img.shape == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(img).all())
+                for img in images), f"{label}: a frame is not finite or has the wrong shape")
+    require(torch.equal(again, frames[0]), f"{label}: the same seed gave a different frame")
+    require(not torch.equal(frames[0], frames[1]), f"{label}: two seeds gave the same frame")
+
+
+def against_plain(label: str, params, static, frame, basis, shade_plain):
+    """The seed-2 ``frame`` against the all-plain frame of the same seed:
+    scatter flags agree on >= 0.995 of rays, and >= 0.999 of the agreeing
+    pixels lie within rtol 1e-3 (relative to max(|plain|, 1e-3)).  Returns
+    the kernels' camera result of that frame and its ray directions."""
+    from deepestscatter_tpu_torch.render import camera as cam
+    from deepestscatter_tpu_torch.render import neural
+
+    dev = params.bbox_size.device
+    ref, ref_ok = plain_frame(params, static, shade_plain, basis, 2)
+    # The kernels' scatter flags of that frame (the renderers keep none).
+    o, d = cam.generate_rays(basis, WIDTH, HEIGHT, dev)
+    k_cs, _, _ = neural.CompactCamera().run(params, static, o, d, 2,
+                                            torch.arange(WIDTH * HEIGHT, device=dev))
+    same = k_cs.has_scattered == ref_ok
+    flat, rflat = frame.reshape(-1, 3), ref.reshape(-1, 3)
+    rel = ((flat - rflat).abs() / rflat.abs().clamp(min=1e-3)).amax(dim=-1)
+    flags_ok = same.float().mean().item()
+    pix_ok = (rel[same] <= 1e-3).float().mean().item()
+    print(f"{label}: flags_agree={flags_ok:.6f} (tol 0.995) pixels_within_rtol1e-3="
+          f"{pix_ok:.6f} (tol 0.999) max_rel={rel[same].max().item():.3g} "
+          f"mean={flat.mean().item():.6f}", flush=True)
+    require(flags_ok >= 0.995 and pix_ok >= 0.999, f"{label}: the frame disagrees with its plain counterpart")
+    return k_cs, d
 
 
 def phase_profile(label: str, fn, unprofiled_ms: float) -> None:
@@ -533,11 +773,21 @@ def phase_probe(gather, k4_steps_per_s: float):
                          replaces=f"tools/pallas_gather_probe.py:{line}", max_abs_err=r["max_abs_err"],
                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
                          library_ms=r["library_ms"], launches=launches[key])
-    texture_rows = (1 << 24) // 16
-    ceil = gather.measure("per_lane", texture_rows, 16, 1 << 18)
-    print(f"PT gather ceiling: P1 over a 16 MiB table (the 256^3 uint8 density texture), 16-B rows: "
-          f"{ceil['mrows_per_s']:.1f} Mrows/s; K4 at 256^3: {k4_steps_per_s / 1e6:.1f} Msteps/s "
-          f"(8 texel reads a step)", flush=True)
+    ceil = gather.measure("per_lane", *gather.TEXTURE_CASE)
+    print(f"PT gather ceiling: P1 over a 16 MiB table (the 256^3 uint8 density texture), 16-B rows, "
+          f"a lane a row (32 rows a warp step), {gather.TEXTURE_CASE[2]} rows gathered: "
+          f"{ceil['mrows_per_s']:.1f} Mrows/s ms={ceil['ms']:.4f}; K4 at 256^3: "
+          f"{k4_steps_per_s / 1e6:.1f} Msteps/s (8 texel reads a step)", flush=True)
+    designs = gather.variants()
+    parts = []
+    for case, by_design in designs.items():
+        require(all(r["equal"] for r in by_design.values()),
+                f"a P1 design's sums differ from the plain version on {case}")
+        parts.append(f"{case}: " + ", ".join(
+            f"{name} {min(r['ms']):.4f}-{max(r['ms']):.4f}" for name, r in by_design.items()))
+    print(f"P1 designs (probes.gather.variants; ms, min-max of 4 turns of 10 index sets; sums equal "
+          f"to the plain version; the package runs '8 rows in flight a lane'; before this redesign "
+          f"(PERF.md) {PREV_MS['P1']} ms on the 1 GB table): " + "; ".join(parts), flush=True)
     return rows
 
 
@@ -551,9 +801,9 @@ def run() -> dict:
     from deepestscatter_tpu_torch.ops import grid as grid_ops
     from deepestscatter_tpu_torch.ops import march as march_ops
     from deepestscatter_tpu_torch.probes import gather
+    from deepestscatter_tpu_torch.render import baked as bnn
     from deepestscatter_tpu_torch.render import camera as cam
     from deepestscatter_tpu_torch.render import inscatter as ins_ops
-    from deepestscatter_tpu_torch.render import neural
     from deepestscatter_tpu_torch.render import pathtracer as pt
     from deepestscatter_tpu_torch.render import progressive as prog
 
@@ -601,21 +851,13 @@ def run() -> dict:
     params = port.with_baked_inscatter(params, static, device=dev)
     model = init_disney_model(SEED_WEIGHTS, device=dev)
     renderer = port.DisneyRenderer(model, device=dev)
-    warm = renderer.render_frame(params, static, WIDTH, HEIGHT, basis, seed=1)
+    render = lambda seed: renderer.render_frame(params, static, WIDTH, HEIGHT, basis, seed=seed)  # noqa: E731
+    warm = render(1)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
-    torch.cuda.reset_peak_memory_stats()
-    frames, times = [], []
-    for s in range(2, 8):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frames.append(renderer.render_frame(params, static, WIDTH, HEIGHT, basis, seed=s))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated()
+    frames, times, peak = timed_frames(render)
     launches = {k: f.launches for k, f in counters.items()}
     n_rays, n_hit, n_scat = renderer.last_counts
-    again = renderer.render_frame(params, static, WIDTH, HEIGHT, basis, seed=2)
     frame_ms = float(np.mean(times))
     print(f"frame: setup(build+bake+init+warm)={setup_s:.2f}s frames={len(times)} "
           f"ms_per_frame_mean={frame_ms:.3f} ms_min={min(times):.3f} "
@@ -625,31 +867,19 @@ def run() -> dict:
           f"K3 once per scene)", flush=True)
     require(all(n > 0 for n in launches.values()),
             f"a kernel of the main path never launched: {launches}")
-    require(all(img.shape == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(img).all())
-                for img in [warm] + frames), "a frame is not finite or has the wrong shape")
-    require(torch.equal(again, frames[0]), "the same seed gave a different frame")
-    require(not torch.equal(frames[0], frames[1]), "two seeds gave the same frame")
+    check_frames("frame", [warm] + frames, render(2), frames)
 
     # -- the frame against its all-plain counterpart -----------------------
-    ref, ref_ok = plain_frame(params, static, model, basis, 2)
-    # The kernels' scatter flags of that frame (the renderer keeps none).
-    k_cs, _, _ = neural.CompactCamera().run(
-        params, static, *cam.generate_rays(basis, WIDTH, HEIGHT, dev), 2,
-        torch.arange(WIDTH * HEIGHT, device=dev))
-    same = k_cs.has_scattered == ref_ok
-    flat, rflat = frames[0].reshape(-1, 3), ref.reshape(-1, 3)
-    rel = ((flat - rflat).abs() / rflat.abs().clamp(min=1e-3)).amax(dim=-1)
-    flags_ok = same.float().mean().item()
-    pix_ok = (rel[same] <= 1e-3).float().mean().item()
-    print(f"frame vs plain: flags_agree={flags_ok:.6f} (tol 0.995) pixels_within_rtol1e-3="
-          f"{pix_ok:.6f} (tol 0.999) max_rel={rel[same].max().item():.3g} "
-          f"mean={flat.mean().item():.6f}", flush=True)
-    require(flags_ok >= 0.995 and pix_ok >= 0.999, "the frame disagrees with its plain counterpart")
-
-    phase_profile("profile", lambda: renderer.render_frame(params, static, WIDTH, HEIGHT, basis, seed=3),
-                  frame_ms)
-    del params, model, renderer, frames, warm, again, ref
+    against_plain("frame vs plain", params, static, frames[0], basis,
+                  lambda p, d: model(desc_ops.network_inputs_plain(params, static, p, d))[:, 0])
+    phase_profile("profile", lambda: render(3), frame_ms)
+    del model, renderer, frames, warm
     kernels = [dict(rows[k], launches=launches[k]) for k in ("K1", "K2", "K3")]
+
+    # -- the baked (BNN) frame's main path, counted, on the same scene -------
+    kernels.append(phase_bnn(port, bnn, desc_ops, grid_ops, march_ops, params, static, basis,
+                             dev, frame_ms))
+    del params
 
     # -- the path tracer's main path, counted --------------------------------
     for f in (pt.scatter_loop, ins_ops.sun_transmittance):

@@ -118,6 +118,42 @@ __device__ __forceinline__ float trilinear_strided(const T* __restrict__ g, int 
   return acc;
 }
 
+// A light-oriented frame (eX, eY, eZ): eZ = -light / |light| (given),
+// eX = norm(eZ x d) with the norm clamped to 1e-12, eY = eX x eZ, in the
+// expression order of ops/descriptor.py::light_frame.
+struct PointFrame {
+  float xx, xy, xz;
+  float yx, yy, yz;
+  float zx, zy, zz;
+};
+
+__device__ __forceinline__ PointFrame point_frame(const float* __restrict__ ez, float vx,
+                                                  float vy, float vz) {
+  PointFrame F;
+  F.zx = ez[0];
+  F.zy = ez[1];
+  F.zz = ez[2];
+  float xx = F.zy * vz - F.zz * vy;
+  float xy = F.zz * vx - F.zx * vz;
+  float xz = F.zx * vy - F.zy * vx;
+  const float xn = fmaxf(sqrtf((xx * xx + xy * xy) + xz * xz), 1e-12f);
+  F.xx = xx / xn;
+  F.xy = xy / xn;
+  F.xz = xz / xn;
+  F.yx = F.xy * F.zz - F.xz * F.zy;
+  F.yy = F.xz * F.zx - F.xx * F.zz;
+  F.yz = F.xx * F.zy - F.xy * F.zx;
+  return F;
+}
+
+// acos(clip(light . v, -1, 1)): the angle omega between the light and a
+// view direction (ops/descriptor.py::omega_angle).
+__device__ __forceinline__ float omega_angle(const float* __restrict__ light, float vx,
+                                             float vy, float vz) {
+  const float d = (light[0] * vx + light[1] * vy) + light[2] * vz;
+  return acosf(fminf(fmaxf(d, -1.0f), 1.0f));
+}
+
 // One PCG-RXS-M-XS output round (ops/rng.py::_pcg).
 __device__ __forceinline__ uint32_t pcg(uint32_t x) {
   const uint32_t state = x * 747796405u + 2891336453u;

@@ -6,10 +6,16 @@
 // packed trilinear path (lines 149-238), followed by omega_angle and
 // with_angle: the output is the [M, L, 226] tensor DisneyModel consumes.
 //
+// Any number of layers up to kMaxLayers: 10 for the RPNN, 3 for the baked
+// renderer's realtime stencil, 9 for the probe bake, whose light frame is
+// built from the fixed probe direction instead of the view (gather_
+// descriptor's frame_dir).
+//
 // Element (row, layer, col): col 225 is omega = acos(clip(light . view));
 // col < 225 is the stencil sample (x, y, z) = (col % 5, col / 5 % 5,
-// col / 25) - 2 in the light frame eZ = -light, eX = norm(eZ x view),
-// eY = eX x eZ, spaced scale_l = 0.5 / dm * 2^l, sampled linear-mip-linear
+// col / 25) - 2 in the light frame eZ = -light, eX = norm(eZ x f),
+// eY = eX x eZ of the row's frame direction f (the view unless the caller
+// gives another), spaced scale_l = 0.5 / dm * 2^l, sampled linear-mip-linear
 // at the layer's static LOD (levels and lerp weights computed on the host,
 // as the JAX package does with Python floats), faded to 0 over one mip
 // voxel outside the box.  The mip voxel uses the unclamped 2^max(mip, 0)
@@ -95,18 +101,19 @@ __device__ __forceinline__ float level_sample(const T* __restrict__ mips,
 template <typename T>
 __device__ __forceinline__ float descriptor_element(
     int64_t gid, const T* __restrict__ mips, const float* __restrict__ pos,
-    const float* __restrict__ dirs, const float* __restrict__ ez,
-    const float* __restrict__ light, const DescConsts& c) {
+    const float* __restrict__ dirs, const float* __restrict__ frames,
+    const float* __restrict__ ez, const float* __restrict__ light, const DescConsts& c) {
   const int col = (int)(gid % kRowWidth);
   const int64_t rl = gid / kRowWidth;
   const int layer = (int)(rl % c.n_layers);
   const int64_t row = rl / c.n_layers;
-  const float vx = dirs[3 * row], vy = dirs[3 * row + 1], vz = dirs[3 * row + 2];
   if (col == kRowWidth - 1) {
+    const float vx = dirs[3 * row], vy = dirs[3 * row + 1], vz = dirs[3 * row + 2];
     const float d = (light[0] * vx + light[1] * vy) + light[2] * vz;
     return acosf(fminf(fmaxf(d, -1.0f), 1.0f));
   }
-  // Light frame: eX = norm(eZ x view), eY = eX x eZ.
+  // Light frame of the frame direction: eX = norm(eZ x f), eY = eX x eZ.
+  const float vx = frames[3 * row], vy = frames[3 * row + 1], vz = frames[3 * row + 2];
   const float zx = ez[0], zy = ez[1], zz = ez[2];
   float xx = zy * vz - zz * vy;
   float xy = zz * vx - zx * vz;
@@ -152,34 +159,8 @@ __device__ __forceinline__ float column_sample(const T* __restrict__ mips, const
                            c.level_n[level][1], c.level_n[level][2], ux, uy, uz);
 }
 
-// A point's light frame (eX, eY, eZ), with descriptor_element's expressions.
-struct PointFrame {
-  float xx, xy, xz;
-  float yx, yy, yz;
-  float zx, zy, zz;
-};
-
-__device__ __forceinline__ PointFrame point_frame(const float* __restrict__ ez, float vx,
-                                                  float vy, float vz) {
-  PointFrame F;
-  F.zx = ez[0];
-  F.zy = ez[1];
-  F.zz = ez[2];
-  float xx = F.zy * vz - F.zz * vy;
-  float xy = F.zz * vx - F.zx * vz;
-  float xz = F.zx * vy - F.zy * vx;
-  const float xn = fmaxf(sqrtf((xx * xx + xy * xy) + xz * xz), 1e-12f);
-  F.xx = xx / xn;
-  F.xy = xy / xn;
-  F.xz = xz / xn;
-  F.yx = F.xy * F.zz - F.xz * F.zy;
-  F.yy = F.xz * F.zx - F.xx * F.zz;
-  F.yz = F.xx * F.zy - F.xy * F.zx;
-  return F;
-}
-
 // Column `col` of point p, every layer: out[p, l, col] = descriptor_element
-// of that element, bitwise.  F is point_frame of p's view direction.
+// of that element, bitwise.  F is point_frame of p's frame direction.
 template <typename T>
 __device__ __forceinline__ void descriptor_column(
     int p, int col, const T* __restrict__ mips, const float* __restrict__ pos,
@@ -187,9 +168,7 @@ __device__ __forceinline__ void descriptor_column(
     const PointFrame& F, float* __restrict__ out) {
   float* o = out + (int64_t)p * (c.n_layers * kRowWidth) + col;
   if (col == kRowWidth - 1) {
-    const float vx = dirs[3 * p], vy = dirs[3 * p + 1], vz = dirs[3 * p + 2];
-    const float d = (light[0] * vx + light[1] * vy) + light[2] * vz;
-    const float omega = acosf(fminf(fmaxf(d, -1.0f), 1.0f));
+    const float omega = omega_angle(light, dirs[3 * p], dirs[3 * p + 1], dirs[3 * p + 2]);
     for (int l = 0; l < c.n_layers; ++l) o[l * kRowWidth] = omega;
     return;
   }
@@ -275,24 +254,28 @@ constexpr int kDescThreads = 256;
 template <typename T>
 __global__ void __launch_bounds__(kDescThreads) descriptor_kernel(
     const T* __restrict__ mips, const float* __restrict__ pos,
-    const float* __restrict__ dirs, const float* __restrict__ ez,
-    const float* __restrict__ light, int total, ds::DescConsts c,
-    float* __restrict__ out) {
+    const float* __restrict__ dirs, const float* __restrict__ frames,
+    const float* __restrict__ ez, const float* __restrict__ light, int total,
+    ds::DescConsts c, float* __restrict__ out) {
   const int gid = blockIdx.x * kDescThreads + threadIdx.x;
   if (gid >= total) return;
   const int p = gid / ds::kRowWidth;
   const int col = gid - p * ds::kRowWidth;
-  const ds::PointFrame F = ds::point_frame(ez, dirs[3 * p], dirs[3 * p + 1], dirs[3 * p + 2]);
+  const ds::PointFrame F =
+      ds::point_frame(ez, frames[3 * p], frames[3 * p + 1], frames[3 * p + 2]);
   ds::descriptor_column(p, col, mips, pos, dirs, light, c, F, out);
 }
 
-// Fills out[m, n_layers, 226].  fconsts: bbox[3] + 5 floats per layer
-// (w_lo, w_hi, scale, voxel, half_voxel); iconsts: 3 ints per layer
-// (lo, hi, use_hi) + 4 per level (offset, nx, ny, nz).  m x 226 and the
+// Fills out[m, n_layers, 226]: the stencil in the light frame of
+// frames[m, 3] (the view directions dirs[m, 3] for the RPNN and the
+// realtime BNN stencil, the fixed probe direction for the probe bake),
+// omega from dirs.  fconsts: bbox[3] + 5 floats per layer (w_lo, w_hi,
+// scale, voxel, half_voxel); iconsts: 3 ints per layer (lo, hi, use_hi) + 4
+// per level (offset, nx, ny, nz).  1 <= n_layers <= 16; m x 226 and the
 // pyramid's texels must stay below 2^31.
 extern "C" int ds_descriptor(const void* mips, int is_u8, const float* pos,
-                             const float* dirs, const float* ez, const float* light,
-                             int64_t m, int n_layers, int n_levels,
+                             const float* dirs, const float* frames, const float* ez,
+                             const float* light, int64_t m, int n_layers, int n_levels,
                              const float* fconsts, const int64_t* iconsts, float* out,
                              void* stream) {
   if (!ds::desc_args_ok(m, n_layers, n_levels)) return (int)cudaErrorInvalidValue;
@@ -303,10 +286,10 @@ extern "C" int ds_descriptor(const void* mips, int is_u8, const float* pos,
   cudaStream_t s = (cudaStream_t)stream;
   if (is_u8) {
     descriptor_kernel<uint8_t><<<blocks, kDescThreads, 0, s>>>(
-        (const uint8_t*)mips, pos, dirs, ez, light, total, c, out);
+        (const uint8_t*)mips, pos, dirs, frames, ez, light, total, c, out);
   } else {
     descriptor_kernel<float><<<blocks, kDescThreads, 0, s>>>(
-        (const float*)mips, pos, dirs, ez, light, total, c, out);
+        (const float*)mips, pos, dirs, frames, ez, light, total, c, out);
   }
   return (int)cudaGetLastError();
 }

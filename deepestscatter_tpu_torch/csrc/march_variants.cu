@@ -135,12 +135,12 @@ __global__ void __launch_bounds__(kMarchThreads) march_ray_kernel(
 template <typename T>
 __global__ void __launch_bounds__(kDescThreads) descriptor_element_kernel(
     const T* __restrict__ mips, const float* __restrict__ pos,
-    const float* __restrict__ dirs, const float* __restrict__ ez,
-    const float* __restrict__ light, int64_t total, ds::DescConsts c,
-    float* __restrict__ out) {
+    const float* __restrict__ dirs, const float* __restrict__ frames,
+    const float* __restrict__ ez, const float* __restrict__ light, int64_t total,
+    ds::DescConsts c, float* __restrict__ out) {
   const int64_t gid = (int64_t)blockIdx.x * kDescThreads + threadIdx.x;
   if (gid >= total) return;
-  out[gid] = ds::descriptor_element(gid, mips, pos, dirs, ez, light, c);
+  out[gid] = ds::descriptor_element(gid, mips, pos, dirs, frames, ez, light, c);
 }
 
 // The package's K2 with the light frames of the block's points (at most
@@ -149,11 +149,11 @@ __global__ void __launch_bounds__(kDescThreads) descriptor_element_kernel(
 template <typename T>
 __global__ void __launch_bounds__(kDescThreads) descriptor_staged_kernel(
     const T* __restrict__ mips, const float* __restrict__ pos,
-    const float* __restrict__ dirs, const float* __restrict__ ez,
-    const float* __restrict__ light, int total, ds::DescConsts c,
-    float* __restrict__ out) {
+    const float* __restrict__ dirs, const float* __restrict__ frames,
+    const float* __restrict__ ez, const float* __restrict__ light, int total,
+    ds::DescConsts c, float* __restrict__ out) {
   static_assert(kDescThreads <= 2 * ds::kRowWidth + 1, "a block spans at most 3 points");
-  __shared__ ds::PointFrame frames[3];
+  __shared__ ds::PointFrame staged[3];
   const int base = blockIdx.x * kDescThreads;
   const int first = base / ds::kRowWidth;
   const int end = base + kDescThreads < total ? base + kDescThreads : total;
@@ -161,14 +161,14 @@ __global__ void __launch_bounds__(kDescThreads) descriptor_staged_kernel(
   const int t = threadIdx.x;
   if (t <= last - first) {
     const int p = first + t;
-    frames[t] = ds::point_frame(ez, dirs[3 * p], dirs[3 * p + 1], dirs[3 * p + 2]);
+    staged[t] = ds::point_frame(ez, frames[3 * p], frames[3 * p + 1], frames[3 * p + 2]);
   }
   __syncthreads();
   const int gid = base + t;
   if (gid >= total) return;
   const int p = gid / ds::kRowWidth;
   const int col = gid - p * ds::kRowWidth;
-  ds::descriptor_column(p, col, mips, pos, dirs, light, c, frames[p - first], out);
+  ds::descriptor_column(p, col, mips, pos, dirs, light, c, staged[p - first], out);
 }
 
 extern "C" {
@@ -218,12 +218,12 @@ int ds_march(const void* dens, const void* insc, int is_u8, int nx, int ny, int 
 }
 
 int ds_descriptor(const void* mips, int is_u8, const float* pos, const float* dirs,
-                  const float* ez, const float* light, int64_t m, int n_layers,
-                  int n_levels, const float* fconsts, const int64_t* iconsts, float* out,
-                  void* stream) {
+                  const float* frames, const float* ez, const float* light, int64_t m,
+                  int n_layers, int n_levels, const float* fconsts, const int64_t* iconsts,
+                  float* out, void* stream) {
   if (g_desc == 1) {
-    return ds_descriptor_package(mips, is_u8, pos, dirs, ez, light, m, n_layers, n_levels,
-                                 fconsts, iconsts, out, stream);
+    return ds_descriptor_package(mips, is_u8, pos, dirs, frames, ez, light, m, n_layers,
+                                 n_levels, fconsts, iconsts, out, stream);
   }
   if (g_desc != 0 && g_desc != 2) return -1;
   if (!ds::desc_args_ok(m, n_layers, n_levels)) return (int)cudaErrorInvalidValue;
@@ -235,20 +235,20 @@ int ds_descriptor(const void* mips, int is_u8, const float* pos, const float* di
     const unsigned blocks = (unsigned)((total + kDescThreads - 1) / kDescThreads);
     if (is_u8) {
       descriptor_element_kernel<uint8_t><<<blocks, kDescThreads, 0, s>>>(
-          (const uint8_t*)mips, pos, dirs, ez, light, total, c, out);
+          (const uint8_t*)mips, pos, dirs, frames, ez, light, total, c, out);
     } else {
       descriptor_element_kernel<float><<<blocks, kDescThreads, 0, s>>>(
-          (const float*)mips, pos, dirs, ez, light, total, c, out);
+          (const float*)mips, pos, dirs, frames, ez, light, total, c, out);
     }
   } else {
     const int total = (int)(m * ds::kRowWidth);
     const unsigned blocks = (unsigned)((total + kDescThreads - 1) / kDescThreads);
     if (is_u8) {
       descriptor_staged_kernel<uint8_t><<<blocks, kDescThreads, 0, s>>>(
-          (const uint8_t*)mips, pos, dirs, ez, light, total, c, out);
+          (const uint8_t*)mips, pos, dirs, frames, ez, light, total, c, out);
     } else {
       descriptor_staged_kernel<float><<<blocks, kDescThreads, 0, s>>>(
-          (const float*)mips, pos, dirs, ez, light, total, c, out);
+          (const float*)mips, pos, dirs, frames, ez, light, total, c, out);
     }
   }
   return (int)cudaGetLastError();

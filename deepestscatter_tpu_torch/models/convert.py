@@ -1,8 +1,10 @@
-"""Weight conversion from the JAX package's Flax ``DisneyModel``.
+"""Weight conversion from the JAX package's Flax models: ``DisneyModel``,
+``LightProbeModel`` and ``ProbeRendererModel``.
 
 A Flax ``Dense`` kernel is ``[in, out]``; a torch ``Linear`` weight is
 ``[out, in]``, so every kernel is transposed.  The Flax parameter paths are
-``block_{i}/{f1o,f1z,f2}/{kernel,bias}`` and ``fc0..fc2``.
+``block_{i}/{f1o,f1z,f2}/{kernel,bias}``, ``fc0..fc3`` and ``input_fc``;
+the torch names are ``blocks.{i}.{f1o,f1z,f2}``, ``fc*`` and ``input_fc``.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ def _dense(tree: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -
     out[f"{prefix}.bias"] = torch.from_numpy(np.array(tree["bias"], np.float32))
 
 
-def disney_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``DisneyModel`` parameters (numpy arrays, with or without the
-    outer ``"params"`` key) → a ``state_dict`` of the torch ``DisneyModel``."""
+def _convert(params: Mapping[str, Any], heads) -> Dict[str, torch.Tensor]:
+    """Every ``block_{i}`` and the named ``heads`` of a Flax parameter tree
+    (with or without the outer ``"params"`` key) → a torch ``state_dict``."""
     if "params" in params:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
@@ -31,6 +33,24 @@ def disney_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         for name in ("f1o", "f1z", "f2"):
             _dense(params[f"block_{i}"][name], f"blocks.{i}.{name}", out)
         i += 1
-    for name in ("fc0", "fc1", "fc2"):
+    for name in heads:
         _dense(params[name], name, out)
     return out
+
+
+def disney_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``DisneyModel`` parameters → a ``state_dict`` of the torch
+    ``DisneyModel``."""
+    return _convert(params, ("fc0", "fc1", "fc2"))
+
+
+def light_probe_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``LightProbeModel`` parameters → a ``state_dict`` of the torch
+    ``LightProbeModel``."""
+    return _convert(params, ("fc0", "fc1", "fc2", "fc3"))
+
+
+def probe_renderer_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``ProbeRendererModel`` parameters → a ``state_dict`` of the
+    torch ``ProbeRendererModel``."""
+    return _convert(params, ("input_fc", "fc0", "fc1", "fc2"))

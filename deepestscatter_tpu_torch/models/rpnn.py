@@ -10,13 +10,10 @@ zeros; head 200 → 200 → 200 → 1 with ReLU x 2 and a final LeakyReLU
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
-from ..device import resolve_device
-from .blocks import DisneyBlock
+from .blocks import DisneyBlock, seeded_init
 
 BLOCK_DIMENSION = 200
 BLOCK_COUNT = 10
@@ -48,18 +45,8 @@ class DisneyModel(nn.Module):
 
 
 def init_disney_model(seed: int, device="cuda") -> DisneyModel:
-    """A ``DisneyModel`` with weights drawn from a ``torch.Generator``
-    seeded with ``seed``: every Linear uniform in +-1/sqrt(fan_in), the
-    PyTorch default rule, made reproducible.  The weights are drawn on the
-    CPU and moved to ``device`` (the card unless the caller asks for the
-    CPU; raises if there is no card)."""
-    dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
-    model = DisneyModel()
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, nn.Linear):
-                bound = 1.0 / math.sqrt(mod.in_features)
-                for p in (mod.weight, mod.bias):
-                    p.copy_((torch.rand(p.shape, generator=gen) * 2.0 - 1.0) * bound)
-    return model.to(dev).eval()
+    """A ``DisneyModel`` with seeded random weights (``blocks.seeded_init``:
+    every Linear uniform in +-1/sqrt(fan_in) from a ``torch.Generator``
+    seeded with ``seed``) on ``device`` (the card unless the caller asks
+    for the CPU; raises if there is no card)."""
+    return seeded_init(DisneyModel(), seed, device)

@@ -7,18 +7,21 @@ The port of ``deepestscatter_tpu.ops.descriptor``: a light-oriented frame
 spacing ``0.5 / density_multiplier``, doubling per layer; mip level
 ``-log2(voxel_size_in_mfp) - 1``, +1 per layer; densities faded to 0 over
 one mip voxel outside the box; the view-to-light angle omega appended to
-every layer.
+every layer.  The baked renderer reads 3 layers along the view
+(``BAKED_REALTIME_LAYERS``) and bakes its probes from 9 layers in the frame
+of the fixed probe direction (``LIGHTPROBE_LAYERS``, ``frame_dir``); its
+alpha angle (``alpha_angle``) relates the two frames.
 
 ``network_inputs`` is the kernel's wrapper and returns the [M, L, 226]
-tensor ``DisneyModel`` consumes: on CUDA tensors it launches K2 (a thread
-per point and stencil column, over the layers), on CPU tensors it runs
-``network_inputs_plain``.
+tensor the models consume (any L up to 16): on CUDA tensors it launches K2
+(a thread per point and stencil column, over the layers), on CPU tensors it
+runs ``network_inputs_plain``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +36,10 @@ LAYER_NY = 5
 LAYER_NZ = 9
 LAYER_SIZE = LAYER_NX * LAYER_NY * LAYER_NZ  # 225
 DISNEY_LAYERS = 10
+BAKED_REALTIME_LAYERS = 3
+LIGHTPROBE_LAYERS = 9
+#: The kernel's layer table holds at most this many layers.
+MAX_LAYERS = 16
 
 
 def _layer_offsets() -> np.ndarray:
@@ -106,11 +113,27 @@ def layer_plan(static: SceneStatic, n_layers: int) -> List[Tuple]:
     return plan
 
 
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    p = a * b
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
 def omega_angle(light_dir: torch.Tensor, view_dir: torch.Tensor) -> torch.Tensor:
     """Angle between the light direction and the viewing ray."""
-    p = light_dir * view_dir
-    d = p[..., 0] + p[..., 1] + p[..., 2]
-    return torch.acos(torch.clamp(d, -1.0, 1.0))
+    return torch.acos(torch.clamp(_dot3(light_dir, view_dir), -1.0, 1.0))
+
+
+def alpha_angle(
+    light_dir: torch.Tensor, view_dir: torch.Tensor, probe_dir: torch.Tensor
+) -> torch.Tensor:
+    """The alpha angle: the signed angle about the light axis between eY of
+    the frame built from the view and eY of the frame built from the probe
+    direction; negative where ``(eY_view x eY_probe) . eZ < 0``."""
+    _, ey_v, ez = light_frame(light_dir, view_dir)
+    _, ey_p, _ = light_frame(light_dir, probe_dir)
+    cos_a = torch.clamp(_dot3(ey_v, ey_p), -1.0, 1.0)
+    negative = _dot3(_cross(ey_v, ey_p), ez) < 0.0
+    return torch.acos(cos_a) * torch.where(negative, -1.0, 1.0)
 
 
 def gather_descriptor(
@@ -119,9 +142,13 @@ def gather_descriptor(
     world_pos: torch.Tensor,
     view_dir: torch.Tensor,
     n_layers: int = DISNEY_LAYERS,
+    frame_dir: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Descriptor at ``world_pos`` [N, 3] (local coords) → [N, L, 225]."""
-    ex, ey, ez = light_frame(params.light_dir, view_dir)
+    """Descriptor at ``world_pos`` [N, 3] (local coords) → [N, L, 225].
+    The light frame is built from ``view_dir`` [N, 3], or from
+    ``frame_dir`` [N, 3] where given (the probe bake's fixed direction)."""
+    d = view_dir if frame_dir is None else frame_dir
+    ex, ey, ez = light_frame(params.light_dir, d)
     offsets = torch.as_tensor(_OFFSETS, device=world_pos.device)
     layers = []
     for scale, mip_voxel, lod in layer_plan(static, n_layers):
@@ -155,25 +182,32 @@ def network_inputs_plain(
     static: SceneStatic,
     pos: torch.Tensor,
     dirs: torch.Tensor,
+    n_layers: int = DISNEY_LAYERS,
+    frame_dir: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K2: the RPNN's descriptor layers with omega
-    → [N, 10, 226]."""
-    layers = gather_descriptor(params, static, pos, dirs, DISNEY_LAYERS)
+    """Plain PyTorch version of K2: ``n_layers`` descriptor layers (in the
+    frame of ``frame_dir`` where given) with omega of ``dirs`` appended →
+    [N, L, 226]."""
+    layers = gather_descriptor(params, static, pos, dirs, n_layers, frame_dir)
     return with_angle(layers, omega_angle(params.light_dir, dirs))
 
 
 _ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
 
 
-def _launch(params, static, pos, dirs, lib=None) -> torch.Tensor:
+def _launch(params, static, pos, dirs, n_layers=DISNEY_LAYERS, frame_dir=None,
+            lib=None) -> torch.Tensor:
     """K2 on the inputs' device.  ``lib``: another library with the same
     ``ds_descriptor`` entry point (the tests' host build of the kernel's
     device functions, the alternatives ``probes/march_variants.py`` times)."""
-    cuda_build.require_vec3(pos=pos, dirs=dirs)
+    frames = dirs if frame_dir is None else frame_dir
+    cuda_build.require_vec3(pos=pos, dirs=dirs, frame_dir=frames)
+    if not 1 <= n_layers <= MAX_LAYERS:
+        raise ValueError(f"K2 takes 1 to {MAX_LAYERS} layers, got {n_layers}")
     mips = params.mip_flat
     if mips.dtype not in (torch.uint8, torch.float32):
         raise ValueError("mip pyramid must be uint8 or float32")
@@ -181,14 +215,14 @@ def _launch(params, static, pos, dirs, lib=None) -> torch.Tensor:
         raise ValueError("mip pyramid must be contiguous")
     if mips.numel() >= 2**31 or pos.shape[0] * (LAYER_SIZE + 1) >= 2**31:
         raise ValueError("K2 indexes in 32 bits: fewer than 2^31 texels and points x 226")
-    check_on(pos.device, dirs, mips, params.light_dir)
+    check_on(pos.device, dirs, frames, mips, params.light_dir)
     fn = (lib or cuda_build.load("descriptor")).ds_descriptor
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
 
     fvals = list(static.bbox)
     ivals = []
-    for scale, mip_voxel, lod in layer_plan(static, DISNEY_LAYERS):
+    for scale, mip_voxel, lod in layer_plan(static, n_layers):
         lo, hi, w_lo, w_hi, use_hi = grid_ops.mip_lerp_levels(static.n_mips, lod)
         voxel = float(np.float32(mip_voxel))
         fvals += [w_lo, w_hi, scale, voxel, float(np.float32(mip_voxel * 0.5))]
@@ -200,14 +234,14 @@ def _launch(params, static, pos, dirs, lib=None) -> torch.Tensor:
 
     m = pos.shape[0]
     out = torch.empty(
-        (m, DISNEY_LAYERS, LAYER_SIZE + 1), dtype=torch.float32, device=pos.device
+        (m, n_layers, LAYER_SIZE + 1), dtype=torch.float32, device=pos.device
     )
     ez = frame_z(params.light_dir).contiguous()
     cuda_build.check(
         fn(
             cuda_build.ptr(mips), int(mips.dtype == torch.uint8),
-            cuda_build.ptr(pos), cuda_build.ptr(dirs), cuda_build.ptr(ez),
-            cuda_build.ptr(params.light_dir), m, DISNEY_LAYERS, static.n_mips,
+            cuda_build.ptr(pos), cuda_build.ptr(dirs), cuda_build.ptr(frames),
+            cuda_build.ptr(ez), cuda_build.ptr(params.light_dir), m, n_layers, static.n_mips,
             fconsts, iconsts, cuda_build.ptr(out), cuda_build.stream_handle(),
         ),
         "descriptor kernel",
@@ -221,13 +255,16 @@ def network_inputs(
     static: SceneStatic,
     pos: torch.Tensor,
     dirs: torch.Tensor,
+    n_layers: int = DISNEY_LAYERS,
+    frame_dir: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K2's wrapper: [N, 10, 226] RPNN inputs at shading points ``pos``
-    viewed along ``dirs`` — the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    """K2's wrapper: [N, L, 226] network inputs at shading points ``pos``
+    viewed along ``dirs`` (the RPNN's 10 layers by default; the stencil in
+    the frame of ``frame_dir`` where given) — the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
     if pos.is_cuda:
-        return _launch(params, static, pos, dirs)
-    return network_inputs_plain(params, static, pos, dirs)
+        return _launch(params, static, pos, dirs, n_layers, frame_dir)
+    return network_inputs_plain(params, static, pos, dirs, n_layers, frame_dir)
 
 
 #: Kernel launches so far (counted where K2 is launched, nowhere else).

@@ -17,7 +17,9 @@ gather ceiling rather than against its streaming bandwidth:
 ``per_lane`` and ``coalesced`` are the kernels' wrappers
 (``csrc/gather_probe.cu``) for CUDA tensors and their plain PyTorch
 versions for CPU tensors.  The TPU kernel's DMA pipeline depth (``nbuf``)
-has no counterpart and is not reported.
+is not reported: P1 keeps 8 rows' loads in flight a lane instead.
+``variants`` times P1's designs against each other
+(``csrc/gather_variants.cu``, ``P1_DESIGNS``).
 
 Run on the card::
 
@@ -41,6 +43,16 @@ TILE = 1024  # lanes (rows) per tile: one CTA on the card
 #: (nrows, row bytes, batch) of the Pallas probe: a 128 MB and a 1 GB table.
 CASES = ((1 << 17, 1024, 1 << 18), (1 << 20, 1024, 1 << 18))
 RUNS = (8, 32)
+#: P1's designs (csrc/gather_variants.cu): the first design (a warp a row),
+#: the package's (8 rows in flight a lane), a bulk-copy ring (cp.async.bulk
+#: into 8 shared-memory slots a warp).
+P1_DESIGNS = {"warp a row": 0, "8 rows in flight a lane": 1, "bulk-copy ring of 8": 2}
+#: A 16 MiB table of 16-byte rows (the 256^3 uint8 density texture's size;
+#: 32 rows a warp step), 2^24 rows gathered: at 2^18 the launch is shorter
+#: than its host-side cost and the events time the host.
+TEXTURE_CASE = ((1 << 24) // 16, 16, 1 << 24)
+#: The cases ``variants`` times: the probe's two tables and the texture's.
+VARIANT_CASES = CASES + (TEXTURE_CASE,)
 #: Published H100 SXM HBM rate, bytes/s (the bound of a gather).
 HBM_BYTES_PER_S = 3.35e12
 
@@ -91,9 +103,11 @@ def _check_bounds(idx: torch.Tensor, nrows: int, run: int) -> None:
         raise ValueError(f"index reads rows [{lo}, {hi + max(run, 1)}) of a {nrows}-row table")
 
 
-def _launch(idx: torch.Tensor, rows: torch.Tensor, width: int, run: int) -> torch.Tensor:
+def _launch(idx: torch.Tensor, rows: torch.Tensor, width: int, run: int,
+            lib=None) -> torch.Tensor:
     """Launch P1 (``run`` 0) or P2 on bounds-checked indices and count the
-    launch."""
+    launch.  ``lib``: another library with the same ``ds_gather_probe``
+    entry point (the designs ``variants`` times)."""
     if idx.dtype != torch.int32 or idx.dim() != 1 or idx.shape[0] % TILE:
         raise ValueError(f"idx must be int32 [ntiles * {TILE}]")
     if rows.dtype != torch.uint8 or rows.dim() != 1 or rows.shape[0] % width:
@@ -107,7 +121,7 @@ def _launch(idx: torch.Tensor, rows: torch.Tensor, width: int, run: int) -> torc
     check_on(idx.device, rows)
     ntiles = idx.shape[0] // TILE
     out = torch.empty((ntiles, 1), dtype=torch.float32, device=idx.device)
-    fn = cuda_build.load("gather_probe").ds_gather_probe
+    fn = (lib or cuda_build.load("gather_probe")).ds_gather_probe
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     cuda_build.check(
@@ -236,6 +250,41 @@ def measure(
         "library_ms": library_ms,
         "max_abs_err": float((got - want).abs().max().item()),
     }
+
+
+def variants(cases=VARIANT_CASES, reps: int = 10, device="cuda") -> Dict:
+    """P1 in each design of ``P1_DESIGNS`` on each case: the sums must
+    equal ``per_lane_plain``'s; each design's ms (CUDA events over ``reps``
+    index sets, as ``measure``) measured in turns, forward then backward
+    over the designs, twice.  Returns ``{case: {design: {"equal", "ms"}}}``
+    with cases named ``<nrows>x<width>B``."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("the gather probe times the card; it has no CPU measurement")
+    lib = cuda_build.load("gather_variants")
+    lib.ds_gather_design.argtypes = [ctypes.c_int]
+    lib.ds_gather_design.restype = None
+    out: Dict[str, Dict] = {}
+    for nrows, width, batch in cases:
+        rows, idx = make_case("per_lane", nrows, width, batch, device=dev)
+        salts = [torch.roll(idx, k + 1) for k in range(reps)]
+        for i in [idx] + salts:
+            _check_bounds(i, nrows, 0)
+        want = per_lane_plain(idx, rows, width)
+        case: Dict[str, Dict] = {}
+        fns = {}
+        for name, design in P1_DESIGNS.items():
+            def run(i, design=design):
+                lib.ds_gather_design(design)
+                return _launch(i, rows, width, 0, lib=lib)
+
+            case[name] = {"equal": torch.equal(run(idx), want), "ms": []}
+            fns[name] = run
+        names = list(fns)
+        for name in (names + names[::-1]) * 2:
+            case[name]["ms"].append(_events_ms(fns[name], salts))
+        out[f"{nrows}x{width}B"] = case
+    return out
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:

@@ -209,7 +209,9 @@ def shade_compacted(
     return pred
 
 
-def _prepare(device, params: SceneParams, model: DisneyModel) -> torch.device:
+def prepare_device(device, params: SceneParams, model: torch.nn.Module) -> torch.device:
+    """The renderers' device: ``device`` resolved, the scene and the
+    model's weights checked to lie on it, full float32 products on a card."""
     dev = resolve_device(device)
     check_on(dev, params.density_mips[0], next(model.parameters()))
     if dev.type == "cuda":
@@ -229,7 +231,7 @@ def render_disney(
 ) -> torch.Tensor:
     """One RPNN render of a ray batch → radiance [N, 3], every ray marched
     and shaded in one batch.  Deterministic given ``seed``."""
-    dev = _prepare(device, params, model)
+    dev = prepare_device(device, params, model)
     check_on(dev, origins, directions)
     n = origins.shape[0]
     if ray_ids is None:
@@ -276,7 +278,7 @@ class DisneyRenderer:
         basis: camera_ops.CameraBasis,
         seed: int = 0,
     ) -> torch.Tensor:
-        dev = _prepare(self.device, params, self.model)
+        dev = prepare_device(self.device, params, self.model)
         with torch.inference_mode():
             origins, directions = camera_ops.generate_rays(basis, width, height, dev)
             ray_ids = torch.arange(origins.shape[0], dtype=torch.int64, device=dev)

@@ -16,7 +16,9 @@ m2 within 1e-4 of their largest values (both kernels and plain versions
 are compiled without FMA contraction, so bitwise is the goal); the gather
 probe's sums exactly equal.  The tests of the redesigned K4 (item queue,
 lookahead march, per-sample records) hold step and scatter counts equal on
-every pixel.
+every pixel.  The probe interpolation (K5) and K2 at the baked renderer's
+3 and 9 layers equal their plain versions bitwise; P1's designs
+(``gather.variants``) sum exactly.
 """
 
 import dataclasses
@@ -25,11 +27,12 @@ import numpy as np
 import pytest
 import torch
 
-from deepestscatter_tpu_torch import build_scene, config, with_baked_inscatter
+from deepestscatter_tpu_torch import BakedRenderer, build_scene, config, with_baked_inscatter
 from deepestscatter_tpu_torch.data import procedural
+from deepestscatter_tpu_torch.models.probes import init_light_probe_model, init_probe_renderer_model
 from deepestscatter_tpu_torch.ops import descriptor, march
 from deepestscatter_tpu_torch.probes import gather
-from deepestscatter_tpu_torch.render import camera, inscatter, pathtracer
+from deepestscatter_tpu_torch.render import baked, camera, inscatter, pathtracer
 
 
 @pytest.fixture(scope="module")
@@ -381,3 +384,91 @@ def test_new_wrappers_count_launches(scene, card):
     gather.per_lane_plain(idx, rows, 16)
     gather.coalesced_plain(cidx, rows, 16, 8)
     assert (gather.per_lane.launches, gather.coalesced.launches) == (p0 + 1, c0 + 1)
+
+
+@pytest.mark.parametrize("layers", [3, 9])
+def test_descriptor_kernel_baked_layers(scene, card, layers):
+    """K2 at the baked renderer's layer counts: 3 along the view, 9 in the
+    frame of the probe direction (the bake's)."""
+    _, params, static = scene
+    pos, view = _points(700, -0.05, 1.05, params.bbox_size, card, seed=layers)
+    frame = baked.probe_frames(700, card) if layers == 9 else None
+    got = descriptor.network_inputs(params, static, pos, view, layers, frame)
+    ref = descriptor.network_inputs_plain(params, static, pos, view, layers, frame)
+    torch.cuda.synchronize()
+    assert got.shape == (700, layers, 226)
+    assert torch.equal(got, ref)
+
+
+def _probe_inputs(params, card, dtype, n, seed=0):
+    """A random 6 x 5 x 7 probe lattice of ``dtype`` and ``n`` points from
+    5 % outside to 5 % beyond the box, with random views."""
+    rng = np.random.default_rng(seed)
+    shape = (7, 5, 6, baked.PROBE_LENGTH)
+    if dtype == "uint8":
+        probes = torch.as_tensor(rng.integers(0, 256, shape).astype(np.uint8), device=card)
+    else:
+        probes = torch.as_tensor(rng.random(shape).astype(np.float32), device=card)
+    pos, view = _points(n, -0.05, 1.05, params.bbox_size, card, seed=seed + 1)
+    return probes, pos, view
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("n", [1, 17, 5000])
+def test_probe_kernel_matches_plain(scene, card, dtype, n):
+    """K5 on one point, on 17 (a block of 16 points and one more) and on
+    5,000: bitwise equal to its plain version."""
+    _, params, static = scene
+    probes, pos, view = _probe_inputs(params, card, dtype, n, seed=n)
+    got = baked.interpolate_probes(params, static, probes, pos, view)
+    ref = baked.interpolate_probes_plain(params, static, probes, pos, view)
+    torch.cuda.synchronize()
+    assert got.shape == (n, baked.PROBE_IN_WIDTH)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("width", [16, 48, 64, 1024, 2048])
+def test_p1_rows_in_flight_match_plain(card, width):
+    """P1 at a lane a row (16 B), two lanes with a masked vector (48 B),
+    four lanes (64 B), a warp (1 KB) and a warp over two passes (2 KB)."""
+    rows, idx = gather.make_case("per_lane", 3000, width, 16384, device=card)
+    got = gather.per_lane(idx, rows, width)
+    ref = gather.per_lane_plain(idx, rows, width)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_p1_designs_sum_exactly(card):
+    report = gather.variants(cases=((4096, 1024, 8192), (4096, 16, 8192)), reps=1)
+    for case in report.values():
+        assert set(case) == set(gather.P1_DESIGNS)
+        assert all(r["equal"] for r in case.values()), case
+
+
+def test_baked_renderer_on_the_card(scene, card):
+    """The BNN frame on the card: finite, deterministic per seed, different
+    across seeds, through K1, K2 and K5."""
+    cfg, params, static = scene
+    params = with_baked_inscatter(params, static, device=card)
+    renderer = BakedRenderer(params, static, init_light_probe_model(1, card),
+                             init_probe_renderer_model(2, card), device=card)
+    assert renderer.probes.dtype == torch.uint8 and renderer.probes.is_cuda
+    basis = camera.camera_basis(cfg.camera)
+    before = (march.camera_march.launches, descriptor.network_inputs.launches,
+              baked.interpolate_probes.launches)
+    frame = renderer.render_frame(params, static, 96, 48, basis, seed=3)
+    after = (march.camera_march.launches, descriptor.network_inputs.launches,
+             baked.interpolate_probes.launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert frame.shape == (48, 96, 3) and bool(torch.isfinite(frame).all())
+    assert torch.equal(frame, renderer.render_frame(params, static, 96, 48, basis, seed=3))
+    assert not torch.equal(frame, renderer.render_frame(params, static, 96, 48, basis, seed=4))
+
+
+def test_probe_wrapper_counts_launches(scene, card):
+    _, params, static = scene
+    probes, pos, view = _probe_inputs(params, card, "uint8", 8)
+    before = baked.interpolate_probes.launches
+    baked.interpolate_probes(params, static, probes, pos, view)
+    baked.interpolate_probes_plain(params, static, probes, pos, view)
+    assert baked.interpolate_probes.launches == before + 1

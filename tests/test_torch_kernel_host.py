@@ -1,9 +1,9 @@
-"""K4 (path-trace bounce loop), K3 (in-scatter bake), K1 (camera march)
-and K2 (descriptor stencil) on the host.
+"""K4 (path-trace bounce loop), K3 (in-scatter bake), K1 (camera march),
+K2 (descriptor stencil) and K5 (probe interpolation) on the host.
 
 ``tests/torch_kernel_host.cpp`` compiles the kernels' device functions
 (``csrc/pathtrace.cu``, ``csrc/inscatter.cu``, ``csrc/march.cu``,
-``csrc/descriptor.cu``) with g++ under ``-DDS_HOST_EMULATION`` into a
+``csrc/descriptor.cu``, ``csrc/probes.cu``) with g++ under ``-DDS_HOST_EMULATION`` into a
 library with the device entry points' signatures; the wrappers' ``_launch``
 drives it on CPU tensors.  What the warp-level queue, shuffles and ballots
 and the block-level staging leave to the device is not here: this pins the
@@ -26,7 +26,13 @@ arithmetic the kernels share with their host build.
   last lanes.  Its step counter equals the plain version's steps.
 - K2's column formulation ``descriptor_column`` equals the per-element
   ``descriptor_element`` bitwise for every (point, layer, column), on both
-  grids and texture types, at points inside and outside the box.
+  grids and texture types, at points inside and outside the box; also at
+  the baked renderer's 3 layers and 9 layers in the probe direction's frame.
+- K5's ``probe_point`` and ``probe_channel`` equal the plain version
+  bitwise on the interpolated latents (the float expressions are IEEE
+  products, sums, a division and a square root), on float32 and uint8
+  lattices, at points inside and outside the box and on the tetrahedra's
+  test planes; omega and alpha within 1e-6 (glibc's ``acosf``).
 - All match the plain PyTorch versions within the tolerances of
   ``test_torch_cuda_kernels.py``: glibc's ``expf``/``logf``/``sinf``/
   ``cosf``/``acosf`` are not torch's, so step counts agree on >= 99 % of
@@ -57,7 +63,8 @@ from deepestscatter_tpu_torch import build_scene, config, cuda_build, with_baked
 from deepestscatter_tpu_torch.data import procedural
 from deepestscatter_tpu_torch.ops import descriptor, march
 from deepestscatter_tpu_torch.ops import rng as rng_ops
-from deepestscatter_tpu_torch.render import camera, inscatter, pathtracer
+from deepestscatter_tpu_torch.ops import tetra
+from deepestscatter_tpu_torch.render import baked, camera, inscatter, pathtracer
 
 HOST_SOURCE = Path(__file__).with_name("torch_kernel_host.cpp")
 PIXELS = 32
@@ -385,3 +392,56 @@ def test_k2_column_equals_element(host_lib, neural_rig):
     plain = descriptor.network_inputs_plain(params, static, pos, view)
     assert (got - plain).abs().max().item() <= 1e-5
 
+
+@pytest.mark.parametrize("layers", [3, 9])
+def test_k2_baked_layers_column_equals_element(host_lib, neural_rig, layers):
+    """3 layers along the view and 9 in the frame of the probe direction."""
+    params, static, _ = neural_rig
+    rng = np.random.default_rng(layers)
+    b = params.bbox_size.numpy()
+    pos = torch.as_tensor((rng.uniform(-0.05, 1.05, (96, 3)) * b).astype(np.float32))
+    view = rng.normal(size=(96, 3)).astype(np.float32)
+    view = torch.as_tensor(view / np.linalg.norm(view, axis=-1, keepdims=True))
+    frame = baked.probe_frames(96, "cpu") if layers == 9 else None
+    host_lib.host_set_descriptor(0)
+    ref = descriptor._launch(params, static, pos, view, layers, frame, lib=host_lib)
+    host_lib.host_set_descriptor(1)
+    got = descriptor._launch(params, static, pos, view, layers, frame, lib=host_lib)
+    assert got.shape == (96, layers, 226)
+    assert torch.equal(got, ref)
+    plain = descriptor.network_inputs_plain(params, static, pos, view, layers, frame)
+    assert (got - plain).abs().max().item() <= 1e-5
+
+
+def _plane_units(rng, n):
+    """Lattice-unit points on the four test planes of random cells."""
+    pts = []
+    for v in tetra._TEST_VERTICES:
+        ab = rng.uniform(0.0, 1.0, (n, 2)).astype(np.float32)
+        ab = np.where(ab.sum(-1, keepdims=True) > 1.0, 1.0 - ab, ab)
+        q = np.concatenate([ab, 1.0 - ab.sum(-1, keepdims=True)], axis=-1)
+        pts.append(np.where(v > 0, 1.0 - q, q))
+    local = np.clip(np.concatenate(pts), 0.0, 1.0 - 2**-24)
+    return (local + rng.integers(0, 16, local.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_k5_equals_plain(host_lib, neural_rig, dtype):
+    params, static, _ = neural_rig
+    rng = np.random.default_rng(17)
+    shape = (18, 18, 18, baked.PROBE_LENGTH)
+    if dtype == "uint8":
+        probes = torch.as_tensor(rng.integers(0, 256, shape).astype(np.uint8))
+    else:
+        probes = torch.as_tensor(rng.random(shape).astype(np.float32))
+    b = params.bbox_size.numpy()
+    inside = rng.uniform(-0.05, 1.05, (400, 3)) * b
+    planes = _plane_units(rng, 64) / np.float32(baked._lattice_units(static))
+    pos = torch.as_tensor(np.concatenate([inside, planes]).astype(np.float32))
+    view = rng.normal(size=(pos.shape[0], 3)).astype(np.float32)
+    view = torch.as_tensor(view / np.linalg.norm(view, axis=-1, keepdims=True))
+    got = baked._launch(params, static, probes, pos, view, lib=host_lib)
+    ref = baked.interpolate_probes_plain(params, static, probes, pos, view)
+    assert got.shape == (pos.shape[0], baked.PROBE_IN_WIDTH)
+    assert torch.equal(got[:, : baked.PROBE_LENGTH], ref[:, : baked.PROBE_LENGTH])
+    assert (got[:, baked.PROBE_LENGTH:] - ref[:, baked.PROBE_LENGTH:]).abs().max().item() <= 1e-6

@@ -21,6 +21,7 @@ import deepestscatter_tpu_torch as port
 from deepestscatter_tpu_torch import config as tconfig
 from deepestscatter_tpu_torch import cuda_build
 from deepestscatter_tpu_torch.data import procedural
+from deepestscatter_tpu_torch.models.probes import init_light_probe_model, init_probe_renderer_model
 from deepestscatter_tpu_torch.models.rpnn import init_disney_model
 from deepestscatter_tpu_torch.ops import welford
 from deepestscatter_tpu_torch.probes import gather
@@ -43,7 +44,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, deepestscatter_tpu_torch, deepestscatter_tpu_torch.render.neural, "
         "deepestscatter_tpu_torch.models.convert, deepestscatter_tpu_torch.render.progressive, "
-        "deepestscatter_tpu_torch.probes.gather, deepestscatter_tpu_torch.utils.compare\n"
+        "deepestscatter_tpu_torch.probes.gather, deepestscatter_tpu_torch.utils.compare, "
+        "deepestscatter_tpu_torch.render.baked, deepestscatter_tpu_torch.models.probes\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -72,7 +74,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py"))
     names = {str(f.relative_to(PKG)) for f in files}
     assert {"render/pathtracer.py", "render/progressive.py", "probes/gather.py",
-            "ops/welford.py", "ops/tonemap.py", "utils/compare.py"} <= names
+            "ops/welford.py", "ops/tonemap.py", "utils/compare.py", "ops/tetra.py",
+            "models/probes.py", "render/baked.py"} <= names
     bad = [
         (str(f.relative_to(PKG)), m)
         for f in files
@@ -188,6 +191,37 @@ def test_frame_on_the_cpu_is_finite():
     cfg, params, static = _cpu_scene()
     params = port.with_baked_inscatter(params, static, device="cpu")
     renderer = port.DisneyRenderer(init_disney_model(0, device="cpu"), device="cpu")
+    frame = renderer.render_frame(params, static, 8, 4, tcam.camera_basis(cfg.camera), seed=1)
+    assert frame.shape == (4, 8, 3)
+    assert np.all(np.isfinite(frame.numpy()))
+
+
+def test_baked_entry_points_default_to_the_card(no_card):
+    cfg, params, static = _cpu_scene()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_light_probe_model(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_probe_renderer_model(0)
+    probe_model = init_light_probe_model(0, device="cpu")
+    renderer_model = init_probe_renderer_model(0, device="cpu")
+    assert next(renderer_model.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.BakedRenderer(params, static, probe_model, renderer_model)
+    origins, directions = tcam.generate_rays(tcam.camera_basis(cfg.camera), 8, 4, "cpu")
+    probes = torch.zeros((2, 2, 2, 200), dtype=torch.uint8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.render_baked(params, static, renderer_model, probes, origins, directions)
+
+
+def test_bnn_frame_on_the_cpu_is_finite():
+    """A 200 m cloud: a 5 x 5 x 5 probe lattice."""
+    cfg = tconfig.SceneConfig(cloud=tconfig.CloudModel(size_m=200.0),
+                              camera=tconfig.CameraConfig(width=8, height=4))
+    params, static = port.build_scene(cfg, procedural.cumulus(8, seed=1), device="cpu")
+    params = port.with_baked_inscatter(params, static, device="cpu")
+    renderer = port.BakedRenderer(params, static, init_light_probe_model(0, device="cpu"),
+                                  init_probe_renderer_model(1, device="cpu"), device="cpu")
+    assert renderer.lattice == (5, 5, 5)
     frame = renderer.render_frame(params, static, 8, 4, tcam.camera_basis(cfg.camera), seed=1)
     assert frame.shape == (4, 8, 3)
     assert np.all(np.isfinite(frame.numpy()))

@@ -1,15 +1,15 @@
 // Host build of the path-trace (K4), in-scatter bake (K3), camera march
-// (K1) and descriptor (K2) kernels' device functions, for
-// tests/test_torch_kernel_host.py:
+// (K1), descriptor (K2) and probe interpolation (K5) kernels' device
+// functions, for tests/test_torch_kernel_host.py:
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off -DDS_HOST_EMULATION
 //       -D__device__= -D__forceinline__=inline
 //       -I deepestscatter_tpu_torch/csrc tests/torch_kernel_host.cpp
 //
-// It exports ds_pathtrace, ds_bake, ds_march and ds_descriptor with the
-// signatures of the device entry points, so the wrappers' _launch drives
-// it on CPU tensors; host_set_pathtrace, host_set_bake, host_set_march and
-// host_set_descriptor choose what they compute.
+// It exports ds_pathtrace, ds_bake, ds_march, ds_descriptor and ds_probes
+// with the signatures of the device entry points, so the wrappers' _launch
+// drives it on CPU tensors; host_set_pathtrace, host_set_bake,
+// host_set_march and host_set_descriptor choose what they compute.
 #include <math.h>
 #include <stdint.h>
 
@@ -19,6 +19,7 @@
 #include "inscatter.cu"
 #include "march.cu"
 #include "descriptor.cu"
+#include "probes.cu"
 
 namespace {
 
@@ -160,17 +161,19 @@ int march(const T* dens, const T* insc, int nx, int ny, int nz, const float* eva
 }
 
 template <typename T>
-void descriptor(const T* mips, const float* pos, const float* dirs, const float* ez,
-                const float* light, int64_t m, const ds::DescConsts& c, float* out) {
+void descriptor(const T* mips, const float* pos, const float* dirs, const float* frames,
+                const float* ez, const float* light, int64_t m, const ds::DescConsts& c,
+                float* out) {
   if (desc_mode == 0) {
     const int64_t total = m * c.n_layers * ds::kRowWidth;
     for (int64_t g = 0; g < total; ++g) {
-      out[g] = ds::descriptor_element(g, mips, pos, dirs, ez, light, c);
+      out[g] = ds::descriptor_element(g, mips, pos, dirs, frames, ez, light, c);
     }
     return;
   }
   for (int p = 0; p < (int)m; ++p) {
-    const ds::PointFrame F = ds::point_frame(ez, dirs[3 * p], dirs[3 * p + 1], dirs[3 * p + 2]);
+    const ds::PointFrame F =
+        ds::point_frame(ez, frames[3 * p], frames[3 * p + 1], frames[3 * p + 2]);
     for (int col = 0; col < ds::kRowWidth; ++col) {
       ds::descriptor_column(p, col, mips, pos, dirs, light, c, F, out);
     }
@@ -259,15 +262,31 @@ int ds_march(const void* dens, const void* insc, int is_u8, int nx, int ny, int 
 }
 
 int ds_descriptor(const void* mips, int is_u8, const float* pos, const float* dirs,
-                  const float* ez, const float* light, int64_t m, int n_layers,
-                  int n_levels, const float* fconsts, const int64_t* iconsts, float* out,
-                  void* /*stream*/) {
+                  const float* frames, const float* ez, const float* light, int64_t m,
+                  int n_layers, int n_levels, const float* fconsts, const int64_t* iconsts,
+                  float* out, void* /*stream*/) {
   if (!ds::desc_args_ok(m, n_layers, n_levels)) return 1;
   const ds::DescConsts c = ds::desc_consts(fconsts, iconsts, n_layers, n_levels);
   if (is_u8) {
-    descriptor((const uint8_t*)mips, pos, dirs, ez, light, m, c, out);
+    descriptor((const uint8_t*)mips, pos, dirs, frames, ez, light, m, c, out);
   } else {
-    descriptor((const float*)mips, pos, dirs, ez, light, m, c, out);
+    descriptor((const float*)mips, pos, dirs, frames, ez, light, m, c, out);
+  }
+  return 0;
+}
+
+// K5: probe_point a point, then probe_channel its 202 elements.
+int ds_probes(const void* probes, int is_u8, int nx, int ny, int nz, const float* pos,
+              const float* dirs, const float* ez, const float* light, int64_t n,
+              const float* consts, float* out, void* /*stream*/) {
+  const ds::ProbeConsts c = ds::probe_consts(consts, nx, ny, nz);
+  for (int p = 0; p < (int)n; ++p) {
+    const ds::ProbePoint P = ds::probe_point(p, pos, dirs, ez, light, c);
+    for (int ch = 0; ch < ds::kProbeInWidth; ++ch) {
+      out[(int64_t)p * ds::kProbeInWidth + ch] =
+          is_u8 ? ds::probe_channel(P, ch, (const uint8_t*)probes)
+                : ds::probe_channel(P, ch, (const float*)probes);
+    }
   }
   return 0;
 }
