@@ -58,6 +58,39 @@ Phases, one output line each:
    texture beside K4's step rate (the path tracer's gather ceiling), and
    ``P1 designs``: P1's three designs (``probes.gather.variants``) timed in
    turns.
+10. ``card vs cpu``: K2 at 10 layers and K5 on 4,096 of the BNN frame's
+    shading points and K7a on 1,024 samples of the same scene, each kernel
+    on the card against its plain version on the CPU (the scene copied with
+    ``scene.params_to``), at the CPU parity tests' tolerances (K2 atol
+    1e-5; K5 latents 1e-6, angles 1e-5 modulo 2 pi; K7a found flags and
+    attempt counts equal on >= 99.5 %, positions within 1e-4 where the
+    attempts agree), with each max abs err and its bitwise share.
+11. ``collect``: the dataset generator driven the way a user drives it:
+    a ``RecordStore`` in a temporary directory holding one SceneSetup (the
+    256^3 procedural cumulus of seed 11, 2000 m, the ``Front`` light), and
+    ``tasks.collect`` over its four stages at the reference's operating
+    point (2,048 samples, the default ``PointRadianceConfig``, the
+    production scene settings), counted (K7a, K7b, K2, K3 must launch).
+    Each stage's seconds, peak memory; then, through the collectors on the
+    stored samples, samples found and attempts, and the radiance schedule,
+    converged and black counts and experiments (``estimate_point_radiance``
+    again, its labels and flags equal to the stored ones).  Gates: K3 on
+    the collector's scene (the padded 258^3 grid, the ``Front`` light)
+    bitwise equal to its plain version; K7a against its plain version on
+    the card (found flags and attempt counts equal on >= 99.5 %, step
+    counts equal, positions within 1e-4 where the attempts agree, equal to
+    the stored samples); K7b at the radiance stage's first update (20,480
+    lanes x 100 experiments, bases 0) and at that shape with bases
+    2^32 - 50: each lane's fold equal to its per-experiment records folded
+    in order (counts, steps and scatters equal; moments within K4's
+    tolerances), and 1,024 records of each launch, drawn at random, equal
+    to one-experiment plain runs of their lanes with the base sub0 + k
+    (steps and scatters equal, radiance within 1e-5 of the max; the row's
+    plain_ms is those 2,048 experiments', the plain loop at the update's
+    shape being too long to run); the stored descriptor grids and baked
+    sets equal to those through K2's plain version; samples in the box with
+    unit directions; labels finite, >= 0, mean > 0; baked powers summing
+    to 1 within 1e-4; every table 2,048 records.
 
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
@@ -112,6 +145,11 @@ K4_OPS_PER_SAMPLE = 35
 #: acos); per latent channel four dequantized corners weighted and summed.
 K5_OPS_PER_POINT = 330
 K5_OPS_PER_CHANNEL = 15
+#: K7a: per march step K1's count; per attempt four hashes and the sphere
+#: and disc samples (two sincos), the normal's frame, the slab test and
+#: the entry, the AABB jump and the acceptance test.
+K7A_OPS_PER_STEP = K1_OPS_PER_STEP
+K7A_OPS_PER_ATTEMPT = 150
 
 SEED_WEIGHTS = 566
 WIDTH, HEIGHT = 512, 256
@@ -123,7 +161,16 @@ PT_SECONDS = 3.0
 K4_SUBSET_STRIDE = 16  # 16,384 of the 262,144 pixels
 #: Times before each kernel's redesign, quoted from PERF.md (this script on
 #: an H100 80GB HBM3 at 700 W) on the human-readable lines only.
-PREV_MS = {"K3": 61.05, "K4": 6.105, "K1": 1.481, "K2": 2.861, "P1": 0.1479}
+PREV_MS = {"K3": 61.05, "K4": 6.105, "K1": 1.481, "K2": 2.861, "P1": 0.1479, "K5": 0.0373}
+#: The collector's operating point: one scene, the reference's batch.
+COLLECT_CLOUD = "procedural:256:11"
+COLLECT_SIZE_M = 2000.0
+COLLECT_STAGES = ("ScatterSample", "Result", "DisneyDescriptor", "BakedInterpolationSet")
+#: K7b's records checked against one-experiment plain runs, per launch.
+K7B_CHECKED = 1024
+#: Card-against-CPU sizes (the CPU runs the plain versions).
+CPU_POINTS = 4096
+CPU_SAMPLES = 1024
 
 
 class Failed(Exception):
@@ -369,7 +416,13 @@ def phase_k5(baked, params, static, probes, pts, dirs) -> dict:
     err = (k - p).abs().max().item()
     require(torch.equal(k, p), f"K5 disagrees with its plain version (max abs err {err:.3g})")
     launch = lambda: baked.interpolate_probes(params, static, probes, pts, dirs)  # noqa: E731
-    ms = device_ms(launch, 20, "probes_kernel")
+    first = lambda: baked._launch(params, static, probes, pts, dirs, entry="ds_probes_first")  # noqa: E731
+    require(torch.equal(first(), k), "K5's first design disagrees with its redesign")
+    turns = [device_ms(f, 20, name) for f, name in ((launch, "probes_kernel"),
+                                                     (first, "probes_first_kernel"),
+                                                     (first, "probes_first_kernel"),
+                                                     (launch, "probes_kernel"))]
+    ms, first_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     wrapper_ms = time_ms(launch, 20)
     plain = host_ms(lambda: baked.interpolate_probes_plain(params, static, probes, pts, dirs))
     n = pts.shape[0]
@@ -394,7 +447,9 @@ def phase_k5(baked, params, static, probes, pts, dirs) -> dict:
                      library_ms)
     print(f"K5 probe interpolation: points={n} lattice={tuple(probes.shape)} {probes.dtype} "
           f"distinct_probes={distinct} max_abs_err={err:.3g} (tol 0, torch.equal) "
-          f"ms(device, profiler)={ms:.4f} wrapper_ms(CUDA events, launches back to back)="
+          f"ms(device, profiler)={ms:.4f} turns(redesign, first, first, redesign)="
+          f"{[round(t, 4) for t in turns]} first_design_ms={first_ms:.4f} "
+          f"before_redesign_ms(PERF.md)={PREV_MS['K5']} wrapper_ms(CUDA events, launches back to back)="
           f"{wrapper_ms:.4f} plain_ms={plain:.3f} library_ms(index_select+bmm, device)={library_ms:.4f} "
           f"(latents within {lib_err:.3g} of K5's) bound_ms={row['bound_ms']:.4f} ({row['bound_by']}: "
           f"distinct probes once, {n_bytes / 1e6:.1f} MB) bound_ms(4 corners a point read)="
@@ -402,13 +457,13 @@ def phase_k5(baked, params, static, probes, pts, dirs) -> dict:
     return row
 
 
-def plain_bake(baked, desc_ops, params, static, model, lattice):
-    """The probe bake with K2's plain version in the kernel's place, with
-    the bake's own chunking."""
+def plain_descriptors(desc_ops, fn, *args):
+    """``fn(*args)`` with K2's plain version in the kernel's place (the
+    probe bake with its own chunking, the collectors' descriptors)."""
     kernel = desc_ops.network_inputs
     desc_ops.network_inputs = desc_ops.network_inputs_plain
     try:
-        return baked.bake_probes(params, static, model, lattice)
+        return fn(*args)
     finally:
         desc_ops.network_inputs = kernel
 
@@ -443,8 +498,8 @@ def phase_bnn(port, baked, desc_ops, grid_ops, march_ops, params, static, basis,
     n_rays, n_hit, n_scat = renderer.last_counts
     bnn_ms = float(np.mean(times))
     probes = renderer.probes
-    same_bake = torch.equal(probes, plain_bake(baked, desc_ops, params, static, probe_model,
-                                               renderer.lattice))
+    same_bake = torch.equal(probes, plain_descriptors(desc_ops, baked.bake_probes, params,
+                                                      static, probe_model, renderer.lattice))
     print(f"BNN bake: lattice={renderer.lattice} (expect (35, 35, 35)) probes={tuple(probes.shape)} "
           f"{probes.dtype} setup(init+bake)={bake_s:.3f}s K2_launches(9 layers, chunks of "
           f"{baked.BAKE_CHUNK})={bake_k2} probe_mean={probes.float().mean().item():.4f} "
@@ -471,7 +526,55 @@ def phase_bnn(port, baked, desc_ops, grid_ops, march_ops, params, static, basis,
     pts = k_cs.scatter_pos[k_cs.has_scattered].contiguous()
     pdirs = d[k_cs.has_scattered].contiguous()
     phase_k2_baked(desc_ops, grid_ops, baked, params, static, pts, pdirs, renderer.lattice)
-    return dict(phase_k5(baked, params, static, probes, pts, pdirs), launches=launches["K5"])
+    row = dict(phase_k5(baked, params, static, probes, pts, pdirs), launches=launches["K5"])
+    return row, (pts, pdirs, probes)
+
+
+def angle_err(a, b):
+    """|a - b| modulo 2 pi, and that difference less two float32 ulps of
+    the cosine times acos' slope (<= 0 where within them)."""
+    d = (a - b).abs()
+    d = torch.minimum(d, 2.0 * np.pi - d)
+    slope = 1.0 / torch.sqrt(torch.clamp(1.0 - torch.cos(b) ** 2, min=1e-12))
+    return d, d - 2.0 * 1.2e-7 * slope
+
+
+def phase_card_vs_cpu(desc_ops, baked, collectors, scene_mod, params, static, pts, dirs,
+                      probes) -> None:
+    """K2 (10 layers), K5 and K7a on the card against their plain versions
+    on the CPU, on the same inputs: the CPU parity tests' tolerances."""
+    cpu = scene_mod.params_to(params, "cpu")
+    n = min(CPU_POINTS, pts.shape[0])
+    p, d = pts[:n].contiguous(), dirs[:n].contiguous()
+    pc, dc = p.cpu(), d.cpu()
+    kd = desc_ops.network_inputs(params, static, p, d).cpu()
+    cd = desc_ops.network_inputs_plain(cpu, static, pc, dc)
+    err2 = (kd - cd).abs().max().item()
+    print(f"card vs cpu K2 (10 layers): points={n} max_abs_err={err2:.3g} (tol 1e-5) "
+          f"bitwise_share={(kd == cd).float().mean().item():.6f}", flush=True)
+    k5 = baked.interpolate_probes(params, static, probes, p, d).cpu()
+    c5 = baked.interpolate_probes_plain(cpu, static, probes.cpu(), pc, dc)
+    w = baked.PROBE_LENGTH
+    err5 = (k5[:, :w] - c5[:, :w]).abs().max().item()
+    ang, ang_excess = angle_err(k5[:, w:], c5[:, w:])
+    print(f"card vs cpu K5: points={n} latents_max_abs_err={err5:.3g} (tol 1e-6) "
+          f"angles_max_abs_err(mod 2 pi)={ang.max().item():.3g} (tol 1e-5 + acos slope) "
+          f"bitwise_share={(k5 == c5).float().mean().item():.6f}", flush=True)
+    ks = collectors.generate_scatter_samples(params, static, CPU_SAMPLES, 1)
+    cs = collectors.generate_scatter_samples_plain(cpu, static, CPU_SAMPLES, 1)
+    found = ks.found.cpu()
+    agree = (found == cs.found).float().mean().item()
+    att_agree = (ks.attempts.cpu() == cs.attempts).float().mean().item()
+    same = (ks.attempts.cpu() == cs.attempts) & found & cs.found
+    err7 = (ks.positions.cpu() - cs.positions)[same].abs().max().item()
+    bit7 = (same & (ks.positions.cpu() == cs.positions).all(dim=-1)).float().mean().item()
+    print(f"card vs cpu K7a: samples={CPU_SAMPLES} found_agree={agree:.6f} (tol 0.995) "
+          f"attempts_agree={att_agree:.6f} (tol 0.995) pos_max_abs_err={err7:.3g} "
+          f"(tol 1e-4) bitwise_share={bit7:.6f}", flush=True)
+    require(err2 <= 1e-5, "card vs cpu: K2 beyond 1e-5")
+    require(err5 <= 1e-6 and bool((ang_excess <= 1e-5).all()), "card vs cpu: K5 beyond tolerance")
+    require(agree >= 0.995 and att_agree >= 0.995 and err7 <= 1e-4,
+            "card vs cpu: K7a beyond tolerance")
 
 
 def plain_frame(params, static, shade_plain, basis, seed):
@@ -791,11 +894,228 @@ def phase_probe(gather, k4_steps_per_s: float):
     return rows
 
 
+def welford_fold(rad: torch.Tensor):
+    """Per-sample records [S, N] folded per lane in sample order, with the
+    plain loop's expressions → (mean, m2, count) [N]."""
+    mean = torch.zeros_like(rad[0])
+    m2 = torch.zeros_like(rad[0])
+    cnt = torch.zeros_like(rad[0])
+    for x in rad:
+        cnt = cnt + 1.0
+        delta = x - mean
+        mean = mean + delta / torch.clamp(cnt, min=1.0)
+        m2 = m2 + delta * (x - mean)
+    return mean, m2, cnt
+
+
+def phase_collect(config, collectors, desc_ops, ins_ops, pt, dev) -> list:
+    """The dataset generator at the operating point, as a user drives it:
+    one SceneSetup in a fresh ``RecordStore``, ``tasks.collect`` over the
+    four stages (launch counts set to 0 just before, read just after),
+    then the gates against the plain versions.  Returns the K7a and K7b
+    kernel rows."""
+    import tempfile
+
+    from deepestscatter_tpu_torch import tasks
+    from deepestscatter_tpu_torch.data import records
+    from deepestscatter_tpu_torch.data.store import RecordStore
+
+    counters = {"K7a": collectors.generate_scatter_samples, "K7b": collectors.radiance_moments,
+                "K2": desc_ops.network_inputs, "K3": ins_ops.sun_transmittance}
+    tmp = tempfile.TemporaryDirectory()
+    store = RecordStore(tmp.name)
+    setup = np.zeros(1, records.SCENE_SETUP)
+    setup[0] = (COLLECT_CLOUD.encode(), COLLECT_SIZE_M, config.LIGHT_DIRECTIONS["Front"])
+    store.table("SceneSetup").batch_append(0, setup)
+    n = records.BATCH_SIZE
+    rcfg = config.PointRadianceConfig()
+    secs = {}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for stage in COLLECT_STAGES:
+        t0 = time.time()
+        done = tasks.collect(store, stage, tasks.CollectMode.OVERWRITE, radiance_cfg=rcfg,
+                             batch_size=n, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        secs[stage] = time.time() - t0
+        require(done == 1, f"collect {stage}: {done} scenes processed")
+    launched = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    counts = {stage: store.count(stage) for stage in COLLECT_STAGES}
+    print(f"collect: cloud={COLLECT_CLOUD} size_m={COLLECT_SIZE_M} light=Front samples={n} "
+          f"stage_s={json.dumps({k: round(v, 3) for k, v in secs.items()})} "
+          f"records={json.dumps(counts)} launches={json.dumps(launched)} "
+          f"peak_mem_mb={peak / 2**20:.1f}", flush=True)
+    require(all(v > 0 for v in launched.values()),
+            f"a kernel of the collector's path never launched: {launched}")
+    require(all(v == n for v in counts.values()), f"a table does not hold {n} records: {counts}")
+
+    # -- the stored records, and the stages again through the collectors ----
+    samples = store.table("ScatterSample").read(0, n)
+    norms = np.linalg.norm(samples["view_direction"], axis=1)
+    stored = store.table("Result").read(0, n)
+    labels = stored["light_intensity"]
+    sets = store.table("BakedInterpolationSet").read(0, n)
+    power_err = float(np.abs(sum(sets[c]["power"] for c in "abcd") - 1.0).max())
+    _, params, static = tasks.scene_from_setup(store.table("SceneSetup").get_record(0),
+                                               device=dev)
+    pos = torch.as_tensor(samples["point"], device=dev)
+    dirs = torch.as_tensor(samples["view_direction"], device=dev)
+    k = collectors.generate_scatter_samples(params, static, n, 0)
+    require(np.array_equal(k.positions.cpu().numpy(), samples["point"])
+            and np.array_equal(k.directions.cpu().numpy(), samples["view_direction"]),
+            "collect: K7a again gave other samples than those stored")
+    print(f"collect samples: found={int(k.found.sum())}/{n} attempts_mean="
+          f"{k.attempts.float().mean().item():.3f} attempts_max={int(k.attempts.max())} "
+          f"march_steps={int(k.steps.sum())}", flush=True)
+    est = collectors.estimate_point_radiance(params, static, pos, dirs, rcfg, seed=0)
+    require(np.array_equal(est.radiance, labels)
+            and np.array_equal(est.is_converged.astype(np.uint8), stored["is_converged"]),
+            "collect: the stored labels differ from estimate_point_radiance's")
+    exps, sched = est.experiments, est.schedule
+    black = int((est.radiance < np.finfo(np.float32).eps).sum())
+    print(f"collect radiance: updates={len(sched)} converged={int(est.is_converged.sum())}/{n} "
+          f"black={black} experiments_min={int(exps.min())} median={int(np.median(exps))} "
+          f"max={int(exps.max())} label_mean={float(est.radiance.mean()):.6g} "
+          f"schedule(active, replicas)={json.dumps(sched[:4])}..{json.dumps(sched[-3:])} "
+          f"(labels and convergence flags equal to the stored ones)", flush=True)
+    print(f"collect records: point_abs_max={float(np.abs(samples['point']).max()):.4f} "
+          f"direction_norm_err={float(np.abs(norms - 1.0).max()):.3g} labels_finite="
+          f"{bool(np.isfinite(labels).all())} labels_min={float(labels.min()):.4g} "
+          f"labels_mean={float(labels.mean()):.6g} power_sum_err={power_err:.3g} (tol 1e-4)",
+          flush=True)
+    bbox = params.bbox_size.cpu().numpy()
+    local = samples["point"] + 0.5 * bbox
+    inside = bool(((local >= -0.01) & (local <= bbox + 0.01)).all())
+    require(bool(k.found.all()) and inside and float(np.abs(norms - 1.0).max()) <= 1e-5,
+            "collect: a sample lies outside the box or its direction is not a unit vector")
+    require(bool(np.isfinite(labels).all()) and float(labels.min()) >= 0.0
+            and float(labels.mean()) > 0.0, "collect: labels not finite, negative or all zero")
+    require(power_err <= 1e-4, "collect: baked powers do not sum to 1")
+
+    # K3 on the collector's scene (the padded grid, the Front light): bitwise.
+    k3 = ins_ops.sun_transmittance(params, static)
+    p3 = ins_ops.sun_transmittance_plain(params, static)
+    err3 = (k3 - p3).abs().max().item()
+    print(f"K3 collector bake: grid={static.grid_shape} light={static.light_direction} "
+          f"max_abs_err={err3:.3g} (tol 0)", flush=True)
+    require(err3 == 0.0, "K3 disagrees with its plain version on the collector's scene")
+
+    # K7a against its plain version on the card, on the stage's scene.
+    t0 = time.perf_counter()
+    r = collectors.generate_scatter_samples_plain(params, static, n, 0)
+    torch.cuda.synchronize()
+    plain_a = (time.perf_counter() - t0) * 1e3
+    agree = (k.found == r.found).float().mean().item()
+    att_agree = (k.attempts == r.attempts).float().mean().item()
+    same = (k.attempts == r.attempts) & k.found & r.found
+    err_a = (k.positions - r.positions)[same].abs().max().item()
+    bit_a = (same & (k.positions == r.positions).all(dim=-1)).float().mean().item()
+    steps_equal = torch.equal(k.steps, r.steps)
+    ms_a = device_ms(lambda: collectors.generate_scatter_samples(params, static, n, 0), 10,
+                     "samples_kernel")
+    steps_a, att_a = int(k.steps.sum()), int(k.attempts.sum())
+    print(f"K7a scatter samples: samples={n} found_agree={agree:.6f} (tol 0.995) "
+          f"attempts_agree={att_agree:.6f} (tol 0.995) pos_max_abs_err={err_a:.3g} (tol 1e-4) "
+          f"bitwise_share={bit_a:.6f} steps_equal={steps_equal} (required) "
+          f"ms(device, profiler)={ms_a:.4f} plain_ms={plain_a:.1f} attempts={att_a} "
+          f"steps={steps_a}", flush=True)
+    require(agree >= 0.995 and att_agree >= 0.995 and err_a <= 1e-4 and steps_equal,
+            "K7a disagrees with its plain version")
+    tex = params.density_mips[0].numel() * params.density_mips[0].element_size()
+    row_a = kernel_row("K7a first-scatter sampler", "deepestscatter_tpu_torch/csrc/samples.cu",
+                       "deepestscatter_tpu/data/collectors.py:59", err_a, ms_a, plain_a,
+                       tex + n * (12 + 12 + 1 + 8),
+                       steps_a * K7A_OPS_PER_STEP + att_a * K7A_OPS_PER_ATTEMPT)
+
+    # K7b at the radiance stage's first update (every point, its replicas,
+    # bases 0 from the zero counts) and at that shape with bases 2^32 - 50
+    # (every lane's experiments wrap past 2^32).  Each launch's lanes folded
+    # from its per-experiment records; K7B_CHECKED records of each, drawn
+    # at random, against one-experiment plain runs of their lanes with the
+    # base sub0 + k (lanes and experiments are independent).
+    rs = collectors.radiance_static(static)
+    replicas = max(1, rcfg.max_threads // collectors.bucket_size(n))
+    launches = rcfg.launches_per_update
+    entry = (pos + 0.5 * params.bbox_size).contiguous()
+    rids = torch.arange(n, dtype=torch.int64, device=dev)
+    gen = torch.Generator().manual_seed(7)
+    picks, fold_err, fold_counts_ok = [], 0.0, True
+    for base0 in (0, 2**32 - 50):
+        base = torch.full((n,), base0, dtype=torch.int64, device=dev)
+        o, d, ids, sub0 = collectors._lanes(entry, dirs, rids, base, replicas, launches)
+        pm, rec = collectors.launch_radiance(params, rs, o, d, ids, sub0, 0, launches)
+        if base0 == 0:
+            steps_b, bounces_b = int(pm.steps.sum()), int(pm.bounces.sum())
+            items, slots = (int(v) for v in collectors.radiance_moments.last_counters.tolist())
+            n_lanes = o.shape[0]
+        mean_f, m2_f, cnt_f = welford_fold(rec.radiance[..., 0])
+        fold_counts_ok = (fold_counts_ok and torch.equal(pm.count, cnt_f)
+                          and torch.equal(pm.steps, rec.work[..., 0].long().sum(dim=0))
+                          and torch.equal(pm.bounces, rec.work[..., 1].long().sum(dim=0)))
+        for a, b, tol in ((pm.mean[:, 0], mean_f, 1e-5), (pm.m2[:, 0], m2_f, 1e-4)):
+            fold_err = max(fold_err, (a - b).abs().max().item()
+                           / (tol * (b.abs().max().item() + 1e-12)))
+        lane = torch.randint(0, o.shape[0], (K7B_CHECKED,), generator=gen).to(dev)
+        exp = torch.randint(0, launches, (K7B_CHECKED,), generator=gen).to(dev)
+        picks.append((o[lane], d[lane], ids[lane], (sub0[lane] + exp) & 0xFFFFFFFF,
+                      rec.radiance[exp, lane], rec.work[exp, lane].long()))
+        del pm, rec
+    po, pd, pids, psub, prad, pwork = (torch.cat(t).contiguous() for t in zip(*picks))
+    phit = torch.ones(po.shape[0], dtype=torch.bool, device=dev)
+    t0 = time.perf_counter()
+    one = pt.scatter_loop_plain(params, rs, po, pd, phit, pids, 0, psub, 1)
+    torch.cuda.synchronize()
+    plain_b = (time.perf_counter() - t0) * 1e3
+    ms_checked = time_ms(lambda: collectors.launch_radiance(params, rs, po, pd, pids, psub, 0, 1),
+                         3)
+    err_b = (prad - one.mean).abs().max().item()
+    counts_eq = torch.equal(pwork[:, 0], one.steps) and torch.equal(pwork[:, 1], one.bounces)
+    rec_ok = counts_eq and err_b <= 1e-5 * (one.mean.abs().max().item() + 1e-12)
+    args = (params, rs, entry, dirs, rids, torch.zeros(n, dtype=torch.int64, device=dev), 0,
+            replicas, launches)
+    ms_b = time_ms(lambda: collectors.radiance_moments(*args), 3)
+    print(f"K7b radiance experiments: points={n} replicas={replicas} launches={launches} "
+          f"lanes={n_lanes} experiments={n_lanes * launches} steps={steps_b} "
+          f"bounces={bounces_b} simt_efficiency={steps_b / max(32.0 * slots, 1.0):.4f} "
+          f"ms={ms_b:.3f}; bases 0 and 2^32 - 50: folds_equal_records(counts, steps, "
+          f"scatters)={fold_counts_ok} fold_err(of tol sum x 1e-5, sum x^2 1e-4 of max)="
+          f"{fold_err:.3g}; {po.shape[0]} records against one-experiment plain runs: "
+          f"steps_scatters_equal={counts_eq} max_abs_err={err_b:.3g} (tol 1e-5 of "
+          f"max) longest_steps={int(one.steps.max())} plain_ms={plain_b:.1f} "
+          f"kernel_ms(same experiments)={ms_checked:.3f}", flush=True)
+    require(fold_counts_ok and fold_err <= 1.0 and rec_ok, "K7b disagrees with its plain version")
+    tables = (params.phase.eval_rows.numel() + params.phase.inv_cdf_rows.numel()) * 4
+    row_b = kernel_row("K7b radiance experiments", "deepestscatter_tpu_torch/csrc/pathtrace.cu",
+                       "deepestscatter_tpu/data/collectors.py:150", err_b, ms_b, plain_b,
+                       2 * tex + tables + n_lanes * (12 + 12 + 8 + 4) + n_lanes * (12 + 12 + 4 + 16),
+                       steps_b * K4_OPS_PER_STEP + bounces_b * K4_OPS_PER_BOUNCE
+                       + n_lanes * launches * K4_OPS_PER_SAMPLE)
+
+    # The stored grids against K2's plain version (bitwise).
+    grids = store.table("DisneyDescriptor").read(0, n)["grid"]
+    pgrids = plain_descriptors(desc_ops, collectors.collect_disney_descriptors, params, static,
+                               pos, dirs)
+    psets = plain_descriptors(desc_ops, collectors.collect_baked_sets, params, static, pos)
+    same_sets = all(np.array_equal(sets[c][f], psets[c][f]) for c in "abcd"
+                    for f in ("grid", "position", "power"))
+    print(f"collect descriptors: disney_grids_equal_plain_K2={np.array_equal(grids, pgrids)} "
+          f"baked_sets_equal_plain_K2={same_sets} grid_mean={float(grids.mean()):.4f}", flush=True)
+    require(np.array_equal(grids, pgrids) and same_sets,
+            "collect: descriptor grids differ from K2's plain version")
+    store.close()
+    tmp.cleanup()
+    return [dict(row_a, launches=launched["K7a"]), dict(row_b, launches=launched["K7b"])]
+
+
 def run() -> dict:
     """All phases; returns the kernel rows with their launch counts."""
     import deepestscatter_tpu_torch as port
     from deepestscatter_tpu_torch import config, cuda_build
-    from deepestscatter_tpu_torch.data import procedural
+    from deepestscatter_tpu_torch import scene as scene_mod
+    from deepestscatter_tpu_torch.data import collectors, procedural
     from deepestscatter_tpu_torch.models.rpnn import init_disney_model
     from deepestscatter_tpu_torch.ops import descriptor as desc_ops
     from deepestscatter_tpu_torch.ops import grid as grid_ops
@@ -877,9 +1197,11 @@ def run() -> dict:
     kernels = [dict(rows[k], launches=launches[k]) for k in ("K1", "K2", "K3")]
 
     # -- the baked (BNN) frame's main path, counted, on the same scene -------
-    kernels.append(phase_bnn(port, bnn, desc_ops, grid_ops, march_ops, params, static, basis,
-                             dev, frame_ms))
-    del params
+    row, (pts, pdirs, probes) = phase_bnn(port, bnn, desc_ops, grid_ops, march_ops, params,
+                                          static, basis, dev, frame_ms)
+    kernels.append(row)
+    phase_card_vs_cpu(desc_ops, bnn, collectors, scene_mod, params, static, pts, pdirs, probes)
+    del params, pts, pdirs, probes
 
     # -- the path tracer's main path, counted --------------------------------
     for f in (pt.scatter_loop, ins_ops.sun_transmittance):
@@ -896,6 +1218,9 @@ def run() -> dict:
     # -- the probe's path, counted -------------------------------------------
     probe_rows = phase_probe(gather, steps_per_s[256])
     kernels += [probe_rows["P1"], probe_rows["P2"]]
+
+    # -- the dataset generator's main path, counted ---------------------------
+    kernels += phase_collect(config, collectors, desc_ops, ins_ops, pt, dev)
     return kernels
 
 

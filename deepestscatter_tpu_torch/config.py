@@ -1,5 +1,6 @@
 """Typed configuration: the part of the reference configuration the RPNN
-neural frame and the progressive path tracer read.
+and baked neural frames, the progressive path tracer and the dataset
+collectors read.
 
 A copy of ``deepestscatter_tpu.config`` (the JAX package's settings) cut to
 what this package uses, kept as its own module so that the port imports
@@ -134,6 +135,39 @@ class SceneConfig:
     def density_multiplier(self) -> float:
         """size / mean-free-path (reference: VDBCloud.cpp:109)."""
         return self.cloud.size_m / self.cloud.mean_free_path_m
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSettings:
+    """Dataset-generation slice ownership: scene i owns sample ids
+    [i * 2048, (i + 1) * 2048) (reference: Tasks.cpp:137,
+    GlobalSettings.py:1)."""
+
+    start_id: int = 0
+    size: int = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class PointRadianceConfig:
+    """Ground-truth label estimation (reference: RadianceCollector.cpp:17,
+    88, 112-118): the thread budget re-divided among unconverged points,
+    experiments a lane runs per update, the CI gates and the experiments a
+    black point needs before it may pass."""
+
+    max_threads: int = 10 * 2048
+    launches_per_update: int = 100
+    rel_tol: float = 2e-2
+    abs_tol: float = 1e-4
+    black_min_experiments: int = 100_000
+
+
+#: Light directions of the render and collection tasks (reference:
+#: Tasks.cpp:52-65).
+LIGHT_DIRECTIONS = {
+    "Front": (-0.586, -0.766, -0.271),
+    "Side": (0.03, -0.766, -0.642),
+    "Back": (0.586, -0.766, 0.271),
+}
 
 
 def fov_tan_halves(hfov_deg: float, width: int, height: int) -> Tuple[float, float]:

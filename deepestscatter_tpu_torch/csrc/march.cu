@@ -73,6 +73,12 @@
 // equals march_ray's bitwise.  The warps' lane-step slots (32 a loop
 // iteration) and the steps are counted (one atomic a block), so lane
 // utilisation = steps / slots.
+//
+// K7a (csrc/samples.cu) reuses these device functions: a ray from values
+// (ray_start) and chunks that end at the first crossing (chunk_end's
+// stop_at_cross), which marches to the scatter and no further.
+#pragma once
+
 #include "common.cuh"
 
 namespace ds {
@@ -116,23 +122,17 @@ struct Ray {
   bool active, scattered;
 };
 
-// Ray r's entry, od and jump to the cloud AABB on the step lattice.
-__device__ __forceinline__ void ray_begin(Ray& R, int64_t r, const float* __restrict__ entry,
-                                          const float* __restrict__ dirs,
-                                          const int64_t* __restrict__ ray_ids,
-                                          const float* __restrict__ trans_total,
-                                          uint32_t seed, const MarchConsts& c) {
-  R.px = entry[3 * r];
-  R.py = entry[3 * r + 1];
-  R.pz = entry[3 * r + 2];
-  R.dx = dirs[3 * r];
-  R.dy = dirs[3 * r + 1];
-  R.dz = dirs[3 * r + 2];
-  R.od = 0.0f;
-  if (trans_total != nullptr) {
-    const float u = hash_uniform(seed, (uint32_t)ray_ids[r], 0u);
-    R.od = 1.0f - u * (1.0f - trans_total[r]);
-  }
+// A ray from the entry point p along d with optical distance od: its jump
+// to the cloud AABB on the step lattice.
+__device__ __forceinline__ void ray_start(Ray& R, float px, float py, float pz, float dx,
+                                          float dy, float dz, float od, const MarchConsts& c) {
+  R.px = px;
+  R.py = py;
+  R.pz = pz;
+  R.dx = dx;
+  R.dy = dy;
+  R.dz = dz;
+  R.od = od;
   R.sx = safe_dir(R.dx);
   R.sy = safe_dir(R.dy);
   R.sz = safe_dir(R.dz);
@@ -152,6 +152,21 @@ __device__ __forceinline__ void ray_begin(Ray& R, int64_t r, const float* __rest
   R.steps = 0;
   R.scattered = false;
   R.active = in_box(R.px, R.py, R.pz, c.bbox) && hits && c.max_steps > 0;
+}
+
+// Ray r's entry, od and jump to the cloud AABB on the step lattice.
+__device__ __forceinline__ void ray_begin(Ray& R, int64_t r, const float* __restrict__ entry,
+                                          const float* __restrict__ dirs,
+                                          const int64_t* __restrict__ ray_ids,
+                                          const float* __restrict__ trans_total,
+                                          uint32_t seed, const MarchConsts& c) {
+  float od = 0.0f;
+  if (trans_total != nullptr) {
+    const float u = hash_uniform(seed, (uint32_t)ray_ids[r], 0u);
+    od = 1.0f - u * (1.0f - trans_total[r]);
+  }
+  ray_start(R, entry[3 * r], entry[3 * r + 1], entry[3 * r + 2], dirs[3 * r], dirs[3 * r + 1],
+            dirs[3 * r + 2], od, c);
 }
 
 // Ray r's outputs: T; in pass 2 (pos_out set) the scatter point or the
@@ -305,7 +320,8 @@ __device__ __forceinline__ int first_lane(unsigned bits) {
 // A chunk's steps taken: n; the lane that crossed first (-1: none); and
 // whether the ray's march ended.  Bit k of `leaves` is set where lane k's
 // position lies outside the cloud AABB, of `crosses` where od > T after
-// lane k's step; `room` steps remain before the cap.
+// lane k's step; `room` steps remain before the cap.  With stop_at_cross
+// the march ends at the crossing step (the JAX loop's stop_at_scatter).
 struct ChunkEnd {
   int n;
   int cross;
@@ -313,7 +329,7 @@ struct ChunkEnd {
 };
 
 __device__ __forceinline__ ChunkEnd chunk_end(unsigned leaves, unsigned crosses, int room,
-                                              int G) {
+                                              int G, bool stop_at_cross = false) {
   ChunkEnd E;
   E.n = G < room ? G : room;
   E.ended = room <= G;
@@ -324,6 +340,10 @@ __device__ __forceinline__ ChunkEnd chunk_end(unsigned leaves, unsigned crosses,
   }
   const unsigned cr = crosses & lanes_below(E.n);
   E.cross = cr != 0u ? first_lane(cr) : -1;
+  if (stop_at_cross && E.cross >= 0) {
+    E.n = E.cross + 1;
+    E.ended = true;
+  }
   return E;
 }
 

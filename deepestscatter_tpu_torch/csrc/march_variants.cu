@@ -4,25 +4,28 @@
 // kernel at other numbers of voxels a thread; K1 as one thread per ray (its
 // first design) and with other numbers of lanes a ray; K2 as one thread per
 // element (its first design) and with the light frame staged in shared
-// memory.  Every alternative computes the same values as the kernels the
-// package runs.
+// memory; K7a with K1's 8 lanes a sample.  Every alternative computes the
+// same values as the kernels the package runs.
 //
 // The package's entry points are renamed where they are included; the
-// ds_pathtrace, ds_bake, ds_march and ds_descriptor here take the same
+// ds_pathtrace, ds_bake, ds_march, ds_descriptor and ds_samples here take the same
 // arguments and run the alternative ds_variant / ds_neural_variant chose,
 // so the wrappers' _launch(lib=) drives them.
 #define ds_pathtrace ds_pathtrace_package
 #define ds_bake ds_bake_package
 #define ds_march ds_march_package
 #define ds_descriptor ds_descriptor_package
+#define ds_samples ds_samples_package
 #include "pathtrace.cu"
 #include "inscatter.cu"
 #include "march.cu"
 #include "descriptor.cu"
+#include "samples.cu"
 #undef ds_pathtrace
 #undef ds_bake
 #undef ds_march
 #undef ds_descriptor
+#undef ds_samples
 
 namespace {
 
@@ -33,6 +36,7 @@ int g_lookahead = ds::kLookahead;
 int g_voxels = ds::kBakeVoxels;  // K3's voxels a thread
 int g_lanes = ds::kMarchLanes;  // K1's lanes a ray; 0: one thread per ray
 int g_desc = 1;  // K2: 0 a thread per element, 1 the package's, 2 staged frames
+int g_sample_lanes = kSampleLanes;  // K7a's lanes a sample
 
 }  // namespace
 
@@ -309,6 +313,28 @@ int ds_bake(const void* dens, int is_u8, int nx, int ny, int nz, const float* co
     case 8: return bake_rows<8>(dens, is_u8, nx, ny, nz, consts, n_steps, early_out, out, stream);
   }
   return -1;
+}
+
+// K7a: 8 or 32 lanes a sample (the package runs 32).  Another choice
+// makes ds_samples return -1.
+void ds_samples_variant(int lanes) { g_sample_lanes = lanes; }
+
+int ds_samples(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed, int64_t n,
+               const float* consts, int max_steps, float min_dist, float* pos_out,
+               float* dir_out, uint8_t* found_out, int32_t* work_out, void* stream) {
+  if (n <= 0) return 0;
+  const ds::MarchConsts c = ds::march_consts(consts, max_steps, 0);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (g_sample_lanes) {
+    case 8:
+      return samples_lanes<8>(dens, is_u8, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out,
+                              found_out, work_out, s);
+    case 32:
+      return samples_lanes<32>(dens, is_u8, nx, ny, nz, seed, n, c, min_dist, pos_out,
+                               dir_out, found_out, work_out, s);
+    default:
+      return -1;
+  }
 }
 
 }  // extern "C"

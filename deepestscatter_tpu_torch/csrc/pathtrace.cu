@@ -29,6 +29,15 @@
 //   pathtrace_pixel below states this as a loop over one pixel's samples;
 //   the kernel computes the same values in another order.
 //
+// K7b, the dataset collector's radiance experiments (ds_radiance below),
+// is this kernel with a per-pixel experiment base: sample k of pixel r
+// uses the seed seed_base ^ ((sub0[r] + k) * 0x9E3779B1) in uint32
+// arithmetic (wrapping), where K4 has the scalar sub_first.  It replaces
+// the XLA program of deepestscatter_tpu/data/collectors.py::
+// _radiance_launch (lines 150-223) over render/pathtracer.py::
+// _scatter_loop_deferred (line 73): each pixel is a (point, replica) lane
+// of the collector, run in SUN_MULTIPLE_SCATTER for `launches` samples.
+//
 // The step lattice is the oracle's: no AABB jump and no empty-cell skip
 // (both move positions at the ulp).  Float expressions follow the plain
 // version (render/pathtracer.py::scatter_loop_plain) term by term; the
@@ -374,6 +383,15 @@ __device__ __forceinline__ void welford_add(float* mean, float* m2, float& cnt,
   cnt = cnt_new;
 }
 
+// The seed of sample k of pixel r: its experiment base is sub0[r] where
+// sub0 is given (K7b), else sub_first (K4).
+__device__ __forceinline__ uint32_t sample_seed(uint32_t seed_base, uint32_t sub_first,
+                                                const uint32_t* __restrict__ sub0,
+                                                int64_t r, uint32_t k) {
+  const uint32_t base = sub0 != nullptr ? sub0[r] : sub_first;
+  return seed_base ^ ((base + k) * 0x9E3779B1u);
+}
+
 // The estimator as one loop over pixel r's samples, one step at a time.
 template <typename T>
 __device__ __forceinline__ void pathtrace_pixel(
@@ -383,7 +401,8 @@ __device__ __forceinline__ void pathtrace_pixel(
     const uint8_t* __restrict__ hit, const int64_t* __restrict__ ray_ids,
     const PtConsts& c, uint32_t seed_base, uint32_t sub_first, int n_samples,
     float* __restrict__ mean_out, float* __restrict__ m2_out,
-    float* __restrict__ count_out, int64_t* __restrict__ work_out) {
+    float* __restrict__ count_out, int64_t* __restrict__ work_out,
+    const uint32_t* __restrict__ sub0 = nullptr) {
   float mean[3] = {0.0f, 0.0f, 0.0f}, m2[3] = {0.0f, 0.0f, 0.0f};
   float cnt = 0.0f;
   int64_t steps = 0, bounces = 0;
@@ -391,7 +410,7 @@ __device__ __forceinline__ void pathtrace_pixel(
     const float ex = entry[3 * r], ey = entry[3 * r + 1], ez = entry[3 * r + 2];
     const bool entry_in = in_box(ex, ey, ez, c.bbox);
     for (int k = 0; k < n_samples; ++k) {
-      const uint32_t seed = seed_base ^ ((sub_first + (uint32_t)k) * 0x9E3779B1u);
+      const uint32_t seed = sample_seed(seed_base, sub_first, sub0, r, (uint32_t)k);
       float rad[3] = {0.0f, 0.0f, 0.0f};
       if (entry_in) {
         Sample S;
@@ -431,12 +450,13 @@ __device__ __forceinline__ bool begin_item(
     const float* __restrict__ dirs, const uint8_t* __restrict__ hit,
     const int64_t* __restrict__ ray_ids, const float* __restrict__ inv,
     const PtConsts& c, uint32_t seed_base, uint32_t sub_first,
-    float* __restrict__ rec_rad, int32_t* __restrict__ rec_work) {
+    const uint32_t* __restrict__ sub0, float* __restrict__ rec_rad,
+    int32_t* __restrict__ rec_work) {
   const int64_t r = item % n;
   const uint32_t k = (uint32_t)(item / n);
   if (!hit[r]) return false;
   const float ex = entry[3 * r], ey = entry[3 * r + 1], ez = entry[3 * r + 2];
-  const uint32_t seed = seed_base ^ ((sub_first + k) * 0x9E3779B1u);
+  const uint32_t seed = sample_seed(seed_base, sub_first, sub0, r, k);
   begin_sample(S, c, inv, seed, (uint32_t)ray_ids[r], ex, ey, ez, dirs[3 * r],
                dirs[3 * r + 1], dirs[3 * r + 2]);
   if (in_box(ex, ey, ez, c.bbox)) return true;
@@ -521,8 +541,8 @@ __global__ void __launch_bounds__(kPtThreads) pathtrace_items_kernel(
     const float* __restrict__ entry, const float* __restrict__ dirs,
     const uint8_t* __restrict__ hit, const int64_t* __restrict__ ray_ids, int64_t n,
     int64_t n_items, ds::PtConsts c, uint32_t seed_base, uint32_t sub_first,
-    float* __restrict__ rec_rad, int32_t* __restrict__ rec_work,
-    unsigned long long* __restrict__ counters) {
+    const uint32_t* __restrict__ sub0, float* __restrict__ rec_rad,
+    int32_t* __restrict__ rec_work, unsigned long long* __restrict__ counters) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   ds::Sample S;
@@ -545,7 +565,7 @@ __global__ void __launch_bounds__(kPtThreads) pathtrace_items_kernel(
           drained = true;
         } else {
           have = ds::begin_item(S, item, n, entry, dirs, hit, ray_ids, inv, c, seed_base,
-                                sub_first, rec_rad, rec_work);
+                                sub_first, sub0, rec_rad, rec_work);
         }
       }
     }
@@ -575,8 +595,9 @@ static int launch_items(const T* dens, const T* insc, int nx, int ny, int nz,
                         const float* eval_rows, const float* inv, const float* entry,
                         const float* dirs, const uint8_t* hit, const int64_t* ray_ids,
                         int64_t n, int64_t n_items, const ds::PtConsts& c,
-                        uint32_t seed_base, uint32_t sub_first, float* rec_rad,
-                        int32_t* rec_work, unsigned long long* counters, cudaStream_t s) {
+                        uint32_t seed_base, uint32_t sub_first, const uint32_t* sub0,
+                        float* rec_rad, int32_t* rec_work, unsigned long long* counters,
+                        cudaStream_t s) {
   static int per_sm = 0;  // resident blocks a SM, the same on every call
   if (per_sm == 0) {
     int b = 0;
@@ -594,7 +615,7 @@ static int launch_items(const T* dens, const T* insc, int nx, int ny, int nz,
   const unsigned blocks = (unsigned)(needed < full ? needed : full);
   pathtrace_items_kernel<K, T><<<blocks, kPtThreads, 0, s>>>(
       dens, insc, nx, ny, nz, eval_rows, inv, entry, dirs, hit, ray_ids, n, n_items, c,
-      seed_base, sub_first, rec_rad, rec_work, counters);
+      seed_base, sub_first, sub0, rec_rad, rec_work, counters);
   return (int)cudaGetLastError();
 }
 
@@ -609,7 +630,7 @@ static int pathtrace_queue(const void* dens, const void* insc, int is_u8, int nx
                            uint32_t sub_first, int n_samples, float* rec_rad,
                            int32_t* rec_work, unsigned long long* counters, float* mean_out,
                            float* m2_out, float* count_out, int64_t* work_out,
-                           void* stream) {
+                           void* stream, const uint32_t* sub0 = nullptr) {
   if (n <= 0) return 0;
   const ds::PtConsts c =
       ds::pt_consts(consts, ground, max_steps, max_depth, rr_start, n_phase, n_inv, flags);
@@ -620,11 +641,11 @@ static int pathtrace_queue(const void* dens, const void* insc, int is_u8, int nx
   if (is_u8) {
     err = launch_items<K, uint8_t>((const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz,
                                 eval_rows, inv_rows, entry, dirs, hit, ray_ids, n, n_items,
-                                c, seed_base, sub_first, rec_rad, rec_work, counters, s);
+                                c, seed_base, sub_first, sub0, rec_rad, rec_work, counters, s);
   } else {
     err = launch_items<K, float>((const float*)dens, (const float*)insc, nx, ny, nz,
                               eval_rows, inv_rows, entry, dirs, hit, ray_ids, n, n_items, c,
-                              seed_base, sub_first, rec_rad, rec_work, counters, s);
+                              seed_base, sub_first, sub0, rec_rad, rec_work, counters, s);
   }
   if (err != 0) return err;
   fold_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
@@ -654,6 +675,27 @@ extern "C" int ds_pathtrace(const void* dens, const void* insc, int is_u8, int n
       ray_ids, n, consts, ground, max_steps, max_depth, rr_start, flags, seed_base,
       sub_first, n_samples, rec_rad, rec_work, counters, mean_out, m2_out, count_out,
       work_out, stream);
+}
+
+// K7b: ds_pathtrace's launches with the experiment base sub0[r] (uint32
+// [n]) of each pixel in place of sub_first.
+extern "C" int ds_radiance(const void* dens, const void* insc, int is_u8, int nx,
+                           int ny, int nz, const float* eval_rows, int n_phase,
+                           const float* inv_rows, int n_inv, const float* entry,
+                           const float* dirs, const uint8_t* hit,
+                           const int64_t* ray_ids, int64_t n, const float* consts,
+                           const float* ground, int max_steps, int max_depth,
+                           int rr_start, int flags, uint32_t seed_base,
+                           const uint32_t* sub0, int n_samples, float* rec_rad,
+                           int32_t* rec_work, unsigned long long* counters,
+                           float* mean_out, float* m2_out, float* count_out,
+                           int64_t* work_out, void* stream) {
+  if (sub0 == nullptr) return (int)cudaErrorInvalidValue;
+  return pathtrace_queue<ds::kLookahead>(
+      dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows, n_inv, entry, dirs, hit,
+      ray_ids, n, consts, ground, max_steps, max_depth, rr_start, flags, seed_base, 0u,
+      n_samples, rec_rad, rec_work, counters, mean_out, m2_out, count_out, work_out, stream,
+      sub0);
 }
 
 #endif  // DS_HOST_EMULATION

@@ -20,18 +20,50 @@
 // interpolate_probes_plain in its order; with -fmad=false the two are equal
 // bitwise.
 //
-// Design: a block of kProbeThreads threads takes kBlockPoints consecutive
-// points.  The first kBlockPoints threads compute their point's selection,
-// weights and angles once into shared memory; then every thread takes
-// (point, channel) elements of the block's rows at stride kProbeThreads,
-// so consecutive threads read consecutive latent bytes of a corner probe
-// and write consecutive output floats.
+// Design (redesigned for Hopper; the first design stays as
+// probes_first_kernel, entry point ds_probes_first, for comparison):
+//   1. Every lane computes one point: a warp takes 32 consecutive points,
+//      lane l computes point l's selection, weights and angles
+//      (probe_point, two light frames and two acosf) into the warp's 32
+//      ProbePoints in shared memory (40 B each; a block of kProbeThreads =
+//      64 threads holds 2.5 KB).  The first design computed 16 points with
+//      16 of 256 threads while the other 240 waited at __syncthreads.
+//   2. Then the warp writes its 32 rows as (point, word) tasks: a row is
+//      50 words of 4 latent channels and one word of (omega, alpha).  Task
+//      t = 32 i + lane walks the 32 x 51 tasks in row order with an
+//      incremental (point, word) pair (no division).  A latent word reads
+//      4 bytes (uint8 lattices, a 200 B row is 50 aligned words) or a
+//      float4 (float32 lattices, 800 B rows) of each corner probe;
+//      probe_word computes the 4 channels with probe_channel's
+//      expressions.  Consecutive lanes take consecutive words, so a warp's
+//      loads of a corner row are contiguous (and the 4 corners of a warp's
+//      neighbouring points mostly the same rows, from L1).
+//   3. Each lane stores its 4 floats as two float2 (a 202-float row is
+//      808 B, so every row starts 8-byte aligned).
+//   4. Warps never wait for each other (__syncwarp only), so one warp's
+//      point phase overlaps another's stores.  At the BNN frame's 53,657
+//      points that is 1,677 warps in 839 blocks of two, all resident at
+//      once over the 132 SMs.
+// The task loop is uniform over the warp (a lane without a task idles
+// through the last step): with a loop whose trip count differs by lane
+// the kernel took 0.0369 ms at the BNN frame, no faster than the first
+// design (H100 at 700 W, chip_smoke.py).  Alternatives measured and
+// removed: loading 3 or 6 tasks a lane before their stores (BNN frame
+// 0.0299 and 0.0416 ms against 0.0299 at 1), so the loads' latency does
+// not bound it; staging a warp's 32 tasks in shared memory and storing
+// them as contiguous float2 (0.027-0.031 ms against 0.022 with the stores
+// here, on a 35^3 random lattice at 53,657 points).
+// The first design (a block of 256 threads, 16 points; the elements at
+// stride 256 with a division by 202 each, a byte per corner and a float
+// store per element) took 0.0373 and 0.0368 ms on an H100 at 700 W, 2.7x
+// the bound.
 //
 // Bound on the card: bytes.  At the BNN frame (53,655 points, 35^3 uint8
 // probes) the distinct probes the points touch are read once (at most the
 // 8.6 MB lattice, which the 50 MB L2 holds, so the four corners' 800 B a
 // point come from L2) and the 43.4 MB of rows are written once; the
-// arithmetic is about 2,600 operations a point.
+// arithmetic (chip_smoke.py's count: 330 operations a point, 15 a channel)
+// takes a fifth of that time.
 #include "common.cuh"
 
 namespace ds {
@@ -157,6 +189,56 @@ __device__ __forceinline__ float probe_channel(const ProbePoint& P, int ch,
   return acc + probe_value(probes, P.idx[3] * kProbeLength + ch) * P.w[3];
 }
 
+// Four consecutive latent values of a lattice from element i (a multiple
+// of 4): one aligned 4-byte load of uint8 values (dequantized as
+// probe_value does), one float4 of float32 values.
+struct Word4 {
+  float v[4];
+};
+
+__device__ __forceinline__ Word4 probe_word_values(const uint8_t* __restrict__ g, int i) {
+#ifdef DS_HOST_EMULATION
+  uint32_t x = 0;
+  for (int j = 0; j < 4; ++j) x |= (uint32_t)g[i + j] << (8 * j);
+#else
+  const uint32_t x = __ldg(reinterpret_cast<const unsigned int*>(g + i));
+#endif
+  Word4 W;
+  for (int j = 0; j < 4; ++j) W.v[j] = (float)((x >> (8 * j)) & 0xffu) * 0.00390625f;
+  return W;
+}
+
+__device__ __forceinline__ Word4 probe_word_values(const float* __restrict__ g, int i) {
+  Word4 W;
+#ifdef DS_HOST_EMULATION
+  for (int j = 0; j < 4; ++j) W.v[j] = g[i + j];
+#else
+  const float4 f = __ldg(reinterpret_cast<const float4*>(g + i));
+  W.v[0] = f.x;
+  W.v[1] = f.y;
+  W.v[2] = f.z;
+  W.v[3] = f.w;
+#endif
+  return W;
+}
+
+// Channels 4 w .. 4 w + 3 (w < 50) of a point's latents: probe_channel's
+// expressions on a word of each corner's row.
+template <typename T>
+__device__ __forceinline__ void probe_word(const ProbePoint& P, int w,
+                                           const T* __restrict__ probes, float* out) {
+  const Word4 a = probe_word_values(probes, P.idx[0] * kProbeLength + 4 * w);
+  const Word4 b = probe_word_values(probes, P.idx[1] * kProbeLength + 4 * w);
+  const Word4 c = probe_word_values(probes, P.idx[2] * kProbeLength + 4 * w);
+  const Word4 d = probe_word_values(probes, P.idx[3] * kProbeLength + 4 * w);
+  for (int j = 0; j < 4; ++j) {
+    float acc = a.v[j] * P.w[0];
+    acc = acc + b.v[j] * P.w[1];
+    acc = acc + c.v[j] * P.w[2];
+    out[j] = acc + d.v[j] * P.w[3];
+  }
+}
+
 // Host constants: f = units, inv_sqrt3, normals[4][3]; n = probes per axis.
 inline ProbeConsts probe_consts(const float* f, int nx, int ny, int nz) {
   ProbeConsts c;
@@ -175,50 +257,142 @@ inline ProbeConsts probe_consts(const float* f, int nx, int ny, int nz) {
 
 #ifndef DS_HOST_EMULATION
 
-constexpr int kProbeThreads = 256;
-constexpr int kBlockPoints = 16;
+// Words of a probe_in row: 50 of four latent channels, then (omega, alpha).
+constexpr int kProbeWords = ds::kProbeLength / 4 + 1;
+constexpr int kProbeThreads = 64;
 
+// A warp's 32 points, then its 32 x 51 (point, word) tasks, 32 at a time.
 template <typename T>
 __global__ void __launch_bounds__(kProbeThreads) probes_kernel(
     const T* __restrict__ probes, const float* __restrict__ pos,
     const float* __restrict__ dirs, const float* __restrict__ ez,
     const float* __restrict__ light, int n, ds::ProbeConsts c, float* __restrict__ out) {
-  __shared__ ds::ProbePoint pts[kBlockPoints];
-  const int first = blockIdx.x * kBlockPoints;
-  const int count = n - first < kBlockPoints ? n - first : kBlockPoints;
+  __shared__ ds::ProbePoint pts[kProbeThreads];
+  const int lane = threadIdx.x & 31;
+  const int warp_base = (int)threadIdx.x - lane;
+  const int first = blockIdx.x * kProbeThreads + warp_base;  // the warp's first point
+  if (first >= n) return;  // the whole warp
+  if (first + lane < n) {
+    pts[threadIdx.x] = ds::probe_point(first + lane, pos, dirs, ez, light, c);
+  }
+  __syncwarp();
+  const ds::ProbePoint* wp = pts + warp_base;
+  const int count = n - first < 32 ? n - first : 32;
+  float* o = out + (int64_t)first * ds::kProbeInWidth;
+  const int tasks = count * kProbeWords;
+  int q = 0, w = lane;  // task lane: point 0, word lane (lane < kProbeWords)
+  for (int t0 = 0; t0 < tasks; t0 += 32) {  // uniform over the warp
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int nf = 0;
+    const int off = q * ds::kProbeInWidth + 4 * w;  // floats into the warp's rows
+    if (t0 + lane < tasks) {
+      const ds::ProbePoint& P = wp[q];
+      if (w < kProbeWords - 1) {
+        ds::probe_word(P, w, probes, v);
+        nf = 4;
+      } else {
+        v[0] = P.omega;
+        v[1] = P.alpha;
+        nf = 2;
+      }
+      float2* dst = reinterpret_cast<float2*>(o + off);
+      dst[0] = make_float2(v[0], v[1]);
+      if (nf == 4) dst[1] = make_float2(v[2], v[3]);
+    }
+    w += 32;
+    if (w >= kProbeWords) {
+      w -= kProbeWords;
+      ++q;
+    }
+  }
+}
+
+// The first design: a block of kFirstThreads threads takes kFirstPoints
+// points, the first kFirstPoints threads computing them into shared
+// memory, then every thread takes elements at stride kFirstThreads.
+constexpr int kFirstThreads = 256;
+constexpr int kFirstPoints = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(kFirstThreads) probes_first_kernel(
+    const T* __restrict__ probes, const float* __restrict__ pos,
+    const float* __restrict__ dirs, const float* __restrict__ ez,
+    const float* __restrict__ light, int n, ds::ProbeConsts c, float* __restrict__ out) {
+  __shared__ ds::ProbePoint pts[kFirstPoints];
+  const int first = blockIdx.x * kFirstPoints;
+  const int count = n - first < kFirstPoints ? n - first : kFirstPoints;
   if ((int)threadIdx.x < count) {
     pts[threadIdx.x] = ds::probe_point(first + threadIdx.x, pos, dirs, ez, light, c);
   }
   __syncthreads();
   float* o = out + (int64_t)first * ds::kProbeInWidth;
   const int total = count * ds::kProbeInWidth;
-  for (int e = threadIdx.x; e < total; e += kProbeThreads) {
+  for (int e = threadIdx.x; e < total; e += kFirstThreads) {
     const int q = e / ds::kProbeInWidth;
     o[e] = ds::probe_channel(pts[q], e - q * ds::kProbeInWidth, probes);
   }
 }
 
-// Fills out[n, 202] from the probes [nz, ny, nx, 200] (uint8 or float32)
-// at the points pos[n, 3] seen along dirs[n, 3]; ez = -light / |light|.
-// consts: units, inv_sqrt3, normals[4][3].  The lattice must hold fewer
-// than 2^31 latents.
-extern "C" int ds_probes(const void* probes, int is_u8, int nx, int ny, int nz,
+template <template <typename> class Launch>
+static int probes_launch(const void* probes, int is_u8, int nx, int ny, int nz,
                          const float* pos, const float* dirs, const float* ez,
                          const float* light, int64_t n, const float* consts, float* out,
                          void* stream) {
   if (n <= 0) return 0;
   if (n >= ((int64_t)1 << 31) / ds::kProbeInWidth) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)probes & 15u) != 0 || ((uintptr_t)out & 7u) != 0) {
+    return (int)cudaErrorMisalignedAddress;
+  }
   const ds::ProbeConsts c = ds::probe_consts(consts, nx, ny, nz);
-  const unsigned blocks = (unsigned)((n + kBlockPoints - 1) / kBlockPoints);
   cudaStream_t s = (cudaStream_t)stream;
   if (is_u8) {
-    probes_kernel<uint8_t><<<blocks, kProbeThreads, 0, s>>>(
-        (const uint8_t*)probes, pos, dirs, ez, light, (int)n, c, out);
+    Launch<uint8_t>::run((const uint8_t*)probes, pos, dirs, ez, light, (int)n, c, out, s);
   } else {
-    probes_kernel<float><<<blocks, kProbeThreads, 0, s>>>(
-        (const float*)probes, pos, dirs, ez, light, (int)n, c, out);
+    Launch<float>::run((const float*)probes, pos, dirs, ez, light, (int)n, c, out, s);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+struct WarpLaunch {
+  static void run(const T* probes, const float* pos, const float* dirs, const float* ez,
+                  const float* light, int n, const ds::ProbeConsts& c, float* out,
+                  cudaStream_t s) {
+    const unsigned blocks = (unsigned)((n + kProbeThreads - 1) / kProbeThreads);
+    probes_kernel<T><<<blocks, kProbeThreads, 0, s>>>(probes, pos, dirs, ez, light, n, c, out);
+  }
+};
+
+template <typename T>
+struct FirstLaunch {
+  static void run(const T* probes, const float* pos, const float* dirs, const float* ez,
+                  const float* light, int n, const ds::ProbeConsts& c, float* out,
+                  cudaStream_t s) {
+    const unsigned blocks = (unsigned)((n + kFirstPoints - 1) / kFirstPoints);
+    probes_first_kernel<T><<<blocks, kFirstThreads, 0, s>>>(probes, pos, dirs, ez, light, n,
+                                                             c, out);
+  }
+};
+
+// Fills out[n, 202] from the probes [nz, ny, nx, 200] (uint8 or float32)
+// at the points pos[n, 3] seen along dirs[n, 3]; ez = -light / |light|.
+// consts: units, inv_sqrt3, normals[4][3].  The lattice must hold fewer
+// than 2^31 latents and start 16-byte aligned, out 8-byte aligned.
+extern "C" int ds_probes(const void* probes, int is_u8, int nx, int ny, int nz,
+                         const float* pos, const float* dirs, const float* ez,
+                         const float* light, int64_t n, const float* consts, float* out,
+                         void* stream) {
+  return probes_launch<WarpLaunch>(probes, is_u8, nx, ny, nz, pos, dirs, ez, light, n, consts,
+                                   out, stream);
+}
+
+// ds_probes through the first design.
+extern "C" int ds_probes_first(const void* probes, int is_u8, int nx, int ny, int nz,
+                               const float* pos, const float* dirs, const float* ez,
+                               const float* light, int64_t n, const float* consts, float* out,
+                               void* stream) {
+  return probes_launch<FirstLaunch>(probes, is_u8, nx, ny, nz, pos, dirs, ez, light, n, consts,
+                                    out, stream);
 }
 
 #endif  // DS_HOST_EMULATION

@@ -1,0 +1,278 @@
+// K7a: the first-scatter sample generator of the dataset collector, a
+// group of lanes per sample looping its own attempts.
+//
+// Replaces the XLA loop of deepestscatter_tpu/data/collectors.py::
+// generate_scatter_samples (lines 59-121): a masked lax.while_loop of up to
+// 256 attempts over every sample in lockstep, each attempt a box hit and a
+// next_scattering_event march (stop_at_scatter=True).
+//
+// Per sample s (stream s of the seed), attempt k = 0 .. 255 draws at
+// counters 8k .. 8k+4: a uniform sphere normal n (u1, u2), a uniform disc
+// point of radius sqrt(3)/2 in n's frame (u3, u4), the optical distance od;
+// the ray starts at disc + 2 n and runs along -n; the slab test against the
+// centred box gives the entry (t clamped to minimal_ray_distance), and the
+// march from there (K1's: the jump to the cloud AABB on the step lattice,
+// then pos += dir * step, T *= exp(-sigma step)) stops at the first step
+// with od > T, the scatter pulled back by log(od / T) / sigma.  The first
+// attempt whose ray hit the box and scattered inside it (+-0.01 margin)
+// gives the sample: the scatter point in world-centred coordinates (minus
+// bbox / 2) and the ray's direction.  A sample that does not scatter in 256
+// attempts keeps zeros, as the JAX loop leaves it (the reference,
+// pointGeneratorCamera.cu:20-42, loops until it scatters).  sample_attempts
+// below states this as a loop over one sample's attempts; the kernel runs
+// the same march with a group of lanes on consecutive steps.
+//
+// Float expressions follow data/collectors.py::generate_scatter_samples_plain
+// (ops/rng.py uniform_on_sphere, uniform_on_disc, make_onb;
+// render/camera.py intersect_box, entry_points) term by term; the build
+// uses -fmad=false.
+//
+// Bound on the card: operations.  The 2,048 samples of a scene need a few
+// attempts each (about a third of the disc rays miss the cloud) and a march
+// of up to ~900 steps an attempt: ~74 operations a step (K1's count) and
+// ~150 an attempt (four hashes, sphere and disc samples, two frames, the
+// slab test).  The data is small; the time is the longest sample's chain.
+// Design:
+//   1. The lockstep loop becomes one loop a sample: a sample that scatters
+//      in its first attempt leaves, and no sample waits for the batch's
+//      last.
+//   2. A group of G lanes marches each attempt on consecutive steps, with
+//      K1's chunk functions (lane_step, lane_transmittance, chunk_end with
+//      stop_at_cross, chunk_update).  2,048 samples fill only 16 k threads
+//      of the card's 270 k at K1's 8 lanes a ray, so a warp takes a sample
+//      (G = kSampleLanes = 32): the chunks shorten each sample's chain.
+//      G = 8 is kept as an alternative in march_variants.cu, timed beside
+//      this one by probes/march_variants.py.
+//   3. Each lane of a group computes the attempt's ray itself (the same
+//      values on every lane, no shuffles).
+// Values equal sample_attempts' bitwise.  Each sample's attempts and steps
+// are written out beside it.
+#include "march.cu"
+
+namespace ds {
+
+constexpr int kMaxAttempts = 256;
+constexpr uint32_t kDrawsPerAttempt = 8u;
+// float32(sqrt(3) / 2) and float32(2 pi), as torch rounds the Python
+// constants.
+constexpr float kSqrt3Half = (float)0.8660254037844386;
+constexpr float kSampleTwoPi = (float)(2.0 * 3.141592653589793);
+
+// An attempt's ray: its box entry (local coordinates), direction,
+// optical distance and whether it hits the box.
+struct AttemptRay {
+  float ex, ey, ez;
+  float dx, dy, dz;
+  float od;
+  bool hit;
+};
+
+// Attempt k of sample `id`: ops/rng.py::uniform_on_sphere and
+// uniform_on_disc, then render/camera.py::intersect_box and entry_points.
+__device__ __forceinline__ AttemptRay attempt_ray(uint32_t seed, uint32_t id, int k,
+                                                  const MarchConsts& c, float min_dist) {
+  const uint32_t ctr = (uint32_t)k * kDrawsPerAttempt;
+  const float u1 = hash_uniform(seed, id, ctr);
+  const float u2 = hash_uniform(seed, id, ctr + 1u);
+  const float u3 = hash_uniform(seed, id, ctr + 2u);
+  const float u4 = hash_uniform(seed, id, ctr + 3u);
+  AttemptRay A;
+  A.od = hash_uniform(seed, id, ctr + 4u);
+  const float phi = u1 * kSampleTwoPi;
+  const float ct = 2.0f * u2 - 1.0f;
+  const float st = sqrtf(fmaxf(1.0f - ct * ct, 0.0f));
+  const float nx = cosf(phi) * st, ny = sinf(phi) * st, nz = ct;
+  const float theta = u3 * kSampleTwoPi;
+  const float sr = sqrtf(u4);
+  const float x = sr * cosf(theta), y = sr * sinf(theta);
+  const float sign = nz >= 0.0f ? 1.0f : -1.0f;
+  const float a = -1.0f / (sign + nz);
+  const float b = (nx * ny) * a;
+  const float t[3] = {1.0f + (sign * (nx * nx)) * a, sign * b, (-sign) * nx};
+  const float bt[3] = {b, sign + (ny * ny) * a, -ny};
+  const float n[3] = {nx, ny, nz};
+  float o[3], d[3], t0[3], t1[3];
+  for (int i = 0; i < 3; ++i) {
+    const float disc = (x * t[i] + y * bt[i]) * kSqrt3Half;
+    o[i] = disc + n[i] * 2.0f;
+    d[i] = -n[i];
+    const float half = c.bbox[i] * 0.5f;
+    const float inv = 1.0f / d[i];
+    t0[i] = (-half - o[i]) * inv;
+    t1[i] = (half - o[i]) * inv;
+  }
+  const float t_near =
+      fmaxf(fmaxf(fminf(t0[0], t1[0]), fminf(t0[1], t1[1])), fminf(t0[2], t1[2]));
+  const float t_far =
+      fminf(fminf(fmaxf(t0[0], t1[0]), fmaxf(t0[1], t1[1])), fmaxf(t0[2], t1[2]));
+  A.hit = t_near < t_far && t_far > 0.0f;
+  const float t_hit = fmaxf(t_near, min_dist);
+  A.ex = (o[0] + d[0] * t_hit) + c.bbox[0] * 0.5f;
+  A.ey = (o[1] + d[1] * t_hit) + c.bbox[1] * 0.5f;
+  A.ez = (o[2] + d[2] * t_hit) + c.bbox[2] * 0.5f;
+  A.dx = d[0];
+  A.dy = d[1];
+  A.dz = d[2];
+  return A;
+}
+
+// The attempt's march state: K1's ray from the entry, not marched where
+// the ray misses the box.
+__device__ __forceinline__ void attempt_start(Ray& R, const AttemptRay& A,
+                                              const MarchConsts& c) {
+  ray_start(R, A.ex, A.ey, A.ez, A.dx, A.dy, A.dz, A.od, c);
+  if (!A.hit) R.active = false;
+}
+
+// The sample's outputs once its attempt was accepted (R scattered inside
+// the box) or its attempts ran out (found false: zeros).
+__device__ __forceinline__ void sample_end(int64_t s, bool found, const Ray& R,
+                                           const MarchConsts& c, int attempts, int steps,
+                                           float* __restrict__ pos_out,
+                                           float* __restrict__ dir_out,
+                                           uint8_t* __restrict__ found_out,
+                                           int32_t* __restrict__ work_out) {
+  pos_out[3 * s] = found ? R.qx - c.bbox[0] * 0.5f : 0.0f;
+  pos_out[3 * s + 1] = found ? R.qy - c.bbox[1] * 0.5f : 0.0f;
+  pos_out[3 * s + 2] = found ? R.qz - c.bbox[2] * 0.5f : 0.0f;
+  dir_out[3 * s] = found ? R.dx : 0.0f;
+  dir_out[3 * s + 1] = found ? R.dy : 0.0f;
+  dir_out[3 * s + 2] = found ? R.dz : 0.0f;
+  found_out[s] = found ? 1 : 0;
+  work_out[2 * s] = attempts;
+  work_out[2 * s + 1] = steps;
+}
+
+__device__ __forceinline__ bool accepted(const Ray& R, const MarchConsts& c) {
+  return R.scattered && in_box(R.qx, R.qy, R.qz, c.bbox);
+}
+
+// The generator as one loop over sample s's attempts, one step at a time.
+template <typename T>
+__device__ __forceinline__ void sample_attempts(int64_t s, const T* __restrict__ dens, int nx,
+                                                int ny, int nz, uint32_t seed,
+                                                const MarchConsts& c, float min_dist,
+                                                float* __restrict__ pos_out,
+                                                float* __restrict__ dir_out,
+                                                uint8_t* __restrict__ found_out,
+                                                int32_t* __restrict__ work_out) {
+  Ray R;
+  bool found = false;
+  int k = 0, steps = 0;
+  while (!found && k < kMaxAttempts) {
+    attempt_start(R, attempt_ray(seed, (uint32_t)s, k, c, min_dist), c);
+    ++k;
+    while (R.active) {
+      const float ax = R.cx + R.dx * c.step, ay = R.cy + R.dy * c.step,
+                  az = R.cz + R.dz * c.step;
+      const float density =
+          trilinear(dens, nx, ny, nz, ax / c.bbox[0], ay / c.bbox[1], az / c.bbox[2]) * c.dm;
+      const float tn = R.trans * expf(-density * c.step);
+      R.trans = tn;
+      R.cx = ax;
+      R.cy = ay;
+      R.cz = az;
+      ++R.steps;
+      if (R.od > tn) {
+        const float back =
+            logf(fmaxf(R.od, 1e-20f) / fmaxf(tn, 1e-20f)) / fmaxf(density, 1e-10f);
+        R.qx = ax - R.dx * back;
+        R.qy = ay - R.dy * back;
+        R.qz = az - R.dz * back;
+        R.scattered = true;
+        break;
+      }
+      R.active = in_aabb(R.cx, R.cy, R.cz, c) && R.steps < c.max_steps;
+    }
+    steps += R.steps;
+    found = accepted(R, c);
+  }
+  sample_end(s, found, R, c, k, steps, pos_out, dir_out, found_out, work_out);
+}
+
+}  // namespace ds
+
+#ifndef DS_HOST_EMULATION
+
+constexpr int kSampleThreads = 128;
+constexpr int kSampleLanes = 32;  // G: lanes a sample
+
+// Samples x G threads: group g of G lanes takes sample blockIdx * (threads
+// / G) + g through its attempts.
+template <int G, typename T>
+__global__ void __launch_bounds__(kSampleThreads) samples_kernel(
+    const T* __restrict__ dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
+    ds::MarchConsts c, float min_dist, float* __restrict__ pos_out,
+    float* __restrict__ dir_out, uint8_t* __restrict__ found_out,
+    int32_t* __restrict__ work_out) {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two up to 32");
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (G - 1);
+  const int shift = lane - gl;
+  const unsigned gmask = ds::lanes_below(G) << shift;
+  const int64_t s = ((int64_t)blockIdx.x * kSampleThreads + threadIdx.x) / G;
+  if (s >= n) return;  // whole groups: n x G threads, G divides the block
+  ds::Ray R;
+  bool found = false;
+  int k = 0, steps = 0;
+  while (!found && k < ds::kMaxAttempts) {  // uniform over the group
+    ds::attempt_start(R, ds::attempt_ray(seed, (uint32_t)s, k, c, min_dist), c);
+    ++k;
+    while (R.active) {
+      ds::LaneStep S = ds::lane_step<G>(R, gl, dens, nx, ny, nz, c);
+      S.tn = ds::lane_transmittance<G>(R.trans, gl, [&](int j) {
+        return __shfl_sync(gmask, S.e, j, G);
+      });
+      const unsigned leaves = __ballot_sync(gmask, ds::lane_leaves(S, c)) >> shift;
+      const unsigned crosses = __ballot_sync(gmask, ds::lane_crosses(R, S)) >> shift;
+      const ds::ChunkEnd E = ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G, true);
+      ds::chunk_update(R, E, [&](int j) {
+        ds::LaneStep X;
+        X.ax = __shfl_sync(gmask, S.ax, j, G);
+        X.ay = __shfl_sync(gmask, S.ay, j, G);
+        X.az = __shfl_sync(gmask, S.az, j, G);
+        X.density = __shfl_sync(gmask, S.density, j, G);
+        X.e = 0.0f;
+        X.tn = __shfl_sync(gmask, S.tn, j, G);
+        return X;
+      });
+    }
+    steps += R.steps;
+    found = ds::accepted(R, c);
+  }
+  if (gl == 0) ds::sample_end(s, found, R, c, k, steps, pos_out, dir_out, found_out, work_out);
+}
+
+template <int G>
+static int samples_lanes(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed,
+                         int64_t n, const ds::MarchConsts& c, float min_dist, float* pos_out,
+                         float* dir_out, uint8_t* found_out, int32_t* work_out,
+                         cudaStream_t s) {
+  const unsigned blocks = (unsigned)((n * G + kSampleThreads - 1) / kSampleThreads);
+  if (is_u8) {
+    samples_kernel<G, uint8_t><<<blocks, kSampleThreads, 0, s>>>(
+        (const uint8_t*)dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out,
+        work_out);
+  } else {
+    samples_kernel<G, float><<<blocks, kSampleThreads, 0, s>>>(
+        (const float*)dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out,
+        work_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// consts: ds_march's 18 floats (bbox, cloud AABB, step, dm; the light and
+// radiance entries are not read).  Outputs: pos_out,
+// dir_out [n, 3] float32, found_out [n] uint8, work_out [n, 2] int32
+// (attempts, march steps).  Returns the launch's CUDA error, or 0.
+extern "C" int ds_samples(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed,
+                          int64_t n, const float* consts, int max_steps, float min_dist,
+                          float* pos_out, float* dir_out, uint8_t* found_out,
+                          int32_t* work_out, void* stream) {
+  if (n <= 0) return 0;
+  const ds::MarchConsts c = ds::march_consts(consts, max_steps, 0);
+  return samples_lanes<kSampleLanes>(dens, is_u8, nx, ny, nz, seed, n, c, min_dist, pos_out,
+                                     dir_out, found_out, work_out, (cudaStream_t)stream);
+}
+
+#endif  // DS_HOST_EMULATION

@@ -177,6 +177,21 @@ def with_angle(descriptor: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     return torch.cat([descriptor, a], dim=-1)
 
 
+def quantize_u8(descriptor: torch.Tensor) -> torch.Tensor:
+    """The descriptor records' storage quantizer (DisneyDescriptor.cuh
+    TFromFloat<uint8_t>): ``d * 255`` truncated to uint8.  Not the scene's
+    rounding texture quantizer (``grid.quantize_texture``), nor the
+    in-scatter field's ``floor(T * 255) / 255``, nor the probes'
+    ``render.baked.quantize_latent``."""
+    return (descriptor * 255.0).to(torch.uint8)
+
+
+def dequantize_u8(stored: torch.Tensor) -> torch.Tensor:
+    """The training-time dequantization of stored descriptors: ``/ 256``
+    (DisneyDataset.py:33)."""
+    return stored.to(torch.float32) / 256.0
+
+
 def network_inputs_plain(
     params: SceneParams,
     static: SceneStatic,

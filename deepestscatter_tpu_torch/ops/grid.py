@@ -65,6 +65,13 @@ def normalize_density(raw: np.ndarray) -> np.ndarray:
     return np.clip(raw, 0.0, 1.0)
 
 
+def pad_boundary(grid: np.ndarray, pad: int = 1) -> np.ndarray:
+    """``pad`` zero voxels on each side (the reference grows the loaded box
+    by a voxel, Resources.cpp:89-91), so the density fades to zero inside
+    the sampled domain."""
+    return np.pad(grid, pad, mode="constant")
+
+
 def bbox_size_from_shape(shape: Tuple[int, int, int]) -> np.ndarray:
     """Normalized bbox size with the longest side == 1; shape is [Z, Y, X],
     the result is (x, y, z)."""

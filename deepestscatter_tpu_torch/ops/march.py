@@ -63,9 +63,12 @@ def next_scattering_event(
     optical_distance: torch.Tensor,
     pos: torch.Tensor,
     direction: torch.Tensor,
+    stop_at_scatter: bool = False,
 ) -> ScatterEvent:
     """March every ray to its exit from the cloud AABB, recording the first
-    step where ``optical_distance > T`` as the scatter event.
+    step where ``optical_distance > T`` as the scatter event; with
+    ``stop_at_scatter`` a ray stops at that step (its transmittance and
+    steps end there; the event is the same).
 
     ``pos`` [N, 3] entry points in local coords, ``direction`` [N, 3] unit
     vectors, ``optical_distance`` [N].  Entry jumps to the AABB on the step
@@ -113,6 +116,8 @@ def next_scattering_event(
         cur = torch.where(active[:, None], new_pos, cur)
         steps = steps + active.to(torch.int64)
         active = active & torch.all((cur >= lo) & (cur <= hi), dim=-1)
+        if stop_at_scatter:
+            active = active & ~scattered
 
     tb0 = (0.0 - pos) / safe
     tb1 = (bbox - pos) / safe

@@ -3,8 +3,8 @@ direction samplers of the bounce loop.
 
 The port of ``deepestscatter_tpu.ops.rng``: ``hash_u32`` / ``hash_uniform``
 bit for bit, the per-subframe seed schedule, and ``make_onb`` /
-``from_onb`` / ``uniform_on_sphere_circle`` (reference:
-random.cuh:122-174).  The hash arithmetic is uint32 modulo 2^32; it runs
+``from_onb`` / ``uniform_on_sphere_circle`` / ``uniform_on_sphere`` /
+``uniform_on_disc`` (reference: random.cuh:122-174).  The hash arithmetic is uint32 modulo 2^32; it runs
 here on int64 tensors masked with ``0xFFFFFFFF`` because torch's ``>>`` on
 ``uint32`` tensors is not implemented on every backend.  Products of two
 32-bit words are split so that no intermediate leaves int64's range.  The
@@ -103,3 +103,26 @@ def uniform_on_sphere_circle(u: torch.Tensor, cos_theta: torch.Tensor) -> torch.
     return torch.stack(
         [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], dim=-1
     )
+
+
+def uniform_on_sphere(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the unit sphere from two uniforms [...] →
+    [..., 3]: azimuth ``2 pi u``, ``cos theta = 2 v - 1``."""
+    phi = u * (2.0 * math.pi)
+    cos_theta = 2.0 * v - 1.0
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    return torch.stack(
+        [torch.cos(phi) * sin_theta, torch.sin(phi) * sin_theta, cos_theta], dim=-1
+    )
+
+
+def uniform_on_disc(u: torch.Tensor, v: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
+    """Uniform point on the unit disc perpendicular to ``normal`` [..., 3]:
+    radius ``sqrt(v)``, angle ``2 pi u``, in the (tangent, bitangent) plane
+    of ``make_onb``."""
+    theta = u * (2.0 * math.pi)
+    sqrt_r = torch.sqrt(v)
+    x = sqrt_r * torch.cos(theta)
+    y = sqrt_r * torch.sin(theta)
+    t, b = make_onb(normal)
+    return x[..., None] * t + y[..., None] * b

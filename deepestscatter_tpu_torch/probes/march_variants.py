@@ -18,14 +18,18 @@ one card.
 - K2 (``csrc/descriptor.cu``) in each design of ``DESCRIPTOR``: one thread
   per output element (its first design), the package's thread per point
   and column with the light frame computed a thread, and the same with the
-  frame staged in shared memory.
+  frame staged in shared memory;
+- K7a (``csrc/samples.cu``) with each number of lanes a sample in
+  ``SAMPLE_LANES`` (the package runs 32).
 
 Every alternative runs at the main paths' operating point (the 256^3
 procedural cumulus of seed 11, 2000 m, uint8 textures; K4 on the 512^2
 tick of 2 subframes, K3 on the whole grid with early-out, K1 on both passes
 of the 512 x 256 neural frame's rays, K2 on that frame's shading points in
-one launch) and must equal the package's kernel bitwise.  Times are
-CUDA-event means over 20 calls (K4, K1, K2) or 3 (K3), the alternatives
+one launch; K7a on the dataset collector's 2,048 samples of that cloud
+with the ``Front`` light, as ``tasks.collect`` prepares it) and must equal
+the package's kernel bitwise.  Times are
+CUDA-event means over 20 calls (K4, K1, K2, K7a) or 3 (K3), the alternatives
 timed in turns, forward then backward, twice.
 
 Run on the card::
@@ -46,10 +50,11 @@ import sys
 import time
 from typing import Callable, Dict, List
 
+import numpy as np
 import torch
 
-from .. import config, cuda_build
-from ..data import procedural
+from .. import config, cuda_build, tasks
+from ..data import collectors, procedural, records
 from ..ops import descriptor, march
 from ..render import camera, inscatter, pathtracer
 from ..render.inscatter import with_baked_inscatter
@@ -66,6 +71,8 @@ K1_DESIGNS = {"one thread per ray": 0, **{f"G={g}": g for g in LANES if g}}
 DESCRIPTOR = {"element": 0, "column": 1, "column_staged_frame": 2}
 SIZE = 512
 SUBFRAMES = 2
+#: K7a's alternatives: lanes a sample.
+SAMPLE_LANES = (8, 32)
 #: The neural frame (chip_smoke.py's): 512 x 256.
 NEURAL_WIDTH, NEURAL_HEIGHT = 512, 256
 
@@ -195,6 +202,31 @@ def k2_variants(lib, params, static, points) -> Dict[str, dict]:
     return out
 
 
+def k7a_variants(lib, dev) -> Dict[str, dict]:
+    """K7a at each number of lanes in SAMPLE_LANES against the package's,
+    on the collector's scene and batch."""
+    setup = np.zeros(1, records.SCENE_SETUP)[0]
+    setup["cloud_path"] = b"procedural:256:11"
+    setup["cloud_size_m"] = 2000.0
+    setup["light_direction"] = config.LIGHT_DIRECTIONS["Front"]
+    _, params, static = tasks.scene_from_setup(setup, bake=False, device=dev)
+    n = records.BATCH_SIZE
+    ref = collectors._launch_samples(params, static, n, 0)
+    out: Dict[str, dict] = {}
+    fns = {}
+    for g in SAMPLE_LANES:
+        def run(g=g):
+            lib.ds_samples_variant(g)
+            return collectors._launch_samples(params, static, n, 0, lib=lib)
+
+        out[f"G={g}"] = dict(equal=all(torch.equal(a, b) for a, b in zip(run(), ref)))
+        fns[f"G={g}"] = run
+    for key, ms in in_turns(fns, 20).items():
+        out[key]["ms"] = ms
+        print(f"K7a {key}: {json.dumps(out[key])}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("march_variants: needs a CUDA card", file=sys.stderr)
@@ -202,12 +234,15 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     t0 = time.time()
-    cuda_build.build(["pathtrace", "inscatter", "march", "descriptor", "march_variants"])
+    cuda_build.build(["pathtrace", "inscatter", "march", "descriptor", "samples",
+                      "march_variants"])
     lib = cuda_build.load("march_variants")
     lib.ds_variant.argtypes = [ctypes.c_int] * 3
     lib.ds_variant.restype = None
     lib.ds_neural_variant.argtypes = [ctypes.c_int] * 2
     lib.ds_neural_variant.restype = None
+    lib.ds_samples_variant.argtypes = [ctypes.c_int]
+    lib.ds_samples_variant.restype = None
     regs = ptxas((cuda_build.BUILD_DIR / "march_variants.log").read_text())
     print(f"build: {time.time() - t0:.1f}s ptxas={json.dumps(regs)}", flush=True)
 
@@ -271,16 +306,18 @@ def main() -> int:
           f"points={points[0].shape[0]}", flush=True)
     k1 = k1_variants(lib, params, static, pass1, pass2)
     k2 = k2_variants(lib, params, static, points)
+    k7a = k7a_variants(lib, dev)
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                              "--format=csv,noheader"], capture_output=True, text=True,
                             timeout=60).stdout.strip()
     print(f"sm clock, max: {clocks}", flush=True)
     ok = ok and all(r["equal"] for k, r in k1.items() if k != "steps")
     ok = ok and all(r["equal"] for r in k2.values())
+    ok = ok and all(r["equal"] for r in k7a.values())
 
     print(card, flush=True)
     print(json.dumps({"card": card, "sm_clock_mhz": clocks, "steps": steps, "K4": k4, "K3": k3,
-                      "K1": k1, "K2": k2, "ptxas": regs, "ok": ok}), flush=True)
+                      "K1": k1, "K2": k2, "K7a": k7a, "ptxas": regs, "ok": ok}), flush=True)
     return 0 if ok else 1
 
 

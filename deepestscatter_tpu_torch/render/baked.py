@@ -175,10 +175,11 @@ _ARGTYPES = [
 ]
 
 
-def _launch(params, static, probes, pos, dirs, lib=None) -> torch.Tensor:
+def _launch(params, static, probes, pos, dirs, lib=None, entry="ds_probes") -> torch.Tensor:
     """K5 on the inputs' device.  ``lib``: another library with the same
     ``ds_probes`` entry point (the tests' host build of the kernel's device
-    functions)."""
+    functions); ``entry="ds_probes_first"`` runs K5's first design, kept in
+    ``csrc/probes.cu`` for comparison."""
     cuda_build.require_vec3(pos=pos, dirs=dirs)
     if probes.dtype not in (torch.uint8, torch.float32):
         raise ValueError("probes must be uint8 or float32")
@@ -186,8 +187,10 @@ def _launch(params, static, probes, pos, dirs, lib=None) -> torch.Tensor:
         raise ValueError(f"probes must be a contiguous [pz, py, px, {PROBE_LENGTH}] lattice")
     if probes.numel() >= 2**31 or pos.shape[0] * PROBE_IN_WIDTH >= 2**31:
         raise ValueError("K5 indexes in 32 bits: fewer than 2^31 latents and points x 202")
+    if probes.data_ptr() % 16:
+        raise ValueError("K5 reads the lattice in aligned words: it must start 16-byte aligned")
     check_on(pos.device, dirs, probes, params.light_dir)
-    fn = (lib or cuda_build.load("probes")).ds_probes
+    fn = getattr(lib or cuda_build.load("probes"), entry)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     fvals = [_lattice_units(static), tetra_ops.INV_SQRT3, *tetra_ops.TEST_NORMALS.ravel().tolist()]

@@ -8,7 +8,7 @@ radiance.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,11 +25,17 @@ class CameraBasis(NamedTuple):
     w: np.ndarray  # [3] view axis, |W| = focal distance
 
 
-def camera_basis(cfg: CameraConfig) -> CameraBasis:
-    """Eye/U/V/W from config (host float32)."""
+def camera_basis(cfg: CameraConfig, rotation: Optional[np.ndarray] = None) -> CameraBasis:
+    """Eye/U/V/W from config (host float32).  ``rotation`` (optional [3, 3])
+    orbits the eye and the up vector about the look-at point, the arcball
+    camera's frame (Camera.cpp:100-134)."""
     eye = np.asarray(cfg.eye, np.float32)
     look_at = np.asarray(cfg.look_at, np.float32)
     up = np.asarray(cfg.up, np.float32)
+    if rotation is not None:
+        rot = np.asarray(rotation, np.float32)
+        eye = look_at + (eye - look_at) @ rot.T
+        up = up @ rot.T
     w = look_at - eye
     wlen = np.linalg.norm(w)
     u = np.cross(w, up)

@@ -164,7 +164,9 @@ def scatter_loop_plain(
     Lockstep over all pixels, one march step per iteration; a lane whose
     sample ends folds it and starts its next sample in the same iteration
     (the kernel's per-thread loop over samples).  ``max_steps`` caps each
-    sample's steps (default ``static.max_total_steps``)."""
+    sample's steps (default ``static.max_total_steps``).  ``sub_first`` is
+    an int, or an int64 tensor [N] of per-pixel uint32 bases (K7b's); the
+    sums ``sub_first + k`` wrap modulo 2^32."""
     mode = _mode(static)
     f32 = torch.float32
     dev = entry.device
@@ -310,17 +312,28 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p,
 ]
+#: ``ds_radiance``: ``ds_pathtrace``'s arguments with a pointer to the
+#: per-pixel experiment bases in place of ``sub_first``.
+RADIANCE_ARGTYPES = _ARGTYPES[:22] + [ctypes.c_void_p] + _ARGTYPES[23:]
 
 
-def _launch(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first,
-            n_samples, max_steps, lib=None) -> PixelMoments:
-    """K4 on the inputs' device.  ``lib``: another library with the same
-    ``ds_pathtrace`` entry point (the tests' host build of the kernel's
-    device functions, the alternatives ``probes/march_variants.py`` times).
+class SampleRecords(NamedTuple):
+    """A launch's per-sample records, item (sample k, pixel r) at [k, r]."""
+    radiance: torch.Tensor  # [n_samples, N, 3] float32
+    work: torch.Tensor  # [n_samples, N, 2] int32: steps, in-box scatters
+
+
+def launch_entry(lib, entry_point, argtypes, sub_arg, params, static, entry, dirs, hit,
+                 ray_ids, seed_base, n_samples, max_steps):
+    """Checks the inputs and runs ``entry_point`` of ``lib`` (default the
+    package's ``pathtrace`` build): ``ds_pathtrace``, or ``ds_radiance``
+    with ``sub_arg`` in the place of ``sub_first``, on the inputs' device
+    → (``PixelMoments``, ``SampleRecords``, the device counters [2] int64).
 
     Besides the outputs it allocates per-sample records of 20 bytes a
     (pixel, sample), ``N x n_samples`` of them: 10.5 MB for a 512^2 tick of
-    2 subframes, growing linearly with ``n_samples``."""
+    2 subframes, 41 MB for the collector's default update (20,480 lanes x
+    100 experiments), growing linearly with ``n_samples``."""
     cuda_build.require_vec3(entry=entry, dirs=dirs)
     n = entry.shape[0]
     dev = entry.device
@@ -338,8 +351,8 @@ def _launch(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first,
     ph = params.phase
     check_on(dev, dirs, hit, ray_ids, dens, insc, ph.eval_rows, ph.inv_cdf_rows)
     mode = _mode(static)
-    fn = (lib or cuda_build.load("pathtrace")).ds_pathtrace
-    fn.argtypes = _ARGTYPES
+    fn = getattr(lib or cuda_build.load("pathtrace"), entry_point)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     hit8 = hit.to(torch.uint8).contiguous()
     ray_ids = ray_ids.contiguous()
@@ -372,16 +385,29 @@ def _launch(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first,
             cuda_build.ptr(entry), cuda_build.ptr(dirs), cuda_build.ptr(hit8),
             cuda_build.ptr(ray_ids), n, consts, ground, cap, static.max_depth,
             static.rr_start_depth, flags, int(seed_base) & 0xFFFFFFFF,
-            int(sub_first) & 0xFFFFFFFF, int(n_samples), cuda_build.ptr(rec_rad),
+            sub_arg, int(n_samples), cuda_build.ptr(rec_rad),
             cuda_build.ptr(rec_work), cuda_build.ptr(counters), cuda_build.ptr(mean),
             cuda_build.ptr(m2), cuda_build.ptr(count), cuda_build.ptr(work),
             cuda_build.stream_handle(),
         ),
-        "path-trace kernel",
+        f"{entry_point} kernel",
     )
+    return (PixelMoments(mean, m2, count, work[:, 0], work[:, 1]),
+            SampleRecords(rec_rad, rec_work), counters)
+
+
+def _launch(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first,
+            n_samples, max_steps, lib=None) -> PixelMoments:
+    """K4 on the inputs' device (``launch_entry`` with ``ds_pathtrace``).
+    ``lib``: another library with the same ``ds_pathtrace`` entry point (the
+    tests' host build of the kernel's device functions, the alternatives
+    ``probes/march_variants.py`` times)."""
+    pm, _, counters = launch_entry(lib, "ds_pathtrace", _ARGTYPES,
+                                   int(sub_first) & 0xFFFFFFFF, params, static, entry, dirs,
+                                   hit, ray_ids, seed_base, n_samples, max_steps)
     scatter_loop.launches += 1
     scatter_loop.last_counters = counters
-    return PixelMoments(mean, m2, count, work[:, 0], work[:, 1])
+    return pm
 
 
 def scatter_loop(

@@ -206,3 +206,20 @@ def is_in_box(pos: torch.Tensor, bbox_size: torch.Tensor) -> torch.Tensor:
     """The reference's tolerant box test: pos [..., 3] in local coords
     [0, bbox] with a +-0.01 margin."""
     return torch.all((pos >= -0.01) & (pos <= bbox_size + 0.01), dim=-1)
+
+
+def params_to(params: SceneParams, device) -> SceneParams:
+    """A copy of the scene's tensors on ``device`` (the mip levels stay views
+    of the copied ``mip_flat``): the same values, so that a kernel on one
+    device and a plain version on another read the same scene."""
+    dev = torch.device(device)
+    flat = params.mip_flat.to(dev)
+    mips, off = [], 0
+    for m in params.density_mips:
+        mips.append(flat[off : off + m.numel()].view(m.shape))
+        off += m.numel()
+    moved = {f: getattr(params, f).to(dev) for f in (
+        "inscatter", "bbox_size", "light_dir", "light_radiance", "sky_intensity",
+        "ground_intensity")}
+    phase = type(params.phase)(*(t.to(dev) for t in params.phase))
+    return params._replace(density_mips=tuple(mips), mip_flat=flat, phase=phase, **moved)

@@ -18,17 +18,43 @@ probe's sums exactly equal.  The tests of the redesigned K4 (item queue,
 lookahead march, per-sample records) hold step and scatter counts equal on
 every pixel.  The probe interpolation (K5) and K2 at the baked renderer's
 3 and 9 layers equal their plain versions bitwise; P1's designs
-(``gather.variants``) sum exactly.
+(``gather.variants``) sum exactly.  K5's redesign equals its first design
+(``ds_probes_first``) bitwise.  The first-scatter sampler (K7a, a warp a
+sample) equals its plain version bitwise (found flags, positions,
+directions, attempts, steps); the radiance experiments (K7b) have equal
+counts, steps and scatters on every lane, each experiment's record equals
+a one-experiment plain run, and their moments lie within K4's tolerances.
+
+Card against CPU: each kernel (K1-K5, K7a, K7b) runs on the card and its
+plain version on the CPU, on the same inputs (the card's scene copied
+with ``scene.params_to``), at the CPU parity tests' tolerances
+(``test_torch_slice_parity.py``, ``test_torch_baked_parity.py``,
+``test_torch_pt_parity.py``, ``test_torch_collect_parity.py``): the two
+devices' ``expf``/``logf``/``sinf``/``cosf``/``acosf`` differ in the last
+bit, so these are tolerances, not bitwise gates.  K1: T within 1e-5 (T in
+[0, 1]), ok flags on >= 99.5 % of rays, positions within 1e-4 on >= 99.5 %
+of the rays where both scatter (a last-bit difference of ``expf`` moves a
+crossing by a step, 1/512, on a few rays: measured on the card, 1.2e-3 on
+one ray of the 48^3 float32 scene); K2: atol 1e-5; K3: within 1e-5, after ``floor(T * 255) / 255``
+equal on all but 0.1 % of voxels; K4: step counts equal on >= 99 % of pixels, there mean
+within 1e-5 and m2 within 1e-4 of their largest values; K5: latents within
+atol 1e-6, omega and alpha within 1e-5 (alpha modulo 2 pi, plus two ulps of
+its cosine times acos' slope); K7a: found flags and attempt counts equal
+on >= 99.5 % of samples, positions within 1e-4 where the attempts agree;
+K7b: counts equal, per-point sums within 1e-5 (x) and 1e-4 (x^2) of their
+largest values.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
 import torch
 
-from deepestscatter_tpu_torch import BakedRenderer, build_scene, config, with_baked_inscatter
-from deepestscatter_tpu_torch.data import procedural
+from deepestscatter_tpu_torch import BakedRenderer, build_scene, config, tasks, with_baked_inscatter
+from deepestscatter_tpu_torch.data import collectors, procedural, scenesetups
+from deepestscatter_tpu_torch.scene import params_to
 from deepestscatter_tpu_torch.models.probes import init_light_probe_model, init_probe_renderer_model
 from deepestscatter_tpu_torch.ops import descriptor, march
 from deepestscatter_tpu_torch.probes import gather
@@ -472,3 +498,208 @@ def test_probe_wrapper_counts_launches(scene, card):
     baked.interpolate_probes(params, static, probes, pos, view)
     baked.interpolate_probes_plain(params, static, probes, pos, view)
     assert baked.interpolate_probes.launches == before + 1
+
+
+def test_probe_redesign_equals_first_design(scene, card):
+    _, params, static = scene
+    for dtype in ("uint8", "float32"):
+        probes, pos, view = _probe_inputs(params, card, dtype, 4099, seed=9)
+        got = baked.interpolate_probes(params, static, probes, pos, view)
+        first = baked._launch(params, static, probes, pos, view, entry="ds_probes_first")
+        torch.cuda.synchronize()
+        assert torch.equal(got, first), dtype
+
+
+@pytest.fixture(scope="module")
+def collect_scene(card):
+    """The 48^3 cumulus at 2000 m with uint8 textures, baked."""
+    cfg = config.SceneConfig(cloud=config.CloudModel(size_m=2000.0),
+                             rendering=config.CloudRendering(march_dtype="uint8"))
+    params, static = build_scene(cfg, procedural.cumulus(48, seed=11), device=card)
+    return with_baked_inscatter(params, static, device=card), static
+
+
+def test_samples_kernel_matches_plain(collect_scene, card):
+    params, static = collect_scene
+    got = collectors._launch_samples(params, static, 777, 3)
+    ref = collectors.generate_scatter_samples_plain(params, static, 777, 3)
+    torch.cuda.synchronize()
+    for name, a, b in zip(ref._fields, got, ref):
+        assert torch.equal(a, b), name
+    assert bool(got.found.all()) and int(got.attempts.max()) > 1
+
+
+def test_samples_wrapper_counts_launches(collect_scene, card):
+    params, static = collect_scene
+    before = collectors.generate_scatter_samples.launches
+    collectors.generate_scatter_samples(params, static, 64, 1)
+    collectors.generate_scatter_samples_plain(params, static, 64, 1)
+    assert collectors.generate_scatter_samples.launches == before + 1
+
+
+def _radiance_case(params, static, card, n=96):
+    s = collectors.generate_scatter_samples(params, static, n, 5)
+    entry = (s.positions + 0.5 * params.bbox_size).contiguous()
+    rids = torch.arange(n, device=card)
+    base = torch.full((n,), 2**32 - 7, dtype=torch.int64, device=card)
+    return entry, s.directions.contiguous(), rids, base
+
+
+def test_radiance_kernel_matches_plain(collect_scene, card):
+    """Per lane: counts, steps and scatters equal; each experiment's record
+    equal to a one-experiment plain run with the base sub0 + k; then the
+    per-point moments within K4's tolerances."""
+    params, static = collect_scene
+    rs = dataclasses.replace(collectors.radiance_static(static), max_depth=200)
+    entry, d, rids, base = _radiance_case(params, static, card)
+    o, dd, ids, sub0 = collectors._lanes(entry, d, rids, base, 3, 4)
+    hit = torch.ones(o.shape[0], dtype=torch.bool, device=card)
+    before = collectors.radiance_moments.launches
+    got, rec = collectors.launch_radiance(params, rs, o, dd, ids, sub0, 9, 4)
+    assert collectors.radiance_moments.launches == before + 1
+    ref = pathtracer.scatter_loop_plain(params, rs, o, dd, hit, ids, 9, sub0, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got.count, ref.count)
+    assert torch.equal(got.steps, ref.steps) and torch.equal(got.bounces, ref.bounces)
+    k = torch.arange(4, device=card)
+    one = pathtracer.scatter_loop_plain(
+        params, rs, o.repeat(4, 1), dd.repeat(4, 1), hit.repeat(4), ids.repeat(4), 9,
+        ((sub0[None, :] + k[:, None]) & 0xFFFFFFFF).reshape(-1), 1)
+    assert torch.equal(torch.stack([one.steps, one.bounces], dim=1),
+                       rec.work.reshape(-1, 2).long())
+    peak = one.mean.abs().max().item()
+    assert (rec.radiance.reshape(-1, 3) - one.mean).abs().max().item() <= 1e-5 * (peak + 1e-12)
+    m = collectors.radiance_moments(params, rs, entry, d, rids, base, 9, 3, 4)
+    p = collectors.radiance_moments_plain(params, rs, entry, d, rids, base, 9, 3, 4)
+    assert torch.equal(m[0], p[0])
+    for a, b, tol in ((m[1], p[1], 1e-5), (m[2], p[2], 1e-4)):
+        assert (a - b).abs().max().item() <= tol * (b.abs().max().item() + 1e-12)
+
+
+def test_collect_on_the_card(card, tmp_path):
+    """The four stages through ``tasks.collect`` on two small scenes: every
+    table full, samples in the box with unit directions, labels finite and
+    non-negative, powers summing to 1; CONTINUE then finds nothing to do."""
+    triplet = scenesetups.generate(str(tmp_path), ["procedural:32:3", "procedural:32:4"],
+                                   seed=1, scenes_per_cloud=2)
+    store = next(s for s in (triplet.train, triplet.validation, triplet.test)
+                 if s.count("SceneSetup") >= 2)
+    rc = config.PointRadianceConfig(max_threads=1024, launches_per_update=8, rel_tol=0.2,
+                                    abs_tol=1e-3, black_min_experiments=500)
+    for rt in ("ScatterSample", "Result", "DisneyDescriptor", "BakedInterpolationSet"):
+        n = tasks.collect(store, rt, tasks.CollectMode.OVERWRITE, radiance_cfg=rc,
+                          batch_size=128, max_scenes=2, verbose=False, device=card)
+        assert n == 2 and store.count(rt) == 256
+    samples = store.table("ScatterSample").read(0, 256)
+    assert np.all(np.abs(samples["point"]) <= 0.51)
+    assert np.allclose(np.linalg.norm(samples["view_direction"], axis=1), 1.0, atol=1e-5)
+    labels = store.table("Result").read(0, 256)["light_intensity"]
+    assert np.all(np.isfinite(labels)) and labels.min() >= 0.0 and labels.mean() > 0.0
+    sets = store.table("BakedInterpolationSet").read(0, 256)
+    assert np.allclose(sum(sets[c]["power"] for c in "abcd"), 1.0, atol=1e-4)
+    assert tasks.collect(store, "ScatterSample", tasks.CollectMode.CONTINUE, batch_size=128,
+                         max_scenes=2, verbose=False, device=card) == 0
+
+
+# -- the card against the CPU ------------------------------------------------
+
+
+def _cpu(*tensors):
+    return tuple(t.cpu() for t in tensors)
+
+
+def test_k1_card_matches_cpu(scene, card):
+    cfg, params, static = scene
+    params = with_baked_inscatter(params, static, device=card)
+    entry, dirs, ids = _camera_rays(cfg, params, static, card)
+    cpu = params_to(params, "cpu")
+    k1 = march.camera_march(params, static, entry, dirs)
+    c1 = march.camera_march_plain(cpu, static, *_cpu(entry, dirs))
+    t = k1.transmittance.cpu()
+    assert (t - c1.transmittance).abs().max().item() <= 1e-5
+    k2 = march.camera_march(params, static, entry, dirs, 7, ids, k1.transmittance)
+    c2 = march.camera_march_plain(cpu, static, *_cpu(entry, dirs), 7, ids.cpu(), t)
+    ok = k2.ok.cpu()
+    assert (ok == c2.ok).float().mean().item() >= 0.995
+    both = ok & c2.ok
+    assert int(both.sum()) > 0
+    near = ((k2.scatter_pos.cpu() - c2.scatter_pos)[both].abs().amax(dim=-1) <= 1e-4)
+    assert near.float().mean().item() >= 0.995
+
+
+def test_k2_card_matches_cpu(scene, card):
+    _, params, static = scene
+    pos, view = _points(700, -0.05, 1.05, params.bbox_size, card, seed=21)
+    got = descriptor.network_inputs(params, static, pos, view).cpu()
+    ref = descriptor.network_inputs_plain(params_to(params, "cpu"), static, *_cpu(pos, view))
+    assert (got - ref).abs().max().item() <= 1e-5
+
+
+def test_k3_card_matches_cpu(scene, card):
+    _, params, static = scene
+    got = inscatter.sun_transmittance(params, static).cpu()
+    ref = inscatter.sun_transmittance_plain(params_to(params, "cpu"), static)
+    assert (got - ref).abs().max().item() <= 1e-5
+    q = lambda t: torch.floor(t * 255.0) / 255.0  # noqa: E731
+    assert (q(got) != q(ref)).float().mean().item() <= 1e-3
+
+
+def test_k4_card_matches_cpu(scene, card):
+    cfg, params, static = scene
+    params = with_baked_inscatter(params, static, device=card)
+    static = dataclasses.replace(static, max_depth=10)
+    entry, d, hit, ids = _pt_rays(cfg, params, static, card)
+    sub = slice(0, entry.shape[0], 7)
+    args = (entry[sub].contiguous(), d[sub].contiguous(), hit[sub].contiguous(),
+            ids[sub].contiguous())
+    got = pathtracer.scatter_loop(params, static, *args, 5, 1, 2)
+    ref = pathtracer.scatter_loop_plain(params_to(params, "cpu"), static, *_cpu(*args), 5, 1, 2)
+    assert torch.equal(got.count.cpu(), ref.count)
+    same = got.steps.cpu() == ref.steps
+    assert same.float().mean().item() >= 0.99
+    for a, b, tol in ((got.mean.cpu(), ref.mean, 1e-5), (got.m2.cpu(), ref.m2, 1e-4)):
+        assert (a - b)[same].abs().max().item() <= tol * (b.abs().max().item() + 1e-12)
+
+
+def angle_close(a, b, tol=1e-5):
+    """Angles within ``tol`` modulo 2 pi, plus two float32 ulps of the
+    cosine times acos' slope."""
+    d = (a - b).abs()
+    d = torch.minimum(d, 2.0 * math.pi - d)
+    slope = 1.0 / torch.sqrt(torch.clamp(1.0 - torch.cos(b) ** 2, min=1e-12))
+    return d <= tol + 2.0 * 1.2e-7 * slope
+
+
+def test_k5_card_matches_cpu(scene, card):
+    _, params, static = scene
+    for dtype in ("uint8", "float32"):
+        probes, pos, view = _probe_inputs(params, card, dtype, 3000, seed=31)
+        got = baked.interpolate_probes(params, static, probes, pos, view).cpu()
+        ref = baked.interpolate_probes_plain(params_to(params, "cpu"), static,
+                                             *_cpu(probes, pos, view))
+        w = baked.PROBE_LENGTH
+        assert (got[:, :w] - ref[:, :w]).abs().max().item() <= 1e-6, dtype
+        assert bool(angle_close(got[:, w:], ref[:, w:]).all()), dtype
+
+
+def test_k7a_card_matches_cpu(collect_scene, card):
+    params, static = collect_scene
+    got = collectors.generate_scatter_samples(params, static, 512, 4)
+    ref = collectors.generate_scatter_samples_plain(params_to(params, "cpu"), static, 512, 4)
+    found = got.found.cpu()
+    assert (found == ref.found).float().mean().item() >= 0.995
+    assert (got.attempts.cpu() == ref.attempts).float().mean().item() >= 0.995
+    same = (got.attempts.cpu() == ref.attempts) & found & ref.found
+    assert (got.positions.cpu() - ref.positions)[same].abs().max().item() <= 1e-4
+
+
+def test_k7b_card_matches_cpu(collect_scene, card):
+    params, static = collect_scene
+    rs = dataclasses.replace(collectors.radiance_static(static), max_depth=50)
+    entry, d, rids, base = _radiance_case(params, static, card, n=48)
+    got = collectors.radiance_moments(params, rs, entry, d, rids, base, 9, 2, 3)
+    ref = collectors.radiance_moments_plain(params_to(params, "cpu"), rs,
+                                            *_cpu(entry, d, rids, base), 9, 2, 3)
+    assert torch.equal(got[0].cpu(), ref[0])
+    for a, b, tol in ((got[1].cpu(), ref[1], 1e-5), (got[2].cpu(), ref[2], 1e-4)):
+        assert (a - b).abs().max().item() <= tol * (b.abs().max().item() + 1e-12)

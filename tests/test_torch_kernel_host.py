@@ -1,5 +1,6 @@
 """K4 (path-trace bounce loop), K3 (in-scatter bake), K1 (camera march),
-K2 (descriptor stencil) and K5 (probe interpolation) on the host.
+K2 (descriptor stencil), K5 (probe interpolation), K7a (first-scatter
+sampler) and K7b (radiance experiments) on the host.
 
 ``tests/torch_kernel_host.cpp`` compiles the kernels' device functions
 (``csrc/pathtrace.cu``, ``csrc/inscatter.cu``, ``csrc/march.cu``,
@@ -33,6 +34,21 @@ arithmetic the kernels share with their host build.
   products, sums, a division and a square root), on float32 and uint8
   lattices, at points inside and outside the box and on the tetrahedra's
   test planes; omega and alpha within 1e-6 (glibc's ``acosf``).
+- K5's redesign (``probe_word``: 4 channels from a word of each corner
+  row) equals its first design (``probe_channel`` an element) bitwise on
+  every column, over float32 and uint8 lattices.
+- K7a's chunked attempts (G = 1, 8 and 32 lanes, ``chunk_end`` stopping at
+  the crossing) equal the per-sample attempt loop ``sample_attempts``
+  bitwise (positions, directions, found, attempts, steps), on both grids
+  and texture types; against the plain version (glibc's ``sinf``/``cosf``
+  are not torch's, and a flipped attempt moves a sample) found flags agree
+  on >= 99.5 % of samples, and where the attempts agree (>= 95 %)
+  positions are within 1e-4 and directions within 1e-6.
+- K7b's per-pixel experiment bases: each pixel of a ``ds_radiance`` launch
+  equals a ``ds_pathtrace`` launch of that pixel alone with ``sub_first``
+  set to its base, bitwise, with bases within a few experiments of 2^32
+  (``sub0 + k`` wraps), and the work items equal the per-pixel loop; the
+  wrapper's per-point moments equal the plain version's counts.
 - All match the plain PyTorch versions within the tolerances of
   ``test_torch_cuda_kernels.py``: glibc's ``expf``/``logf``/``sinf``/
   ``cosf``/``acosf`` are not torch's, so step counts agree on >= 99 % of
@@ -60,7 +76,7 @@ import pytest
 import torch
 
 from deepestscatter_tpu_torch import build_scene, config, cuda_build, with_baked_inscatter
-from deepestscatter_tpu_torch.data import procedural
+from deepestscatter_tpu_torch.data import collectors, procedural
 from deepestscatter_tpu_torch.ops import descriptor, march
 from deepestscatter_tpu_torch.ops import rng as rng_ops
 from deepestscatter_tpu_torch.ops import tetra
@@ -90,6 +106,8 @@ def host_lib(tmp_path_factory):
     lib.host_set_bake.argtypes = [ctypes.c_int]
     lib.host_set_march.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.host_set_descriptor.argtypes = [ctypes.c_int]
+    lib.host_set_probes.argtypes = [ctypes.c_int]
+    lib.host_set_samples.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -445,3 +463,147 @@ def test_k5_equals_plain(host_lib, neural_rig, dtype):
     assert got.shape == (pos.shape[0], baked.PROBE_IN_WIDTH)
     assert torch.equal(got[:, : baked.PROBE_LENGTH], ref[:, : baked.PROBE_LENGTH])
     assert (got[:, baked.PROBE_LENGTH:] - ref[:, baked.PROBE_LENGTH:]).abs().max().item() <= 1e-6
+
+
+def _k5_case(params, static, dtype, seed):
+    rng = np.random.default_rng(seed)
+    shape = (18, 18, 18, baked.PROBE_LENGTH)
+    if dtype == "uint8":
+        probes = torch.as_tensor(rng.integers(0, 256, shape).astype(np.uint8))
+    else:
+        probes = torch.as_tensor(rng.random(shape).astype(np.float32))
+    b = params.bbox_size.numpy()
+    inside = rng.uniform(-0.05, 1.05, (300, 3)) * b
+    planes = _plane_units(rng, 32) / np.float32(baked._lattice_units(static))
+    pos = torch.as_tensor(np.concatenate([inside, planes]).astype(np.float32))
+    view = rng.normal(size=(pos.shape[0], 3)).astype(np.float32)
+    view = torch.as_tensor(view / np.linalg.norm(view, axis=-1, keepdims=True))
+    return probes, pos, view
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_k5_redesign_equals_first_design(host_lib, neural_rig, dtype):
+    """Every column of every row, bitwise: the 4-channel words and the
+    angles of the redesign against the first design's elements."""
+    params, static, _ = neural_rig
+    probes, pos, view = _k5_case(params, static, dtype, 23)
+    try:
+        host_lib.host_set_probes(0)
+        first = baked._launch(params, static, probes, pos, view, lib=host_lib)
+    finally:
+        host_lib.host_set_probes(1)
+    got = baked._launch(params, static, probes, pos, view, lib=host_lib)
+    assert torch.equal(got, first)
+    assert bool((got[:, : baked.PROBE_LENGTH] > 0).any())
+
+
+SAMPLES_N = 160
+
+
+def _samples(lib, params, static, mode, lanes=32, seed=SEED):
+    lib.host_set_samples(mode, lanes)
+    try:
+        return collectors._launch_samples(params, static, SAMPLES_N, seed, lib=lib)
+    finally:
+        lib.host_set_samples(1, 32)
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+def test_k7a_chunks_equal_the_attempt_loop(host_lib, neural_rig, lanes):
+    params, static, _ = neural_rig
+    ref = _samples(host_lib, params, static, 0)
+    got = _samples(host_lib, params, static, 1, lanes)
+    for name, a, b in zip(ref._fields, got, ref):
+        assert torch.equal(a, b), name
+    assert bool(ref.found.any()) and int(ref.attempts.max()) > 1
+
+
+def test_k7a_host_build_matches_plain(host_lib, neural_rig):
+    params, static, _ = neural_rig
+    got = _samples(host_lib, params, static, 1)
+    ref = collectors.generate_scatter_samples_plain(params, static, SAMPLES_N, SEED)
+    assert (got.found == ref.found).float().mean().item() >= 0.995
+    same = (got.attempts == ref.attempts) & got.found & ref.found
+    assert same.float().mean().item() >= 0.95
+    assert (got.positions - ref.positions)[same].abs().max().item() <= 1e-4
+    assert (got.directions - ref.directions)[same].abs().max().item() <= 1e-6
+
+
+def _radiance_rig(pt_rig, n=24):
+    """Points on the 24^3 cumulus: the rig's box entries of the first n
+    hitting pixels, in the multiple-scatter mode at max_depth 10."""
+    params, static, (entry, d, hit, _) = pt_rig
+    static = dataclasses.replace(collectors.radiance_static(static), max_depth=10)
+    idx = torch.nonzero(hit).flatten()[:n]
+    return params, static, entry[idx].contiguous(), d[idx].contiguous()
+
+
+def test_k7b_bases_near_2_32_equal_scalar_launches(host_lib, pt_rig):
+    """Bases 2^32 - 4 .. : the experiments of a pixel wrap past 2^32 within
+    the launch, as the JAX loop's int32 sums cast to uint32 do."""
+    params, static, entry, d = _radiance_rig(pt_rig, 6)
+    n = entry.shape[0]
+    hit = torch.ones(n, dtype=torch.bool)
+    ids = torch.arange(100, 100 + n)
+    base = torch.tensor([2**32 - 4, 2**32 - 1, 0, 7, 2**31 - 2, 2**32 - 2])
+    host_lib.host_set_pathtrace(1, 0, None)
+    got, _ = collectors.launch_radiance(params, static, entry, d, ids, base, SEED, SAMPLES,
+                                        lib=host_lib)
+    for r in range(n):
+        one = slice(r, r + 1)
+        ref = pathtracer._launch(params, static, entry[one], d[one], hit[one], ids[one], SEED,
+                                 int(base[r]), SAMPLES, None, lib=host_lib)
+        for name, a, b in zip(ref._fields, got, ref):
+            assert torch.equal(a[one], b), (r, name)
+    host_lib.host_set_pathtrace(0, 0, None)
+    try:
+        loop, _ = collectors.launch_radiance(params, static, entry, d, ids, base, SEED, SAMPLES,
+                                             lib=host_lib)
+    finally:
+        host_lib.host_set_pathtrace(1, 0, None)
+    _assert_equal(got, loop)
+    # The seed of experiment k is subframe_seed(seed, base + k), wrapped.
+    k = torch.arange(SAMPLES)
+    seeds = rng_ops.subframe_seed(SEED, base[:, None] + k)
+    assert int(seeds.max()) < 2**32 and bool((seeds[0, 3:] == rng_ops.subframe_seed(
+        SEED, k[3:] - 4)).all())
+
+
+def test_k7b_records_equal_one_experiment_launches(host_lib, pt_rig):
+    """Experiment k of lane r (its record) equals a one-experiment launch of
+    that lane with the base sub0[r] + k, wrapped: what the card's check of
+    the collector's update relies on."""
+    params, static, entry, d = _radiance_rig(pt_rig)
+    n = entry.shape[0]
+    ids = torch.arange(40, 40 + n)
+    base = torch.tensor([2**32 - 2, 5, 2**31 - 1, 0] * (n // 4))
+    host_lib.host_set_pathtrace(1, 0, None)
+    pm, rec = collectors.launch_radiance(params, static, entry, d, ids, base, SEED, SAMPLES,
+                                         lib=host_lib)
+    assert rec.radiance.shape == (SAMPLES, n, 3) and rec.work.shape == (SAMPLES, n, 2)
+    assert torch.equal(rec.work.sum(dim=0).long(), torch.stack([pm.steps, pm.bounces], dim=1))
+    k = torch.arange(SAMPLES)
+    sub = ((base[None, :] + k[:, None]) & 0xFFFFFFFF).reshape(-1)
+    one, _ = collectors.launch_radiance(params, static, entry.repeat(SAMPLES, 1),
+                                        d.repeat(SAMPLES, 1), ids.repeat(SAMPLES), sub, SEED, 1,
+                                        lib=host_lib)
+    assert torch.equal(one.mean, rec.radiance.reshape(-1, 3))
+    assert torch.equal(torch.stack([one.steps, one.bounces], dim=1),
+                       rec.work.reshape(-1, 2).long())
+    assert bool((rec.work[..., 1] > 0).any()) and bool((rec.radiance > 0).any())
+
+
+def test_k7b_moments_match_plain(host_lib, pt_rig):
+    """The collector's update through the host build and through the plain
+    version: per-point counts equal; moments within the K4 tolerances."""
+    params, static, entry, d = _radiance_rig(pt_rig)
+    n = entry.shape[0]
+    rids = torch.arange(n)
+    exp_base = torch.full((n,), 2**32 - 5, dtype=torch.int64)
+    host_lib.host_set_pathtrace(1, 0, None)
+    got = collectors.radiance_moments(params, static, entry, d, rids, exp_base, SEED, 3, 4,
+                                      lib=host_lib)
+    ref = collectors.radiance_moments_plain(params, static, entry, d, rids, exp_base, SEED, 3, 4)
+    assert torch.equal(got[0], ref[0]) and float(got[0][0]) == 12.0
+    assert (got[1] - ref[1]).abs().max().item() <= 1e-5 * (ref[1].abs().max().item() + 1e-12) * 12
+    assert (got[2] - ref[2]).abs().max().item() <= 1e-4 * (ref[2].abs().max().item() + 1e-12) * 12

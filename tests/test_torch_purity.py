@@ -45,7 +45,10 @@ def test_import_pulls_in_no_jax():
         "import sys, deepestscatter_tpu_torch, deepestscatter_tpu_torch.render.neural, "
         "deepestscatter_tpu_torch.models.convert, deepestscatter_tpu_torch.render.progressive, "
         "deepestscatter_tpu_torch.probes.gather, deepestscatter_tpu_torch.utils.compare, "
-        "deepestscatter_tpu_torch.render.baked, deepestscatter_tpu_torch.models.probes\n"
+        "deepestscatter_tpu_torch.render.baked, deepestscatter_tpu_torch.models.probes, "
+        "deepestscatter_tpu_torch.tasks, deepestscatter_tpu_torch.data.collectors, "
+        "deepestscatter_tpu_torch.data.store, deepestscatter_tpu_torch.data.records, "
+        "deepestscatter_tpu_torch.data.clouds, deepestscatter_tpu_torch.data.scenesetups\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -75,7 +78,9 @@ def test_no_module_imports_jax_or_the_jax_package():
     names = {str(f.relative_to(PKG)) for f in files}
     assert {"render/pathtracer.py", "render/progressive.py", "probes/gather.py",
             "ops/welford.py", "ops/tonemap.py", "utils/compare.py", "ops/tetra.py",
-            "models/probes.py", "render/baked.py"} <= names
+            "models/probes.py", "render/baked.py", "tasks.py", "data/collectors.py",
+            "data/store.py", "data/records.py", "data/clouds.py",
+            "data/scenesetups.py"} <= names
     bad = [
         (str(f.relative_to(PKG)), m)
         for f in files
@@ -225,3 +230,16 @@ def test_bnn_frame_on_the_cpu_is_finite():
     frame = renderer.render_frame(params, static, 8, 4, tcam.camera_basis(cfg.camera), seed=1)
     assert frame.shape == (4, 8, 3)
     assert np.all(np.isfinite(frame.numpy()))
+
+
+def test_collect_entry_points_default_to_the_card(no_card, tmp_path):
+    from deepestscatter_tpu_torch import tasks
+    from deepestscatter_tpu_torch.data import scenesetups
+
+    triplet = scenesetups.generate(str(tmp_path), ["procedural:8:1"], seed=0,
+                                   scenes_per_cloud=1)
+    setup = triplet.train.table("SceneSetup").get_record(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tasks.scene_from_setup(setup)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tasks.collect(triplet.train, "ScatterSample", verbose=False)

@@ -1,15 +1,17 @@
-// Host build of the path-trace (K4), in-scatter bake (K3), camera march
-// (K1), descriptor (K2) and probe interpolation (K5) kernels' device
-// functions, for tests/test_torch_kernel_host.py:
+// Host build of the path-trace (K4, and K7b: its per-pixel experiment
+// bases), in-scatter bake (K3), camera march (K1), descriptor (K2), probe
+// interpolation (K5) and scatter-sample (K7a) kernels' device functions,
+// for tests/test_torch_kernel_host.py:
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off -DDS_HOST_EMULATION
 //       -D__device__= -D__forceinline__=inline
 //       -I deepestscatter_tpu_torch/csrc tests/torch_kernel_host.cpp
 //
-// It exports ds_pathtrace, ds_bake, ds_march, ds_descriptor and ds_probes
-// with the signatures of the device entry points, so the wrappers' _launch
-// drives it on CPU tensors; host_set_pathtrace, host_set_bake,
-// host_set_march and host_set_descriptor choose what they compute.
+// It exports ds_pathtrace, ds_radiance, ds_bake, ds_march, ds_descriptor,
+// ds_probes and ds_samples with the signatures of the device entry points,
+// so the wrappers' _launch drives it on CPU tensors; host_set_pathtrace,
+// host_set_bake, host_set_march, host_set_descriptor, host_set_probes and
+// host_set_samples choose what they compute.
 #include <math.h>
 #include <stdint.h>
 
@@ -20,6 +22,7 @@
 #include "march.cu"
 #include "descriptor.cu"
 #include "probes.cu"
+#include "samples.cu"
 
 namespace {
 
@@ -30,18 +33,21 @@ int bake_mode = 1;  // 0: bake_voxel over the voxels; 1: bake_row over the rows
 int march_mode = 1;  // 0: march_ray a ray; 1: chunks of march_lanes lanes a ray
 int march_lanes = ds::kMarchLanes;  // 1, 8 or 32
 int desc_mode = 1;  // 0: descriptor_element an element; 1: descriptor_column a column
+int probes_mode = 1;  // 0: probe_channel an element (first design); 1: probe_word a word
+int samples_mode = 1;  // 0: sample_attempts a sample; 1: chunks of samples_lanes lanes
+int samples_lanes = 32;  // 1, 8 or 32 (the package runs 32)
 
 template <int K, typename T>
 void trace_items(const T* dens, const T* insc, int nx, int ny, int nz,
                  const float* eval_rows, const float* inv, const float* entry,
                  const float* dirs, const uint8_t* hit, const int64_t* ray_ids, int64_t n,
                  int64_t n_items, const ds::PtConsts& c, uint32_t seed_base,
-                 uint32_t sub_first, float* rec_rad, int32_t* rec_work) {
+                 uint32_t sub_first, const uint32_t* sub0, float* rec_rad, int32_t* rec_work) {
   for (int64_t i = 0; i < n_items; ++i) {
     const int64_t item = pt_order ? pt_order[i] : i;
     ds::Sample S;
     if (!ds::begin_item(S, item, n, entry, dirs, hit, ray_ids, inv, c, seed_base, sub_first,
-                        rec_rad, rec_work)) {
+                        sub0, rec_rad, rec_work)) {
       continue;
     }
     while (!ds::march_chunk<K>(S, dens, insc, nx, ny, nz, eval_rows, inv, c)) {
@@ -54,20 +60,21 @@ template <typename T>
 int pathtrace(const T* dens, const T* insc, int nx, int ny, int nz, const float* eval_rows,
               const float* inv, const float* entry, const float* dirs, const uint8_t* hit,
               const int64_t* ray_ids, int64_t n, const ds::PtConsts& c, uint32_t seed_base,
-              uint32_t sub_first, int n_samples, float* rec_rad, int32_t* rec_work,
-              float* mean_out, float* m2_out, float* count_out, int64_t* work_out) {
+              uint32_t sub_first, const uint32_t* sub0, int n_samples, float* rec_rad,
+              int32_t* rec_work, float* mean_out, float* m2_out, float* count_out,
+              int64_t* work_out) {
   if (pt_mode == 0) {
     for (int64_t r = 0; r < n; ++r) {
       ds::pathtrace_pixel(r, dens, insc, nx, ny, nz, eval_rows, inv, entry, dirs, hit,
                           ray_ids, c, seed_base, sub_first, n_samples, mean_out, m2_out,
-                          count_out, work_out);
+                          count_out, work_out, sub0);
     }
     return 0;
   }
   const int64_t n_items = n * (int64_t)n_samples;
 #define DS_ITEMS(K)                                                                      \
   trace_items<K>(dens, insc, nx, ny, nz, eval_rows, inv, entry, dirs, hit, ray_ids, n, \
-                 n_items, c, seed_base, sub_first, rec_rad, rec_work)
+                 n_items, c, seed_base, sub_first, sub0, rec_rad, rec_work)
   if (pt_lookahead == 1) {
     DS_ITEMS(1);
   } else if (pt_lookahead == ds::kLookahead) {
@@ -180,6 +187,66 @@ void descriptor(const T* mips, const float* pos, const float* dirs, const float*
   }
 }
 
+// K7a's samples, each attempt marched in chunks of G lanes (a chunk's
+// lanes one after the other), with chunk_end's stop at the crossing.
+template <int G, typename T>
+void sample_chunks(const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
+                   const ds::MarchConsts& c, float min_dist, float* pos_out, float* dir_out,
+                   uint8_t* found_out, int32_t* work_out) {
+  for (int64_t s = 0; s < n; ++s) {
+    ds::Ray R;
+    bool found = false;
+    int k = 0, steps = 0;
+    while (!found && k < ds::kMaxAttempts) {
+      ds::attempt_start(R, ds::attempt_ray(seed, (uint32_t)s, k, c, min_dist), c);
+      ++k;
+      while (R.active) {
+        ds::LaneStep S[G];
+        for (int l = 0; l < G; ++l) S[l] = ds::lane_step<G>(R, l, dens, nx, ny, nz, c);
+        for (int l = 0; l < G; ++l) {
+          S[l].tn = ds::lane_transmittance<G>(R.trans, l, [&](int j) { return S[j].e; });
+        }
+        unsigned leaves = 0u, crosses = 0u;
+        for (int l = 0; l < G; ++l) {
+          leaves |= (unsigned)ds::lane_leaves(S[l], c) << l;
+          crosses |= (unsigned)ds::lane_crosses(R, S[l]) << l;
+        }
+        ds::chunk_update(R, ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G, true),
+                         [&](int j) { return S[j]; });
+      }
+      steps += R.steps;
+      found = ds::accepted(R, c);
+    }
+    ds::sample_end(s, found, R, c, k, steps, pos_out, dir_out, found_out, work_out);
+  }
+}
+
+template <typename T>
+int samples(const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
+            const ds::MarchConsts& c, float min_dist, float* pos_out, float* dir_out,
+            uint8_t* found_out, int32_t* work_out) {
+  if (samples_mode == 0) {
+    for (int64_t s = 0; s < n; ++s) {
+      ds::sample_attempts(s, dens, nx, ny, nz, seed, c, min_dist, pos_out, dir_out, found_out,
+                          work_out);
+    }
+    return 0;
+  }
+#define DS_SAMPLES(G) \
+  sample_chunks<G>(dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out, work_out)
+  if (samples_lanes == 1) {
+    DS_SAMPLES(1);
+  } else if (samples_lanes == 8) {
+    DS_SAMPLES(8);
+  } else if (samples_lanes == 32) {
+    DS_SAMPLES(32);
+  } else {
+    return -1;
+  }
+#undef DS_SAMPLES
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -207,6 +274,17 @@ void host_set_march(int mode, int lanes) {
 // column.
 void host_set_descriptor(int mode) { desc_mode = mode; }
 
+// mode 0: probe_channel an element (K5's first design); mode 1:
+// probe_word a word (its redesign).
+void host_set_probes(int mode) { probes_mode = mode; }
+
+// mode 0: sample_attempts a sample; mode 1: each attempt in chunks of
+// `lanes` lanes (1, 8 or 32).
+void host_set_samples(int mode, int lanes) {
+  samples_mode = mode;
+  samples_lanes = lanes;
+}
+
 int ds_pathtrace(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
                  const float* eval_rows, int n_phase, const float* inv_rows, int n_inv,
                  const float* entry, const float* dirs, const uint8_t* hit,
@@ -222,11 +300,35 @@ int ds_pathtrace(const void* dens, const void* insc, int is_u8, int nx, int ny, 
   counters[1] = 0;
   if (is_u8) {
     return pathtrace((const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz, eval_rows,
-                     inv_rows, entry, dirs, hit, ray_ids, n, c, seed_base, sub_first,
+                     inv_rows, entry, dirs, hit, ray_ids, n, c, seed_base, sub_first, nullptr,
                      n_samples, rec_rad, rec_work, mean_out, m2_out, count_out, work_out);
   }
   return pathtrace((const float*)dens, (const float*)insc, nx, ny, nz, eval_rows, inv_rows,
-                   entry, dirs, hit, ray_ids, n, c, seed_base, sub_first, n_samples, rec_rad,
+                   entry, dirs, hit, ray_ids, n, c, seed_base, sub_first, nullptr, n_samples,
+                   rec_rad, rec_work, mean_out, m2_out, count_out, work_out);
+}
+
+int ds_radiance(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
+                const float* eval_rows, int n_phase, const float* inv_rows, int n_inv,
+                const float* entry, const float* dirs, const uint8_t* hit,
+                const int64_t* ray_ids, int64_t n, const float* consts, const float* ground,
+                int max_steps, int max_depth, int rr_start, int flags, uint32_t seed_base,
+                const uint32_t* sub0, int n_samples, float* rec_rad, int32_t* rec_work,
+                unsigned long long* counters, float* mean_out, float* m2_out,
+                float* count_out, int64_t* work_out, void* /*stream*/) {
+  if (n <= 0) return 0;
+  if (sub0 == nullptr) return 1;
+  const ds::PtConsts c =
+      ds::pt_consts(consts, ground, max_steps, max_depth, rr_start, n_phase, n_inv, flags);
+  counters[0] = (unsigned long long)(n * n_samples);
+  counters[1] = 0;
+  if (is_u8) {
+    return pathtrace((const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz, eval_rows,
+                     inv_rows, entry, dirs, hit, ray_ids, n, c, seed_base, 0u, sub0,
+                     n_samples, rec_rad, rec_work, mean_out, m2_out, count_out, work_out);
+  }
+  return pathtrace((const float*)dens, (const float*)insc, nx, ny, nz, eval_rows, inv_rows,
+                   entry, dirs, hit, ray_ids, n, c, seed_base, 0u, sub0, n_samples, rec_rad,
                    rec_work, mean_out, m2_out, count_out, work_out);
 }
 
@@ -275,20 +377,47 @@ int ds_descriptor(const void* mips, int is_u8, const float* pos, const float* di
   return 0;
 }
 
-// K5: probe_point a point, then probe_channel its 202 elements.
+// K5: probe_point a point, then probe_channel its 202 elements (mode 0)
+// or probe_word its 50 latent words and the angles (mode 1).
 int ds_probes(const void* probes, int is_u8, int nx, int ny, int nz, const float* pos,
               const float* dirs, const float* ez, const float* light, int64_t n,
               const float* consts, float* out, void* /*stream*/) {
   const ds::ProbeConsts c = ds::probe_consts(consts, nx, ny, nz);
   for (int p = 0; p < (int)n; ++p) {
     const ds::ProbePoint P = ds::probe_point(p, pos, dirs, ez, light, c);
-    for (int ch = 0; ch < ds::kProbeInWidth; ++ch) {
-      out[(int64_t)p * ds::kProbeInWidth + ch] =
-          is_u8 ? ds::probe_channel(P, ch, (const uint8_t*)probes)
-                : ds::probe_channel(P, ch, (const float*)probes);
+    float* row = out + (int64_t)p * ds::kProbeInWidth;
+    if (probes_mode == 0) {
+      for (int ch = 0; ch < ds::kProbeInWidth; ++ch) {
+        row[ch] = is_u8 ? ds::probe_channel(P, ch, (const uint8_t*)probes)
+                        : ds::probe_channel(P, ch, (const float*)probes);
+      }
+      continue;
     }
+    for (int w = 0; w < ds::kProbeLength / 4; ++w) {
+      if (is_u8) {
+        ds::probe_word(P, w, (const uint8_t*)probes, row + 4 * w);
+      } else {
+        ds::probe_word(P, w, (const float*)probes, row + 4 * w);
+      }
+    }
+    row[ds::kProbeLength] = P.omega;
+    row[ds::kProbeLength + 1] = P.alpha;
   }
   return 0;
+}
+
+// K7a (mode set by host_set_samples).
+int ds_samples(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed, int64_t n,
+               const float* consts, int max_steps, float min_dist,
+               float* pos_out, float* dir_out, uint8_t* found_out, int32_t* work_out,
+               void* /*stream*/) {
+  const ds::MarchConsts c = ds::march_consts(consts, max_steps, 0);
+  if (is_u8) {
+    return samples((const uint8_t*)dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out,
+                   found_out, work_out);
+  }
+  return samples((const float*)dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out,
+                 found_out, work_out);
 }
 
 }  // extern "C"
