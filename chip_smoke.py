@@ -77,9 +77,8 @@ Phases, one output line each:
     again, its labels and flags equal to the stored ones).  Gates: K3 on
     the collector's scene (the padded 258^3 grid, the ``Front`` light)
     bitwise equal to its plain version; K7a against its plain version on
-    the card (found flags and attempt counts equal on >= 99.5 %, step
-    counts equal, positions within 1e-4 where the attempts agree, equal to
-    the stored samples); K7b at the radiance stage's first update (20,480
+    the card (found flags, positions, directions, attempts and steps
+    bitwise equal on every sample; equal to the stored samples); K7b at the radiance stage's first update (20,480
     lanes x 100 experiments, bases 0) and at that shape with bases
     2^32 - 50: each lane's fold equal to its per-experiment records folded
     in order (counts, steps and scatters equal; moments within K4's
@@ -91,6 +90,36 @@ Phases, one output line each:
     sets equal to those through K2's plain version; samples in the box with
     unit directions; labels finite, >= 0, mean > 0; baked powers summing
     to 1 within 1e-4; every table 2,048 records.
+
+12. ``JAX ground truth``: the port against the JAX package's committed
+    render of the end-to-end evaluation's held-out scene
+    (``runs/eval_e2e/renders_512x256/eval.PT.exr``, 2,380 subframes of
+    seed 3: its job stopped at a wall-clock budget; the scene in
+    ``EVAL_r05.json``: ``procedural:64:29``, 2677.73 m, its light, 512 x
+    256, Russian roulette from bounce 64, uint8), driven the way a user
+    drives it: ``tasks.eval_scene``, ``tasks.scene_from_setup``,
+    ``ProgressiveRenderer``; counted (K3 and K4 must launch).  First the
+    port's first 20 subframes of seed 3 against the JAX package's on the
+    CPU (``runs/port_eval/eval.PT.jax_cpu_20sf.exr``, the same seed and so
+    mostly the same paths): >= 98 % of pixel channels within 1e-3
+    (relative), the image means within 1e-4 (relative).  Then seed 3 to
+    2,370, 2,380 and 2,390 subframes: its mean absolute difference to the
+    file least at 2,380, and there the difference of the image means
+    within 4 of its standard errors, taken from the spread of the
+    per-pixel differences (``utils.compare.paired_difference``; the two
+    share their paths but where the TPU's float functions parted them).
+    Then ``run()`` to the CI gate (at most 7,000 subframes) for seeds 4,
+    5, 6, pooled (``utils.compare.pool_renders``) and gated
+    (``utils.compare.render_agreement``, the file's noise that of a
+    2,380-subframe render): the image means within 4 standard errors of
+    their difference, from the port's per-pixel Welford moments with a
+    pixel's three channels taken as perfectly correlated (the path
+    tracer's are: their m2 are equal); the tone-mapped RMS (``rms_bias``)
+    at most 1.5 times the RMS the two images' noise alone gives.  Both
+    gates must refuse the port's image scaled by 1.02.  It prints each
+    seed's line, the pool's subframes, image mean against EVAL_r05's
+    2.27659, the difference (absolute and relative), the z-scores, both
+    RMS and the share of pixel channels past 4 sigma.
 
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
@@ -105,6 +134,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -161,13 +191,31 @@ PT_SECONDS = 3.0
 K4_SUBSET_STRIDE = 16  # 16,384 of the 262,144 pixels
 #: Times before each kernel's redesign, quoted from PERF.md (this script on
 #: an H100 80GB HBM3 at 700 W) on the human-readable lines only.
-PREV_MS = {"K3": 61.05, "K4": 6.105, "K1": 1.481, "K2": 2.861, "P1": 0.1479, "K5": 0.0373}
+PREV_MS = {"K3": 61.05, "K4": 6.105, "K1": 1.481, "K2": 2.861, "P1": 0.1479, "K5": 0.0373,
+           "K7a": 0.1168, "K7b": 28.71}
 #: The collector's operating point: one scene, the reference's batch.
 COLLECT_CLOUD = "procedural:256:11"
 COLLECT_SIZE_M = 2000.0
 COLLECT_STAGES = ("ScatterSample", "Result", "DisneyDescriptor", "BakedInterpolationSet")
 #: K7b's records checked against one-experiment plain runs, per launch.
 K7B_CHECKED = 1024
+#: The end-to-end evaluation's record and its committed JAX ground truth.
+EVAL_JSON = Path(__file__).resolve().parent / "EVAL_r05.json"
+EVAL_REFERENCE = Path(__file__).resolve().parent / "runs/eval_e2e/renders_512x256/eval.PT.exr"
+#: Its seed and its subframes: tools/render_pt_r05.py stops at a
+#: wall-clock budget, and the file holds 2,380 subframes, where the port's
+#: render of seed 3 comes closest to it (probes/ground_truth.py).
+EVAL_REFERENCE_SEED = 3
+EVAL_REFERENCE_SUBFRAMES = 2380
+#: The seeds whose renders, pooled, are held against it: not the
+#: reference's own, whose paths a render of that seed would share.
+EVAL_SEEDS = (4, 5, 6)
+#: The scale of the port's image that the ground-truth gate must refuse.
+EVAL_SCALE = 1.02
+#: The JAX package's first 20 subframes of that render at the reference's
+#: seed on the CPU (tests/jax_reference_check.py --subframes 20 --exr ...).
+EVAL_JAX_CPU = Path(__file__).resolve().parent / "runs/port_eval/eval.PT.jax_cpu_20sf.exr"
+EVAL_JAX_CPU_SUBFRAMES = 20
 #: Card-against-CPU sizes (the CPU runs the plain versions).
 CPU_POINTS = 4096
 CPU_SAMPLES = 1024
@@ -857,7 +905,9 @@ def pt_work(pt, cam, res, run) -> float:
 
 
 def phase_probe(gather, k4_steps_per_s: float):
-    """The probe's entry point, counted; returns the P1 and P2 rows."""
+    """The probe's entry point, counted; returns the P1 and P2 rows and the
+    L2-resident gather ceiling (P1's rows a second over a 16 MiB table of
+    16-B rows: a 32-B sector a row)."""
     for f in (gather.per_lane, gather.coalesced):
         f.launches = 0
     report = gather.main([])
@@ -891,7 +941,7 @@ def phase_probe(gather, k4_steps_per_s: float):
     print(f"P1 designs (probes.gather.variants; ms, min-max of 4 turns of 10 index sets; sums equal "
           f"to the plain version; the package runs '8 rows in flight a lane'; before this redesign "
           f"(PERF.md) {PREV_MS['P1']} ms on the 1 GB table): " + "; ".join(parts), flush=True)
-    return rows
+    return rows, ceil["mrows_per_s"] * 1e6
 
 
 def welford_fold(rad: torch.Tensor):
@@ -908,7 +958,8 @@ def welford_fold(rad: torch.Tensor):
     return mean, m2, cnt
 
 
-def phase_collect(config, collectors, desc_ops, ins_ops, pt, dev) -> list:
+def phase_collect(config, cuda_build, collectors, desc_ops, ins_ops, pt, dev,
+                  gather_rows_per_s: float) -> list:
     """The dataset generator at the operating point, as a user drives it:
     one SceneSetup in a fresh ``RecordStore``, ``tasks.collect`` over the
     four stages (launch counts set to 0 just before, read just after),
@@ -1014,21 +1065,29 @@ def phase_collect(config, collectors, desc_ops, ins_ops, pt, dev) -> list:
     err_a = (k.positions - r.positions)[same].abs().max().item()
     bit_a = (same & (k.positions == r.positions).all(dim=-1)).float().mean().item()
     steps_equal = torch.equal(k.steps, r.steps)
+    unequal = [f for f, a, b in zip(r._fields, k, r) if not torch.equal(a, b)]
     ms_a = device_ms(lambda: collectors.generate_scatter_samples(params, static, n, 0), 10,
-                     "samples_kernel")
+                     "samples_rounds_kernel")
     steps_a, att_a = int(k.steps.sum()), int(k.attempts.sum())
-    print(f"K7a scatter samples: samples={n} found_agree={agree:.6f} (tol 0.995) "
-          f"attempts_agree={att_agree:.6f} (tol 0.995) pos_max_abs_err={err_a:.3g} (tol 1e-4) "
-          f"bitwise_share={bit_a:.6f} steps_equal={steps_equal} (required) "
-          f"ms(device, profiler)={ms_a:.4f} plain_ms={plain_a:.1f} attempts={att_a} "
-          f"steps={steps_a}", flush=True)
-    require(agree >= 0.995 and att_agree >= 0.995 and err_a <= 1e-4 and steps_equal,
-            "K7a disagrees with its plain version")
+    w = cuda_build.load("samples").ds_sample_warps()
+    rounds = (k.attempts + w - 1) // w
+    work_a = dict(warps_a_sample=w, attempts_mean=float(k.attempts.float().mean()),
+                  attempts_max=int(k.attempts.max()), rounds_mean=float(rounds.float().mean()),
+                  rounds_max=int(rounds.max()))
+    print(f"K7a scatter samples: samples={n} found_agree={agree:.6f} "
+          f"attempts_agree={att_agree:.6f} pos_max_abs_err={err_a:.3g} "
+          f"bitwise_share={bit_a:.6f} steps_equal={steps_equal} "
+          f"fields_not_bitwise_equal={unequal} (required: none) "
+          f"ms(device, profiler)={ms_a:.4f} before_redesign_ms(PERF.md)={PREV_MS['K7a']} "
+          f"plain_ms={plain_a:.1f} attempts={att_a} steps={steps_a} {json.dumps(work_a)}",
+          flush=True)
+    require(not unequal, f"K7a differs from its plain version in {unequal}")
     tex = params.density_mips[0].numel() * params.density_mips[0].element_size()
     row_a = kernel_row("K7a first-scatter sampler", "deepestscatter_tpu_torch/csrc/samples.cu",
                        "deepestscatter_tpu/data/collectors.py:59", err_a, ms_a, plain_a,
                        tex + n * (12 + 12 + 1 + 8),
                        steps_a * K7A_OPS_PER_STEP + att_a * K7A_OPS_PER_ATTEMPT)
+    row_a.update(work_a)
 
     # K7b at the radiance stage's first update (every point, its replicas,
     # bases 0 from the zero counts) and at that shape with bases 2^32 - 50
@@ -1049,7 +1108,8 @@ def phase_collect(config, collectors, desc_ops, ins_ops, pt, dev) -> list:
         pm, rec = collectors.launch_radiance(params, rs, o, d, ids, sub0, 0, launches)
         if base0 == 0:
             steps_b, bounces_b = int(pm.steps.sum()), int(pm.bounces.sum())
-            items, slots = (int(v) for v in collectors.radiance_moments.last_counters.tolist())
+            items, slots, resolves, resolved = (
+                int(v) for v in collectors.radiance_moments.last_counters.tolist())
             n_lanes = o.shape[0]
         mean_f, m2_f, cnt_f = welford_fold(rec.radiance[..., 0])
         fold_counts_ok = (fold_counts_ok and torch.equal(pm.count, cnt_f)
@@ -1077,10 +1137,23 @@ def phase_collect(config, collectors, desc_ops, ins_ops, pt, dev) -> list:
     args = (params, rs, entry, dirs, rids, torch.zeros(n, dtype=torch.int64, device=dev), 0,
             replicas, launches)
     ms_b = time_ms(lambda: collectors.radiance_moments(*args), 3)
+    simt_b = steps_b / max(32.0 * slots, 1.0)
+    work_b = dict(steps_per_s=steps_b / (ms_b * 1e-3), simt_efficiency=simt_b,
+                  crossings_per_resolve_step=resolved / max(resolves, 1))
+    # A step's 8 taps lie in 4 (y, z) rows of the uint8 [Z, Y, X] texture:
+    # ~4 sectors of 32 B a step, were every tap to miss L1.
+    sectors_per_s = 4.0 * work_b["steps_per_s"]
     print(f"K7b radiance experiments: points={n} replicas={replicas} launches={launches} "
           f"lanes={n_lanes} experiments={n_lanes * launches} steps={steps_b} "
-          f"bounces={bounces_b} simt_efficiency={steps_b / max(32.0 * slots, 1.0):.4f} "
-          f"ms={ms_b:.3f}; bases 0 and 2^32 - 50: folds_equal_records(counts, steps, "
+          f"bounces={bounces_b} simt_efficiency={simt_b:.4f} (steps / (32 x march slots)) "
+          f"resolve_steps={resolves} crossings_resolved={resolved} "
+          f"crossings_per_resolve_step={work_b['crossings_per_resolve_step']:.2f} "
+          f"park_at={cuda_build.load('pathtrace').ds_radiance_park_at()} "
+          f"ms={ms_b:.3f} before_redesign_ms(PERF.md)={PREV_MS['K7b']} "
+          f"steps_per_s={work_b['steps_per_s']:.4g} tap_sectors_per_s(4 a step, were every tap "
+          f"to miss L1)={sectors_per_s:.4g} against the L2 gather ceiling (P1, 16-B rows, "
+          f"16 MiB)={gather_rows_per_s:.4g} rows/s; bases 0 and 2^32 - 50: "
+          f"folds_equal_records(counts, steps, "
           f"scatters)={fold_counts_ok} fold_err(of tol sum x 1e-5, sum x^2 1e-4 of max)="
           f"{fold_err:.3g}; {po.shape[0]} records against one-experiment plain runs: "
           f"steps_scatters_equal={counts_eq} max_abs_err={err_b:.3g} (tol 1e-5 of "
@@ -1093,6 +1166,7 @@ def phase_collect(config, collectors, desc_ops, ins_ops, pt, dev) -> list:
                        2 * tex + tables + n_lanes * (12 + 12 + 8 + 4) + n_lanes * (12 + 12 + 4 + 16),
                        steps_b * K4_OPS_PER_STEP + bounces_b * K4_OPS_PER_BOUNCE
                        + n_lanes * launches * K4_OPS_PER_SAMPLE)
+    row_b.update(work_b)
 
     # The stored grids against K2's plain version (bitwise).
     grids = store.table("DisneyDescriptor").read(0, n)["grid"]
@@ -1108,6 +1182,121 @@ def phase_collect(config, collectors, desc_ops, ins_ops, pt, dev) -> list:
     store.close()
     tmp.cleanup()
     return [dict(row_a, launches=launched["K7a"]), dict(row_b, launches=launched["K7b"])]
+
+
+def phase_ground_truth(prog, pt, ins_ops, dev) -> None:
+    """The port's converged renders of the evaluation's held-out scene
+    against the JAX package's committed one; counted (K3, K4)."""
+    from deepestscatter_tpu_torch import tasks
+    from deepestscatter_tpu_torch.utils import compare, exr
+
+    record = json.loads(EVAL_JSON.read_text())
+    width, height = record["resolution"]
+    reference = exr.read_exr(str(EVAL_REFERENCE))
+    for f in (pt.scatter_loop, ins_ops.sun_transmittance):
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    setup, base = tasks.eval_scene(record["held_out_scene"], width, height)
+    cfg, params, static = tasks.scene_from_setup(setup, base, device=dev)
+    setup_s = time.time() - t0
+    # The first 20 subframes at the reference's seed against the JAX
+    # package's on the CPU: the same paths, but where the two parted.
+    jax_cpu = exr.read_exr(str(EVAL_JAX_CPU)).astype(np.float64)
+    short = prog.ProgressiveRenderer(cfg, params, static, seed=EVAL_REFERENCE_SEED, device=dev)
+    while short.state.subframe_id < EVAL_JAX_CPU_SUBFRAMES:
+        short.tick()
+    got = short.hdr_image().astype(np.float64)
+    close = float((np.abs(got - jax_cpu) <= 1e-3 * np.maximum(np.abs(jax_cpu), 1e-6)).mean())
+    bitwise = float((got == jax_cpu).mean())
+    mean_rel = abs(got.mean() - jax_cpu.mean()) / jax_cpu.mean()
+    diff, paired_se = compare.paired_difference(got, jax_cpu)
+    print(f"JAX ground truth, first {EVAL_JAX_CPU_SUBFRAMES} subframes of seed "
+          f"{EVAL_REFERENCE_SEED} against the JAX package on the CPU: "
+          f"subframes={short.state.subframe_id} channels_within_1e-3={close:.6f} (tol 0.98) "
+          f"bitwise_share={bitwise:.6f} image_mean={got.mean():.6f} "
+          f"jax_cpu_mean={jax_cpu.mean():.6f} mean_rel_diff={mean_rel:.3g} (tol 1e-4) "
+          f"diff={diff:.4g} paired_se={paired_se:.3g} paired_z={diff / paired_se:.3f}",
+          flush=True)
+    require(close >= 0.98 and mean_rel <= 1e-4,
+            "the port's first subframes disagree with the JAX package's on the CPU")
+    # The reference's seed to its depth and a tick either side: the same
+    # paths as the file's, but where the TPU's float functions parted them.
+    ref_t = torch.as_tensor(reference, device=dev).reshape(-1, 3)
+    r3 = prog.ProgressiveRenderer(cfg, params, static, seed=EVAL_REFERENCE_SEED, device=dev)
+    tick = cfg.progressive.subframes_per_tick
+    mad = {}
+    for sub in (EVAL_REFERENCE_SUBFRAMES - tick, EVAL_REFERENCE_SUBFRAMES,
+                EVAL_REFERENCE_SUBFRAMES + tick):
+        while r3.state.subframe_id < sub:
+            r3.tick()
+        require(r3.state.subframe_id == sub, f"seed {EVAL_REFERENCE_SEED} missed subframe {sub}")
+        mad[sub] = float((r3.state.mean - ref_t).abs().mean())
+        if sub == EVAL_REFERENCE_SUBFRAMES:
+            at_depth = r3.hdr_image()
+    depth_ok = mad[EVAL_REFERENCE_SUBFRAMES] < min(
+        v for k, v in mad.items() if k != EVAL_REFERENCE_SUBFRAMES)
+    diff3, se3 = compare.paired_difference(at_depth, reference)
+    sdiff3, sse3 = compare.paired_difference(EVAL_SCALE * at_depth, reference)
+    print(f"JAX ground truth, seed {EVAL_REFERENCE_SEED} at the reference's "
+          f"{EVAL_REFERENCE_SUBFRAMES} subframes: mean_abs_diff="
+          f"{json.dumps({k: round(v, 6) for k, v in mad.items()})} (least at "
+          f"{EVAL_REFERENCE_SUBFRAMES} required) image_mean={at_depth.astype(np.float64).mean():.6f} "
+          f"reference_mean={reference.astype(np.float64).mean():.6f} diff={diff3:.4g} "
+          f"rel_diff={diff3 / reference.astype(np.float64).mean():.3g} paired_se={se3:.3g} "
+          f"paired_z={diff3 / se3:.3f} (tol {compare.Z_MAX:g}) "
+          f"tone_mapped_rms={compare.rms_bias(reference, at_depth):.6g}; scaled by {EVAL_SCALE}: "
+          f"paired_z={sdiff3 / sse3:.1f} (must exceed {compare.Z_MAX:g})", flush=True)
+    require(depth_ok, "the reference's seed does not come closest to it at its recorded depth")
+    require(abs(diff3) <= compare.Z_MAX * se3,
+            "the port's render of the reference's seed disagrees with the reference")
+    require(abs(sdiff3) > compare.Z_MAX * sse3,
+            "the same-seed gate passes an image scaled by 2 %")
+    renders, run_s, subframes = [], 0.0, []
+    for seed in EVAL_SEEDS:
+        r = prog.ProgressiveRenderer(cfg, params, static, seed=seed, device=dev)
+        t0 = time.time()
+        hdr = r.run()
+        torch.cuda.synchronize()
+        run_s += time.time() - t0
+        st = r.state
+        require(bool(np.isfinite(hdr).all()) and hdr.shape == reference.shape,
+                f"the ground-truth render of seed {seed} is not finite or has the wrong shape")
+        renders.append((st.mean.reshape(height, width, 3).cpu().numpy(),
+                        st.m2.reshape(height, width, 3).cpu().numpy(),
+                        st.count.reshape(height, width).cpu().numpy()))
+        one = compare.render_agreement(
+            *renders[-1], reference,
+            reference_noise=float(np.sqrt(st.subframe_id / EVAL_REFERENCE_SUBFRAMES)))
+        subframes.append(st.subframe_id)
+        print(f"JAX ground truth, seed {seed}: subframes={st.subframe_id} "
+              f"unconverged={int(prog.unconverged_count(st, cfg.progressive))} "
+              f"image_mean={one.mean:.6f} mean_se={one.mean_se:.3g} mean_z={one.mean_z:.3f} "
+              f"tone_mapped_rms={one.rms:.6g} noise_expected_rms={one.noise_rms:.6g} "
+              f"past_4_sigma_share={one.past_4_sigma:.6f}", flush=True)
+    launches = {"K4": pt.scatter_loop.launches, "K3": ins_ops.sun_transmittance.launches}
+    mean, m2, count = compare.pool_renders(renders)
+    noise = float(np.sqrt(sum(subframes) / EVAL_REFERENCE_SUBFRAMES))
+    a = compare.render_agreement(mean, m2, count, reference, reference_noise=noise)
+    scaled = compare.render_agreement(EVAL_SCALE * mean, EVAL_SCALE**2 * m2, count, reference,
+                                      reference_noise=noise)
+    diff = a.mean - a.reference_mean
+    rays = width * height * sum(subframes)
+    print(f"JAX ground truth: scene={json.dumps(record['held_out_scene'])} {width}x{height} "
+          f"seeds={list(EVAL_SEEDS)} pooled setup_s={setup_s:.2f} run_s={run_s:.2f} "
+          f"subframes={subframes} Mrays_per_s={rays / run_s / 1e6:.2f} "
+          f"image_mean={a.mean:.6f} reference_mean={a.reference_mean:.6f} (EVAL_r05.json "
+          f"pt_mean {record['pt_mean']:.5f}) diff={diff:.4g} rel_diff={diff / a.reference_mean:.3g} "
+          f"mean_se={a.mean_se:.3g} pooled_mean_z={a.mean_z:.3f} (tol 4) "
+          f"tone_mapped_rms={a.rms:.6g} noise_expected_rms={a.noise_rms:.6g} (tol 1.5x) "
+          f"past_4_sigma_share={a.past_4_sigma:.6f} launches={json.dumps(launches)}; "
+          f"scaled by {EVAL_SCALE}: mean_z={scaled.mean_z:.1f} tone_mapped_rms={scaled.rms:.6g} "
+          f"noise_expected_rms={scaled.noise_rms:.6g} passes={scaled.passes()} (must be False)",
+          flush=True)
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the ground-truth render never launched: {launches}")
+    require(a.passes(), "the port's render disagrees with the JAX package's ground truth")
+    require(not scaled.passes(), "the ground-truth gate passes an image scaled by 2 %")
 
 
 def run() -> dict:
@@ -1216,11 +1405,15 @@ def run() -> dict:
     del pt_runs
 
     # -- the probe's path, counted -------------------------------------------
-    probe_rows = phase_probe(gather, steps_per_s[256])
+    probe_rows, gather_rows_per_s = phase_probe(gather, steps_per_s[256])
     kernels += [probe_rows["P1"], probe_rows["P2"]]
 
     # -- the dataset generator's main path, counted ---------------------------
-    kernels += phase_collect(config, collectors, desc_ops, ins_ops, pt, dev)
+    kernels += phase_collect(config, cuda_build, collectors, desc_ops, ins_ops, pt, dev,
+                             gather_rows_per_s)
+
+    # -- the path tracer against the JAX package's ground truth, counted ------
+    phase_ground_truth(prog, pt, ins_ops, dev)
     return kernels
 
 

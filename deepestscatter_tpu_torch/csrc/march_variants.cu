@@ -4,18 +4,24 @@
 // kernel at other numbers of voxels a thread; K1 as one thread per ray (its
 // first design) and with other numbers of lanes a ray; K2 as one thread per
 // element (its first design) and with the light frame staged in shared
-// memory; K7a with K1's 8 lanes a sample.  Every alternative computes the
+// memory; K7a as a warp a sample walking its attempts in order (its first
+// design) and with K1's 8 lanes a sample, and with other numbers of warps a
+// sample; K7b as K4's item queue with a per-lane base (its first design),
+// and with its scatters deferred at other numbers of parked lanes and other
+// lookaheads.  Every alternative computes the
 // same values as the kernels the package runs.
 //
 // The package's entry points are renamed where they are included; the
-// ds_pathtrace, ds_bake, ds_march, ds_descriptor and ds_samples here take the same
-// arguments and run the alternative ds_variant / ds_neural_variant chose,
-// so the wrappers' _launch(lib=) drives them.
+// ds_pathtrace, ds_bake, ds_march, ds_descriptor, ds_samples and ds_radiance here
+// take the same arguments and run the alternative ds_variant /
+// ds_neural_variant / ds_samples_variant / ds_radiance_variant chose, so the
+// wrappers' _launch(lib=) drives them.
 #define ds_pathtrace ds_pathtrace_package
 #define ds_bake ds_bake_package
 #define ds_march ds_march_package
 #define ds_descriptor ds_descriptor_package
 #define ds_samples ds_samples_package
+#define ds_radiance ds_radiance_package
 #include "pathtrace.cu"
 #include "inscatter.cu"
 #include "march.cu"
@@ -26,6 +32,7 @@
 #undef ds_march
 #undef ds_descriptor
 #undef ds_samples
+#undef ds_radiance
 
 namespace {
 
@@ -36,7 +43,61 @@ int g_lookahead = ds::kLookahead;
 int g_voxels = ds::kBakeVoxels;  // K3's voxels a thread
 int g_lanes = ds::kMarchLanes;  // K1's lanes a ray; 0: one thread per ray
 int g_desc = 1;  // K2: 0 a thread per element, 1 the package's, 2 staged frames
-int g_sample_lanes = kSampleLanes;  // K7a's lanes a sample
+int g_sample_warps = ds::kSampleWarps;  // K7a's warps a sample; 0: a group of lanes a sample
+int g_sample_lanes = 32;  // K7a's lanes a sample where g_sample_warps is 0
+// K7b: 0 K4's item queue (its first design), 1 deferred scatters; the
+// parked lanes that resolve; lookahead.
+int g_radiance = 1;
+int g_park_at = ds::kParkAt;
+int g_radiance_lookahead = ds::kLookahead;
+
+constexpr int kSampleThreads = 128;
+
+// K7a's first design: samples x G threads, group g of G lanes taking
+// sample blockIdx * (threads / G) + g through its attempts in order.
+template <int G, typename T>
+__global__ void __launch_bounds__(kSampleThreads) samples_kernel(
+    const T* __restrict__ dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
+    ds::MarchConsts c, float min_dist, float* __restrict__ pos_out,
+    float* __restrict__ dir_out, uint8_t* __restrict__ found_out,
+    int32_t* __restrict__ work_out) {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two up to 32");
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (G - 1);
+  const int shift = lane - gl;
+  const unsigned gmask = ds::lanes_below(G) << shift;
+  const int64_t s = ((int64_t)blockIdx.x * kSampleThreads + threadIdx.x) / G;
+  if (s >= n) return;  // whole groups: n x G threads, G divides the block
+  ds::Ray R;
+  bool found = false;
+  int k = 0, steps = 0;
+  while (!found && k < ds::kMaxAttempts) {  // uniform over the group
+    ds::attempt_start(R, ds::attempt_ray(seed, (uint32_t)s, k, c, min_dist), c);
+    ++k;
+    attempt_march_lanes<G>(R, gl, gmask, shift, dens, nx, ny, nz, c);
+    steps += R.steps;
+    found = ds::accepted(R, c);
+  }
+  if (gl == 0) ds::sample_end(s, found, R, c, k, steps, pos_out, dir_out, found_out, work_out);
+}
+
+template <int G>
+static int samples_lanes(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed,
+                         int64_t n, const ds::MarchConsts& c, float min_dist, float* pos_out,
+                         float* dir_out, uint8_t* found_out, int32_t* work_out,
+                         cudaStream_t s) {
+  const unsigned blocks = (unsigned)((n * G + kSampleThreads - 1) / kSampleThreads);
+  if (is_u8) {
+    samples_kernel<G, uint8_t><<<blocks, kSampleThreads, 0, s>>>(
+        (const uint8_t*)dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out,
+        work_out);
+  } else {
+    samples_kernel<G, float><<<blocks, kSampleThreads, 0, s>>>(
+        (const float*)dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out,
+        work_out);
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -315,9 +376,14 @@ int ds_bake(const void* dens, int is_u8, int nx, int ny, int nz, const float* co
   return -1;
 }
 
-// K7a: 8 or 32 lanes a sample (the package runs 32).  Another choice
-// makes ds_samples return -1.
-void ds_samples_variant(int lanes) { g_sample_lanes = lanes; }
+// K7a: warps > 0 runs rounds of 2, 4, 8 or 16 warps a sample (the package
+// runs kSampleWarps); warps 0 a group of 8 or 32 lanes a sample walking its
+// attempts in order (its first design ran 32).  Another choice makes
+// ds_samples return -1.
+void ds_samples_variant(int warps, int lanes) {
+  g_sample_warps = warps;
+  g_sample_lanes = lanes;
+}
 
 int ds_samples(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed, int64_t n,
                const float* consts, int max_steps, float min_dist, float* pos_out,
@@ -325,16 +391,67 @@ int ds_samples(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t see
   if (n <= 0) return 0;
   const ds::MarchConsts c = ds::march_consts(consts, max_steps, 0);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (g_sample_lanes) {
-    case 8:
-      return samples_lanes<8>(dens, is_u8, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out,
-                              found_out, work_out, s);
-    case 32:
-      return samples_lanes<32>(dens, is_u8, nx, ny, nz, seed, n, c, min_dist, pos_out,
-                               dir_out, found_out, work_out, s);
-    default:
-      return -1;
+#define DS_ROUNDS(W) \
+  samples_rounds<W>(dens, is_u8, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out, \
+                    work_out, s)
+#define DS_LANES(G) \
+  samples_lanes<G>(dens, is_u8, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out, \
+                   work_out, s)
+  switch (g_sample_warps) {
+    case 2: return DS_ROUNDS(2);
+    case 4: return DS_ROUNDS(4);
+    case 8: return DS_ROUNDS(8);
+    case 16: return DS_ROUNDS(16);
+    case 0: break;
+    default: return -1;
   }
+  switch (g_sample_lanes) {
+    case 8: return DS_LANES(8);
+    case 32: return DS_LANES(32);
+  }
+  return -1;
+#undef DS_ROUNDS
+#undef DS_LANES
+}
+
+// K7b: design 0 K4's item queue with the per-lane base (its first design,
+// lookahead kLookahead), 1 deferred scatters at park_at 1 .. 32 and
+// lookahead 1, 2 or 4.  Another choice makes ds_radiance return -1.
+void ds_radiance_variant(int design, int park_at, int lookahead) {
+  g_radiance = design;
+  g_park_at = park_at;
+  g_radiance_lookahead = lookahead;
+}
+
+int ds_radiance(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
+                const float* eval_rows, int n_phase, const float* inv_rows, int n_inv,
+                const float* entry, const float* dirs, const uint8_t* hit,
+                const int64_t* ray_ids, int64_t n, const float* consts, const float* ground,
+                int max_steps, int max_depth, int rr_start, int flags, uint32_t seed_base,
+                const uint32_t* sub0, int n_samples, float* rec_rad, int32_t* rec_work,
+                unsigned long long* counters, float* mean_out, float* m2_out,
+                float* count_out, int64_t* work_out, void* stream) {
+#define DS_DEFERRED(K)                                                                       \
+  radiance_queue<K>(dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows, n_inv,       \
+                    entry, dirs, hit, ray_ids, n, consts, ground, max_steps, max_depth,       \
+                    rr_start, flags, seed_base, sub0, n_samples, g_park_at, rec_rad,          \
+                    rec_work, counters, mean_out, m2_out, count_out, work_out, stream)
+  if (g_radiance == 0) {
+    if (sub0 == nullptr) return (int)cudaErrorInvalidValue;
+    return pathtrace_queue<ds::kLookahead>(
+        dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows, n_inv, entry, dirs, hit,
+        ray_ids, n, consts, ground, max_steps, max_depth, rr_start, flags, seed_base, 0u,
+        n_samples, rec_rad, rec_work, counters, mean_out, m2_out, count_out, work_out, stream,
+        sub0);
+  }
+  if (g_radiance != 1) return -1;
+  switch (g_radiance_lookahead) {
+    case 1: return DS_DEFERRED(1);
+    case 2: return DS_DEFERRED(2);
+    case 4: return DS_DEFERRED(4);
+  }
+  return -1;
+#undef DS_DEFERRED
 }
 
 }  // extern "C"

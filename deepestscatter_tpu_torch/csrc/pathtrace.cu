@@ -30,13 +30,41 @@
 //   the kernel computes the same values in another order.
 //
 // K7b, the dataset collector's radiance experiments (ds_radiance below),
-// is this kernel with a per-pixel experiment base: sample k of pixel r
+// is this estimator with a per-pixel experiment base: sample k of pixel r
 // uses the seed seed_base ^ ((sub0[r] + k) * 0x9E3779B1) in uint32
 // arithmetic (wrapping), where K4 has the scalar sub_first.  It replaces
 // the XLA program of deepestscatter_tpu/data/collectors.py::
 // _radiance_launch (lines 150-223) over render/pathtracer.py::
 // _scatter_loop_deferred (line 73): each pixel is a (point, replica) lane
 // of the collector, run in SUN_MULTIPLE_SCATTER for `launches` samples.
+// Its traffic is not K4's: an update is 2,048 points x 10 replicas x 100
+// experiments, each a multiply scattered path from inside the cloud (758 M
+// steps, 36.3 M in-box scatters at the collector's operating point).  Its
+// first design was K4's item queue with the base (pathtrace_items_kernel,
+// kept as ds_radiance's design 0 in march_variants.cu): 27.0-28.8 ms an
+// update on an H100 at 700 W, 27x its operation bound, SIMT efficiency of
+// the march 0.862, yet ~3 lanes in the ~270-operation scatter branch that
+// the warp runs in nearly every 2-step march iteration.
+// The design here (radiance_items_kernel): the scatters are deferred in
+// the warp.  A lane whose step crossed od parks at the crossing
+// (march_steps); a warp step either marches every unparked lane or, once
+// kParkAt of its live lanes are parked or none marches, resolves every
+// parked crossing together (resolve_now, resolve).  Records and folds are
+// K4's.  Its launch bounds name a minimum of kRadianceBlocks = 1 resident
+// block: nvcc then gives the kernel 79 registers, where a bound of threads
+// alone held it at 64.  Measured against the first design
+// (probes/march_variants.py at the update's shape, in turns, H100 80GB
+// HBM3 at 700 W): 21.4-21.6 ms against 27.1-27.4 at 20 parked lanes, 17.3
+// crossings a resolve step, the march's SIMT efficiency 0.41; 22.8-23.0 at
+// 18, 22.3-22.4 at 22, 23.6-23.8 at 16, 24.3-24.7 at 24, 24.3-24.5 at 8,
+// 33.4-33.5 at 28.  Registers decide more than the parking: at 20 parked,
+// 70 registers (7 blocks) take 25.1-25.3 ms, 64 (8 blocks) 27.7-27.8 and
+// 48, 40, 32 (spilling) 37.5, 63.3, 144.6; at 64 registers the best park
+// was 24 and won 0-3 %.  Lookahead 1 or 4 is slower (25.9-26.3, 23.9-24.4);
+// a point-major item order (a warp's fresh lanes are experiments of one
+// point) is within 2 % (21.1-21.4: only an experiment's first flight is
+// shared).  The warp's time follows neither its march slots nor its
+// scatter passes alone.
 //
 // The step lattice is the oracle's: no AABB jump and no empty-cell skip
 // (both move positions at the ulp).  Float expressions follow the plain
@@ -105,6 +133,12 @@ namespace ds {
 
 // Steps of one lookahead chunk.
 constexpr int kLookahead = 2;
+// K7b: parked lanes of a warp at which it resolves their scatters.
+constexpr int kParkAt = 20;
+// K7b: the resident blocks a SM its launch bounds ask of the compiler.  1
+// leaves nvcc free to take 79 registers (6 blocks a SM); the bound of
+// threads alone, as K4 has it, held the kernel at 64.
+constexpr int kRadianceBlocks = 1;
 
 struct PtConsts {
   float bbox[3];
@@ -319,17 +353,26 @@ __device__ __forceinline__ void trace_sample(Sample& S, const T* __restrict__ de
   }
 }
 
+// A march step whose transmittance fell below od: where it landed, its
+// density and the transmittance after it (scatter's arguments).
+struct Crossing {
+  float ax, ay, az;
+  float density;
+  float tn;
+};
+
+enum : int { kMarching = 0, kEnded = 1, kCrossed = 2 };
+
 // Up to K march steps of the sample with the same values as K rounds of
-// trace_sample's loop: the K steps' densities and factors first, as
-// independent chains, then the transmittance updates and tests in order
-// (a loop without early exits, so that it unrolls and the arrays stay in
-// registers).  True where the sample ended.
+// trace_sample's loop without its scatter: the K steps' densities and
+// factors first, as independent chains, then the transmittance updates and
+// tests in order (a loop without early exits, so that it unrolls and the
+// arrays stay in registers).  Returns kEnded where the sample ended (box
+// exit, cap), kCrossed where a step crossed od (X holds it; the sample
+// stands at the step before), else kMarching.
 template <int K, typename T>
-__device__ __forceinline__ bool march_chunk(Sample& S, const T* __restrict__ dens,
-                                            const T* __restrict__ insc, int nx, int ny,
-                                            int nz, const float* __restrict__ eval_rows,
-                                            const float* __restrict__ inv,
-                                            const PtConsts& c) {
+__device__ __forceinline__ int march_steps(Sample& S, Crossing& X, const T* __restrict__ dens,
+                                           int nx, int ny, int nz, const PtConsts& c) {
   float dens_k[K], e_k[K];
   float qx = S.px, qy = S.py, qz = S.pz;
 #pragma unroll
@@ -343,30 +386,62 @@ __device__ __forceinline__ bool march_chunk(Sample& S, const T* __restrict__ den
                 c.dm;
     e_k[k] = expf(-dens_k[k] * c.step);
   }
-  float ax = 0.0f, ay = 0.0f, az = 0.0f, tn = 0.0f, density = 0.0f;
-  int state = 0;  // 0 marching, 1 the sample ended, 2 od crossed
+  int state = kMarching;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    if (state == 0) {
+    if (state == kMarching) {
       if (S.steps >= c.max_steps) {
-        state = 1;
+        state = kEnded;
       } else {
-        ax = S.px + S.dx * c.step;
-        ay = S.py + S.dy * c.step;
-        az = S.pz + S.dz * c.step;
-        tn = S.trans * e_k[k];
+        const float ax = S.px + S.dx * c.step, ay = S.py + S.dy * c.step,
+                    az = S.pz + S.dz * c.step;
+        const float tn = S.trans * e_k[k];
         ++S.steps;
         if (S.od > tn) {
-          density = dens_k[k];
-          state = 2;
+          X.ax = ax;
+          X.ay = ay;
+          X.az = az;
+          X.density = dens_k[k];
+          X.tn = tn;
+          state = kCrossed;
         } else if (free_step(S, c, ax, ay, az, tn)) {
-          state = 1;
+          state = kEnded;
         }
       }
     }
   }
-  if (state == 2) return scatter(S, insc, nx, ny, nz, eval_rows, inv, c, ax, ay, az, density, tn);
-  return state == 1;
+  return state;
+}
+
+// The crossing X's scatter (NEE, the next flight): true where the sample
+// ends.
+template <typename T>
+__device__ __forceinline__ bool resolve(Sample& S, const Crossing& X, const T* __restrict__ insc,
+                                        int nx, int ny, int nz,
+                                        const float* __restrict__ eval_rows,
+                                        const float* __restrict__ inv, const PtConsts& c) {
+  return scatter(S, insc, nx, ny, nz, eval_rows, inv, c, X.ax, X.ay, X.az, X.density, X.tn);
+}
+
+// Up to K march steps and, where one crossed od, its scatter: the same
+// values as K rounds of trace_sample's loop.  True where the sample ended.
+template <int K, typename T>
+__device__ __forceinline__ bool march_chunk(Sample& S, const T* __restrict__ dens,
+                                            const T* __restrict__ insc, int nx, int ny,
+                                            int nz, const float* __restrict__ eval_rows,
+                                            const float* __restrict__ inv,
+                                            const PtConsts& c) {
+  Crossing X;
+  const int state = march_steps<K>(S, X, dens, nx, ny, nz, c);
+  if (state == kCrossed) return resolve(S, X, insc, nx, ny, nz, eval_rows, inv, c);
+  return state == kEnded;
+}
+
+// K7b's warp step: resolve the parked crossings (every lane with one)
+// where at least park_at lanes of the warp's live lanes are parked or none
+// marches; else march.  n_parked and n_live are counts over the warp.
+__device__ __forceinline__ bool resolve_now(int n_parked, int n_live, int park_at) {
+  return n_parked >= park_at || n_parked == n_live;
 }
 
 // Welford update of (mean, m2, cnt) with one sample's radiance.
@@ -579,6 +654,82 @@ __global__ void __launch_bounds__(kPtThreads) pathtrace_items_kernel(
   if (lane == 0) atomicAdd(&counters[1], iters * K);
 }
 
+// K7b's queue: pathtrace_items_kernel's refill, with the scatters
+// deferred.  A lane whose step crossed od parks there (march_steps); each
+// warp step either marches every unparked lane or, once park_at lanes are
+// parked or none marches, resolves every parked crossing together
+// (resolve_now).  Items are sample-major, as K4's.  counters[1]: march
+// slots (K a march step of the warp); counters[2]: the warps' resolve
+// steps; counters[3]: the crossings they resolved.
+template <int K, typename T>
+__global__ void __launch_bounds__(kPtThreads, ds::kRadianceBlocks) radiance_items_kernel(
+    const T* __restrict__ dens, const T* __restrict__ insc, int nx, int ny, int nz,
+    const float* __restrict__ eval_rows, const float* __restrict__ inv,
+    const float* __restrict__ entry, const float* __restrict__ dirs,
+    const uint8_t* __restrict__ hit, const int64_t* __restrict__ ray_ids, int64_t n,
+    int n_samples, ds::PtConsts c, uint32_t seed_base, const uint32_t* __restrict__ sub0,
+    int park_at, float* __restrict__ rec_rad, int32_t* __restrict__ rec_work,
+    unsigned long long* __restrict__ counters) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t n_items = n * (int64_t)n_samples;
+  ds::Sample S;
+  ds::Crossing X;
+  int64_t item = 0;
+  bool have = false, parked = false, drained = false;
+  unsigned long long iters = 0, resolves = 0, resolved = 0;
+  for (;;) {
+    for (;;) {
+      const bool need = !have && !drained;
+      const unsigned want = __ballot_sync(kFullMask, need);
+      if (want == 0u) break;
+      const int leader = __ffs(want) - 1;
+      unsigned long long base = 0;
+      if (lane == leader) base = atomicAdd(&counters[0], (unsigned long long)__popc(want));
+      base = __shfl_sync(kFullMask, base, leader);
+      if (need) {
+        item = (int64_t)(base + (unsigned long long)__popc(want & below));
+        if (item >= n_items) {
+          drained = true;
+        } else {
+          have = ds::begin_item(S, item, n, entry, dirs, hit, ray_ids, inv, c, seed_base, 0u,
+                                sub0, rec_rad, rec_work);
+        }
+      }
+    }
+    const unsigned live = __ballot_sync(kFullMask, have);
+    if (live == 0u) break;
+    const int n_parked = __popc(__ballot_sync(kFullMask, parked));
+    if (ds::resolve_now(n_parked, __popc(live), park_at)) {
+      ++resolves;
+      resolved += (unsigned long long)n_parked;
+      if (parked) {
+        parked = false;
+        if (ds::resolve(S, X, insc, nx, ny, nz, eval_rows, inv, c)) {
+          ds::write_record(S, item, rec_rad, rec_work);
+          have = false;
+        }
+      }
+    } else {
+      ++iters;
+      if (have && !parked) {
+        const int state = ds::march_steps<K>(S, X, dens, nx, ny, nz, c);
+        if (state == ds::kEnded) {
+          ds::write_record(S, item, rec_rad, rec_work);
+          have = false;
+        } else if (state == ds::kCrossed) {
+          parked = true;
+        }
+      }
+    }
+  }
+  if (lane == 0) {
+    atomicAdd(&counters[1], iters * K);
+    atomicAdd(&counters[2], resolves);
+    atomicAdd(&counters[3], resolved);
+  }
+}
+
 __global__ void __launch_bounds__(256) fold_kernel(
     const uint8_t* __restrict__ hit, int64_t n, int n_samples,
     const float* __restrict__ rec_rad, const int32_t* __restrict__ rec_work,
@@ -636,7 +787,7 @@ static int pathtrace_queue(const void* dens, const void* insc, int is_u8, int nx
       ds::pt_consts(consts, ground, max_steps, max_depth, rr_start, n_phase, n_inv, flags);
   const int64_t n_items = n * (int64_t)n_samples;
   cudaStream_t s = (cudaStream_t)stream;
-  int err = (int)cudaMemsetAsync(counters, 0, 2 * sizeof(unsigned long long), s);
+  int err = (int)cudaMemsetAsync(counters, 0, 4 * sizeof(unsigned long long), s);
   if (err != 0) return err;
   if (is_u8) {
     err = launch_items<K, uint8_t>((const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz,
@@ -656,7 +807,8 @@ static int pathtrace_queue(const void* dens, const void* insc, int is_u8, int nx
 // flags: 1 single scatter, 2 redraw the first direction per sample,
 // 4 chopped phase at depth 1, 8 sample sky at box exits.  rec_rad
 // [n_samples, n, 3] float32 and rec_work [n_samples, n, 2] int32 are the
-// per-sample records; counters is 2 uint64 (zeroed here); work_out is
+// per-sample records; counters is 4 uint64 (zeroed here; K4 fills the
+// queue head and the march slots); work_out is
 // [n, 2] int64 (steps, in-box scatters).  Returns the first CUDA error of
 // the two launches, or 0.
 extern "C" int ds_pathtrace(const void* dens, const void* insc, int is_u8, int nx,
@@ -677,8 +829,63 @@ extern "C" int ds_pathtrace(const void* dens, const void* insc, int is_u8, int n
       work_out, stream);
 }
 
-// K7b: ds_pathtrace's launches with the experiment base sub0[r] (uint32
-// [n]) of each pixel in place of sub_first.
+// K7b's items at lookahead K, then the fold (ds_radiance's arguments).
+template <int K>
+static int radiance_queue(const void* dens, const void* insc, int is_u8, int nx, int ny,
+                          int nz, const float* eval_rows, int n_phase, const float* inv_rows,
+                          int n_inv, const float* entry, const float* dirs,
+                          const uint8_t* hit, const int64_t* ray_ids, int64_t n,
+                          const float* consts, const float* ground, int max_steps,
+                          int max_depth, int rr_start, int flags, uint32_t seed_base,
+                          const uint32_t* sub0, int n_samples, int park_at, float* rec_rad,
+                          int32_t* rec_work, unsigned long long* counters, float* mean_out,
+                          float* m2_out, float* count_out, int64_t* work_out, void* stream) {
+  if (n <= 0) return 0;
+  if (sub0 == nullptr || park_at < 1 || park_at > 32) return (int)cudaErrorInvalidValue;
+  const ds::PtConsts c =
+      ds::pt_consts(consts, ground, max_steps, max_depth, rr_start, n_phase, n_inv, flags);
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = (int)cudaMemsetAsync(counters, 0, 4 * sizeof(unsigned long long), s);
+  if (err != 0) return err;
+  static int per_sm[2] = {0, 0};  // resident blocks a SM, by texel type
+  int dev = 0, sms = 0;
+  err = (int)cudaGetDevice(&dev);
+  if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != 0) return err;
+  int& resident = per_sm[is_u8 ? 1 : 0];
+  if (resident == 0) {
+    err = is_u8 ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &resident, radiance_items_kernel<K, uint8_t>, kPtThreads, 0)
+                : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &resident, radiance_items_kernel<K, float>, kPtThreads, 0);
+    if (err != 0) return err;
+    if (resident < 1) resident = 1;
+  }
+  const int64_t needed = (n * (int64_t)n_samples + kPtThreads - 1) / kPtThreads;
+  const int64_t full = (int64_t)resident * sms;
+  const unsigned blocks = (unsigned)(needed < full ? needed : full);
+  if (is_u8) {
+    radiance_items_kernel<K, uint8_t><<<blocks, kPtThreads, 0, s>>>(
+        (const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz, eval_rows, inv_rows, entry,
+        dirs, hit, ray_ids, n, n_samples, c, seed_base, sub0, park_at, rec_rad, rec_work,
+        counters);
+  } else {
+    radiance_items_kernel<K, float><<<blocks, kPtThreads, 0, s>>>(
+        (const float*)dens, (const float*)insc, nx, ny, nz, eval_rows, inv_rows, entry, dirs,
+        hit, ray_ids, n, n_samples, c, seed_base, sub0, park_at, rec_rad, rec_work, counters);
+  }
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  fold_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      hit, n, n_samples, rec_rad, rec_work, mean_out, m2_out, count_out, work_out);
+  return (int)cudaGetLastError();
+}
+
+// K7b: the radiance experiments, sample k of pixel r with the experiment
+// base sub0[r] (uint32 [n]) in place of K4's sub_first, their scatters
+// deferred in the warp (radiance_items_kernel at kParkAt, sample-major),
+// then the fold.  The arguments are ds_pathtrace's; counters is 4 uint64
+// (queue head, march slots, resolve steps, crossings resolved).
 extern "C" int ds_radiance(const void* dens, const void* insc, int is_u8, int nx,
                            int ny, int nz, const float* eval_rows, int n_phase,
                            const float* inv_rows, int n_inv, const float* entry,
@@ -690,12 +897,14 @@ extern "C" int ds_radiance(const void* dens, const void* insc, int is_u8, int nx
                            int32_t* rec_work, unsigned long long* counters,
                            float* mean_out, float* m2_out, float* count_out,
                            int64_t* work_out, void* stream) {
-  if (sub0 == nullptr) return (int)cudaErrorInvalidValue;
-  return pathtrace_queue<ds::kLookahead>(
+  return radiance_queue<ds::kLookahead>(
       dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows, n_inv, entry, dirs, hit,
-      ray_ids, n, consts, ground, max_steps, max_depth, rr_start, flags, seed_base, 0u,
-      n_samples, rec_rad, rec_work, counters, mean_out, m2_out, count_out, work_out, stream,
-      sub0);
+      ray_ids, n, consts, ground, max_steps, max_depth, rr_start, flags, seed_base, sub0,
+      n_samples, ds::kParkAt, rec_rad, rec_work, counters, mean_out, m2_out, count_out,
+      work_out, stream);
 }
+
+// The lanes parked before ds_radiance's warps resolve (kParkAt).
+extern "C" int ds_radiance_park_at() { return ds::kParkAt; }
 
 #endif  // DS_HOST_EMULATION

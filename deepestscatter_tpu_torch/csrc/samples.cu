@@ -1,5 +1,5 @@
 // K7a: the first-scatter sample generator of the dataset collector, a
-// group of lanes per sample looping its own attempts.
+// block of W warps per sample running W of its attempts at once.
 //
 // Replaces the XLA loop of deepestscatter_tpu/data/collectors.py::
 // generate_scatter_samples (lines 59-121): a masked lax.while_loop of up to
@@ -19,8 +19,8 @@
 // bbox / 2) and the ray's direction.  A sample that does not scatter in 256
 // attempts keeps zeros, as the JAX loop leaves it (the reference,
 // pointGeneratorCamera.cu:20-42, loops until it scatters).  sample_attempts
-// below states this as a loop over one sample's attempts; the kernel runs
-// the same march with a group of lanes on consecutive steps.
+// below states this as a loop over one sample's attempts; the kernel makes
+// the same attempts in rounds, W at a time.
 //
 // Float expressions follow data/collectors.py::generate_scatter_samples_plain
 // (ops/rng.py uniform_on_sphere, uniform_on_disc, make_onb;
@@ -32,19 +32,29 @@
 // of up to ~900 steps an attempt: ~74 operations a step (K1's count) and
 // ~150 an attempt (four hashes, sphere and disc samples, two frames, the
 // slab test).  The data is small; the time is the longest sample's chain.
+// What held the first design back (a warp a sample walking its attempts in
+// order, 0.1168 ms for the collector's 2,048 samples on an H100 at 700 W,
+// 23x its bound): 2,048 warps fill 65 k of the card's ~270 k thread slots,
+// and the batch lasts as long as its longest chain of attempts (mean 6.53,
+// max 56 on the collector's scene: 56 marches in a row).
 // Design:
-//   1. The lockstep loop becomes one loop a sample: a sample that scatters
-//      in its first attempt leaves, and no sample waits for the batch's
-//      last.
-//   2. A group of G lanes marches each attempt on consecutive steps, with
-//      K1's chunk functions (lane_step, lane_transmittance, chunk_end with
-//      stop_at_cross, chunk_update).  2,048 samples fill only 16 k threads
-//      of the card's 270 k at K1's 8 lanes a ray, so a warp takes a sample
-//      (G = kSampleLanes = 32): the chunks shorten each sample's chain.
-//      G = 8 is kept as an alternative in march_variants.cu, timed beside
-//      this one by probes/march_variants.py.
-//   3. Each lane of a group computes the attempt's ray itself (the same
-//      values on every lane, no shuffles).
+//   1. Attempts are independent (attempt k draws from counters 8k .. 8k+4
+//      of the sample's stream alone), so a block of W = kSampleWarps warps
+//      takes a sample and makes its attempts in rounds: in round j warp w
+//      makes attempt jW + w.  The longest chain becomes ceil(56 / W)
+//      rounds, and the card holds W times the threads.
+//   2. Each warp marches its attempt with K1's chunk functions on 32
+//      consecutive steps (lane_step, lane_transmittance, chunk_end with
+//      stop_at_cross, chunk_update), as the first design did.
+//   3. A round ends with its warps' accepted flags and step counts in
+//      shared memory; round_end (the same on every thread) picks the
+//      smallest accepted attempt and sums the steps the serial loop counts:
+//      every attempt of a round without a winner, and of the winning round
+//      only those up to the winner.  The winner's warp writes the sample
+//      (attempts = winner + 1); work past the winner is dropped.  A sample
+//      without a winner in 256 attempts keeps zeros.
+// The first design (a warp a sample, and K1's 8 lanes a sample) is kept in
+// march_variants.cu and timed beside this one by probes/march_variants.py.
 // Values equal sample_attempts' bitwise.  Each sample's attempts and steps
 // are written out beside it.
 #include "march.cu"
@@ -52,6 +62,8 @@
 namespace ds {
 
 constexpr int kMaxAttempts = 256;
+// W: the warps a sample, each making one attempt a round.
+constexpr int kSampleWarps = 8;
 constexpr uint32_t kDrawsPerAttempt = 8u;
 // float32(sqrt(3) / 2) and float32(2 pi), as torch rounds the Python
 // constants.
@@ -147,6 +159,34 @@ __device__ __forceinline__ bool accepted(const Ray& R, const MarchConsts& c) {
   return R.scattered && in_box(R.qx, R.qy, R.qz, c.bbox);
 }
 
+// Attempt R marched one step at a time, to its crossing, exit or cap.
+template <typename T>
+__device__ __forceinline__ void attempt_march(Ray& R, const T* __restrict__ dens, int nx, int ny,
+                                              int nz, const MarchConsts& c) {
+  while (R.active) {
+    const float ax = R.cx + R.dx * c.step, ay = R.cy + R.dy * c.step,
+                az = R.cz + R.dz * c.step;
+    const float density =
+        trilinear(dens, nx, ny, nz, ax / c.bbox[0], ay / c.bbox[1], az / c.bbox[2]) * c.dm;
+    const float tn = R.trans * expf(-density * c.step);
+    R.trans = tn;
+    R.cx = ax;
+    R.cy = ay;
+    R.cz = az;
+    ++R.steps;
+    if (R.od > tn) {
+      const float back =
+          logf(fmaxf(R.od, 1e-20f) / fmaxf(tn, 1e-20f)) / fmaxf(density, 1e-10f);
+      R.qx = ax - R.dx * back;
+      R.qy = ay - R.dy * back;
+      R.qz = az - R.dz * back;
+      R.scattered = true;
+      break;
+    }
+    R.active = in_aabb(R.cx, R.cy, R.cz, c) && R.steps < c.max_steps;
+  }
+}
+
 // The generator as one loop over sample s's attempts, one step at a time.
 template <typename T>
 __device__ __forceinline__ void sample_attempts(int64_t s, const T* __restrict__ dens, int nx,
@@ -162,100 +202,134 @@ __device__ __forceinline__ void sample_attempts(int64_t s, const T* __restrict__
   while (!found && k < kMaxAttempts) {
     attempt_start(R, attempt_ray(seed, (uint32_t)s, k, c, min_dist), c);
     ++k;
-    while (R.active) {
-      const float ax = R.cx + R.dx * c.step, ay = R.cy + R.dy * c.step,
-                  az = R.cz + R.dz * c.step;
-      const float density =
-          trilinear(dens, nx, ny, nz, ax / c.bbox[0], ay / c.bbox[1], az / c.bbox[2]) * c.dm;
-      const float tn = R.trans * expf(-density * c.step);
-      R.trans = tn;
-      R.cx = ax;
-      R.cy = ay;
-      R.cz = az;
-      ++R.steps;
-      if (R.od > tn) {
-        const float back =
-            logf(fmaxf(R.od, 1e-20f) / fmaxf(tn, 1e-20f)) / fmaxf(density, 1e-10f);
-        R.qx = ax - R.dx * back;
-        R.qy = ay - R.dy * back;
-        R.qz = az - R.dz * back;
-        R.scattered = true;
-        break;
-      }
-      R.active = in_aabb(R.cx, R.cy, R.cz, c) && R.steps < c.max_steps;
-    }
+    attempt_march(R, dens, nx, ny, nz, c);
     steps += R.steps;
     found = accepted(R, c);
   }
   sample_end(s, found, R, c, k, steps, pos_out, dir_out, found_out, work_out);
 }
 
+// The end of a round of W attempts first .. first + W - 1, attempt
+// first + w made by warp w (one past kMaxAttempts is not made: no steps,
+// not accepted).  Bit w of `accepted` is set where attempt first + w was
+// accepted; steps[w] are its march steps.  winner: the smallest accepted
+// attempt, or -1; steps: what the serial loop counts of the round, every
+// attempt's where none was accepted, else those up to the winner's.
+struct RoundEnd {
+  int winner;
+  int steps;
+};
+
+__device__ __forceinline__ RoundEnd round_end(int first, int W, unsigned accepted,
+                                              const int* steps) {
+  RoundEnd E;
+  E.winner = -1;
+  E.steps = 0;
+  for (int w = 0; w < W; ++w) {
+    E.steps += steps[w];
+    if ((accepted >> w) & 1u) {
+      E.winner = first + w;
+      break;
+    }
+  }
+  return E;
+}
+
 }  // namespace ds
 
 #ifndef DS_HOST_EMULATION
 
-constexpr int kSampleThreads = 128;
-constexpr int kSampleLanes = 32;  // G: lanes a sample
-
-// Samples x G threads: group g of G lanes takes sample blockIdx * (threads
-// / G) + g through its attempts.
+// Attempt R marched by a group of G lanes on consecutive steps (K1's chunk
+// functions); gl is this lane's place in the group, gmask the group's
+// lanes in the warp, shift its first lane.
 template <int G, typename T>
-__global__ void __launch_bounds__(kSampleThreads) samples_kernel(
-    const T* __restrict__ dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
-    ds::MarchConsts c, float min_dist, float* __restrict__ pos_out,
-    float* __restrict__ dir_out, uint8_t* __restrict__ found_out,
-    int32_t* __restrict__ work_out) {
-  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two up to 32");
-  const int lane = threadIdx.x & 31;
-  const int gl = lane & (G - 1);
-  const int shift = lane - gl;
-  const unsigned gmask = ds::lanes_below(G) << shift;
-  const int64_t s = ((int64_t)blockIdx.x * kSampleThreads + threadIdx.x) / G;
-  if (s >= n) return;  // whole groups: n x G threads, G divides the block
-  ds::Ray R;
-  bool found = false;
-  int k = 0, steps = 0;
-  while (!found && k < ds::kMaxAttempts) {  // uniform over the group
-    ds::attempt_start(R, ds::attempt_ray(seed, (uint32_t)s, k, c, min_dist), c);
-    ++k;
-    while (R.active) {
-      ds::LaneStep S = ds::lane_step<G>(R, gl, dens, nx, ny, nz, c);
-      S.tn = ds::lane_transmittance<G>(R.trans, gl, [&](int j) {
-        return __shfl_sync(gmask, S.e, j, G);
-      });
-      const unsigned leaves = __ballot_sync(gmask, ds::lane_leaves(S, c)) >> shift;
-      const unsigned crosses = __ballot_sync(gmask, ds::lane_crosses(R, S)) >> shift;
-      const ds::ChunkEnd E = ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G, true);
-      ds::chunk_update(R, E, [&](int j) {
-        ds::LaneStep X;
-        X.ax = __shfl_sync(gmask, S.ax, j, G);
-        X.ay = __shfl_sync(gmask, S.ay, j, G);
-        X.az = __shfl_sync(gmask, S.az, j, G);
-        X.density = __shfl_sync(gmask, S.density, j, G);
-        X.e = 0.0f;
-        X.tn = __shfl_sync(gmask, S.tn, j, G);
-        return X;
-      });
-    }
-    steps += R.steps;
-    found = ds::accepted(R, c);
+__device__ __forceinline__ void attempt_march_lanes(ds::Ray& R, int gl, unsigned gmask,
+                                                    int shift, const T* __restrict__ dens,
+                                                    int nx, int ny, int nz,
+                                                    const ds::MarchConsts& c) {
+  while (R.active) {
+    ds::LaneStep S = ds::lane_step<G>(R, gl, dens, nx, ny, nz, c);
+    S.tn = ds::lane_transmittance<G>(R.trans, gl, [&](int j) {
+      return __shfl_sync(gmask, S.e, j, G);
+    });
+    const unsigned leaves = __ballot_sync(gmask, ds::lane_leaves(S, c)) >> shift;
+    const unsigned crosses = __ballot_sync(gmask, ds::lane_crosses(R, S)) >> shift;
+    const ds::ChunkEnd E = ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G, true);
+    ds::chunk_update(R, E, [&](int j) {
+      ds::LaneStep X;
+      X.ax = __shfl_sync(gmask, S.ax, j, G);
+      X.ay = __shfl_sync(gmask, S.ay, j, G);
+      X.az = __shfl_sync(gmask, S.az, j, G);
+      X.density = __shfl_sync(gmask, S.density, j, G);
+      X.e = 0.0f;
+      X.tn = __shfl_sync(gmask, S.tn, j, G);
+      return X;
+    });
   }
-  if (gl == 0) ds::sample_end(s, found, R, c, k, steps, pos_out, dir_out, found_out, work_out);
 }
 
-template <int G>
-static int samples_lanes(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed,
-                         int64_t n, const ds::MarchConsts& c, float min_dist, float* pos_out,
-                         float* dir_out, uint8_t* found_out, int32_t* work_out,
-                         cudaStream_t s) {
-  const unsigned blocks = (unsigned)((n * G + kSampleThreads - 1) / kSampleThreads);
+// A block of W warps per sample (block b takes sample b): round j's
+// attempts jW .. jW + W - 1, warp w making attempt jW + w with 32 lanes;
+// the round's flags and steps meet in shared memory, and the block stops
+// after the first round that accepts an attempt.
+template <int W, typename T>
+__global__ void __launch_bounds__(32 * W) samples_rounds_kernel(
+    const T* __restrict__ dens, int nx, int ny, int nz, uint32_t seed, ds::MarchConsts c,
+    float min_dist, float* __restrict__ pos_out, float* __restrict__ dir_out,
+    uint8_t* __restrict__ found_out, int32_t* __restrict__ work_out) {
+  __shared__ int s_steps[W];
+  __shared__ unsigned s_accepted;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t s = blockIdx.x;
+  ds::Ray R;
+  int steps = 0;
+  for (int first = 0; first < ds::kMaxAttempts; first += W) {
+    if (threadIdx.x == 0) s_accepted = 0u;
+    __syncthreads();
+    const int k = first + w;
+    if (k < ds::kMaxAttempts) {  // uniform over the warp
+      ds::attempt_start(R, ds::attempt_ray(seed, (uint32_t)s, k, c, min_dist), c);
+      attempt_march_lanes<32>(R, lane, 0xffffffffu, 0, dens, nx, ny, nz, c);
+      if (lane == 0) {
+        s_steps[w] = R.steps;
+        if (ds::accepted(R, c)) atomicOr(&s_accepted, 1u << w);
+      }
+    } else if (lane == 0) {
+      s_steps[w] = 0;
+    }
+    __syncthreads();
+    const ds::RoundEnd E = ds::round_end(first, W, s_accepted, s_steps);
+    steps += E.steps;
+    if (E.winner >= 0) {  // uniform over the block
+      if (k == E.winner && lane == 0) {
+        ds::sample_end(s, true, R, c, E.winner + 1, steps, pos_out, dir_out, found_out,
+                       work_out);
+      }
+      return;
+    }
+    __syncthreads();  // every thread has read s_steps and s_accepted
+  }
+  if (threadIdx.x == 0) {
+    ds::sample_end(s, false, R, c, ds::kMaxAttempts, steps, pos_out, dir_out, found_out,
+                   work_out);
+  }
+}
+
+template <int W>
+static int samples_rounds(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed,
+                          int64_t n, const ds::MarchConsts& c, float min_dist, float* pos_out,
+                          float* dir_out, uint8_t* found_out, int32_t* work_out,
+                          cudaStream_t s) {
+  static_assert(W >= 1 && W <= 32, "W: 1 to 32 warps a sample");
+  if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)n;
   if (is_u8) {
-    samples_kernel<G, uint8_t><<<blocks, kSampleThreads, 0, s>>>(
-        (const uint8_t*)dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out,
+    samples_rounds_kernel<W, uint8_t><<<blocks, 32 * W, 0, s>>>(
+        (const uint8_t*)dens, nx, ny, nz, seed, c, min_dist, pos_out, dir_out, found_out,
         work_out);
   } else {
-    samples_kernel<G, float><<<blocks, kSampleThreads, 0, s>>>(
-        (const float*)dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out,
+    samples_rounds_kernel<W, float><<<blocks, 32 * W, 0, s>>>(
+        (const float*)dens, nx, ny, nz, seed, c, min_dist, pos_out, dir_out, found_out,
         work_out);
   }
   return (int)cudaGetLastError();
@@ -271,8 +345,11 @@ extern "C" int ds_samples(const void* dens, int is_u8, int nx, int ny, int nz, u
                           int32_t* work_out, void* stream) {
   if (n <= 0) return 0;
   const ds::MarchConsts c = ds::march_consts(consts, max_steps, 0);
-  return samples_lanes<kSampleLanes>(dens, is_u8, nx, ny, nz, seed, n, c, min_dist, pos_out,
-                                     dir_out, found_out, work_out, (cudaStream_t)stream);
+  return samples_rounds<ds::kSampleWarps>(dens, is_u8, nx, ny, nz, seed, n, c, min_dist, pos_out,
+                                      dir_out, found_out, work_out, (cudaStream_t)stream);
 }
+
+// The warps a sample of ds_samples (kSampleWarps).
+extern "C" int ds_sample_warps() { return ds::kSampleWarps; }
 
 #endif  // DS_HOST_EMULATION

@@ -7,17 +7,19 @@ collector SceneItems):
 1. ``generate_scatter_samples``: first-scatter (position, direction) pairs
    by rejection: a uniform sphere normal, a uniform disc point of radius
    sqrt(3)/2, a ray at the cloud, the first scatter inside the box
-   (pointGeneratorCamera.cu).  Its kernel is K7a (``csrc/samples.cu``),
-   each sample looping its own attempts; ``generate_scatter_samples_plain``
-   is the lockstep loop over ``ops.march.next_scattering_event``.
+   (pointGeneratorCamera.cu).  Its kernel is K7a (``csrc/samples.cu``), a
+   block a sample making its attempts in rounds of ``kSampleWarps``;
+   ``generate_scatter_samples_plain`` is the lockstep loop over
+   ``ops.march.next_scattering_event``.
 2. ``estimate_point_radiance``: Monte-Carlo multiple-scatter radiance at
    each sample with the reference's CI gates and its host-driven
    reschedule/densify loop (RadianceCollector.cpp:105-141): converged points
    leave the schedule, the thread budget is re-divided among the survivors.
-   Each update is one launch of K7b (``radiance_moments``: K4's kernel,
-   ``csrc/pathtrace.cu::ds_radiance``, over (point, replica) lanes with a
-   per-lane experiment base); ``radiance_moments_plain`` runs K4's plain
-   version with the same bases.
+   Each update is one launch of K7b (``radiance_moments``:
+   ``csrc/pathtrace.cu::ds_radiance``, K4's item queue over (point,
+   replica) lanes with a per-lane experiment base and the scatters deferred
+   in the warp); ``radiance_moments_plain`` runs K4's plain version with
+   the same bases.
 3. ``collect_disney_descriptors``: the 10-layer 5x5x9 uint8 descriptor at
    each sample (K2, then ``ops.descriptor.quantize_u8``).
 4. ``collect_baked_sets``: the 4 tetrahedral probes around each sample,
@@ -241,7 +243,8 @@ def launch_radiance(params, static, entry, dirs, ray_ids, sub0, seed: int, launc
     ``PixelMoments``, the per-experiment ``SampleRecords``).  Its records
     take 20 B a lane and experiment: 41 MB at the default 20,480 lanes x
     100.  ``lib``: another library with the same ``ds_radiance`` entry
-    point (the tests' host build of the kernel's device functions)."""
+    point (the tests' host build of the kernel's device functions, the
+    alternatives ``probes/march_variants.py`` times)."""
     n = entry.shape[0]
     if sub0.shape != (n,) or sub0.dtype != torch.int64:
         raise ValueError("sub0 must be int64 [N]")
@@ -276,7 +279,9 @@ def radiance_moments(params, static, entry, dirs, rids, exp_base, seed: int,
 
 #: Kernel launches so far (counted where K7b is launched, nowhere else).
 radiance_moments.launches = 0
-#: The last launch's device counters (as ``pathtracer.scatter_loop``'s).
+#: The last launch's device counters [4] int64: the queue head, the warps'
+#: march slots (as ``pathtracer.scatter_loop``'s), their resolve steps and
+#: the crossings those resolved.
 radiance_moments.last_counters = None
 
 

@@ -19,29 +19,41 @@ one card.
   per output element (its first design), the package's thread per point
   and column with the light frame computed a thread, and the same with the
   frame staged in shared memory;
-- K7a (``csrc/samples.cu``) with each number of lanes a sample in
-  ``SAMPLE_LANES`` (the package runs 32).
+- K7a (``csrc/samples.cu``) in each design of ``K7A_DESIGNS``: rounds of
+  W attempts a sample (W warps a block; the package runs
+  ``kSampleWarps``), and its first design, a group of G lanes a sample
+  walking its attempts in order (G = 32; G = 8 is K1's lanes a ray),
+  reported with the rounds the longest sample took;
+- K7b (``csrc/pathtrace.cu::ds_radiance``) in each design of
+  ``K7B_DESIGNS``: its first design (K4's item queue with a per-lane
+  experiment base) and the deferred scatters at each number of parked
+  lanes and lookahead, reported with the SIMT efficiency of the march
+  (steps over 32 x march slots) and the crossings a resolve step handles.
 
 Every alternative runs at the main paths' operating point (the 256^3
 procedural cumulus of seed 11, 2000 m, uint8 textures; K4 on the 512^2
 tick of 2 subframes, K3 on the whole grid with early-out, K1 on both passes
 of the 512 x 256 neural frame's rays, K2 on that frame's shading points in
 one launch; K7a on the dataset collector's 2,048 samples of that cloud
-with the ``Front`` light, as ``tasks.collect`` prepares it) and must equal
-the package's kernel bitwise.  Times are
-CUDA-event means over 20 calls (K4, K1, K2, K7a) or 3 (K3), the alternatives
-timed in turns, forward then backward, twice.
+with the ``Front`` light, as ``tasks.collect`` prepares it; K7b on the
+radiance stage's first update there: 2,048 points x 10 replicas, 100
+experiments a lane, bases 0) and must equal the package's kernel bitwise
+(K7b: records and folds).  Times are CUDA-event means over 20 calls (K4,
+K1, K2, K7a) or 3 (K3, K7b), the alternatives timed in turns, forward then
+backward, twice.
 
 Run on the card::
 
-    python -m deepestscatter_tpu_torch.probes.march_variants
+    python -m deepestscatter_tpu_torch.probes.march_variants [--collector-only]
 
-Prints one line an alternative, then one JSON object as the last line;
-exits 1 without a card or if an alternative disagrees.
+``--collector-only`` runs K7a's and K7b's alternatives alone.  Prints
+one line an alternative, then one JSON object as the last line; exits 1
+without a card or if an alternative disagrees.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import re
@@ -71,8 +83,15 @@ K1_DESIGNS = {"one thread per ray": 0, **{f"G={g}": g for g in LANES if g}}
 DESCRIPTOR = {"element": 0, "column": 1, "column_staged_frame": 2}
 SIZE = 512
 SUBFRAMES = 2
-#: K7a's alternatives: lanes a sample.
-SAMPLE_LANES = (8, 32)
+#: K7a's alternatives: (warps a sample in rounds, or 0 and the lanes of a
+#: sample walking its attempts in order) by name.
+K7A_DESIGNS = {"rounds W=2": (2, 0), "rounds W=4": (4, 0), "rounds W=8": (8, 0),
+               "rounds W=16": (16, 0), "first design G=32": (0, 32), "G=8": (0, 8)}
+#: K7b's alternatives: (design, parked lanes, lookahead) by name; design 0
+#: is K4's item queue (its first design), 1 the deferred scatters.
+K7B_DESIGNS = {"first design (items)": (0, 24, 2),
+               **{f"deferred P={p}": (1, p, 2) for p in (8, 16, 18, 20, 22, 24, 28)},
+               "deferred P=20 K=1": (1, 20, 1), "deferred P=20 K=4": (1, 20, 4)}
 #: The neural frame (chip_smoke.py's): 512 x 256.
 NEURAL_WIDTH, NEURAL_HEIGHT = 512, 256
 
@@ -202,51 +221,88 @@ def k2_variants(lib, params, static, points) -> Dict[str, dict]:
     return out
 
 
-def k7a_variants(lib, dev) -> Dict[str, dict]:
-    """K7a at each number of lanes in SAMPLE_LANES against the package's,
-    on the collector's scene and batch."""
+def collector_scene(dev, bake: bool):
+    """The collector's scene: ``procedural:256:11`` at 2000 m with the
+    ``Front`` light, prepared as ``tasks.collect`` prepares it."""
     setup = np.zeros(1, records.SCENE_SETUP)[0]
     setup["cloud_path"] = b"procedural:256:11"
     setup["cloud_size_m"] = 2000.0
     setup["light_direction"] = config.LIGHT_DIRECTIONS["Front"]
-    _, params, static = tasks.scene_from_setup(setup, bake=False, device=dev)
+    _, params, static = tasks.scene_from_setup(setup, bake=bake, device=dev)
+    return params, static
+
+
+def k7a_variants(lib, params, static) -> Dict[str, dict]:
+    """K7a in each design of K7A_DESIGNS against the package's, on the
+    collector's scene and batch."""
     n = records.BATCH_SIZE
     ref = collectors._launch_samples(params, static, n, 0)
+    att = ref.attempts
     out: Dict[str, dict] = {}
     fns = {}
-    for g in SAMPLE_LANES:
-        def run(g=g):
-            lib.ds_samples_variant(g)
+    for key, (warps, lanes) in K7A_DESIGNS.items():
+        def run(warps=warps, lanes=lanes):
+            lib.ds_samples_variant(warps, lanes)
             return collectors._launch_samples(params, static, n, 0, lib=lib)
 
-        out[f"G={g}"] = dict(equal=all(torch.equal(a, b) for a, b in zip(run(), ref)))
-        fns[f"G={g}"] = run
+        row = dict(equal=all(torch.equal(a, b) for a, b in zip(run(), ref)))
+        if warps:
+            rounds = (att + warps - 1) // warps
+            row.update(rounds_mean=float(rounds.float().mean()), rounds_max=int(rounds.max()))
+        out[key] = row
+        fns[key] = run
     for key, ms in in_turns(fns, 20).items():
         out[key]["ms"] = ms
         print(f"K7a {key}: {json.dumps(out[key])}", flush=True)
+    out["attempts"] = dict(mean=float(att.float().mean()), max=int(att.max()))
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("march_variants: needs a CUDA card", file=sys.stderr)
-        return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
-    t0 = time.time()
-    cuda_build.build(["pathtrace", "inscatter", "march", "descriptor", "samples",
-                      "march_variants"])
-    lib = cuda_build.load("march_variants")
-    lib.ds_variant.argtypes = [ctypes.c_int] * 3
-    lib.ds_variant.restype = None
-    lib.ds_neural_variant.argtypes = [ctypes.c_int] * 2
-    lib.ds_neural_variant.restype = None
-    lib.ds_samples_variant.argtypes = [ctypes.c_int]
-    lib.ds_samples_variant.restype = None
-    regs = ptxas((cuda_build.BUILD_DIR / "march_variants.log").read_text())
-    print(f"build: {time.time() - t0:.1f}s ptxas={json.dumps(regs)}", flush=True)
+def k7b_variants(lib, params, static) -> Dict[str, dict]:
+    """K7b in each design of K7B_DESIGNS against the package's, at the
+    radiance stage's first update on the collector's scene: records and
+    folds bitwise."""
+    n = records.BATCH_SIZE
+    cfg = config.PointRadianceConfig()
+    rs = collectors.radiance_static(static)
+    s = collectors.generate_scatter_samples(params, static, n, 0)
+    entry = (s.positions + 0.5 * params.bbox_size).contiguous()
+    replicas = max(1, cfg.max_threads // collectors.bucket_size(n))
+    launches = cfg.launches_per_update
+    base = torch.zeros(n, dtype=torch.int64, device=entry.device)
+    lanes = collectors._lanes(entry, s.directions.contiguous(),
+                              torch.arange(n, device=entry.device), base, replicas, launches)
+    ref_pm, ref_rec = collectors.launch_radiance(params, rs, *lanes, 0, launches)
+    steps = int(ref_pm.steps.sum())
+    out: Dict[str, dict] = {}
+    fns = {}
+    for key, variant in K7B_DESIGNS.items():
+        def run(variant=variant):
+            lib.ds_radiance_variant(*variant)
+            return collectors.launch_radiance(params, rs, *lanes, 0, launches, lib=lib)
 
-    dev = torch.device("cuda")
+        pm, rec = run()
+        _, slots, resolves, resolved = (int(v) for v in collectors.radiance_moments.last_counters)
+        equal = (all(torch.equal(a, b) for a, b in zip(pm, ref_pm))
+                 and all(torch.equal(a, b) for a, b in zip(rec, ref_rec)))
+        row = dict(equal=equal, simt_efficiency=steps / (32.0 * slots))
+        if resolves:
+            row["crossings_per_resolve_step"] = resolved / resolves
+        out[key] = row
+        fns[key] = run
+        del pm, rec
+    for key, ms in in_turns(fns, 3).items():
+        out[key]["ms"] = ms
+        out[key]["steps_per_s"] = steps / (min(ms) * 1e-3)
+        print(f"K7b {key}: {json.dumps(out[key])}", flush=True)
+    out["work"] = dict(lanes=int(lanes[0].shape[0]), experiments=int(lanes[0].shape[0]) * launches,
+                       steps=steps, scatters=int(ref_pm.bounces.sum()))
+    return out
+
+
+def render_variants(lib, dev) -> dict:
+    """K4, K3, K1 and K2's alternatives on the path tracer's and the neural
+    frame's operating points."""
     cfg = config.SceneConfig(
         cloud=config.CloudModel(size_m=2000.0),
         camera=config.CameraConfig(width=SIZE, height=SIZE),
@@ -259,7 +315,6 @@ def main() -> int:
     entry = camera.entry_points(o, d, t_hit, params.bbox_size)
     args = (entry, d, hit, torch.arange(o.shape[0], device=dev), 5, 1, SUBFRAMES, None)
 
-    ok = True
     ref = pathtracer._launch(params, static, *args)
     steps = int(ref.steps.sum().item())
     k4: Dict[str, dict] = {}
@@ -274,7 +329,6 @@ def main() -> int:
 
             got = run()
             equal = all(torch.equal(a, b) for a, b in zip(got, ref))
-            ok = ok and equal
             if pixel:
                 simt = simt_per_pixel(got.steps)
             else:
@@ -293,9 +347,7 @@ def main() -> int:
             lib.ds_variant(0, 0, v)  # (K4's choice unused here)
             return inscatter._launch(params, static, True, lib=lib)
 
-        equal = torch.equal(bake(), ref3)
-        ok = ok and equal
-        k3[f"V={v}"] = dict(equal=equal)
+        k3[f"V={v}"] = dict(equal=torch.equal(bake(), ref3))
         k3_fns[f"V={v}"] = bake
     for key, ms in in_turns(k3_fns, 3).items():
         k3[key]["ms"] = ms
@@ -306,18 +358,51 @@ def main() -> int:
           f"points={points[0].shape[0]}", flush=True)
     k1 = k1_variants(lib, params, static, pass1, pass2)
     k2 = k2_variants(lib, params, static, points)
-    k7a = k7a_variants(lib, dev)
-    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
-                             "--format=csv,noheader"], capture_output=True, text=True,
-                            timeout=60).stdout.strip()
-    print(f"sm clock, max: {clocks}", flush=True)
+    ok = all(r["equal"] for r in list(k4.values()) + list(k3.values()) + list(k2.values()))
     ok = ok and all(r["equal"] for k, r in k1.items() if k != "steps")
-    ok = ok and all(r["equal"] for r in k2.values())
-    ok = ok and all(r["equal"] for r in k7a.values())
+    return dict(steps=steps, K4=k4, K3=k3, K1=k1, K2=k2, ok=ok)
 
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--collector-only", action="store_true",
+                        help="time only K7a's and K7b's alternatives")
+    opts = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("march_variants: needs a CUDA card", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    t0 = time.time()
+    cuda_build.build(["pathtrace", "inscatter", "march", "descriptor", "samples",
+                      "march_variants"])
+    lib = cuda_build.load("march_variants")
+    lib.ds_variant.argtypes = [ctypes.c_int] * 3
+    lib.ds_variant.restype = None
+    lib.ds_neural_variant.argtypes = [ctypes.c_int] * 2
+    lib.ds_neural_variant.restype = None
+    lib.ds_samples_variant.argtypes = [ctypes.c_int] * 2
+    lib.ds_samples_variant.restype = None
+    lib.ds_radiance_variant.argtypes = [ctypes.c_int] * 3
+    lib.ds_radiance_variant.restype = None
+    regs = ptxas((cuda_build.BUILD_DIR / "march_variants.log").read_text())
+    print(f"build: {time.time() - t0:.1f}s ptxas={json.dumps(regs)}", flush=True)
+
+    dev = torch.device("cuda")
+    report = {"card": card} if opts.collector_only else dict(card=card, **render_variants(lib, dev))
+    params, static = collector_scene(dev, bake=True)
+    report["K7a"] = k7a_variants(lib, params, static)
+    report["K7b"] = k7b_variants(lib, params, static)
+    report["sm_clock_mhz"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"sm clock, max: {report['sm_clock_mhz']}", flush=True)
+    ok = report.get("ok", True)
+    ok = ok and all(r["equal"] for k, r in report["K7a"].items() if k != "attempts")
+    ok = ok and all(r["equal"] for k, r in report["K7b"].items() if k != "work")
+    report.update(ptxas=regs, ok=ok)
     print(card, flush=True)
-    print(json.dumps({"card": card, "sm_clock_mhz": clocks, "steps": steps, "K4": k4, "K3": k3,
-                      "K1": k1, "K2": k2, "K7a": k7a, "ptxas": regs, "ok": ok}), flush=True)
+    print(json.dumps(report), flush=True)
     return 0 if ok else 1
 
 

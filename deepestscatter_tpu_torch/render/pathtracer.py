@@ -328,7 +328,9 @@ def launch_entry(lib, entry_point, argtypes, sub_arg, params, static, entry, dir
     """Checks the inputs and runs ``entry_point`` of ``lib`` (default the
     package's ``pathtrace`` build): ``ds_pathtrace``, or ``ds_radiance``
     with ``sub_arg`` in the place of ``sub_first``, on the inputs' device
-    → (``PixelMoments``, ``SampleRecords``, the device counters [2] int64).
+    → (``PixelMoments``, ``SampleRecords``, the device counters [4] int64:
+    queue head, march slots; for ``ds_radiance`` also resolve steps and
+    crossings resolved).
 
     Besides the outputs it allocates per-sample records of 20 bytes a
     (pixel, sample), ``N x n_samples`` of them: 10.5 MB for a 512^2 tick of
@@ -364,7 +366,7 @@ def launch_entry(lib, entry_point, argtypes, sub_arg, params, static, entry, dir
     # pixel in sample order; the queue head and the warps' step slots.
     rec_rad = torch.empty((n_samples, n, 3), dtype=torch.float32, device=dev)
     rec_work = torch.empty((n_samples, n, 2), dtype=torch.int32, device=dev)
-    counters = torch.empty((2,), dtype=torch.int64, device=dev)
+    counters = torch.empty((4,), dtype=torch.int64, device=dev)
     consts = (ctypes.c_float * 17)(
         *static.bbox, static.sample_step, static.density_multiplier,
         *static.light_direction, *static.light_rgb, static.sun_solid_angle_ratio,
@@ -406,7 +408,7 @@ def _launch(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first,
                                    int(sub_first) & 0xFFFFFFFF, params, static, entry, dirs,
                                    hit, ray_ids, seed_base, n_samples, max_steps)
     scatter_loop.launches += 1
-    scatter_loop.last_counters = counters
+    scatter_loop.last_counters = counters[:2]
     return pm
 
 

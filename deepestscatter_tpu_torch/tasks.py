@@ -6,7 +6,9 @@ pipeline (ScatterSample, then Result, DisneyDescriptor and
 BakedInterpolationSet, each reading the samples) over every SceneSetup of
 a store.  Scene i owns the sample ids [i * batch, (i + 1) * batch), its
 stream seed is i, and CONTINUE resumes at ``count // batch``
-(Tasks.h:59-68, Tasks.cpp:137).  The render tasks are not ported yet.
+(Tasks.h:59-68, Tasks.cpp:137).  ``eval_scene`` sets up the held-out scene
+of the end-to-end evaluation (``tools/eval_e2e.py``).  The render tasks are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -14,12 +16,13 @@ from __future__ import annotations
 import dataclasses
 import enum
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .config import BatchSettings, CloudRendering, PointRadianceConfig, SceneConfig
+from .config import (BatchSettings, CameraConfig, CloudRendering, PointRadianceConfig,
+                     SceneConfig)
 from .data import clouds as clouds_mod
 from .data import collectors, records
 from .data.store import RecordStore
@@ -60,6 +63,25 @@ def scene_from_setup(setup: np.void, base: Optional[SceneConfig] = None, bake: b
     if bake:
         params = inscatter.with_baked_inscatter(params, static, device=dev)
     return cfg, params, static
+
+
+def eval_scene(held_out: dict, width: int = 512,
+               height: int = 256) -> Tuple[np.void, SceneConfig]:
+    """The end-to-end evaluation's held-out scene (``tools/eval_e2e.py``
+    :124-149, recorded in its JSON as ``held_out_scene``: ``cloud``,
+    ``size_m``, ``light``) → (its SceneSetup record, the base config the
+    evaluation renders it with): Russian roulette from bounce 64 at 0.98
+    survival, uint8 textures, a ``width`` x ``height`` camera.  Pass both to
+    ``scene_from_setup``."""
+    setup = np.zeros(1, records.SCENE_SETUP)[0]
+    setup["cloud_path"] = held_out["cloud"].encode()[: records.CLOUD_PATH_LEN]
+    setup["cloud_size_m"] = held_out["size_m"]
+    setup["light_direction"] = np.asarray(held_out["light"], np.float32)
+    base = SceneConfig(
+        rendering=CloudRendering(rr_start_depth=64, rr_survival=0.98, march_dtype="uint8"),
+        camera=CameraConfig(width=width, height=height),
+    )
+    return setup, base
 
 
 def radiance_state_path(store: RecordStore, scene_id: int) -> str:

@@ -19,11 +19,17 @@ lookahead march, per-sample records) hold step and scatter counts equal on
 every pixel.  The probe interpolation (K5) and K2 at the baked renderer's
 3 and 9 layers equal their plain versions bitwise; P1's designs
 (``gather.variants``) sum exactly.  K5's redesign equals its first design
-(``ds_probes_first``) bitwise.  The first-scatter sampler (K7a, a warp a
-sample) equals its plain version bitwise (found flags, positions,
-directions, attempts, steps); the radiance experiments (K7b) have equal
-counts, steps and scatters on every lane, each experiment's record equals
-a one-experiment plain run, and their moments lie within K4's tolerances.
+(``ds_probes_first``) bitwise.  The first-scatter sampler (K7a, rounds of
+``kSampleWarps`` attempts a sample) equals its plain version bitwise
+(found flags, positions, directions, attempts, steps), also on a thin
+cloud where samples take up to 256 attempts, some scattering only in their
+last round and some never; it equals its first design (a warp a sample,
+``csrc/march_variants.cu``) bitwise.  The radiance experiments (K7b,
+deferred scatters) have equal counts, steps and scatters on every lane,
+each experiment's record equals a one-experiment plain run, and their
+moments lie within K4's tolerances; records and folds equal its first
+design's (K4's item queue, ``csrc/march_variants.cu``) bitwise at other
+numbers of parked lanes and another lookahead.
 
 Card against CPU: each kernel (K1-K5, K7a, K7b) runs on the card and its
 plain version on the CPU, on the same inputs (the card's scene copied
@@ -52,7 +58,8 @@ import numpy as np
 import pytest
 import torch
 
-from deepestscatter_tpu_torch import BakedRenderer, build_scene, config, tasks, with_baked_inscatter
+from deepestscatter_tpu_torch import (BakedRenderer, build_scene, config, cuda_build, tasks,
+                                      with_baked_inscatter)
 from deepestscatter_tpu_torch.data import collectors, procedural, scenesetups
 from deepestscatter_tpu_torch.scene import params_to
 from deepestscatter_tpu_torch.models.probes import init_light_probe_model, init_probe_renderer_model
@@ -527,6 +534,87 @@ def test_samples_kernel_matches_plain(collect_scene, card):
     for name, a, b in zip(ref._fields, got, ref):
         assert torch.equal(a, b), name
     assert bool(got.found.all()) and int(got.attempts.max()) > 1
+
+
+@pytest.fixture(scope="module")
+def thin_scene(card):
+    """The 24^3 cumulus at 2000 m, uint8, its density scaled by 0.003: an
+    attempt scatters with a probability of ~1 %."""
+    cfg = config.SceneConfig(
+        cloud=config.CloudModel(size_m=2000.0),
+        rendering=config.CloudRendering(march_dtype="uint8", sample_step=1.0 / 64.0))
+    params, static = build_scene(cfg, procedural.cumulus(24, seed=11), device=card)
+    return params, dataclasses.replace(static,
+                                       density_multiplier=static.density_multiplier * 0.003)
+
+
+@pytest.fixture(scope="module")
+def variants_lib(card):
+    """The kernels' alternatives (``csrc/march_variants.cu``)."""
+    import ctypes
+
+    lib = cuda_build.load("march_variants")
+    lib.ds_samples_variant.argtypes = [ctypes.c_int] * 2
+    lib.ds_samples_variant.restype = None
+    lib.ds_radiance_variant.argtypes = [ctypes.c_int] * 3
+    lib.ds_radiance_variant.restype = None
+    return lib
+
+
+def test_samples_rounds_thin_cloud_match_plain(thin_scene, card, variants_lib):
+    """Rounds of attempts against the plain loop where samples need up to
+    256 attempts: bitwise, on the card and within the CPU tolerances
+    against the CPU; and equal to the first design (a warp a sample)."""
+    params, static = thin_scene
+    got = collectors._launch_samples(params, static, 600, 5)
+    ref = collectors.generate_scatter_samples_plain(params, static, 600, 5)
+    torch.cuda.synchronize()
+    for name, a, b in zip(ref._fields, got, ref):
+        assert torch.equal(a, b), name
+    w = cuda_build.load("samples").ds_sample_warps()
+    assert int((got.found & (got.attempts > 256 - w)).sum()) > 0
+    assert int((~got.found).sum()) > 0
+    variants_lib.ds_samples_variant(0, 32)
+    first = collectors._launch_samples(params, static, 600, 5, lib=variants_lib)
+    for name, a, b in zip(ref._fields, first, got):
+        assert torch.equal(a, b), name
+    cpu = collectors.generate_scatter_samples_plain(params_to(params, "cpu"), static, 600, 5)
+    assert (got.found.cpu() == cpu.found).float().mean().item() >= 0.995
+    assert (got.attempts.cpu() == cpu.attempts).float().mean().item() >= 0.995
+
+
+def test_radiance_deferred_equals_first_design(collect_scene, card, variants_lib):
+    """K7b's deferred scatters against K4's item queue (its first design),
+    records and folds bitwise: the package's, at 1 and 32 parked lanes and
+    at lookahead 4; also with a cap of 27 steps an experiment (inside a
+    chunk)."""
+    params, static = collect_scene
+    rs = dataclasses.replace(collectors.radiance_static(static), max_depth=200)
+    entry, d, rids, base = _radiance_case(params, static, card)
+    o, dd, ids, sub0 = collectors._lanes(entry, d, rids, base, 3, 4)
+    sub32 = torch.where(sub0 >= 2**31, sub0 - 2**32, sub0).to(torch.int32).contiguous()
+    hit = torch.ones(o.shape[0], dtype=torch.bool, device=card)
+
+    def launch(lib, cap):
+        pm, rec, _ = pathtracer.launch_entry(
+            lib, "ds_radiance", pathtracer.RADIANCE_ARGTYPES, cuda_build.ptr(sub32), params, rs,
+            o, dd, hit, ids, 9, 4, cap)
+        return pm, rec
+
+    for cap in (None, 27):
+        variants_lib.ds_radiance_variant(0, 16, 2)
+        want = launch(variants_lib, cap)
+        runs = [launch(None, cap)]
+        for variant in ((1, 1, 2), (1, 32, 2), (1, 16, 4)):
+            variants_lib.ds_radiance_variant(*variant)
+            runs.append(launch(variants_lib, cap))
+        torch.cuda.synchronize()
+        if cap is not None:
+            assert int(want[1].work[..., 0].max()) == cap
+        for pm, rec in runs:
+            for a, b in zip(tuple(pm) + tuple(rec), tuple(want[0]) + tuple(want[1])):
+                assert torch.equal(a, b)
+    variants_lib.ds_radiance_variant(1, cuda_build.load("pathtrace").ds_radiance_park_at(), 2)
 
 
 def test_samples_wrapper_counts_launches(collect_scene, card):

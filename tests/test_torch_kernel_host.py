@@ -37,6 +37,13 @@ arithmetic the kernels share with their host build.
 - K5's redesign (``probe_word``: 4 channels from a word of each corner
   row) equals its first design (``probe_channel`` an element) bitwise on
   every column, over float32 and uint8 lattices.
+- K7a's rounds (W attempts at once, ``round_end`` picking the smallest
+  accepted one and the steps of the attempts up to it; W = 1, 3, 8 (the
+  kernel's ``kSampleWarps``) and 32) equal the per-sample attempt loop
+  ``sample_attempts`` bitwise (positions, directions, found, attempts,
+  steps) on a thin cloud where samples need up to 256 attempts: samples
+  that scatter only in their last round of 256 attempts and samples that
+  never scatter included.
 - K7a's chunked attempts (G = 1, 8 and 32 lanes, ``chunk_end`` stopping at
   the crossing) equal the per-sample attempt loop ``sample_attempts``
   bitwise (positions, directions, found, attempts, steps), on both grids
@@ -44,6 +51,11 @@ arithmetic the kernels share with their host build.
   are not torch's, and a flipped attempt moves a sample) found flags agree
   on >= 99.5 % of samples, and where the attempts agree (>= 95 %)
   positions are within 1e-4 and directions within 1e-6.
+- K7b's deferred scatters (a warp of 32 lanes that parks each crossing
+  and resolves the parked ones together, ``resolve_now`` at 1, 20 = the
+  kernel's ``kParkAt`` and 32 parked lanes) equal K4's item loop (its first
+  design) bitwise, records and folds, for items in item order, shuffled
+  and point-major, also with a step cap that cuts samples inside a chunk.
 - K7b's per-pixel experiment bases: each pixel of a ``ds_radiance`` launch
   equals a ``ds_pathtrace`` launch of that pixel alone with ``sub_first``
   set to its base, bitwise, with bases within a few experiments of 2^32
@@ -108,6 +120,7 @@ def host_lib(tmp_path_factory):
     lib.host_set_descriptor.argtypes = [ctypes.c_int]
     lib.host_set_probes.argtypes = [ctypes.c_int]
     lib.host_set_samples.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.host_set_radiance.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -500,12 +513,14 @@ def test_k5_redesign_equals_first_design(host_lib, neural_rig, dtype):
 SAMPLES_N = 160
 
 
-def _samples(lib, params, static, mode, lanes=32, seed=SEED):
+def _samples(lib, params, static, mode, lanes=32, seed=SEED, n=SAMPLES_N):
+    """K7a's host build: ``mode`` 0 ``sample_attempts``, 1 attempts in order
+    in chunks of ``lanes`` lanes, 2 rounds of ``lanes`` attempts."""
     lib.host_set_samples(mode, lanes)
     try:
-        return collectors._launch_samples(params, static, SAMPLES_N, seed, lib=lib)
+        return collectors._launch_samples(params, static, n, seed, lib=lib)
     finally:
-        lib.host_set_samples(1, 32)
+        lib.host_set_samples(2, lib.ds_sample_warps())
 
 
 @pytest.mark.parametrize("lanes", [1, 8, 32])
@@ -519,14 +534,47 @@ def test_k7a_chunks_equal_the_attempt_loop(host_lib, neural_rig, lanes):
 
 
 def test_k7a_host_build_matches_plain(host_lib, neural_rig):
+    """The kernel's design (rounds of ``kSampleWarps`` attempts) against the
+    plain version."""
     params, static, _ = neural_rig
-    got = _samples(host_lib, params, static, 1)
+    got = _samples(host_lib, params, static, 2, host_lib.ds_sample_warps())
     ref = collectors.generate_scatter_samples_plain(params, static, SAMPLES_N, SEED)
     assert (got.found == ref.found).float().mean().item() >= 0.995
     same = (got.attempts == ref.attempts) & got.found & ref.found
     assert same.float().mean().item() >= 0.95
     assert (got.positions - ref.positions)[same].abs().max().item() <= 1e-4
     assert (got.directions - ref.directions)[same].abs().max().item() <= 1e-6
+
+
+THIN_SAMPLES = 600
+
+
+@pytest.fixture(scope="module")
+def thin_rig():
+    """The 24^3 cumulus at 2000 m, uint8, step 1/64, its density scaled by
+    0.003: an attempt scatters with a probability of ~1 %, so samples take
+    up to 256 attempts (mean ~107) and some never scatter."""
+    cfg = config.SceneConfig(
+        cloud=config.CloudModel(size_m=2000.0),
+        rendering=config.CloudRendering(march_dtype="uint8", sample_step=1.0 / 64.0))
+    params, static = build_scene(cfg, procedural.cumulus(24, seed=11), device="cpu")
+    return params, dataclasses.replace(static,
+                                       density_multiplier=static.density_multiplier * 0.003)
+
+
+@pytest.mark.parametrize("warps", [1, 3, 8, 32])
+def test_k7a_rounds_equal_the_attempt_loop(host_lib, thin_rig, warps):
+    params, static = thin_rig
+    ref = _samples(host_lib, params, static, 0, n=THIN_SAMPLES)
+    got = _samples(host_lib, params, static, 2, warps, n=THIN_SAMPLES)
+    for name, a, b in zip(ref._fields, got, ref):
+        assert torch.equal(a, b), name
+    w = host_lib.ds_sample_warps()
+    last_round = ref.found & (ref.attempts > 256 - w)
+    assert int(last_round.sum()) > 0, "no sample scatters only in its last round"
+    never = ~ref.found
+    assert int(never.sum()) > 0 and bool((ref.attempts[never] == 256).all())
+    assert bool((ref.positions[never] == 0).all()) and int(ref.steps[never].min()) > 0
 
 
 def _radiance_rig(pt_rig, n=24):
@@ -607,3 +655,40 @@ def test_k7b_moments_match_plain(host_lib, pt_rig):
     assert torch.equal(got[0], ref[0]) and float(got[0][0]) == 12.0
     assert (got[1] - ref[1]).abs().max().item() <= 1e-5 * (ref[1].abs().max().item() + 1e-12) * 12
     assert (got[2] - ref[2]).abs().max().item() <= 1e-4 * (ref[2].abs().max().item() + 1e-12) * 12
+
+
+@pytest.mark.parametrize("park_at", [1, 0, 32])
+def test_k7b_deferred_equals_the_item_loop(host_lib, pt_rig, park_at):
+    """The kernel's deferred scatters (park_at 0: its ``kParkAt``) against K4's
+    item loop, records and folds bitwise, in item order, shuffled and
+    point-major; then with a cap of 27 steps a sample."""
+    params, static, entry, d = _radiance_rig(pt_rig)
+    n = entry.shape[0]
+    ids = torch.arange(40, 40 + n)
+    base = torch.tensor([2**32 - 2, 5, 2**31 - 1, 0] * (n // 4))
+    sub32 = torch.where(base < 2**31, base, base - 2**32).to(torch.int32).contiguous()
+    q = np.arange(n * SAMPLES)
+    orders = (None, _shuffled((entry,), 5), ((q % SAMPLES) * n + q // SAMPLES).astype(np.int64))
+
+    def radiance(mode, order, cap):
+        host_lib.host_set_pathtrace(1, 0, None if order is None else order.ctypes.data)
+        host_lib.host_set_radiance(mode, park_at)
+        try:
+            return pathtracer.launch_entry(
+                host_lib, "ds_radiance", pathtracer.RADIANCE_ARGTYPES, cuda_build.ptr(sub32),
+                params, static, entry, d, torch.ones(n, dtype=torch.bool), ids, SEED, SAMPLES,
+                cap)
+        finally:
+            host_lib.host_set_pathtrace(1, 0, None)
+            host_lib.host_set_radiance(1, 0)
+
+    for cap in (None, 27):
+        ref_pm, ref_rec, _ = radiance(0, None, cap)
+        if cap is None:
+            assert int(ref_pm.bounces.sum()) > 0
+        else:
+            assert int(ref_rec.work[..., 0].max()) == 27  # the cap cut samples
+        for order in orders:
+            pm, rec, _ = radiance(1, order, cap)
+            _assert_equal(pm, ref_pm)
+            _assert_equal(rec, ref_rec)

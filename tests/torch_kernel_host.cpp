@@ -1,7 +1,8 @@
 // Host build of the path-trace (K4, and K7b: its per-pixel experiment
-// bases), in-scatter bake (K3), camera march (K1), descriptor (K2), probe
-// interpolation (K5) and scatter-sample (K7a) kernels' device functions,
-// for tests/test_torch_kernel_host.py:
+// bases and deferred scatters), in-scatter bake (K3), camera march (K1),
+// descriptor (K2), probe interpolation (K5) and scatter-sample (K7a, its
+// rounds of attempts) kernels' device functions, for
+// tests/test_torch_kernel_host.py:
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off -DDS_HOST_EMULATION
 //       -D__device__= -D__forceinline__=inline
@@ -10,8 +11,8 @@
 // It exports ds_pathtrace, ds_radiance, ds_bake, ds_march, ds_descriptor,
 // ds_probes and ds_samples with the signatures of the device entry points,
 // so the wrappers' _launch drives it on CPU tensors; host_set_pathtrace,
-// host_set_bake, host_set_march, host_set_descriptor, host_set_probes and
-// host_set_samples choose what they compute.
+// host_set_radiance, host_set_bake, host_set_march, host_set_descriptor,
+// host_set_probes and host_set_samples choose what they compute.
 #include <math.h>
 #include <stdint.h>
 
@@ -34,8 +35,17 @@ int march_mode = 1;  // 0: march_ray a ray; 1: chunks of march_lanes lanes a ray
 int march_lanes = ds::kMarchLanes;  // 1, 8 or 32
 int desc_mode = 1;  // 0: descriptor_element an element; 1: descriptor_column a column
 int probes_mode = 1;  // 0: probe_channel an element (first design); 1: probe_word a word
-int samples_mode = 1;  // 0: sample_attempts a sample; 1: chunks of samples_lanes lanes
-int samples_lanes = 32;  // 1, 8 or 32 (the package runs 32)
+// 0: sample_attempts a sample; 1: its attempts in order, each in chunks of
+// samples_lanes lanes (the first design); 2: rounds of samples_warps
+// attempts, each in chunks of 32 lanes (the kernel's).
+int samples_mode = 2;
+int samples_lanes = 32;  // 1, 8 or 32
+int samples_warps = ds::kSampleWarps;  // W of mode 2
+// K7b (ds_radiance, where pt_mode is 1): 0 K4's items (its first design),
+// 1 a warp of 32 lanes with deferred scatters resolved at radiance_park_at
+// parked lanes (the kernel's).
+int radiance_mode = 1;
+int radiance_park_at = ds::kParkAt;
 
 template <int K, typename T>
 void trace_items(const T* dens, const T* insc, int nx, int ny, int nz,
@@ -56,6 +66,58 @@ void trace_items(const T* dens, const T* insc, int nx, int ny, int nz,
   }
 }
 
+// K7b's warp with deferred scatters: 32 lanes take the items in order (a
+// lane whose item has no steps takes the next), and each warp step either
+// resolves every parked crossing (resolve_now) or marches every unparked
+// lane K steps (march_steps), the lanes one after the other.
+template <int K, typename T>
+void trace_items_deferred(const T* dens, const T* insc, int nx, int ny, int nz,
+                          const float* eval_rows, const float* inv, const float* entry,
+                          const float* dirs, const uint8_t* hit, const int64_t* ray_ids,
+                          int64_t n, int64_t n_items, const ds::PtConsts& c,
+                          uint32_t seed_base, const uint32_t* sub0, float* rec_rad,
+                          int32_t* rec_work) {
+  ds::Sample S[32];
+  ds::Crossing X[32];
+  int64_t item[32];
+  bool have[32] = {}, parked[32] = {};
+  int64_t next = 0;
+  for (;;) {
+    for (int l = 0; l < 32; ++l) {
+      while (!have[l] && next < n_items) {
+        item[l] = pt_order ? pt_order[next] : next;
+        ++next;
+        have[l] = ds::begin_item(S[l], item[l], n, entry, dirs, hit, ray_ids, inv, c,
+                                 seed_base, 0u, sub0, rec_rad, rec_work);
+      }
+    }
+    int n_live = 0, n_parked = 0;
+    for (int l = 0; l < 32; ++l) {
+      n_live += have[l] ? 1 : 0;
+      n_parked += parked[l] ? 1 : 0;
+    }
+    if (n_live == 0) return;
+    const bool resolving = ds::resolve_now(n_parked, n_live, radiance_park_at);
+    for (int l = 0; l < 32; ++l) {
+      if (resolving && parked[l]) {
+        parked[l] = false;
+        if (ds::resolve(S[l], X[l], insc, nx, ny, nz, eval_rows, inv, c)) {
+          ds::write_record(S[l], item[l], rec_rad, rec_work);
+          have[l] = false;
+        }
+      } else if (!resolving && have[l] && !parked[l]) {
+        const int state = ds::march_steps<K>(S[l], X[l], dens, nx, ny, nz, c);
+        if (state == ds::kEnded) {
+          ds::write_record(S[l], item[l], rec_rad, rec_work);
+          have[l] = false;
+        } else if (state == ds::kCrossed) {
+          parked[l] = true;
+        }
+      }
+    }
+  }
+}
+
 template <typename T>
 int pathtrace(const T* dens, const T* insc, int nx, int ny, int nz, const float* eval_rows,
               const float* inv, const float* entry, const float* dirs, const uint8_t* hit,
@@ -72,9 +134,15 @@ int pathtrace(const T* dens, const T* insc, int nx, int ny, int nz, const float*
     return 0;
   }
   const int64_t n_items = n * (int64_t)n_samples;
-#define DS_ITEMS(K)                                                                      \
-  trace_items<K>(dens, insc, nx, ny, nz, eval_rows, inv, entry, dirs, hit, ray_ids, n, \
-                 n_items, c, seed_base, sub_first, sub0, rec_rad, rec_work)
+  const bool deferred = sub0 != nullptr && radiance_mode == 1;
+#define DS_ITEMS(K)                                                                            \
+  if (deferred) {                                                                              \
+    trace_items_deferred<K>(dens, insc, nx, ny, nz, eval_rows, inv, entry, dirs, hit, ray_ids, \
+                            n, n_items, c, seed_base, sub0, rec_rad, rec_work);                \
+  } else {                                                                                     \
+    trace_items<K>(dens, insc, nx, ny, nz, eval_rows, inv, entry, dirs, hit, ray_ids, n,       \
+                   n_items, c, seed_base, sub_first, sub0, rec_rad, rec_work);                 \
+  }
   if (pt_lookahead == 1) {
     DS_ITEMS(1);
   } else if (pt_lookahead == ds::kLookahead) {
@@ -187,8 +255,28 @@ void descriptor(const T* mips, const float* pos, const float* dirs, const float*
   }
 }
 
-// K7a's samples, each attempt marched in chunks of G lanes (a chunk's
-// lanes one after the other), with chunk_end's stop at the crossing.
+// Attempt R marched in chunks of G lanes (a chunk's lanes one after the
+// other), with chunk_end's stop at the crossing.
+template <int G, typename T>
+void attempt_chunks(ds::Ray& R, const T* dens, int nx, int ny, int nz, const ds::MarchConsts& c) {
+  while (R.active) {
+    ds::LaneStep S[G];
+    for (int l = 0; l < G; ++l) S[l] = ds::lane_step<G>(R, l, dens, nx, ny, nz, c);
+    for (int l = 0; l < G; ++l) {
+      S[l].tn = ds::lane_transmittance<G>(R.trans, l, [&](int j) { return S[j].e; });
+    }
+    unsigned leaves = 0u, crosses = 0u;
+    for (int l = 0; l < G; ++l) {
+      leaves |= (unsigned)ds::lane_leaves(S[l], c) << l;
+      crosses |= (unsigned)ds::lane_crosses(R, S[l]) << l;
+    }
+    ds::chunk_update(R, ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G, true),
+                     [&](int j) { return S[j]; });
+  }
+}
+
+// K7a's first design: each sample's attempts in order, each attempt in
+// chunks of G lanes.
 template <int G, typename T>
 void sample_chunks(const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
                    const ds::MarchConsts& c, float min_dist, float* pos_out, float* dir_out,
@@ -200,24 +288,47 @@ void sample_chunks(const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t
     while (!found && k < ds::kMaxAttempts) {
       ds::attempt_start(R, ds::attempt_ray(seed, (uint32_t)s, k, c, min_dist), c);
       ++k;
-      while (R.active) {
-        ds::LaneStep S[G];
-        for (int l = 0; l < G; ++l) S[l] = ds::lane_step<G>(R, l, dens, nx, ny, nz, c);
-        for (int l = 0; l < G; ++l) {
-          S[l].tn = ds::lane_transmittance<G>(R.trans, l, [&](int j) { return S[j].e; });
-        }
-        unsigned leaves = 0u, crosses = 0u;
-        for (int l = 0; l < G; ++l) {
-          leaves |= (unsigned)ds::lane_leaves(S[l], c) << l;
-          crosses |= (unsigned)ds::lane_crosses(R, S[l]) << l;
-        }
-        ds::chunk_update(R, ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G, true),
-                         [&](int j) { return S[j]; });
-      }
+      attempt_chunks<G>(R, dens, nx, ny, nz, c);
       steps += R.steps;
       found = ds::accepted(R, c);
     }
     ds::sample_end(s, found, R, c, k, steps, pos_out, dir_out, found_out, work_out);
+  }
+}
+
+// K7a's kernel: each sample's attempts in rounds of W (attempt first + w
+// by "warp" w, in chunks of 32 lanes), each round closed by round_end.
+template <typename T>
+void sample_rounds(int W, const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
+                   const ds::MarchConsts& c, float min_dist, float* pos_out, float* dir_out,
+                   uint8_t* found_out, int32_t* work_out) {
+  std::vector<ds::Ray> R(W);
+  std::vector<int> steps_w(W);
+  for (int64_t s = 0; s < n; ++s) {
+    int steps = 0;
+    bool done = false;
+    for (int first = 0; first < ds::kMaxAttempts && !done; first += W) {
+      unsigned accepted = 0u;
+      for (int w = 0; w < W; ++w) {
+        steps_w[w] = 0;
+        if (first + w >= ds::kMaxAttempts) continue;
+        ds::attempt_start(R[w], ds::attempt_ray(seed, (uint32_t)s, first + w, c, min_dist), c);
+        attempt_chunks<32>(R[w], dens, nx, ny, nz, c);
+        steps_w[w] = R[w].steps;
+        if (ds::accepted(R[w], c)) accepted |= 1u << w;
+      }
+      const ds::RoundEnd E = ds::round_end(first, W, accepted, steps_w.data());
+      steps += E.steps;
+      if (E.winner >= 0) {
+        ds::sample_end(s, true, R[E.winner - first], c, E.winner + 1, steps, pos_out, dir_out,
+                       found_out, work_out);
+        done = true;
+      }
+    }
+    if (!done) {
+      ds::sample_end(s, false, R[0], c, ds::kMaxAttempts, steps, pos_out, dir_out, found_out,
+                     work_out);
+    }
   }
 }
 
@@ -230,6 +341,12 @@ int samples(const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
       ds::sample_attempts(s, dens, nx, ny, nz, seed, c, min_dist, pos_out, dir_out, found_out,
                           work_out);
     }
+    return 0;
+  }
+  if (samples_mode == 2) {
+    if (samples_warps < 1 || samples_warps > 32) return -1;
+    sample_rounds(samples_warps, dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out,
+                  found_out, work_out);
     return 0;
   }
 #define DS_SAMPLES(G) \
@@ -279,10 +396,23 @@ void host_set_descriptor(int mode) { desc_mode = mode; }
 void host_set_probes(int mode) { probes_mode = mode; }
 
 // mode 0: sample_attempts a sample; mode 1: each attempt in chunks of
-// `lanes` lanes (1, 8 or 32).
+// `lanes` lanes (1, 8 or 32) in order; mode 2: rounds of `lanes` attempts
+// (W, 1 to 32), each in chunks of 32 lanes.
 void host_set_samples(int mode, int lanes) {
   samples_mode = mode;
-  samples_lanes = lanes;
+  if (mode == 2) {
+    samples_warps = lanes;
+  } else {
+    samples_lanes = lanes;
+  }
+}
+
+// K7b where host_set_pathtrace's mode is 1: mode 0 K4's items, mode 1 a
+// warp with deferred scatters resolved at `park_at` parked lanes (0: the
+// kernel's kParkAt).
+void host_set_radiance(int mode, int park_at) {
+  radiance_mode = mode;
+  radiance_park_at = park_at > 0 ? park_at : ds::kParkAt;
 }
 
 int ds_pathtrace(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
@@ -296,8 +426,8 @@ int ds_pathtrace(const void* dens, const void* insc, int is_u8, int nx, int ny, 
   if (n <= 0) return 0;
   const ds::PtConsts c =
       ds::pt_consts(consts, ground, max_steps, max_depth, rr_start, n_phase, n_inv, flags);
+  for (int i = 0; i < 4; ++i) counters[i] = 0;
   counters[0] = (unsigned long long)(n * n_samples);
-  counters[1] = 0;
   if (is_u8) {
     return pathtrace((const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz, eval_rows,
                      inv_rows, entry, dirs, hit, ray_ids, n, c, seed_base, sub_first, nullptr,
@@ -320,8 +450,8 @@ int ds_radiance(const void* dens, const void* insc, int is_u8, int nx, int ny, i
   if (sub0 == nullptr) return 1;
   const ds::PtConsts c =
       ds::pt_consts(consts, ground, max_steps, max_depth, rr_start, n_phase, n_inv, flags);
+  for (int i = 0; i < 4; ++i) counters[i] = 0;
   counters[0] = (unsigned long long)(n * n_samples);
-  counters[1] = 0;
   if (is_u8) {
     return pathtrace((const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz, eval_rows,
                      inv_rows, entry, dirs, hit, ray_ids, n, c, seed_base, 0u, sub0,
@@ -405,6 +535,11 @@ int ds_probes(const void* probes, int is_u8, int nx, int ny, int nz, const float
   }
   return 0;
 }
+
+// The package's K7a warps a sample and K7b parked lanes (the constants the
+// kernels run).
+int ds_sample_warps() { return ds::kSampleWarps; }
+int ds_radiance_park_at() { return ds::kParkAt; }
 
 // K7a (mode set by host_set_samples).
 int ds_samples(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed, int64_t n,
