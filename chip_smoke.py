@@ -29,8 +29,9 @@ Phases, one output line each:
    ``torch.Generator(566)``, render) at the reference's ``renderCloud``
    point: the 256^3 procedural cumulus of seed 11, 2000 m, uint8 textures,
    512 x 256.  Kernel launch counts are set to 0 just before each path
-   (the neural frame, the BNN frame, the path tracer, the probe) and read
-   just after; every kernel must have launched on its path.  Frames must be
+   (the neural frame, the BNN frame, the path tracer, the probe, the
+   collector, training) and read just after; every kernel must have
+   launched on its path.  Frames must be
    finite, deterministic per seed and different across seeds.
 5. ``frame vs plain``: the frame against one computed with every kernel's
    plain version, on every pixel whose scatter flag agrees.
@@ -66,8 +67,9 @@ Phases, one output line each:
     attempt counts equal on >= 99.5 %, positions within 1e-4 where the
     attempts agree), with each max abs err and its bitwise share.
 11. ``collect``: the dataset generator driven the way a user drives it:
-    a ``RecordStore`` in a temporary directory holding one SceneSetup (the
-    256^3 procedural cumulus of seed 11, 2000 m, the ``Front`` light), and
+    the train store of a ``DatasetTriplet`` in a temporary directory
+    holding one SceneSetup (the 256^3 procedural cumulus of seed 11, 2000
+    m, the ``Front`` light), and
     ``tasks.collect`` over its four stages at the reference's operating
     point (2,048 samples, the default ``PointRadianceConfig``, the
     production scene settings), counted (K7a, K7b, K2, K3 must launch).
@@ -91,7 +93,35 @@ Phases, one output line each:
     unit directions; labels finite, >= 0, mean > 0; baked powers summing
     to 1 within 1e-4; every table 2,048 records.
 
-12. ``JAX ground truth``: the port against the JAX package's committed
+12. ``train``: training on what ``collect`` wrote, the way a user trains:
+    the collect phase's store is the train store of a ``DatasetTriplet``
+    whose validation store stays empty (the fallback's WARNING must
+    appear); ``entries.train_disney`` and ``entries.train_baked`` with
+    device-resident batches (K10) at full width on the reference recipe
+    (batch 1,024, validation every 40 steps, lr 1e-3), 40 epochs of one
+    step each, counted (K10 must launch in both layouts): steps, seconds,
+    the validation loss at the initial weights and at the end (it must
+    fall), peak memory.  ``K10 batch assembly (RPNN)`` / ``(baked)``: K10
+    against its plain version at a batch of 1,024 of the collected tables,
+    bitwise; its device time (profiler) with the L2 flushed before each
+    call (its row's ``ms``: the bound counts HBM bytes) and back to back
+    (L2-warm), its back-to-back event time, the plain version's, and the
+    PyTorch chain's device time (``index_select``, ``float``, ``div``,
+    ``cat``; its row's ``library_ms``, L2 flushed).  ``train ... profile``: ms a step (median of 5
+    synchronized chunks of 10 steps), a chunk's device time by kernel, the
+    GEMMs' and the idle share.  ``train card vs cpu``: the same
+    ``flax_init`` weights, 5 steps on the same schedule on the card and on
+    the CPU (K10's plain version there), each loss within a relative 1e-4;
+    the optimizer's updates from identical gradients within 1e-6.
+    ``train resume``: a run stopped after one chunk and restored into a
+    fresh ``Trainer`` reaches the uninterrupted run's parameters and
+    moments bitwise.  ``train NN frame`` / ``train BNN frame``: the
+    exports (``DisneyModel.pt``; ``LightProbeModel.pt`` and
+    ``ProbeRendererModel.pt``) loaded into ``DisneyRenderer`` and
+    ``BakedRenderer`` render the collected scene at 512 x 256 under
+    ``check_frames``, unlike the random weights' frame of the same seed.
+
+13. ``JAX ground truth``: the port against the JAX package's committed
     render of the end-to-end evaluation's held-out scene
     (``runs/eval_e2e/renders_512x256/eval.PT.exr``, 2,380 subframes of
     seed 3: its job stopped at a wall-clock budget; the scene in
@@ -257,24 +287,51 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel: str = "") -> float:
+#: Bytes written between timed calls to evict the 50 MB L2 (``cold``).
+L2_FLUSH_BYTES = 64 * 2**20
+
+
+def device_ms(fn, reps: int, kernel: str = "", cold: bool = False) -> float:
     """Mean device time a call of ``fn`` spends in kernels whose name holds
     ``kernel`` (every kernel for ""), from torch.profiler over ``reps``
     calls after a warm-up: for launches shorter than their host-side cost,
-    which CUDA events would time instead."""
+    which CUDA events would time instead.  ``cold``: each call after
+    writing L2_FLUSH_BYTES (whose kernel is left out), so that its inputs
+    come from HBM; back to back, a call whose bytes fit the L2 finds them
+    there.  The profiler can miss launches (it saw 7 of 10 K7a launches in
+    one run), so each kernel's time is the mean of the launches it saw,
+    times its launches a call; a line says where launches went unseen."""
     from torch.profiler import ProfilerActivity, profile
 
+    def kernels(prof):
+        return [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+
+    flush = torch.empty(L2_FLUSH_BYTES if cold else 0, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            flush.zero_()
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-           and kernel in e.key]
+    skip = set()
+    if cold:
+        with profile(activities=[ProfilerActivity.CUDA]) as fprof:
+            flush.zero_()
+            torch.cuda.synchronize()
+        skip = {e.key for e in kernels(fprof)}
+    evs = [e for e in kernels(prof) if kernel in e.key and e.key not in skip]
     require(bool(evs), f"the profiler saw no device time of {kernel or 'any kernel'}")
-    return sum(e.self_device_time_total for e in evs) / 1e3 / reps
+    total = 0.0
+    for e in evs:
+        per_call = max(1, round(e.count / reps))
+        if e.count != per_call * reps:
+            print(f"device_ms: the profiler saw {e.count} launches of {e.key[:50]!r} in {reps} "
+                  f"calls; the mean of those seen is used", flush=True)
+        total += e.self_device_time_total / e.count * per_call
+    return total / 1e3
 
 
 def host_ms(fn) -> float:
@@ -963,18 +1020,20 @@ def phase_collect(config, cuda_build, collectors, desc_ops, ins_ops, pt, dev,
     """The dataset generator at the operating point, as a user drives it:
     one SceneSetup in a fresh ``RecordStore``, ``tasks.collect`` over the
     four stages (launch counts set to 0 just before, read just after),
-    then the gates against the plain versions.  Returns the K7a and K7b
-    kernel rows."""
+    then the gates against the plain versions.  The store is the train
+    store of a ``DatasetTriplet`` in a temporary directory, for the train
+    phase.  Returns the K7a and K7b kernel rows, the directory and the
+    collected scene (cfg, params, static)."""
     import tempfile
 
     from deepestscatter_tpu_torch import tasks
     from deepestscatter_tpu_torch.data import records
-    from deepestscatter_tpu_torch.data.store import RecordStore
+    from deepestscatter_tpu_torch.data.store import DatasetTriplet
 
     counters = {"K7a": collectors.generate_scatter_samples, "K7b": collectors.radiance_moments,
                 "K2": desc_ops.network_inputs, "K3": ins_ops.sun_transmittance}
     tmp = tempfile.TemporaryDirectory()
-    store = RecordStore(tmp.name)
+    store = DatasetTriplet(tmp.name).train
     setup = np.zeros(1, records.SCENE_SETUP)
     setup[0] = (COLLECT_CLOUD.encode(), COLLECT_SIZE_M, config.LIGHT_DIRECTIONS["Front"])
     store.table("SceneSetup").batch_append(0, setup)
@@ -1010,8 +1069,8 @@ def phase_collect(config, cuda_build, collectors, desc_ops, ins_ops, pt, dev,
     labels = stored["light_intensity"]
     sets = store.table("BakedInterpolationSet").read(0, n)
     power_err = float(np.abs(sum(sets[c]["power"] for c in "abcd") - 1.0).max())
-    _, params, static = tasks.scene_from_setup(store.table("SceneSetup").get_record(0),
-                                               device=dev)
+    scene_cfg, params, static = tasks.scene_from_setup(store.table("SceneSetup").get_record(0),
+                                                       device=dev)
     pos = torch.as_tensor(samples["point"], device=dev)
     dirs = torch.as_tensor(samples["view_direction"], device=dev)
     k = collectors.generate_scatter_samples(params, static, n, 0)
@@ -1180,8 +1239,303 @@ def phase_collect(config, cuda_build, collectors, desc_ops, ins_ops, pt, dev,
     require(np.array_equal(grids, pgrids) and same_sets,
             "collect: descriptor grids differ from K2's plain version")
     store.close()
-    tmp.cleanup()
-    return [dict(row_a, launches=launched["K7a"]), dict(row_b, launches=launched["K7b"])]
+    return ([dict(row_a, launches=launched["K7a"]), dict(row_b, launches=launched["K7b"])], tmp,
+            (scene_cfg, params, static))
+
+
+#: The training phase: steps of each trainer on the main path (an epoch of
+#: the ~1,938 converged labels is one step of 1,024), steps a timed chunk,
+#: the card-against-CPU steps and the resumed run's epochs.
+TRAIN_EPOCHS = 40
+TRAIN_CHUNK = 10
+TRAIN_CPU_STEPS = 5
+RESUME_EPOCHS = 8
+TRAIN_WARNING = "WARNING: validation store has no complete labels"
+
+
+def k10_bytes(data, b: int, layout: str) -> int:
+    """The bytes K10 must move for a batch of ``b``: each gathered row and
+    index read once, each output written once."""
+    if layout == "disney":
+        row_in = data.grids.shape[1] + 4 + 4
+        row_out = data.grids.shape[1] // 225 * 226 * 4 + 4
+    else:
+        row_in = data.probes.shape[1] + data.rt.shape[1] + 16 + 12
+        row_out = (data.probes.shape[1] + data.rt.shape[1] // 225 * 226) * 4 + 16 + 12
+    return b * (row_in + 8 + row_out)
+
+
+def phase_k10(dd, data, layout: str, idx) -> dict:
+    """K10 against its plain version on the card, bitwise, at the batch
+    ``idx`` of the collected tables; its device time (profiler), its back-
+    to-back CUDA-event time, the plain version's time and the device time
+    of the PyTorch chain (index_select, float, div, cat)."""
+    k_item, k_lab = data.assemble(idx)
+    p_item, p_lab = data.assemble_plain(idx)
+    torch.cuda.synchronize()
+    same = torch.equal(k_lab, p_lab) and all(torch.equal(k_item[k], p_item[k]) for k in p_item)
+    err = max([(k_item[k] - p_item[k]).abs().max().item() for k in p_item]
+              + [(k_lab - p_lab).abs().max().item()])
+    kernel = f"assemble_{layout}_kernel"
+    ms = device_ms(lambda: data.assemble(idx), 20, kernel, cold=True)
+    warm_ms = device_ms(lambda: data.assemble(idx), 20, kernel)
+    ev_ms = time_ms(lambda: data.assemble(idx), 20)
+    plain_ms = time_ms(lambda: data.assemble_plain(idx), 20)
+    chain_ms = device_ms(lambda: data.assemble_plain(idx), 20, cold=True)
+    chain_warm = device_ms(lambda: data.assemble_plain(idx), 20)
+    n_bytes = k10_bytes(data, idx.shape[0], layout)
+    label = {"disney": "RPNN", "baked": "baked"}[layout]
+    print(f"K10 batch assembly ({label}): batch={idx.shape[0]} outputs="
+          f"{json.dumps({k: list(v.shape) for k, v in k_item.items()})} bitwise_equal_plain={same} "
+          f"max_abs_err={err:.3g} (tol 0) ms(device, profiler, L2 flushed)={ms:.4f} "
+          f"ms(device, back to back: L2-warm)={warm_ms:.4f} ms(CUDA events, back-to-back "
+          f"calls)={ev_ms:.4f} plain_ms(CUDA events)={plain_ms:.4f} chain_ms(index_select+"
+          f"float+div+cat, device, L2 flushed)={chain_ms:.4f} chain_ms(L2-warm)={chain_warm:.4f} "
+          f"bytes={n_bytes} bound_ms={n_bytes / HBM_BYTES_PER_S * 1e3:.4f}", flush=True)
+    require(same, f"K10 ({label}) differs from its plain version")
+    line = {"disney": ":86", "baked": ":143"}[layout]
+    return kernel_row(f"K10 batch assembly ({label})", "deepestscatter_tpu_torch/csrc/assemble.cu",
+                      "deepestscatter_tpu/train/device_data.py" + line, err, ms, plain_ms, n_bytes,
+                      0, library_ms=chain_ms)
+
+
+def read_metrics(run_dir: str, tag: str):
+    with open(Path(run_dir) / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    return [r["value"] for r in rows if r["tag"] == tag]
+
+
+def train_profile(label: str, tr, t, idx) -> dict:
+    """ms a step (median over synchronized chunks of TRAIN_CHUNK steps) and
+    one chunk's device time by kernel: the GEMMs' share and the idle share
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    chunk = lambda: tr.chunk_step(t.model, t.opt, t.apply_fn, t.device_data.assemble, idx)  # noqa: E731
+    chunk()
+    per_step = sorted(host_ms(chunk) / idx.shape[0] for _ in range(5))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    require(bool(evs), f"{label}: the profiler saw no device time")
+    evs.sort(key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    gemm = sum(e.self_device_time_total for e in evs
+               if any(w in e.key.lower() for w in ("gemm", "xmma", "cutlass"))) / 1e3
+    k10 = sum(e.self_device_time_total for e in evs if "assemble_" in e.key) / 1e3
+    top = [[e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count] for e in evs[:10]]
+    step_dev = dev_ms / idx.shape[0]
+    out = dict(ms_per_step_median=per_step[2], ms_per_step_all=[round(v, 3) for v in per_step],
+               device_ms_per_step=step_dev, gemm_share=gemm / dev_ms, k10_share=k10 / dev_ms,
+               idle_share_vs_unprofiled=1.0 - step_dev / per_step[2],
+               idle_share_profiled=1.0 - dev_ms / wall)
+    print(f"{label} profile: steps_a_chunk={idx.shape[0]} {json.dumps(out)} top={json.dumps(top)}",
+          flush=True)
+    return out
+
+
+def frame_gates(label: str, renderer, params, static, basis, random_frame):
+    """The exported weights' frames: ``check_frames`` on seeds 2 and 3 and
+    seed 2 again, and the seed-2 frame unlike the random weights' one."""
+    render = lambda seed: renderer.render_frame(params, static, WIDTH, HEIGHT, basis, seed=seed)  # noqa: E731
+    frames = [render(2), render(3)]
+    again = render(2)
+    check_frames(label, frames + [again], again, frames)
+    differs = not torch.equal(frames[0], random_frame)
+    print(f"{label}: seeds 2, 3 mean={frames[0].mean().item():.6f}, {frames[1].mean().item():.6f} "
+          f"random_weights_mean={random_frame.mean().item():.6f} differs_from_random={differs}",
+          flush=True)
+    require(differs, f"{label}: the trained frame equals the random weights' frame")
+
+
+def phase_train(port, root: str, collected, dev) -> list:
+    """Training on the collected store the way a user trains: the RPNN
+    (``entries.train_disney``) and the baked model (``entries.train_baked``)
+    on the card with device-resident batches (K10), at full width on the
+    reference recipe (batch 1,024, validation every 40 steps, lr 1e-3) for
+    TRAIN_EPOCHS epochs of one step, the validation store empty (its WARNING
+    must appear).  Launch counts are set to 0 just before the two runs and
+    read just after; K10 must have launched in both layouts.  Gates: every
+    loss finite, the final validation loss below the initial one's; K10
+    bitwise equal to its plain version at a batch of 1,024; against the CPU
+    (the same ``flax_init`` weights, TRAIN_CPU_STEPS steps on the same
+    schedule, the plain version there): each step's loss within a relative
+    1e-4 (cuBLAS and the CPU sum in other orders), the optimizer's updates
+    from identical gradients within a relative 1e-6 (elementwise float32
+    arithmetic on both, but PyTorch's vectorized CPU ``sqrt`` is not
+    correctly rounded on ~0.7 % of inputs); a run stopped after one chunk and
+    restored into a fresh trainer equal, bitwise, to the uninterrupted run;
+    the exports (``DisneyModel.pt``; ``LightProbeModel.pt`` and
+    ``ProbeRendererModel.pt``) loaded into ``DisneyRenderer`` and
+    ``BakedRenderer`` render the collected scene (``check_frames``), each
+    frame unlike the random weights' frame of that seed.  Returns K10's two
+    kernel rows."""
+    import contextlib
+    import io
+
+    from deepestscatter_tpu_torch import config
+    from deepestscatter_tpu_torch.models.probes import (LightProbeModel, ProbeRendererModel,
+                                                        init_light_probe_model,
+                                                        init_probe_renderer_model)
+    from deepestscatter_tpu_torch.models.rpnn import DisneyModel, init_disney_model
+    from deepestscatter_tpu_torch.render import camera as cam
+    from deepestscatter_tpu_torch.train import device_data as dd
+    from deepestscatter_tpu_torch.train import entries
+    from deepestscatter_tpu_torch.train import trainer as tr
+
+    scene_cfg, params, static = collected
+    runs = Path(root) / "runs"
+    cfg = config.TrainConfig(run_dir=str(runs / "main"))
+    make_trainer = {"DisneyModel": entries.disney_trainer, "BakedModel": entries.baked_trainer}
+
+    # -- the initial validation losses (flax_init is deterministic per seed) --
+    initial = {}
+    for name, build in make_trainer.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            t = build(root, dataclasses.replace(cfg, run_dir=str(runs / "initial")),
+                      device_resident=True, device=dev)
+        initial[name] = t.val_loss()
+        del t
+
+    # -- the main path, counted ------------------------------------------------
+    counters = {"disney": dd.assemble_disney, "baked": dd.assemble_baked}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, trained, logs = {}, {}, {}
+    for name, entry in (("DisneyModel", entries.train_disney),
+                        ("BakedModel", entries.train_baked)):
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            trained[name] = entry(root, cfg, epochs=TRAIN_EPOCHS, device_resident=True,
+                                  device=dev)
+        torch.cuda.synchronize()
+        secs[name] = time.time() - t0
+        logs[name] = buf.getvalue().splitlines()
+    launched = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for name, t in trained.items():
+        train_l, val_l = read_metrics(t.run_dir, "train_loss"), read_metrics(t.run_dir, "val_loss")
+        warned = [ln for ln in logs[name] if TRAIN_WARNING in ln]
+        finite = bool(np.isfinite(train_l).all() and np.isfinite(val_l).all())
+        print(f"train {name}: entry=train_{'disney' if name == 'DisneyModel' else 'baked'}"
+              f"(device_resident=True) steps={t.step} labels_pool={len(t.device_data.pool())} "
+              f"batch={cfg.batch_size} lr={cfg.learning_rate} validations={len(val_l)} "
+              f"seconds={secs[name]:.2f} val_loss_initial={initial[name]:.6f} "
+              f"val_loss_final={val_l[-1]:.6f} best_val={t.best_val:.6f} train_loss_first="
+              f"{train_l[0]:.6f} train_loss_last={train_l[-1]:.6f} finite={finite} "
+              f"warning_lines={len(warned)} ({warned[0].strip() if warned else 'none'})",
+              flush=True)
+        require(t.step >= TRAIN_EPOCHS, f"train {name}: {t.step} steps, fewer than {TRAIN_EPOCHS}")
+        require(finite, f"train {name}: a loss is not finite")
+        require(val_l[-1] < initial[name], f"train {name}: the final validation loss "
+                f"{val_l[-1]} is not below the initial {initial[name]}")
+        require(bool(warned), f"train {name}: the validation fallback's WARNING did not appear")
+    print(f"train launches: {json.dumps(launched)} (K10 a step and a validation) "
+          f"peak_mem_mb={peak / 2**20:.1f}", flush=True)
+    require(all(v > 0 for v in launched.values()),
+            f"K10 never launched on the training path: {launched}")
+
+    # -- K10 against its plain version, and the step's time by kernel --------
+    rows = []
+    for name, layout in (("DisneyModel", "disney"), ("BakedModel", "baked")):
+        t = trained[name]
+        pool = t.device_data.pool()
+        idx = torch.as_tensor(dd.epoch_schedule(pool, cfg.batch_size, cfg.seed, 0)[0],
+                              dtype=torch.int64, device=dev)
+        rows.append(dict(phase_k10(dd, t.device_data, layout, idx), launches=launched[layout]))
+        sched = np.concatenate([dd.epoch_schedule(pool, cfg.batch_size, cfg.seed, e)
+                                for e in range(TRAIN_CHUNK)])[:TRAIN_CHUNK]
+        with contextlib.redirect_stdout(io.StringIO()):
+            timed = make_trainer[name](root, dataclasses.replace(cfg, run_dir=str(runs / "timed")),
+                                   device_resident=True, device=dev)
+        train_profile(f"train {name}", tr, timed,
+                      torch.as_tensor(sched, dtype=torch.int64, device=dev))
+        del timed
+
+    # -- card against CPU: the same initial weights and schedule --------------
+    for name in make_trainer:
+        with contextlib.redirect_stdout(io.StringIO()):
+            tc = make_trainer[name](root, dataclasses.replace(cfg, run_dir=str(runs / "card")),
+                                device_resident=True, device=dev)
+            tp = make_trainer[name](root, dataclasses.replace(cfg, run_dir=str(runs / "cpu")),
+                                device_resident=True, device="cpu")
+        same_init = torch.equal(tr.flat_params(tc.model).cpu(), tr.flat_params(tp.model))
+        sched = np.concatenate([dd.epoch_schedule(tc.device_data.pool(), cfg.batch_size,
+                                                  cfg.seed, e) for e in range(TRAIN_CPU_STEPS)]
+                               )[:TRAIN_CPU_STEPS]
+        idx = torch.as_tensor(sched, dtype=torch.int64)
+        lc = tr.chunk_step(tc.model, tc.opt, tc.apply_fn, tc.device_data.assemble,
+                           idx.to(dev)).cpu()
+        lp = tr.chunk_step(tp.model, tp.opt, tp.apply_fn, tp.device_data.assemble, idx)
+        rel = ((lc - lp).abs() / lp.abs()).max().item()
+        # The optimizer rule alone: the CPU's gradients on both devices.
+        batch, labels = tp.device_data.assemble(idx[0])
+        loss = tr.log_mse_loss(tp.apply_fn(tp.model, batch)[:, 0], labels)
+        grads = torch.autograd.grad(loss, tp.opt.params)
+        oc = tr.AmsGrad([p.detach().to(dev) for p in tp.opt.params], cfg.learning_rate)
+        op = tr.AmsGrad([p.detach().clone() for p in tp.opt.params], cfg.learning_rate)
+        upd_rel, upd_bitwise = 0.0, True
+        for _ in range(3):
+            uc = oc.updates([g.to(dev) for g in grads]).cpu()
+            up = op.updates(grads)
+            upd_rel = max(upd_rel, ((uc - up).abs() / up.abs().clamp(min=1e-30)).max().item())
+            upd_bitwise = upd_bitwise and torch.equal(uc, up)
+        print(f"train card vs cpu {name}: same_initial_weights={same_init} steps="
+              f"{TRAIN_CPU_STEPS} card_losses={[round(v, 6) for v in lc.tolist()]} "
+              f"cpu_losses={[round(v, 6) for v in lp.tolist()]} loss_max_rel_err={rel:.3g} "
+              f"(tol 1e-4) amsgrad_update_max_rel_err={upd_rel:.3g} (tol 1e-6) "
+              f"amsgrad_bitwise={upd_bitwise}", flush=True)
+        require(same_init, f"train card vs cpu {name}: the initial weights differ")
+        require(rel <= 1e-4, f"train card vs cpu {name}: a step's loss beyond 1e-4")
+        require(upd_rel <= 1e-6, f"train card vs cpu {name}: the amsgrad update beyond 1e-6")
+        del tc, tp
+
+    # -- resume: stopped after one chunk, restored, continued -----------------
+    with contextlib.redirect_stdout(io.StringIO()):
+        whole = entries.train_disney(root, dataclasses.replace(cfg, run_dir=str(runs / "whole")),
+                                     epochs=RESUME_EPOCHS, device_resident=True, device=dev)
+        cut_cfg = dataclasses.replace(cfg, run_dir=str(runs / "cut"))
+        first = entries.train_disney(root, cut_cfg, epochs=1, device_resident=True, device=dev)
+        resumed = entries.disney_trainer(root, cut_cfg, device_resident=True, device=dev)
+        restored = resumed.restore()
+        resumed.run(epochs=RESUME_EPOCHS)
+    a, b = tr.flat_params(resumed.model), tr.flat_params(whole.model)
+    bitwise = torch.equal(a, b) and all(torch.equal(getattr(resumed.opt, k), getattr(whole.opt, k))
+                                        for k in ("mu", "nu", "nu_max"))
+    print(f"train resume: stopped_at_step={first.step} restored={restored} "
+          f"resumed_to_step={resumed.step} uninterrupted_step={whole.step} "
+          f"params_and_moments_bitwise={bitwise} params_max_abs_diff={(a - b).abs().max().item():.3g}",
+          flush=True)
+    require(restored and resumed.step == whole.step and bitwise,
+            "train resume: the resumed run differs from the uninterrupted one")
+    del whole, first, resumed
+
+    # -- the exports render the collected scene --------------------------------
+    basis = cam.camera_basis(scene_cfg.camera)
+    run_d = Path(trained["DisneyModel"].run_dir)
+    run_b = Path(trained["BakedModel"].run_dir)
+    load = lambda m, path: (m.load_state_dict(torch.load(path, weights_only=True), strict=True),  # noqa: E731
+                            m.to(dev).eval())[1]
+    nn_model = load(DisneyModel(), run_d / "DisneyModel.pt")
+    rand = port.DisneyRenderer(init_disney_model(SEED_WEIGHTS, device=dev), device=dev)
+    frame_gates("train NN frame (DisneyModel.pt)", port.DisneyRenderer(nn_model, device=dev),
+                params, static, basis,
+                rand.render_frame(params, static, WIDTH, HEIGHT, basis, seed=2))
+    lpm = load(LightProbeModel(), run_b / "LightProbeModel.pt")
+    prm = load(ProbeRendererModel(), run_b / "ProbeRendererModel.pt")
+    rand = port.BakedRenderer(params, static, init_light_probe_model(SEED_WEIGHTS, device=dev),
+                              init_probe_renderer_model(SEED_WEIGHTS, device=dev), device=dev)
+    frame_gates("train BNN frame (LightProbeModel.pt, ProbeRendererModel.pt)",
+                port.BakedRenderer(params, static, lpm, prm, device=dev), params, static,
+                basis, rand.render_frame(params, static, WIDTH, HEIGHT, basis, seed=2))
+    return rows
 
 
 def phase_ground_truth(prog, pt, ins_ops, dev) -> None:
@@ -1409,8 +1763,16 @@ def run() -> dict:
     kernels += [probe_rows["P1"], probe_rows["P2"]]
 
     # -- the dataset generator's main path, counted ---------------------------
-    kernels += phase_collect(config, cuda_build, collectors, desc_ops, ins_ops, pt, dev,
-                             gather_rows_per_s)
+    rows, tmp, collected = phase_collect(config, cuda_build, collectors, desc_ops, ins_ops, pt,
+                                         dev, gather_rows_per_s)
+    kernels += rows
+
+    # -- training on the collected store, counted -----------------------------
+    try:
+        kernels += phase_train(port, tmp.name, collected, dev)
+    finally:
+        tmp.cleanup()
+    del collected
 
     # -- the path tracer against the JAX package's ground truth, counted ------
     phase_ground_truth(prog, pt, ins_ops, dev)

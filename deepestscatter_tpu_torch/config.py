@@ -1,6 +1,6 @@
 """Typed configuration: the part of the reference configuration the RPNN
-and baked neural frames, the progressive path tracer and the dataset
-collectors read.
+and baked neural frames, the progressive path tracer, the dataset
+collectors and the trainers read.
 
 A copy of ``deepestscatter_tpu.config`` (the JAX package's settings) cut to
 what this package uses, kept as its own module so that the port imports
@@ -159,6 +159,23 @@ class PointRadianceConfig:
     rel_tol: float = 2e-2
     abs_tol: float = 1e-4
     black_min_experiments: int = 100_000
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training recipe (reference: TR/Common/Trainer.py:40-115): one
+    seed for the initial weights and the data order, Adam with AMSGrad at
+    ``learning_rate``, batches of ``batch_size``, a validation batch of
+    ``val_batch_size``, validation and a checkpoint every
+    ``validate_every`` steps, runs under ``run_dir/<model name>``."""
+
+    seed: int = 566
+    learning_rate: float = 1e-3
+    batch_size: int = 1024
+    val_batch_size: int = 4096
+    epochs: int = 200
+    validate_every: int = 40
+    run_dir: str = "runs"
 
 
 #: Light directions of the render and collection tasks (reference:

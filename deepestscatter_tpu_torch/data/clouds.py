@@ -6,9 +6,10 @@ The port of ``deepestscatter_tpu.data.clouds``.  Sources:
   (``data.procedural``);
 - ``*.npy`` / ``*.npz``: dense [Z, Y, X] grids (``npz`` key ``density``,
   else its first array);
-- ``*.vdb`` through the ``<path>.npz`` converted beside it.  Reading an
-  OpenVDB file directly (the JAX package's ``data/vdb.py`` and
-  ``data/blosc1.py``) is not ported yet.
+- ``*.vdb``: the ``<path>.npz`` converted beside it where there is one,
+  else the file itself through the package's OpenVDB-subset reader
+  (``data/vdb.py``; uncompressed, zlib- and blosc1-compressed archives,
+  ``data/blosc1.py``).
 
 ``prepare`` normalizes by the maximum (Resources.cpp:93-96) and pads one
 zero voxel a side (Resources.cpp:89-91).
@@ -42,11 +43,9 @@ def load_density(path: str) -> np.ndarray:
         npz = path + ".npz"
         if os.path.exists(npz):
             return load_density(npz)
-        raise NotImplementedError(
-            f"{path}: reading .vdb files directly is not ported yet (ROADMAP D1 "
-            "remainder: data/vdb.py and data/blosc1.py); convert it to "
-            f"{npz} first"
-        )
+        from . import vdb as vdb_mod
+
+        return vdb_mod.load_density_vdb(path)
     raise ValueError(f"unsupported cloud source: {path}")
 
 

@@ -1,5 +1,7 @@
 """Weight conversion from the JAX package's Flax models: ``DisneyModel``,
-``LightProbeModel`` and ``ProbeRendererModel``.
+``LightProbeModel``, ``ProbeRendererModel``, and the training compositions
+``BakedModel`` and ``MimicModel`` (whose Flax trees nest the two submodels
+under ``light_probe_model`` and ``renderer_model``).
 
 A Flax ``Dense`` kernel is ``[in, out]``; a torch ``Linear`` weight is
 ``[out, in]``, so every kernel is transposed.  The Flax parameter paths are
@@ -54,3 +56,25 @@ def probe_renderer_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     """Flax ``ProbeRendererModel`` parameters → a ``state_dict`` of the
     torch ``ProbeRendererModel``."""
     return _convert(params, ("input_fc", "fc0", "fc1", "fc2"))
+
+
+def _nested(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    if "params" in params:
+        params = params["params"]
+    out = {f"light_probe_model.{k}": v
+           for k, v in light_probe_from_flax(params["light_probe_model"]).items()}
+    out.update({f"renderer_model.{k}": v
+                for k, v in probe_renderer_from_flax(params["renderer_model"]).items()})
+    return out
+
+
+def baked_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``BakedModel`` parameters → a ``state_dict`` of the torch
+    ``BakedModel``."""
+    return _nested(params)
+
+
+def mimic_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``MimicModel`` parameters → a ``state_dict`` of the torch
+    ``MimicModel``."""
+    return _nested(params)

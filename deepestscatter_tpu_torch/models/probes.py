@@ -13,8 +13,15 @@ TR/Baked/LightProbeModel.py:6-66, TR/Baked/ProbeRenderModel.py:6-66):
   realtime descriptor layers (225 + omega = 226); head 200 → 100 → 100 → 1
   with ReLU x 2 and a final LeakyReLU (slope 0.01).
 
-The training compositions (``BakedModel``, ``MimicModel``) come with the
-training slice.
+The training compositions (reference: TR/Baked/BakedModel.py:9-79,
+TR/Mimic/MimicModel.py:7-43):
+
+- ``BakedModel``: the 4 tetrahedron corners' probe descriptors folded into
+  the batch through one ``LightProbeModel``, the latents weighted by the
+  corners' powers and summed, omega and alpha appended, then the
+  ``ProbeRendererModel``.  Its submodels are ``light_probe_model`` and
+  ``renderer_model``, the renderers' two models.
+- ``MimicModel``: one probe descriptor (corner "a"), no interpolation.
 """
 
 from __future__ import annotations
@@ -89,6 +96,56 @@ class ProbeRendererModel(nn.Module):
         out = torch.relu(self.fc0(out))
         out = torch.relu(self.fc1(out))
         return nn.functional.leaky_relu(self.fc2(out), negative_slope=0.01)
+
+
+class BakedModel(nn.Module):
+    """End-to-end two-stage composition for training."""
+
+    def __init__(self):
+        super().__init__()
+        self.light_probe_model = LightProbeModel()
+        self.renderer_model = ProbeRendererModel()
+
+    def forward(
+        self,
+        probe_descriptors: torch.Tensor,
+        probe_powers: torch.Tensor,
+        disney_descriptor: torch.Tensor,
+        omega: torch.Tensor,
+        alpha: torch.Tensor,
+    ) -> torch.Tensor:
+        """probe_descriptors [B, 4, 9, 225] (tetrahedron corners), probe_powers
+        [B, 4], disney_descriptor [B, 3, 226], omega and alpha [B] →
+        [B, 1]."""
+        b = probe_descriptors.shape[0]
+        flat = probe_descriptors.reshape(b * 4, BAKED_LAYERS, LAYER_DIMENSION)
+        probes = self.light_probe_model(flat).reshape(b, 4, LIGHT_PROBE_DIMENSION)
+        probe = (probes * probe_powers[..., None]).sum(dim=1)
+        probe = torch.cat([probe, omega[:, None], alpha[:, None]], dim=-1)
+        return self.renderer_model(probe, disney_descriptor)
+
+
+class MimicModel(nn.Module):
+    """Single-probe experiment variant: one probe descriptor feeds the
+    renderer, with no interpolation."""
+
+    def __init__(self):
+        super().__init__()
+        self.light_probe_model = LightProbeModel()
+        self.renderer_model = ProbeRendererModel()
+
+    def forward(
+        self,
+        probe_descriptor: torch.Tensor,
+        disney_descriptor: torch.Tensor,
+        omega: torch.Tensor,
+        alpha: torch.Tensor,
+    ) -> torch.Tensor:
+        """probe_descriptor [B, 9, 225], disney_descriptor [B, 3, 226], omega
+        and alpha [B] → [B, 1]."""
+        probe = self.light_probe_model(probe_descriptor)
+        probe = torch.cat([probe, omega[:, None], alpha[:, None]], dim=-1)
+        return self.renderer_model(probe, disney_descriptor)
 
 
 def init_light_probe_model(seed: int, device="cuda") -> LightProbeModel:

@@ -71,8 +71,9 @@ def _norm3(a: torch.Tensor) -> torch.Tensor:
 
 
 def frame_z(light_dir: torch.Tensor) -> torch.Tensor:
-    """eZ = -light / |light| ([3])."""
-    return -light_dir / _norm3(light_dir)
+    """eZ = -light / |light|, per row: ``light_dir`` is one [3] vector or an
+    [N, 3] batch (the training datasets mix scenes with different lights)."""
+    return -light_dir / _norm3(light_dir)[..., None]
 
 
 def light_frame(light_dir: torch.Tensor, view_dir: torch.Tensor):

@@ -31,6 +31,13 @@ moments lie within K4's tolerances; records and folds equal its first
 design's (K4's item queue, ``csrc/march_variants.cu``) bitwise at other
 numbers of parked lanes and another lookahead.
 
+The batch assembly (K10) equals its plain version bitwise in both layouts
+at the reference batch of 1,024 (dividing by 256 is exact), on the card
+and against the CPU; an index outside the table gives a row of NaN.  The
+trainer's optimizer rule on the card, given the CPU's gradients, is within
+a relative 1e-6 of the CPU's; a training step's loss on the card within a
+relative 1e-4 of the CPU's (cuBLAS and the CPU sum in other orders).
+
 Card against CPU: each kernel (K1-K5, K7a, K7b) runs on the card and its
 plain version on the CPU, on the same inputs (the card's scene copied
 with ``scene.params_to``), at the CPU parity tests' tolerances
@@ -791,3 +798,85 @@ def test_k7b_card_matches_cpu(collect_scene, card):
     assert torch.equal(got[0].cpu(), ref[0])
     for a, b, tol in ((got[1].cpu(), ref[1], 1e-5), (got[2].cpu(), ref[2], 1e-4)):
         assert (a - b).abs().max().item() <= tol * (b.abs().max().item() + 1e-12)
+
+
+def _k10_tables(n=2048, seed=11):
+    g = torch.Generator().manual_seed(seed)
+    u8 = lambda w: torch.randint(0, 256, (n, w), generator=g, dtype=torch.uint8)  # noqa: E731
+    f = lambda *sh: torch.rand(*sh, generator=g)  # noqa: E731
+    return dict(grids=u8(10 * 225), probes=u8(4 * 9 * 225), rt=u8(3 * 225), powers=f(n, 4),
+                omega=f(n), alpha=f(n), labels=f(n))
+
+
+def _k10(tables, idx, layout, plain=False):
+    """K10's wrapper (or its plain version) of ``layout`` on ``tables``."""
+    from deepestscatter_tpu_torch.train import device_data
+
+    fn = getattr(device_data, f"assemble_{layout}" + ("_plain" if plain else ""))
+    if layout == "disney":
+        return fn(tables["grids"], tables["omega"], tables["labels"], idx)
+    return fn(*(tables[k] for k in ("probes", "rt", "powers", "omega", "alpha", "labels")), idx)
+
+
+@pytest.mark.parametrize("layout", ["disney", "baked"])
+def test_k10_matches_plain(card, layout):
+    from deepestscatter_tpu_torch.train import device_data
+
+    cpu = _k10_tables()
+    t = {k: v.to(card) for k, v in cpu.items()}
+    idx = torch.randint(0, 2048, (1024,), generator=torch.Generator().manual_seed(5)).to(card)
+    counter = getattr(device_data, f"assemble_{layout}")
+    before = counter.launches
+    got = _k10(t, idx, layout)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref = _k10(t, idx, layout, plain=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    on_cpu = _k10(cpu, idx.cpu(), layout, plain=True)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, on_cpu))
+
+
+def test_k10_rows_outside_the_table_are_nan(card):
+    t = {k: v.to(card) for k, v in _k10_tables().items()}
+    idx = torch.tensor([3, 2048, -1, 4], dtype=torch.int64, device=card)
+    bad = torch.tensor([False, True, True, False], device=card)
+    for layout in ("disney", "baked"):
+        out = _k10(t, idx, layout)
+        assert all(bool(o[bad].isnan().all()) and not bool(o[~bad].isnan().any()) for o in out)
+
+
+def test_amsgrad_card_matches_cpu(card):
+    from deepestscatter_tpu_torch.train import trainer
+
+    g = torch.Generator().manual_seed(2)
+    shapes = [(200, 226), (200,), (1, 200), (1,)]
+    p_cpu = [torch.randn(s, generator=g) for s in shapes]
+    p_card = [p.to(card) for p in p_cpu]
+    a, b = trainer.AmsGrad(p_cpu, 1e-3), trainer.AmsGrad(p_card, 1e-3)
+    for _ in range(5):
+        grads = [torch.randn(s, generator=g) * 10.0 ** torch.empty(s).uniform_(-6, 0, generator=g)
+                 for s in shapes]
+        ua = a.updates(grads)
+        ub = b.updates([x.to(card) for x in grads]).cpu()
+        assert bool(((ua - ub).abs() <= 1e-6 * ua.abs()).all())
+
+
+def test_train_step_card_matches_cpu(card):
+    from deepestscatter_tpu_torch.models.blocks import flax_init
+    from deepestscatter_tpu_torch.models.rpnn import DisneyModel
+    from deepestscatter_tpu_torch.render.neural import exact_float32_matmul
+    from deepestscatter_tpu_torch.train import trainer
+
+    exact_float32_matmul()
+    g = torch.Generator().manual_seed(4)
+    z = torch.rand(5, 256, 10, 226, generator=g)
+    labels = torch.rand(5, 256, generator=g) * 3.0
+    apply_fn = lambda m, b: m(b["z_layers"])  # noqa: E731
+    losses = []
+    for dev in ("cpu", card):
+        model = flax_init(DisneyModel(), 566, dev)
+        opt = trainer.AmsGrad(list(model.parameters()), 1e-3)
+        losses.append(torch.stack([
+            trainer.train_step(model, opt, apply_fn, {"z_layers": z[i].to(dev)}, labels[i].to(dev))
+            for i in range(5)]).cpu())
+    assert bool(((losses[0] - losses[1]).abs() <= 1e-4 * losses[0].abs()).all())

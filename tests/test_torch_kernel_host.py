@@ -1,6 +1,6 @@
 """K4 (path-trace bounce loop), K3 (in-scatter bake), K1 (camera march),
 K2 (descriptor stencil), K5 (probe interpolation), K7a (first-scatter
-sampler) and K7b (radiance experiments) on the host.
+sampler), K7b (radiance experiments) and K10 (batch assembly) on the host.
 
 ``tests/torch_kernel_host.cpp`` compiles the kernels' device functions
 (``csrc/pathtrace.cu``, ``csrc/inscatter.cu``, ``csrc/march.cu``,
@@ -61,6 +61,10 @@ arithmetic the kernels share with their host build.
   set to its base, bitwise, with bases within a few experiments of 2^32
   (``sub0 + k`` wraps), and the work items equal the per-pixel loop; the
   wrapper's per-point moments equal the plain version's counts.
+- K10's element ``assemble_value`` over every output of a batch row equals
+  the plain version (``index_select``, ``true_div`` by 256, ``cat``)
+  bitwise, in both layouts, for rows in any order, repeated rows and a
+  batch of one; an index outside the table gives a row of NaN.
 - All match the plain PyTorch versions within the tolerances of
   ``test_torch_cuda_kernels.py``: glibc's ``expf``/``logf``/``sinf``/
   ``cosf``/``acosf`` are not torch's, so step counts agree on >= 99 % of
@@ -93,6 +97,7 @@ from deepestscatter_tpu_torch.ops import descriptor, march
 from deepestscatter_tpu_torch.ops import rng as rng_ops
 from deepestscatter_tpu_torch.ops import tetra
 from deepestscatter_tpu_torch.render import baked, camera, inscatter, pathtracer
+from deepestscatter_tpu_torch.train import device_data
 
 HOST_SOURCE = Path(__file__).with_name("torch_kernel_host.cpp")
 PIXELS = 32
@@ -692,3 +697,36 @@ def test_k7b_deferred_equals_the_item_loop(host_lib, pt_rig, park_at):
             pm, rec, _ = radiance(1, order, cap)
             _assert_equal(pm, ref_pm)
             _assert_equal(rec, ref_rec)
+
+
+def _k10_tables(n=37, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    u8 = lambda w: torch.randint(0, 256, (n, w), generator=g, dtype=torch.uint8)  # noqa: E731
+    f = lambda *s: torch.rand(*s, generator=g)  # noqa: E731
+    return dict(grids=u8(10 * 225), probes=u8(4 * 9 * 225), rt=u8(3 * 225), powers=f(n, 4),
+                omega=f(n), alpha=f(n), labels=f(n))
+
+
+@pytest.mark.parametrize("rows", [[5, 0, 36, 5, 17, 2, 2, 30], [11]])
+def test_k10_equals_plain(host_lib, rows):
+    t = _k10_tables()
+    idx = torch.tensor(rows, dtype=torch.int64)
+    got = device_data._launch_disney(t["grids"], t["omega"], t["labels"], idx, lib=host_lib)
+    ref = device_data.assemble_disney_plain(t["grids"], t["omega"], t["labels"], idx)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    args = [t[k] for k in ("probes", "rt", "powers", "omega", "alpha", "labels")]
+    got = device_data._launch_baked(*args, idx, lib=host_lib)
+    ref = device_data.assemble_baked_plain(*args, idx)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_k10_rows_outside_the_table_are_nan(host_lib):
+    t = _k10_tables()
+    idx = torch.tensor([3, 37, -1, 4], dtype=torch.int64)
+    z, lab = device_data._launch_disney(t["grids"], t["omega"], t["labels"], idx, lib=host_lib)
+    bad = torch.tensor([False, True, True, False])
+    assert bool(z[bad].isnan().all()) and bool(lab[bad].isnan().all())
+    assert not bool(z[~bad].isnan().any())
+    out = device_data._launch_baked(*(t[k] for k in ("probes", "rt", "powers", "omega", "alpha",
+                                                     "labels")), idx, lib=host_lib)
+    assert all(bool(o[bad].isnan().all()) and not bool(o[~bad].isnan().any()) for o in out)

@@ -48,7 +48,10 @@ def test_import_pulls_in_no_jax():
         "deepestscatter_tpu_torch.render.baked, deepestscatter_tpu_torch.models.probes, "
         "deepestscatter_tpu_torch.tasks, deepestscatter_tpu_torch.data.collectors, "
         "deepestscatter_tpu_torch.data.store, deepestscatter_tpu_torch.data.records, "
-        "deepestscatter_tpu_torch.data.clouds, deepestscatter_tpu_torch.data.scenesetups\n"
+        "deepestscatter_tpu_torch.data.clouds, deepestscatter_tpu_torch.data.scenesetups, "
+        "deepestscatter_tpu_torch.data.vdb, deepestscatter_tpu_torch.data.blosc1, "
+        "deepestscatter_tpu_torch.data.datasets, deepestscatter_tpu_torch.train.trainer, "
+        "deepestscatter_tpu_torch.train.device_data, deepestscatter_tpu_torch.train.entries\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -80,7 +83,8 @@ def test_no_module_imports_jax_or_the_jax_package():
             "ops/welford.py", "ops/tonemap.py", "utils/compare.py", "ops/tetra.py",
             "models/probes.py", "render/baked.py", "tasks.py", "data/collectors.py",
             "data/store.py", "data/records.py", "data/clouds.py",
-            "data/scenesetups.py"} <= names
+            "data/scenesetups.py", "data/vdb.py", "data/blosc1.py", "data/datasets.py",
+            "train/trainer.py", "train/device_data.py", "train/entries.py"} <= names
     bad = [
         (str(f.relative_to(PKG)), m)
         for f in files
@@ -243,3 +247,26 @@ def test_collect_entry_points_default_to_the_card(no_card, tmp_path):
         tasks.scene_from_setup(setup)
     with pytest.raises(RuntimeError, match="CUDA"):
         tasks.collect(triplet.train, "ScatterSample", verbose=False)
+
+
+def test_train_entry_points_default_to_the_card(no_card, tmp_path):
+    from deepestscatter_tpu_torch.data.store import DatasetTriplet
+    from deepestscatter_tpu_torch.models.blocks import flax_init
+    from deepestscatter_tpu_torch.models.rpnn import DisneyModel
+    from deepestscatter_tpu_torch.train import device_data, entries, trainer
+
+    root = str(tmp_path)
+    triplet = DatasetTriplet(root)
+    for fn in (entries.train_disney, entries.train_baked, entries.train_mimic):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(root)
+    for cls in (device_data.DeviceDisneyData, device_data.DeviceBakedData):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(triplet.train)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flax_init(DisneyModel(), 0)
+    model = flax_init(DisneyModel(), 0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.Trainer(name="DisneyModel", model=model, apply_fn=lambda m, b: m(b["z_layers"]),
+                        train_batches=lambda e: iter(()), val_batch=lambda: None,
+                        config=tconfig.TrainConfig(run_dir=str(tmp_path / "runs")))

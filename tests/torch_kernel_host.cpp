@@ -1,7 +1,7 @@
 // Host build of the path-trace (K4, and K7b: its per-pixel experiment
 // bases and deferred scatters), in-scatter bake (K3), camera march (K1),
-// descriptor (K2), probe interpolation (K5) and scatter-sample (K7a, its
-// rounds of attempts) kernels' device functions, for
+// descriptor (K2), probe interpolation (K5), scatter-sample (K7a, its
+// rounds of attempts) and batch-assembly (K10) kernels' device functions, for
 // tests/test_torch_kernel_host.py:
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off -DDS_HOST_EMULATION
@@ -9,7 +9,8 @@
 //       -I deepestscatter_tpu_torch/csrc tests/torch_kernel_host.cpp
 //
 // It exports ds_pathtrace, ds_radiance, ds_bake, ds_march, ds_descriptor,
-// ds_probes and ds_samples with the signatures of the device entry points,
+// ds_probes, ds_samples, ds_assemble_disney and ds_assemble_baked with the
+// signatures of the device entry points,
 // so the wrappers' _launch drives it on CPU tensors; host_set_pathtrace,
 // host_set_radiance, host_set_bake, host_set_march, host_set_descriptor,
 // host_set_probes and host_set_samples choose what they compute.
@@ -24,6 +25,7 @@
 #include "descriptor.cu"
 #include "probes.cu"
 #include "samples.cu"
+#include "assemble.cu"
 
 namespace {
 
@@ -553,6 +555,63 @@ int ds_samples(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t see
   }
   return samples((const float*)dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out,
                  found_out, work_out);
+}
+
+// K10: every output element of a batch row through assemble_value; an
+// index outside [0, n) gives a row of NaN.
+static void assemble_row(const uint8_t* row, int n_out, int width, float omega, float* out) {
+  for (int j = 0; j < n_out; ++j) out[j] = ds::assemble_value(row, j, width, omega);
+}
+
+int ds_assemble_disney(const void* grids, const float* omega, const float* labels, int64_t n,
+                       const int64_t* idx, int b, int layers, float* z, float* lab,
+                       void* /*stream*/) {
+  const int in_bytes = layers * ds::kAssembleLayer;
+  const int out_n = layers * (ds::kAssembleLayer + 1);
+  for (int i = 0; i < b; ++i) {
+    float* out = z + (int64_t)i * out_n;
+    const int64_t r = idx[i];
+    if (r < 0 || r >= n) {
+      for (int j = 0; j < out_n; ++j) out[j] = NAN;
+      lab[i] = NAN;
+      continue;
+    }
+    assemble_row((const uint8_t*)grids + r * in_bytes, out_n, ds::kAssembleLayer + 1, omega[r],
+                 out);
+    lab[i] = labels[r];
+  }
+  return 0;
+}
+
+int ds_assemble_baked(const void* probes, const void* rt, const float* powers,
+                      const float* omega, const float* alpha, const float* labels, int64_t n,
+                      const int64_t* idx, int b, int probe_layers, int rt_layers,
+                      float* probe_out, float* rt_out, float* powers_out, float* omega_out,
+                      float* alpha_out, float* lab, void* /*stream*/) {
+  const int probe_n = 4 * probe_layers * ds::kAssembleLayer;
+  const int rt_bytes = rt_layers * ds::kAssembleLayer;
+  const int rt_n = rt_layers * (ds::kAssembleLayer + 1);
+  for (int i = 0; i < b; ++i) {
+    float* pout = probe_out + (int64_t)i * probe_n;
+    float* rout = rt_out + (int64_t)i * rt_n;
+    const int64_t r = idx[i];
+    if (r < 0 || r >= n) {
+      for (int j = 0; j < probe_n; ++j) pout[j] = NAN;
+      for (int j = 0; j < rt_n; ++j) rout[j] = NAN;
+      for (int k = 0; k < 4; ++k) powers_out[(int64_t)i * 4 + k] = NAN;
+      omega_out[i] = alpha_out[i] = lab[i] = NAN;
+      continue;
+    }
+    assemble_row((const uint8_t*)probes + r * probe_n, probe_n, ds::kAssembleLayer, omega[r],
+                 pout);
+    assemble_row((const uint8_t*)rt + r * rt_bytes, rt_n, ds::kAssembleLayer + 1, omega[r],
+                 rout);
+    for (int k = 0; k < 4; ++k) powers_out[(int64_t)i * 4 + k] = powers[r * 4 + k];
+    omega_out[i] = omega[r];
+    alpha_out[i] = alpha[r];
+    lab[i] = labels[r];
+  }
+  return 0;
 }
 
 }  // extern "C"
