@@ -138,8 +138,8 @@ Phases, one output line each:
     within 4 of its standard errors, taken from the spread of the
     per-pixel differences (``utils.compare.paired_difference``; the two
     share their paths but where the TPU's float functions parted them).
-    Then ``run()`` to the CI gate (at most 7,000 subframes) for seeds 4,
-    5, 6, pooled (``utils.compare.pool_renders``) and gated
+    Then ``run()`` to the CI gate (at most 7,000 subframes) for seeds 4
+    and 5, pooled (``utils.compare.pool_renders``) and gated
     (``utils.compare.render_agreement``, the file's noise that of a
     2,380-subframe render): the image means within 4 standard errors of
     their difference, from the port's per-pixel Welford moments with a
@@ -150,6 +150,33 @@ Phases, one output line each:
     seed's line, the pool's subframes, image mean against EVAL_r05's
     2.27659, the difference (absolute and relative), the z-scores, both
     RMS and the share of pixel channels past 4 sigma.
+
+14. ``eval``: the end-to-end quality check (D5) at EVAL_r05's operating
+    point, the way a user runs it (``eval_e2e.run_r05``): the round-5 stores
+    (``seed_r05``) in a temporary directory; the four collector stages on
+    train scene 0 (``procedural:64:21``, 1,200 m; 2,048 samples; roulette
+    from bounce 64, uint8, 20,000 black experiments), the validation store
+    left with its 4 setups and no labels (the fallback's WARNING must
+    appear); ``train_disney`` for 200 epochs and ``train_baked`` for 100 on
+    the default recipe, device-resident; the NN and BNN frames of the
+    held-out scene (``procedural:64:29``, 2677.73 m, EVAL_r05's light) at
+    512 x 256, seed 3, with the trained exports and with untrained weights
+    (``":init:"``), each against the committed
+    ``runs/eval_e2e/renders_512x256/eval.PT.exr`` (read, never rendered).
+    Counted: K3, K7a, K7b, K2, K10, K1 and K5 must launch.  It prints the
+    four RMS values beside EVAL_r05's with their ratios, the validation
+    losses, steps, each stage's seconds, the converged labels and peak
+    memory, and the trained frames' means and RMS against the JAX
+    package's own frames committed beside the ground truth.  Gates: every
+    frame finite; trained RMS <= 0.6 x the untrained weights' RMS of the
+    same run (EVAL_r05: 0.38 and 0.44); trained RMS <= 1.5 x EVAL_r05's
+    (NN <= 0.0854, BNN <= 0.0894).
+15. ``CLI``: ``python -m deepestscatter_tpu_torch render procedural:64:29
+    --size-m 2677.73 --directions Side`` in a subprocess from the
+    repository root, ``--renderer bnn --models-dir`` the eval phase's
+    exports, then ``--renderer pt --max-subframes 4``.  Gates: each EXR
+    exists, is finite and 256 x 512 x 3; the BNN EXR equals, bitwise, the
+    same render through ``tasks.render_cloud`` in this process.
 
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
@@ -239,7 +266,7 @@ EVAL_REFERENCE_SEED = 3
 EVAL_REFERENCE_SUBFRAMES = 2380
 #: The seeds whose renders, pooled, are held against it: not the
 #: reference's own, whose paths a render of that seed would share.
-EVAL_SEEDS = (4, 5, 6)
+EVAL_SEEDS = (4, 5)
 #: The scale of the port's image that the ground-truth gate must refuse.
 EVAL_SCALE = 1.02
 #: The JAX package's first 20 subframes of that render at the reference's
@@ -738,8 +765,8 @@ def check_frames(label: str, images, again, frames) -> None:
     require(not torch.equal(frames[0], frames[1]), f"{label}: two seeds gave the same frame")
 
 
-def against_plain(label: str, params, static, frame, basis, shade_plain):
-    """The seed-2 ``frame`` against the all-plain frame of the same seed:
+def against_plain(label: str, params, static, frame, basis, shade_plain, seed: int = 2):
+    """The ``seed`` ``frame`` against the all-plain frame of the same seed:
     scatter flags agree on >= 0.995 of rays, and >= 0.999 of the agreeing
     pixels lie within rtol 1e-3 (relative to max(|plain|, 1e-3)).  Returns
     the kernels' camera result of that frame and its ray directions."""
@@ -747,10 +774,10 @@ def against_plain(label: str, params, static, frame, basis, shade_plain):
     from deepestscatter_tpu_torch.render import neural
 
     dev = params.bbox_size.device
-    ref, ref_ok = plain_frame(params, static, shade_plain, basis, 2)
+    ref, ref_ok = plain_frame(params, static, shade_plain, basis, seed)
     # The kernels' scatter flags of that frame (the renderers keep none).
     o, d = cam.generate_rays(basis, WIDTH, HEIGHT, dev)
-    k_cs, _, _ = neural.CompactCamera().run(params, static, o, d, 2,
+    k_cs, _, _ = neural.CompactCamera().run(params, static, o, d, seed,
                                             torch.arange(WIDTH * HEIGHT, device=dev))
     same = k_cs.has_scattered == ref_ok
     flat, rflat = frame.reshape(-1, 3), ref.reshape(-1, 3)
@@ -1015,6 +1042,74 @@ def welford_fold(rad: torch.Tensor):
     return mean, m2, cnt
 
 
+def k7b_against_plain(collectors, pt, params, static, pos, dirs, rcfg, bases, gen,
+                      deep_from: int = 0) -> dict:
+    """K7b at the radiance stage's first update (every point, its replicas)
+    from each experiment base of ``bases`` against its plain version: each
+    launch's lanes folded from its per-experiment records, and K7B_CHECKED
+    records of each, drawn at random, against one-experiment plain runs of
+    their lanes with the base sub0 + k (lanes and experiments are
+    independent).  ``deep_from`` > 0: half of each launch's checked records
+    drawn from its experiments of at least that many bounces, those that
+    met Russian roulette.  Tolerance: counts, steps and scatters equal;
+    folds within 1e-5 (sum x) and 1e-4 (sum x^2) of the largest; records
+    within 1e-5 of the largest.  Returns the first launch's work, the
+    checks and the checked lanes."""
+    rs = collectors.radiance_static(static)
+    n, dev = pos.shape[0], pos.device
+    replicas = max(1, rcfg.max_threads // collectors.bucket_size(n))
+    launches = rcfg.launches_per_update
+    entry = (pos + 0.5 * params.bbox_size).contiguous()
+    rids = torch.arange(n, dtype=torch.int64, device=dev)
+    out = dict(replicas=replicas, launches=launches, entry=entry, fold_counts_ok=True,
+               fold_err=0.0, deep_records=0, deep_checked=0)
+    picks = []
+    for base0 in bases:
+        base = torch.full((n,), base0, dtype=torch.int64, device=dev)
+        o, d, ids, sub0 = collectors._lanes(entry, dirs, rids, base, replicas, launches)
+        pm, rec = collectors.launch_radiance(params, rs, o, d, ids, sub0, 0, launches)
+        if base0 == bases[0]:
+            out.update(steps=int(pm.steps.sum()), bounces=int(pm.bounces.sum()), lanes=o.shape[0],
+                       counters=[int(v) for v in collectors.radiance_moments.last_counters.tolist()])
+        mean_f, m2_f, cnt_f = welford_fold(rec.radiance[..., 0])
+        out["fold_counts_ok"] = (out["fold_counts_ok"] and torch.equal(pm.count, cnt_f)
+                                 and torch.equal(pm.steps, rec.work[..., 0].long().sum(dim=0))
+                                 and torch.equal(pm.bounces, rec.work[..., 1].long().sum(dim=0)))
+        for a, b, tol in ((pm.mean[:, 0], mean_f, 1e-5), (pm.m2[:, 0], m2_f, 1e-4)):
+            out["fold_err"] = max(out["fold_err"], (a - b).abs().max().item()
+                                  / (tol * (b.abs().max().item() + 1e-12)))
+        lane = torch.randint(0, o.shape[0], (K7B_CHECKED,), generator=gen)
+        exp = torch.randint(0, launches, (K7B_CHECKED,), generator=gen)
+        if deep_from > 0:
+            deep = torch.nonzero(rec.work[..., 1] >= deep_from).cpu()  # (experiment, lane)
+            out["deep_records"] += deep.shape[0]
+            if deep.shape[0]:
+                half = K7B_CHECKED // 2
+                j = torch.randint(0, deep.shape[0], (half,), generator=gen)
+                exp[:half], lane[:half] = deep[j, 0], deep[j, 1]
+                out["deep_checked"] += half
+        lane, exp = lane.to(dev), exp.to(dev)
+        picks.append((o[lane], d[lane], ids[lane], (sub0[lane] + exp) & 0xFFFFFFFF,
+                      rec.radiance[exp, lane], rec.work[exp, lane].long()))
+        del pm, rec
+    po, pd, pids, psub, prad, pwork = (torch.cat(t).contiguous() for t in zip(*picks))
+    phit = torch.ones(po.shape[0], dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = pt.scatter_loop_plain(params, rs, po, pd, phit, pids, 0, psub, 1)
+    torch.cuda.synchronize()
+    out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    out["err"] = (prad - one.mean).abs().max().item()
+    out["counts_eq"] = (torch.equal(pwork[:, 0], one.steps)
+                        and torch.equal(pwork[:, 1], one.bounces))
+    out["longest_steps"] = int(one.steps.max())
+    out["max_bounces"] = int(one.bounces.max())
+    out["ok"] = (out["fold_counts_ok"] and out["fold_err"] <= 1.0 and out["counts_eq"]
+                 and out["err"] <= 1e-5 * (one.mean.abs().max().item() + 1e-12))
+    out["checked"] = (po, pd, pids, psub)
+    return out
+
+
 def phase_collect(config, cuda_build, collectors, desc_ops, ins_ops, pt, dev,
                   gather_rows_per_s: float) -> list:
     """The dataset generator at the operating point, as a user drives it:
@@ -1148,53 +1243,22 @@ def phase_collect(config, cuda_build, collectors, desc_ops, ins_ops, pt, dev,
                        steps_a * K7A_OPS_PER_STEP + att_a * K7A_OPS_PER_ATTEMPT)
     row_a.update(work_a)
 
-    # K7b at the radiance stage's first update (every point, its replicas,
-    # bases 0 from the zero counts) and at that shape with bases 2^32 - 50
-    # (every lane's experiments wrap past 2^32).  Each launch's lanes folded
-    # from its per-experiment records; K7B_CHECKED records of each, drawn
-    # at random, against one-experiment plain runs of their lanes with the
-    # base sub0 + k (lanes and experiments are independent).
+    # K7b at the radiance stage's first update, from bases 0 and 2^32 - 50
+    # (every lane's experiments wrap past 2^32).
     rs = collectors.radiance_static(static)
-    replicas = max(1, rcfg.max_threads // collectors.bucket_size(n))
-    launches = rcfg.launches_per_update
-    entry = (pos + 0.5 * params.bbox_size).contiguous()
-    rids = torch.arange(n, dtype=torch.int64, device=dev)
     gen = torch.Generator().manual_seed(7)
-    picks, fold_err, fold_counts_ok = [], 0.0, True
-    for base0 in (0, 2**32 - 50):
-        base = torch.full((n,), base0, dtype=torch.int64, device=dev)
-        o, d, ids, sub0 = collectors._lanes(entry, dirs, rids, base, replicas, launches)
-        pm, rec = collectors.launch_radiance(params, rs, o, d, ids, sub0, 0, launches)
-        if base0 == 0:
-            steps_b, bounces_b = int(pm.steps.sum()), int(pm.bounces.sum())
-            items, slots, resolves, resolved = (
-                int(v) for v in collectors.radiance_moments.last_counters.tolist())
-            n_lanes = o.shape[0]
-        mean_f, m2_f, cnt_f = welford_fold(rec.radiance[..., 0])
-        fold_counts_ok = (fold_counts_ok and torch.equal(pm.count, cnt_f)
-                          and torch.equal(pm.steps, rec.work[..., 0].long().sum(dim=0))
-                          and torch.equal(pm.bounces, rec.work[..., 1].long().sum(dim=0)))
-        for a, b, tol in ((pm.mean[:, 0], mean_f, 1e-5), (pm.m2[:, 0], m2_f, 1e-4)):
-            fold_err = max(fold_err, (a - b).abs().max().item()
-                           / (tol * (b.abs().max().item() + 1e-12)))
-        lane = torch.randint(0, o.shape[0], (K7B_CHECKED,), generator=gen).to(dev)
-        exp = torch.randint(0, launches, (K7B_CHECKED,), generator=gen).to(dev)
-        picks.append((o[lane], d[lane], ids[lane], (sub0[lane] + exp) & 0xFFFFFFFF,
-                      rec.radiance[exp, lane], rec.work[exp, lane].long()))
-        del pm, rec
-    po, pd, pids, psub, prad, pwork = (torch.cat(t).contiguous() for t in zip(*picks))
-    phit = torch.ones(po.shape[0], dtype=torch.bool, device=dev)
-    t0 = time.perf_counter()
-    one = pt.scatter_loop_plain(params, rs, po, pd, phit, pids, 0, psub, 1)
-    torch.cuda.synchronize()
-    plain_b = (time.perf_counter() - t0) * 1e3
+    kb = k7b_against_plain(collectors, pt, params, static, pos, dirs, rcfg, (0, 2**32 - 50), gen)
+    replicas, launches, n_lanes = kb["replicas"], kb["launches"], kb["lanes"]
+    steps_b, bounces_b = kb["steps"], kb["bounces"]
+    items, slots, resolves, resolved = kb["counters"]
+    fold_counts_ok, fold_err, counts_eq, err_b = (kb[k] for k in ("fold_counts_ok", "fold_err",
+                                                                   "counts_eq", "err"))
+    po, pd, pids, psub = kb["checked"]
+    plain_b = kb["plain_ms"]
     ms_checked = time_ms(lambda: collectors.launch_radiance(params, rs, po, pd, pids, psub, 0, 1),
                          3)
-    err_b = (prad - one.mean).abs().max().item()
-    counts_eq = torch.equal(pwork[:, 0], one.steps) and torch.equal(pwork[:, 1], one.bounces)
-    rec_ok = counts_eq and err_b <= 1e-5 * (one.mean.abs().max().item() + 1e-12)
-    args = (params, rs, entry, dirs, rids, torch.zeros(n, dtype=torch.int64, device=dev), 0,
-            replicas, launches)
+    args = (params, rs, kb["entry"], dirs, torch.arange(n, dtype=torch.int64, device=dev),
+            torch.zeros(n, dtype=torch.int64, device=dev), 0, replicas, launches)
     ms_b = time_ms(lambda: collectors.radiance_moments(*args), 3)
     simt_b = steps_b / max(32.0 * slots, 1.0)
     work_b = dict(steps_per_s=steps_b / (ms_b * 1e-3), simt_efficiency=simt_b,
@@ -1216,9 +1280,9 @@ def phase_collect(config, cuda_build, collectors, desc_ops, ins_ops, pt, dev,
           f"scatters)={fold_counts_ok} fold_err(of tol sum x 1e-5, sum x^2 1e-4 of max)="
           f"{fold_err:.3g}; {po.shape[0]} records against one-experiment plain runs: "
           f"steps_scatters_equal={counts_eq} max_abs_err={err_b:.3g} (tol 1e-5 of "
-          f"max) longest_steps={int(one.steps.max())} plain_ms={plain_b:.1f} "
+          f"max) longest_steps={kb['longest_steps']} plain_ms={plain_b:.1f} "
           f"kernel_ms(same experiments)={ms_checked:.3f}", flush=True)
-    require(fold_counts_ok and fold_err <= 1.0 and rec_ok, "K7b disagrees with its plain version")
+    require(kb["ok"], "K7b disagrees with its plain version")
     tables = (params.phase.eval_rows.numel() + params.phase.inv_cdf_rows.numel()) * 4
     row_b = kernel_row("K7b radiance experiments", "deepestscatter_tpu_torch/csrc/pathtrace.cu",
                        "deepestscatter_tpu/data/collectors.py:150", err_b, ms_b, plain_b,
@@ -1653,6 +1717,232 @@ def phase_ground_truth(prog, pt, ins_ops, dev) -> None:
     require(not scaled.passes(), "the ground-truth gate passes an image scaled by 2 %")
 
 
+#: The end-to-end quality check's gates: each trained frame's RMS at most
+#: EVAL_RANDOM_RATIO of the untrained weights' in the same run, and at most
+#: EVAL_BAR times EVAL_r05's (the JAX package's: NN 0.0569, BNN 0.0596).
+EVAL_RANDOM_RATIO = 0.6
+EVAL_BAR = 1.5
+#: The kernels the evaluation's path must launch, by counter.
+EVAL_KERNELS = ("K3", "K7a", "K7b", "K2", "K10", "K1", "K5")
+#: The evaluation's frame seed (``eval_e2e.run_eval``'s ``render_seed``).
+EVAL_RENDER_SEED = 3
+#: The command-line phase's render: EVAL_r05's held-out cloud and size.
+CLI_ARGS = ("procedural:64:29", "--size-m", "2677.73", "--directions", "Side")
+
+
+def phase_eval(collectors, desc_ops, ins_ops, march_ops, pt, bnn, dev):
+    """The end-to-end quality check (D5) at EVAL_r05's operating point, the
+    way a user runs it (``eval_e2e.run_r05``): the round-5 stores
+    (``seed_r05``) in a temporary directory, the four stages on train scene
+    0 (2,048 samples; the validation store keeps its 4 setups and no
+    labels, so the fallback's WARNING must appear), 200 RPNN and 100 baked
+    epochs, the NN and BNN frames of the held-out scene at 512 x 256, seed
+    3, trained and untrained, each against the committed ``eval.PT.exr``
+    (read, never rendered).  Launch counts are set to 0 just before and
+    read just after; every kernel of EVAL_KERNELS must have launched.
+    Then its kernels against their plain versions at its shapes and
+    settings (``eval_against_plain``).  Gates: every frame finite; trained
+    RMS <= EVAL_RANDOM_RATIO x the untrained one's (EVAL_r05: 0.38, 0.44)
+    and <= EVAL_BAR x EVAL_r05's (NN <= 0.0854, BNN <= 0.0894).  Returns
+    the run directory of the trained exports and the temporary
+    directory."""
+    import contextlib
+    import io
+    import tempfile
+
+    from deepestscatter_tpu_torch import eval_e2e
+    from deepestscatter_tpu_torch.train import device_data as dd
+    from deepestscatter_tpu_torch.utils import compare, exr
+
+    record = json.loads(EVAL_JSON.read_text())
+    counters = {"K3": [ins_ops.sun_transmittance], "K7a": [collectors.generate_scatter_samples],
+                "K7b": [collectors.radiance_moments], "K2": [desc_ops.network_inputs],
+                "K10": [dd.assemble_disney, dd.assemble_baked], "K1": [march_ops.camera_march],
+                "K5": [bnn.interpolate_probes]}
+    tmp = tempfile.TemporaryDirectory()
+    buf = io.StringIO()
+    for fs in counters.values():
+        for f in fs:
+            f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rep = eval_e2e.run_r05(tmp.name, ground_truth=str(EVAL_REFERENCE), device=dev)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launched = {k: sum(f.launches for f in fs) for k, fs in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    warned = [ln for ln in buf.getvalue().splitlines() if TRAIN_WARNING in ln]
+    rms = {}
+    for name in ("nn", "nn_random", "bnn", "bnn_random"):
+        rms[name] = dict(port=rep[f"rms_{name}"], eval_r05=record[f"rms_{name}"],
+                         ratio=rep[f"rms_{name}"] / record[f"rms_{name}"])
+    ratios = {k: rep[f"rms_{k}"] / rep[f"rms_{k}_random"] for k in ("nn", "bnn")}
+    # The JAX package's own frames of EVAL_r05, committed beside the ground
+    # truth: their means, and the port's trained frames against them.
+    jax_frames = {k: exr.read_exr(str(EVAL_REFERENCE.parent / f"eval.{k.upper()}.exr"))
+                  for k in ("nn", "bnn")}
+    ours = Path(tmp.name) / "renders_{}x{}".format(*rep["resolution"])
+    means = {k: dict(port=rep[f"mean_{k}"], jax=float(jax_frames[k].mean()))
+             for k in ("nn", "bnn")}
+    vs_jax = {k: compare.rms_bias(jax_frames[k], exr.read_exr(str(ours / f"eval.{k.upper()}.exr")))
+              for k in ("nn", "bnn")}
+    timings = {k: round(v, 3) for k, v in rep["timings"].items()}
+    print(f"eval: scene={json.dumps(rep['held_out_scene'])} {rep['resolution']} "
+          f"rms={json.dumps(rms)} frame_means={json.dumps(means)} "
+          f"rms_against_jax_frames={json.dumps(vs_jax)} trained_over_random={json.dumps(ratios)} (tol "
+          f"{EVAL_RANDOM_RATIO}; EVAL_r05 0.38, 0.44) bar(x{EVAL_BAR} EVAL_r05)="
+          f"{json.dumps({k: EVAL_BAR * record[f'rms_{k}'] for k in ('nn', 'bnn')})} "
+          f"val_loss_nn={rep['val_loss_nn']:.6f} val_loss_bnn={rep['val_loss_bnn']:.6f} "
+          f"(EVAL_r05 {record['val_loss_bnn']:.4f}) steps_nn={rep['steps_nn']} "
+          f"steps_bnn={rep['steps_bnn']} labels={rep['dataset']['train_labels']} "
+          f"converged={rep['dataset']['train_labels_converged']} pt_mean={rep['pt_mean']:.6f} "
+          f"timings_s={json.dumps(timings)} seconds={secs:.2f} peak_mem_mb={peak / 2**20:.1f} "
+          f"launches={json.dumps(launched)} warning_lines={len(warned)} "
+          f"device={json.dumps(rep['device'])}", flush=True)
+    run_dir = Path(tmp.name) / "runs_seed566"
+    eval_against_plain(collectors, desc_ops, ins_ops, pt, bnn, Path(tmp.name), run_dir, ours, dev)
+    require(all(rep[f"finite_{k}"] for k in rms), "eval: a frame is not finite")
+    require(bool(warned), "eval: the validation fallback's WARNING did not appear")
+    require(all(launched[k] > 0 for k in EVAL_KERNELS),
+            f"a kernel of the evaluation's path never launched: {launched}")
+    for k in ("nn", "bnn"):
+        require(ratios[k] <= EVAL_RANDOM_RATIO,
+                f"eval: trained {k} RMS is {ratios[k]:.3f} of the untrained one's")
+        require(rep[f"rms_{k}"] <= EVAL_BAR * record[f"rms_{k}"],
+                f"eval: trained {k} RMS {rep[f'rms_{k}']:.5f} beyond {EVAL_BAR} x EVAL_r05's")
+    return run_dir, tmp
+
+
+def eval_against_plain(collectors, desc_ops, ins_ops, pt, bnn, root: Path, run_dir: Path,
+                       img_dir: Path, dev) -> None:
+    """The evaluation's kernels against their plain versions at its shapes
+    and settings, after its run (not counted): K3 on both 64^3 scenes (train
+    scene 0 and the held-out scene), bitwise; K7b on train scene 0's stored
+    points with the evaluation's Russian roulette (``k7b_against_plain``,
+    half the checked records from experiments past its first bounce); the
+    held-out scene's trained NN and BNN frames, rendered again at the
+    evaluation's seed, each equal bitwise to the EXR the evaluation scored
+    and held against its all-plain frame (``against_plain``); the BNN's
+    probe bake equal to the bake through K2's plain version, and K5 equal to
+    its plain version on the frame's shading points."""
+    from deepestscatter_tpu_torch import tasks
+    from deepestscatter_tpu_torch.config import PointRadianceConfig
+    from deepestscatter_tpu_torch.data import records
+    from deepestscatter_tpu_torch.data.store import DatasetTriplet
+    from deepestscatter_tpu_torch.render import camera as cam
+    from deepestscatter_tpu_torch.utils import exr
+
+    triplet = DatasetTriplet(str(root))
+    base = tasks.eval_base()
+    scenes = {}
+    for label, store in (("train scene 0", triplet.train), ("held-out scene", triplet.validation)):
+        cfg, params, static = tasks.scene_from_setup(store.table("SceneSetup").get_record(0), base,
+                                                     device=dev)
+        k3 = ins_ops.sun_transmittance(params, static)
+        err3 = (k3 - ins_ops.sun_transmittance_plain(params, static)).abs().max().item()
+        print(f"eval K3 bake, {label}: grid={static.grid_shape} max_abs_err={err3:.3g} (tol 0)",
+              flush=True)
+        require(err3 == 0.0, f"eval: K3 disagrees with its plain version on the {label}")
+        scenes[label] = (cfg, params, static)
+
+    _, params, static = scenes["train scene 0"]
+    n = records.BATCH_SIZE
+    samples = triplet.train.table("ScatterSample").read(0, n)
+    pos = torch.as_tensor(samples["point"], device=dev)
+    dirs = torch.as_tensor(samples["view_direction"], device=dev)
+    rr = static.rr_start_depth
+    kb = k7b_against_plain(collectors, pt, params, static, pos, dirs,
+                           PointRadianceConfig(black_min_experiments=20_000), (0,),
+                           torch.Generator().manual_seed(7), deep_from=rr)
+    print(f"eval K7b, train scene 0 (Russian roulette from bounce {rr} at "
+          f"{static.rr_survival}): points={n} replicas={kb['replicas']} "
+          f"experiments={kb['lanes'] * kb['launches']} experiments_past_bounce_{rr}="
+          f"{kb['deep_records']} checked={kb['checked'][0].shape[0]} "
+          f"checked_past_bounce_{rr}={kb['deep_checked']} max_scatters_checked={kb['max_bounces']} "
+          f"folds_equal_records={kb['fold_counts_ok']} fold_err(of tol)={kb['fold_err']:.3g} "
+          f"steps_scatters_equal={kb['counts_eq']} max_abs_err={kb['err']:.3g} (tol 1e-5 of max) "
+          f"plain_ms={kb['plain_ms']:.1f}", flush=True)
+    require(kb["ok"], "eval: K7b disagrees with its plain version under Russian roulette")
+    del pos, dirs, kb
+
+    cfg, params, static = scenes["held-out scene"]
+    basis = cam.camera_basis(cfg.camera)
+    for kind in ("nn", "bnn"):
+        weights = tasks.load_neural_weights(kind, str(run_dir), dev)
+        renderer = tasks.build_neural_renderer(kind, weights, params, static, dev)
+        frame = renderer.render_frame(params, static, WIDTH, HEIGHT, basis, seed=EVAL_RENDER_SEED)
+        scored = np.array_equal(frame.cpu().numpy(),
+                                exr.read_exr(str(img_dir / f"eval.{kind.upper()}.exr")))
+        print(f"eval {kind.upper()} frame: equal_to_the_scored_exr={scored}", flush=True)
+        require(scored, f"eval: the {kind} frame rendered again differs from the one scored")
+        if kind == "nn":
+            model = weights["DisneyModel"]
+
+            def shade_plain(p, d):
+                return model(desc_ops.network_inputs_plain(params, static, p, d))[:, 0]
+        else:
+            probes, renderer_model = renderer.probes, weights["ProbeRendererModel"]
+            same_bake = torch.equal(probes, plain_descriptors(
+                desc_ops, bnn.bake_probes, params, static, weights["LightProbeModel"],
+                renderer.lattice))
+
+            def shade_plain(p, d):
+                probe_in = bnn.interpolate_probes_plain(params, static, probes, p, d)
+                realtime = desc_ops.network_inputs_plain(params, static, p, d,
+                                                         desc_ops.BAKED_REALTIME_LAYERS)
+                return renderer_model(probe_in, realtime)[:, 0]
+        k_cs, d = against_plain(f"eval {kind.upper()} frame vs plain", params, static, frame,
+                                basis, shade_plain, seed=EVAL_RENDER_SEED)
+        if kind == "bnn":
+            pts = k_cs.scatter_pos[k_cs.has_scattered].contiguous()
+            pdirs = d[k_cs.has_scattered].contiguous()
+            k5 = bnn.interpolate_probes(params, static, probes, pts, pdirs)
+            p5 = bnn.interpolate_probes_plain(params, static, probes, pts, pdirs)
+            err5 = (k5 - p5).abs().max().item()
+            print(f"eval BNN bake and K5: lattice={renderer.lattice} probes={tuple(probes.shape)} "
+                  f"equal_to_plain_K2_bake={same_bake} K5_points={pts.shape[0]} "
+                  f"K5_max_abs_err={err5:.3g} (tol 0, torch.equal)", flush=True)
+            require(same_bake, "eval: the probe bake disagrees with the bake through K2's plain "
+                               "version")
+            require(torch.equal(k5, p5), "eval: K5 disagrees with its plain version")
+
+
+def phase_cli(config, tasks, exr, models_dir: Path, out: Path, dev) -> None:
+    """The command line in a subprocess from the repository root
+    (``python -m deepestscatter_tpu_torch render``), the held-out cloud at
+    the default settings: BNN from the eval phase's exports, then the path
+    tracer capped at 4 subframes (one tick).  Gates: each EXR exists,
+    is finite and 256 x 512 x 3; the BNN EXR equal, bitwise, to the same
+    render through ``tasks.render_cloud`` in this process."""
+    repo = Path(__file__).resolve().parent
+    paths = {}
+    for renderer, extra in (("bnn", ("--models-dir", str(models_dir))),
+                            ("pt", ("--max-subframes", "4"))):
+        cmd = [sys.executable, "-m", "deepestscatter_tpu_torch", "render", *CLI_ARGS,
+               "--renderer", renderer, "--out", str(out / "cli"), *extra]
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600)
+        secs = time.time() - t0
+        path = out / "cli" / f"procedural_64_29.Side.{renderer.upper()}.exr"
+        img = exr.read_exr(str(path)) if proc.returncode == 0 and path.exists() else None
+        seen = "missing" if img is None else (f"shape={list(img.shape)} finite="
+                                              f"{bool(np.isfinite(img).all())} mean={img.mean():.6f}")
+        print(f"CLI {renderer}: rc={proc.returncode} seconds={secs:.2f} exr={path.name} {seen}",
+              flush=True)
+        require(img is not None, f"CLI {renderer} failed: {proc.stderr[-2000:]}")
+        require(img.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(img).all()),
+                f"CLI {renderer}: the EXR is not finite or not {HEIGHT}x{WIDTH}x3")
+        paths[renderer] = img
+    (here,) = tasks.render_cloud(CLI_ARGS[0], str(out / "inproc"), "bnn", float(CLI_ARGS[2]),
+                                 directions=(CLI_ARGS[4],), base=config.SceneConfig(),
+                                 models_dir=str(models_dir), verbose=False, device=dev)
+    same = np.array_equal(exr.read_exr(here), paths["bnn"])
+    print(f"CLI bnn against tasks.render_cloud in this process: bitwise_equal={same}", flush=True)
+    require(same, "CLI: the BNN render differs from the same render in this process")
+
+
 def run() -> dict:
     """All phases; returns the kernel rows with their launch counts."""
     import deepestscatter_tpu_torch as port
@@ -1776,6 +2066,16 @@ def run() -> dict:
 
     # -- the path tracer against the JAX package's ground truth, counted ------
     phase_ground_truth(prog, pt, ins_ops, dev)
+
+    # -- the end-to-end quality check, counted; then the command line ---------
+    from deepestscatter_tpu_torch import tasks
+    from deepestscatter_tpu_torch.utils import exr
+
+    models_dir, tmp = phase_eval(collectors, desc_ops, ins_ops, march_ops, pt, bnn, dev)
+    try:
+        phase_cli(config, tasks, exr, models_dir, Path(tmp.name), dev)
+    finally:
+        tmp.cleanup()
     return kernels
 
 

@@ -16,6 +16,13 @@ kernels (``csrc/``):
 
 Each kernel's wrapper runs a plain PyTorch version on CPU tensors.
 
+The user's entry is the command line (``python -m
+deepestscatter_tpu_torch``), the render task ``tasks.render_cloud``, the
+headless viewer ``render.viewer.InteractiveSession`` and the end-to-end
+quality evaluation ``eval_e2e.run_eval``; ``tasks.load_neural_weights``
+reads this package's trained exports or the JAX package's
+(``models.flax_msgpack``).
+
 It imports torch, numpy and the standard library only; entry points
 (``build_scene``, ``bake``, ``render_disney``, ``DisneyRenderer``,
 ``render_baked``, ``BakedRenderer``, ``ProgressiveRenderer``,

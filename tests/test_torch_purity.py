@@ -1,6 +1,7 @@
 """The PyTorch port stands alone and runs where it is told:
 
-- importing it pulls in neither JAX nor the JAX package;
+- importing it pulls in neither JAX, flax, msgpack, the JAX package nor
+  the repository's ``tools``;
 - no module of it imports them (AST scan);
 - its entry points default to the card and raise when there is none,
   instead of running on the CPU;
@@ -29,7 +30,7 @@ from deepestscatter_tpu_torch.render import camera as tcam
 from deepestscatter_tpu_torch.render import progressive
 
 PKG = Path(port.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepestscatter_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "deepestscatter_tpu", "tools")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -51,7 +52,10 @@ def test_import_pulls_in_no_jax():
         "deepestscatter_tpu_torch.data.clouds, deepestscatter_tpu_torch.data.scenesetups, "
         "deepestscatter_tpu_torch.data.vdb, deepestscatter_tpu_torch.data.blosc1, "
         "deepestscatter_tpu_torch.data.datasets, deepestscatter_tpu_torch.train.trainer, "
-        "deepestscatter_tpu_torch.train.device_data, deepestscatter_tpu_torch.train.entries\n"
+        "deepestscatter_tpu_torch.train.device_data, deepestscatter_tpu_torch.train.entries, "
+        "deepestscatter_tpu_torch.utils.png, deepestscatter_tpu_torch.models.flax_msgpack, "
+        "deepestscatter_tpu_torch.render.viewer, deepestscatter_tpu_torch.eval_e2e, "
+        "deepestscatter_tpu_torch.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -84,7 +88,8 @@ def test_no_module_imports_jax_or_the_jax_package():
             "models/probes.py", "render/baked.py", "tasks.py", "data/collectors.py",
             "data/store.py", "data/records.py", "data/clouds.py",
             "data/scenesetups.py", "data/vdb.py", "data/blosc1.py", "data/datasets.py",
-            "train/trainer.py", "train/device_data.py", "train/entries.py"} <= names
+            "train/trainer.py", "train/device_data.py", "train/entries.py", "utils/png.py",
+            "models/flax_msgpack.py", "render/viewer.py", "eval_e2e.py", "__main__.py"} <= names
     bad = [
         (str(f.relative_to(PKG)), m)
         for f in files
@@ -270,3 +275,28 @@ def test_train_entry_points_default_to_the_card(no_card, tmp_path):
         trainer.Trainer(name="DisneyModel", model=model, apply_fn=lambda m, b: m(b["z_layers"]),
                         train_batches=lambda e: iter(()), val_batch=lambda: None,
                         config=tconfig.TrainConfig(run_dir=str(tmp_path / "runs")))
+
+
+def test_entry_points_default_to_the_card(no_card, tmp_path):
+    """The user's entry: the render task, the neural weights' loading, the
+    viewer, the end-to-end evaluation and the command line (``--device``
+    defaults to ``cuda``)."""
+    from deepestscatter_tpu_torch import eval_e2e, tasks
+    from deepestscatter_tpu_torch.__main__ import main, parser
+    from deepestscatter_tpu_torch.render import viewer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tasks.render_cloud("procedural:8:1", str(tmp_path), "pt")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tasks.load_neural_weights("nn", ":init:")
+    cfg, params, static = _cpu_scene()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        viewer.InteractiveSession(cfg, params, static)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_e2e.run_eval(str(tmp_path / "eval"))
+    p = parser()
+    for argv in (["render", "x"], ["collect", "r", "Result"], ["train-disney", "r"],
+                 ["train-baked", "r"], ["eval"]):
+        assert p.parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["render", "procedural:8:1", "--out", str(tmp_path)])
