@@ -177,6 +177,37 @@ Phases, one output line each:
     exports, then ``--renderer pt --max-subframes 4``.  Gates: each EXR
     exists, is finite and 256 x 512 x 3; the BNN EXR equals, bitwise, the
     same render through ``tasks.render_cloud`` in this process.
+16. ``diff``: the differentiable single-scatter renderer
+    (``render.diff``) driven the way a user drives it, counted (K3, K8a and
+    K8b's four entries must launch): ``render_and_grads`` at its defaults
+    point (``render_single_scatter``'s defaults, 64 x 32, 256 steps of
+    1/256, density multiplier 100, on EVAL_r05's held-out cloud
+    ``procedural:64:29`` normalised and unpadded, the sun, eye and light of
+    tests/test_diff_cross_validation.py) in both in-scatter modes; the
+    frame point's image and gradients of a float64 sum under fixed random
+    weights (the RPNN frame's 256^3 cumulus of seed 11, 512 x 256, 896
+    steps of 1/512, density multiplier 200, baked); ``sun_transmittance``
+    and its gradient at the 64^3 cloud's voxel centres.  Gates: at the
+    defaults point, both modes, the kernels against the plain versions on
+    the card (image within 1e-5 of its largest value, the density gradient
+    within 1e-4 of its largest, every other leaf within 1e-3), the bake's
+    forward (K3, ``early_out=0``) bitwise equal to the plain bake there and
+    at the frame point, the sun march within 1e-6 (T) and its gradients,
+    K8a and K8b each against autograd of its plain version on the same
+    inputs; the card against the plain version on the CPU on a 16^3 crop,
+    both modes, at the same tolerances; at the frame point the image and
+    gradients finite, the density, sun and eye gradients nonzero, the image
+    bitwise equal over two runs and the gradients within 1e-5 (atomics),
+    directional derivatives against central differences of the kernels'
+    own forward (a random direction on the cloud's voxels, eps 1e-3,
+    within 2 %; a random sun direction, within 5 % at any eps of 1e-3,
+    3e-5, 1e-5); at the cross-validation point (16^3, 24 x 12, 400 m) the
+    quadrature against K4's single-scatter mean of 600 subframes (mean
+    within 5 %, median pixel error below 0.1).  It prints the forward and
+    forward + backward times at both points, the plain version's time and
+    peak memory at the defaults point, each kernel's time (CUDA events)
+    beside its bound and its plain version's, and peak memory.  The kernels
+    line's K8a and K8b rows are at the defaults point, baked.
 
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
@@ -276,6 +307,57 @@ EVAL_JAX_CPU_SUBFRAMES = 20
 #: Card-against-CPU sizes (the CPU runs the plain versions).
 CPU_POINTS = 4096
 CPU_SAMPLES = 1024
+#: The differentiable renderer (render/diff.py).  Defaults point:
+#: render_single_scatter's own defaults on EVAL_r05's held-out cloud,
+#: normalised and unpadded, with tests/test_diff_cross_validation.py's sun,
+#: eye and light.
+DIFF_CLOUD = (64, 29)
+DIFF_SUN = (-0.3, -0.9, 0.1)
+DIFF_EYE = (2.5, -0.4, 0.0)
+DIFF_RADIANCE = 1e6
+#: Frame point: the RPNN frame's scene (256^3 cumulus of seed 11, 2000 m /
+#: 10 m), 512 x 256, step 1/512 and 896 steps (28 chunks of 32, past the
+#: box diagonal's 887), baked in-scatter; the sun and eye of the config.
+DIFF_FRAME_CLOUD = (256, 11)
+DIFF_FRAME = dict(width=WIDTH, height=HEIGHT, density_multiplier=200.0, n_steps=896,
+                  sample_step=1.0 / 512.0, remat_chunk=32, use_baked_inscatter=True)
+#: Cross-validation point (tests/test_diff_cross_validation.py:38-110): a 16^3
+#: random cloud at 400 m, 24 x 12, against K4's single-scatter mean.
+XVAL_RES, XVAL_WIDTH, XVAL_HEIGHT, XVAL_SIZE_M, XVAL_TICKS = 16, 24, 12, 400.0, 60
+#: Card against CPU: a 16^3 crop of the defaults cloud at a small frame.
+DIFF_CPU = dict(width=32, height=16, density_multiplier=100.0, n_steps=224, sun_steps=64,
+                sample_step=1.0 / 128.0, remat_chunk=32)
+#: Tolerances against the plain version: image relative to its largest
+#: value, the density gradient to its largest, the other leaves each.
+DIFF_TOL = {"image": 1e-5, "density": 1e-4, "sun_dir": 1e-3, "eye": 1e-3, "look_at": 1e-3,
+            "light_radiance": 1e-3}
+#: Operations counted a step for the bounds: K8a a voxel-step (position,
+#: coordinates, the cell and its 8 weights, 8 weighted atomic adds, the
+#: slope from 8 taps, the light gradient).  K8b's forward a ray-step in the
+#: box with sigma != 0 (a masked density sample ~90, a baked-grid sample
+#: ~90, three exponentials, expm1, two divisions and the mean point, the
+#: term) and with sigma == 0 (the masked density sample and tau: the term
+#: is an exact 0).  Its backward a ray-step with sigma != 0 (the forward's
+#: replay, two slopes and 16 weighted atomic adds, the chain) and with
+#: sigma == 0 (the density sample, exp(-tau), the baked-grid sample at the
+#: Taylor mean point for the segment weight's slope, the density texels' 8
+#: weighted atomic adds and slope, the chain; no baked-grid scatter and no
+#: mean-point slope: dS == 0 there).  The sun march a step in the box
+#: (position, coordinates, the in-box test, a sample, tau) and its
+#: adjoint's (its 8 weighted atomic adds and the slope in place of the sum).
+K8A_OPS_PER_VOXEL_STEP = 100
+K8B_OPS_PER_STEP = 220
+K8B_DARK_OPS_PER_STEP = 95
+K8B_BWD_OPS_PER_STEP = 480
+K8B_BWD_DARK_OPS_PER_STEP = 290
+K8B_SUN_OPS_PER_STEP = 100
+K8B_SUN_BWD_OPS_PER_STEP = 150
+#: The frame point's checks against the plain versions, on a part of its
+#: work at its own shapes: K8b on the rays with the most steps with
+#: sigma != 0 (the longest prefix sums), K8a with the upstream restricted
+#: to a slab of z-slices.
+FRAME_CHECK_RAYS = 2048
+FRAME_CHECK_SLICES = 4
 
 
 class Failed(Exception):
@@ -362,11 +444,16 @@ def device_ms(fn, reps: int, kernel: str = "", cold: bool = False) -> float:
 
 
 def host_ms(fn) -> float:
+    return host_call(fn)[1]
+
+
+def host_call(fn):
+    """(``fn()``, its synchronized host milliseconds)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
@@ -1943,6 +2030,601 @@ def phase_cli(config, tasks, exr, models_dir: Path, out: Path, dev) -> None:
     require(same, "CLI: the BNN render differs from the same render in this process")
 
 
+# ---------------------------------------------------------------------------
+# The differentiable renderer
+# ---------------------------------------------------------------------------
+
+
+def diff_density(res: int, seed: int) -> np.ndarray:
+    """The procedural cumulus, normalised and unpadded."""
+    from deepestscatter_tpu_torch.data import procedural
+    from deepestscatter_tpu_torch.ops import grid as grid_ops
+
+    return grid_ops.normalize_density(procedural.cumulus(resolution=res, seed=seed))
+
+
+def diff_scene(diff, density, sun, eye, dev):
+    return diff.diff_scene_from_numpy(
+        density, np.asarray(sun, np.float32), np.asarray(eye, np.float32),
+        np.zeros(3, np.float32), np.full(3, DIFF_RADIANCE, np.float32), device=dev)
+
+
+def render_kw(diff, **kw) -> dict:
+    """``render_single_scatter``'s arguments: its defaults, updated by kw."""
+    import inspect
+
+    params = inspect.signature(diff.render_single_scatter).parameters
+    full = {k: p.default for k, p in params.items() if k not in ("scene", "device")}
+    full.update(kw)
+    return full
+
+
+def diff_grads(diff, scene, kw, kernels=True, weights=None):
+    """(image, gradients of the loss as a DiffScene) through the kernels
+    (the public entry) or the plain versions; the loss is the image mean,
+    or with ``weights`` the float64 sum of the image times them."""
+    leaves = [t.detach().requires_grad_(True) for t in scene]
+    s = diff.DiffScene(*leaves)
+    if kernels:
+        img = diff.render_single_scatter(s, device=scene.density.device, **kw)
+    else:
+        img = diff.render_single_scatter_plain(s, **kw)
+    loss = img.mean() if weights is None else (img.to(torch.float64) * weights).sum()
+    return img.detach(), diff.DiffScene(*torch.autograd.grad(loss, leaves))
+
+
+def rel_errors(pairs) -> dict:
+    """name -> (max abs err over the reference's largest value, max abs
+    err, bitwise share) of each (name, got, reference)."""
+    out = {}
+    for name, a, b in pairs:
+        a = a.detach().to(torch.float64).cpu()
+        b = b.detach().to(torch.float64).cpu()
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        out[name] = (err / scale if scale > 0 else err, err,
+                     (a == b).to(torch.float64).mean().item())
+    return out
+
+
+def check_errors(label: str, errs: dict, tol: dict) -> None:
+    text = " ".join(f"{k}=(rel {v[0]:.3g} abs {v[1]:.3g} bitwise {v[2]:.4f} tol {tol[k]:g})"
+                    for k, v in errs.items())
+    print(f"{label}: {text}", flush=True)
+    bad = [k for k, v in errs.items() if not v[0] <= tol[k]]
+    require(not bad, f"{label}: {bad} past their tolerance")
+
+
+def image_and_grad_errors(img, grads, ref_img, ref_grads) -> dict:
+    return rel_errors([("image", img, ref_img)] + list(zip(ref_grads._fields, grads, ref_grads)))
+
+
+def fd_check(label, loss, analytic: float, step, eps_list, rtol: float) -> None:
+    """Central differences of ``loss`` along ``step(eps)`` against the
+    analytic directional derivative; passes if any eps agrees (abs floor
+    1e-7, as tests/test_diff_render.py)."""
+    seen = []
+    for eps in eps_list:
+        fd = (loss(step(eps)) - loss(step(-eps))) / (2 * eps)
+        seen.append((eps, fd))
+        if abs(fd - analytic) <= max(rtol * abs(analytic), 1e-7):
+            break
+    ok = abs(seen[-1][1] - analytic) <= max(rtol * abs(analytic), 1e-7)
+    print(f"{label}: analytic={analytic:.6g} central_differences={[(e, round(f, 6)) for e, f in seen]} "
+          f"rel_err={abs(seen[-1][1] - analytic) / abs(analytic):.3g} (tol {rtol:g})", flush=True)
+    require(ok, f"{label}: the gradient disagrees with central differences")
+
+
+def diff_kernel_inputs(diff, scene, kw):
+    """The main path's kernel inputs at ``kw``: the march's (through K3),
+    the upstream of the image mean for each ray, the bake's T and the
+    upstream of the baked grid (from K8b's backward)."""
+    with torch.no_grad():
+        m = diff.march_setup(scene, kernels=True, **kw)
+        n = m.entry.shape[0]
+        args = (scene.density, m.baked,
+                None if m.to_sun is None else m.to_sun.contiguous(), m.entry.contiguous(),
+                m.dirs.contiguous(), m.p_phase.contiguous(), m.hit.to(torch.uint8), m.meta)
+        g_rad = torch.where(m.hit, scene.light_radiance.sum() / (3 * n),
+                            torch.zeros((), device=m.hit.device)).to(torch.float32).contiguous()
+        steps = torch.zeros((n, 2), dtype=torch.int32, device=m.hit.device)
+        rad = diff.launch_march(*args, steps=steps)
+        back = diff.launch_march_bwd(*args[:7], rad, g_rad, m.meta)
+    return m, args, g_rad, steps, rad, back
+
+
+def phase_diff(port, config, prog, ins_ops, dev) -> list:
+    """The differentiable renderer: its main path counted (K3, K8a, K8b
+    must launch), the gates of the module docstring, the timings; returns
+    the kernel rows (at the defaults point, baked)."""
+    from deepestscatter_tpu_torch.ops import grid as grid_ops
+    from deepestscatter_tpu_torch.render import diff
+
+    t_phase = time.time()
+    laps = [t_phase]
+
+    def lap(what: str) -> None:
+        laps.append(time.time())
+        print(f"diff: {what} took {laps[-1] - laps[-2]:.1f}s", flush=True)
+
+    launchers = {"K3": ins_ops.sun_transmittance, "K8a": diff.launch_bake_adjoint,
+                 "K8b": diff.launch_march, "K8b adjoint": diff.launch_march_bwd,
+                 "K8b sun": diff.launch_sun_march, "K8b sun adjoint": diff.launch_sun_march_bwd}
+    d64 = diff_density(*DIFF_CLOUD)
+    scene64 = diff_scene(diff, d64, DIFF_SUN, DIFF_EYE, dev)
+    base = config.SceneConfig()
+    d256 = diff_density(*DIFF_FRAME_CLOUD)
+    scene256 = diff_scene(diff, d256, base.light.direction, base.camera.eye, dev)
+    kw_frame = render_kw(diff, **DIFF_FRAME)
+    weights = torch.from_numpy(np.random.default_rng(7).random(
+        (kw_frame["height"], kw_frame["width"], 3))).to(dev)
+    centres = torch.from_numpy(np.stack(np.meshgrid(
+        *(np.arange(n, dtype=np.float32) + 0.5 for n in d64.shape), indexing="ij")[::-1], -1)
+        .reshape(-1, 3) / np.float32(max(d64.shape))).to(dev)
+    sun_w = torch.from_numpy(
+        np.random.default_rng(8).random(centres.shape[0]).astype(np.float32)).to(dev)
+    sun_args = (100.0, 128, 1.0 / 256.0)
+
+    # -- the main path, counted: the user's calls ------------------------------
+    for f in launchers.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    main = {b: diff.render_and_grads(scene64, device=dev, use_baked_inscatter=b)
+            for b in (True, False)}
+    torch.cuda.reset_peak_memory_stats()
+    frame = diff_grads(diff, scene256, kw_frame, weights=weights)
+    torch.cuda.synchronize()
+    frame_peak = torch.cuda.max_memory_allocated()
+    sun_leaves = [scene64.density.detach().requires_grad_(True),
+                  scene64.sun_dir.detach().requires_grad_(True), centres.clone().requires_grad_(True)]
+    t_sun = diff.sun_transmittance(*sun_leaves, *sun_args, device=dev)
+    sun_grads = torch.autograd.grad((t_sun * sun_w).sum(), sun_leaves)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in launchers.items()}
+    print(f"diff: main path (render_and_grads at the defaults point, both in-scatter modes; "
+          f"the frame point's image and gradients; sun_transmittance and its gradient at "
+          f"{centres.shape[0]} voxel centres) {time.time() - t0:.2f}s launches={json.dumps(launches)}",
+          flush=True)
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the diff path never launched: {launches}")
+
+    lap("set-up and the main path")
+
+    # -- the defaults point: kernels against the plain versions on the card ---
+    kw64 = render_kw(diff)
+    for baked in (True, False):
+        mode = "baked" if baked else "pointwise"
+        kw = dict(kw64, use_baked_inscatter=baked)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref = diff_grads(diff, scene64, kw, kernels=False)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        plain_peak = torch.cuda.max_memory_allocated()
+        check_errors(f"diff defaults {mode}: kernels vs plain on the card",
+                     image_and_grad_errors(*main[baked], *ref), DIFF_TOL)
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = time_ms(lambda: diff.render_single_scatter(scene64, device=dev, **kw), 5)
+        both_ms = time_ms(lambda: diff.render_and_grads(scene64, device=dev, **kw), 5)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"diff defaults {mode}: forward_ms={fwd_ms:.3f} forward+backward_ms={both_ms:.3f} "
+              f"peak_mem_mb={peak / 2**20:.1f} plain_forward+backward_ms={plain_ms:.1f} "
+              f"plain_peak_mem_mb={plain_peak / 2**20:.1f} card={card_line()!r}", flush=True)
+
+    lap("the defaults point against the plain versions")
+
+    # -- K3: the bake's forward bitwise equal to the plain bake ------------------
+    for name, sc, dm, step in (("defaults", scene64, 100.0, 1.0 / 256.0),
+                               ("frame", scene256, DIFF_FRAME["density_multiplier"],
+                                DIFF_FRAME["sample_step"])):
+        with torch.no_grad():
+            sun_n = sc.sun_dir / torch.linalg.norm(sc.sun_dir)
+            bbox = diff._bbox(sc.density)
+            k = diff.bake_inscatter_diff(sc.density, bbox, sun_n, dm, step, device=dev)
+            p = diff.bake_inscatter_diff_plain(sc.density, bbox, sun_n, dm, step)
+        err = (k - p).abs().max().item()
+        print(f"diff K3 bake forward ({name}): voxels={k.numel()} max_abs_err={err:.3g} (tol 0) "
+              f"bitwise_share={(k == p).float().mean().item():.6f}", flush=True)
+        require(err == 0.0, "K3's differentiable bake disagrees with its plain version")
+        del k, p
+
+    lap("K3 against the plain bake")
+
+    # -- the sun march on its own against its plain version --------------------
+    sp_leaves = [t.detach().requires_grad_(True) for t in sun_leaves]
+    t_plain = diff.sun_transmittance_plain(*sp_leaves, *sun_args)
+    sp_grads = torch.autograd.grad((t_plain * sun_w).sum(), sp_leaves)
+    sun_tol = {"T": 1e-6, "density": 1e-4, "sun_dir": 1e-3, "pos": 1e-4}
+    check_errors("diff sun_transmittance: kernels vs plain on the card", rel_errors(
+        [("T", t_sun, t_plain)] + list(zip(("density", "sun_dir", "pos"), sun_grads, sp_grads))),
+        sun_tol)
+    del sp_grads, sp_leaves, t_plain
+
+    lap("the sun march against its plain version")
+
+    # -- the card against the CPU on a 16^3 crop --------------------------------
+    c = d64.shape[0] // 2
+    crop = np.ascontiguousarray(d64[c - 8:c + 8, c - 8:c + 8, c - 8:c + 8])
+    for baked in (True, False):
+        kw = render_kw(diff, **DIFF_CPU, use_baked_inscatter=baked)
+        card = diff_grads(diff, diff_scene(diff, crop, DIFF_SUN, DIFF_EYE, dev), kw)
+        cpu = diff_grads(diff, diff_scene(diff, crop, DIFF_SUN, DIFF_EYE, "cpu"), kw,
+                         kernels=False)
+        check_errors(f"diff card vs cpu ({'baked' if baked else 'pointwise'}, 16^3 crop)",
+                     image_and_grad_errors(*card, *cpu), DIFF_TOL)
+
+    lap("the card against the CPU")
+
+    # -- the frame point ----------------------------------------------------------
+    img, g = frame
+    finite = bool(torch.isfinite(img).all()) and all(bool(torch.isfinite(t).all()) for t in g)
+    nonzero = {k: float(getattr(g, k).abs().max()) for k in ("density", "sun_dir", "eye")}
+    img2, g2 = diff_grads(diff, scene256, kw_frame, weights=weights)
+    again = {k: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+             for k, a, b in zip(g._fields, g2, g)}
+    fwd_ms = time_ms(lambda: diff.render_single_scatter(scene256, device=dev, **kw_frame), 3)
+    both_ms = time_ms(lambda: diff_grads(diff, scene256, kw_frame, weights=weights), 3)
+    print(f"diff frame: image_mean={img.mean().item():.6g} image_max={img.max().item():.6g} "
+          f"finite={finite} grad_max={json.dumps(nonzero)} image_bitwise_again={torch.equal(img, img2)} "
+          f"grad_max_rel_diff_again={json.dumps(again)} (tol 1e-5) forward_ms={fwd_ms:.2f} "
+          f"forward+backward_ms={both_ms:.2f} peak_mem_mb={frame_peak / 2**20:.1f} "
+          f"card={card_line()!r}", flush=True)
+    require(finite, "diff frame: an image or gradient value is not finite")
+    require(all(v > 0 for v in nonzero.values()), "diff frame: a gradient is zero")
+    require(torch.equal(img, img2), "diff frame: the image differs run to run")
+    require(all(v <= 1e-5 for v in again.values()), "diff frame: gradients differ run to run")
+    del img2, g2
+
+    def frame_loss(sc) -> float:
+        with torch.no_grad():
+            out = diff.render_single_scatter(sc, device=dev, **kw_frame)
+            return float((out.to(torch.float64) * weights).sum())
+
+    rng = np.random.default_rng(11)
+    v = (torch.from_numpy(rng.uniform(-1.0, 1.0, d256.shape).astype(np.float32)).to(dev)
+         * (scene256.density > 0))
+    fd_check("diff frame d/d density (random direction on the cloud's voxels)", frame_loss,
+             float((g.density.to(torch.float64) * v.to(torch.float64)).sum()),
+             lambda e: scene256._replace(density=(scene256.density + e * v).contiguous()),
+             [1e-3], 0.02)
+    u = rng.normal(size=3)
+    u = torch.from_numpy((u / np.linalg.norm(u)).astype(np.float32)).to(dev)
+    fd_check("diff frame d/d sun_dir (random direction)", frame_loss,
+             float((g.sun_dir.to(torch.float64) * u.to(torch.float64)).sum()),
+             lambda e: scene256._replace(sun_dir=scene256.sun_dir + e * u),
+             [1e-3, 3e-5, 1e-5], 0.05)
+    del v, frame, g, img
+
+    lap("the frame point's gates")
+
+    # -- the cross-validation point: the quadrature against K4 -----------------
+    raw = np.zeros((XVAL_RES,) * 3, np.float32)
+    raw[3:-3, 3:-3, 3:-3] = np.random.default_rng(0).random((XVAL_RES - 6,) * 3).astype(np.float32)
+    cfg = config.SceneConfig(
+        cloud=config.CloudModel(size_m=XVAL_SIZE_M),
+        light=config.DirectionalLight(direction=DIFF_SUN),
+        camera=config.CameraConfig(width=XVAL_WIDTH, height=XVAL_HEIGHT),
+        rendering=config.CloudRendering(sample_step=1.0 / 64.0, max_depth=4,
+                                        mode=config.RenderMode.SUN_SINGLE_SCATTER),
+    )
+    params, static = port.build_scene(cfg, raw, device=dev)
+    params = port.with_baked_inscatter(params, static, quantize=False, early_out=False, device=dev)
+    r = prog.ProgressiveRenderer(cfg, params, static, seed=5, device=dev)
+    for _ in range(XVAL_TICKS):
+        r.tick()
+    mc = r.hdr_image()
+    xs = diff_scene(diff, grid_ops.normalize_density(raw), DIFF_SUN, cfg.camera.eye, dev)
+    quad = diff.render_single_scatter(
+        xs, width=XVAL_WIDTH, height=XVAL_HEIGHT, density_multiplier=static.density_multiplier,
+        n_steps=128, sample_step=1.0 / 64.0, device=dev).cpu().numpy()
+    hit = quad[..., 0] > 0.0
+    mc_hit, quad_hit = mc[hit], quad[hit]
+    mean_rel = abs(float(np.mean(quad_hit)) - float(np.mean(mc_hit))) / float(np.mean(mc_hit))
+    med = float(np.median(np.abs(quad_hit - mc_hit) / (np.abs(mc_hit) + 0.05 * mc_hit.mean())))
+    print(f"diff cross-validation against K4 ({r.state.subframe_id} subframes, single scatter): "
+          f"hit_pixels={int(hit.sum())} quadrature_mean={np.mean(quad_hit):.6g} "
+          f"k4_mean={np.mean(mc_hit):.6g} mean_rel_diff={mean_rel:.4f} (tol 0.05) "
+          f"median_rel_pixel_err={med:.4f} (tol 0.1)", flush=True)
+    require(hit.sum() > 50 and mean_rel <= 0.05 and med < 0.1,
+            "diff: the quadrature disagrees with the path tracer")
+
+    lap("the cross-validation point")
+
+    # -- each kernel at both points: time, bound, the plain version ------------
+    rows = diff_kernel_rows(diff, ins_ops, scene64, render_kw(diff), launches, sun_leaves,
+                            sun_w, sun_args)
+    lap("the kernel rows at the defaults point")
+    diff_frame_kernels(diff, ins_ops, scene256, kw_frame)
+    lap("the kernels at the frame point")
+    print(f"diff: phase {time.time() - t_phase:.1f}s", flush=True)
+    return rows
+
+
+def k8b_ops(steps: torch.Tensor):
+    """K8b's forward and adjoint operations for this run's steps [N, 2]
+    (steps in the box, steps with sigma != 0)."""
+    n_in, n_lit = (int(v) for v in steps.to(torch.int64).sum(dim=0).tolist())
+    dark = n_in - n_lit
+    return (n_lit * K8B_OPS_PER_STEP + dark * K8B_DARK_OPS_PER_STEP,
+            n_lit * K8B_BWD_OPS_PER_STEP + dark * K8B_BWD_DARK_OPS_PER_STEP)
+
+
+def k8b_against_plain(label, diff, m, args, rad, g_rad, rays, remat_chunk, back=None,
+                      time_forward=True):
+    """K8b's forward and adjoint against autograd of the plain march on
+    ``rays`` (the kernel's adjoint given ``g_rad`` on those rays alone,
+    unless ``back`` is given: the adjoint of every ray, when ``rays`` are
+    all the rays with g != 0).  Every reference must be nonzero somewhere.
+    Returns (forward errors, adjoint errors, the kernel's adjoint, the
+    plain gradients, the plain forward's ms (None unless
+    ``time_forward``: else the forward of the backward's run is compared),
+    the plain forward + backward's ms)."""
+    meta = m.meta
+    if back is None:
+        g_sub = torch.zeros_like(g_rad)
+        g_sub[rays] = g_rad[rays]
+        back = diff.launch_march_bwd(*args[:7], rad, g_sub, meta)
+    leaves = [args[0].detach().requires_grad_(True), m.baked.detach().requires_grad_(True)] + [
+        t[rays].detach().requires_grad_(True) for t in args[3:6]]
+
+    def plain_march(grad):
+        with torch.set_grad_enabled(grad):
+            return diff.quadrature_march_plain(leaves[0], leaves[1], None, leaves[2], leaves[3],
+                                               leaves[4], meta, remat_chunk)
+
+    ref_rad, plain_f = host_call(lambda: plain_march(False)) if time_forward else (None, None)
+
+    def plain_back():
+        r = plain_march(True)
+        return r.detach(), torch.autograd.grad(r, leaves, g_rad[rays])
+
+    (ref_rad_b, ref_back), plain_b = host_call(plain_back)
+    if ref_rad is None:
+        ref_rad = ref_rad_b
+    require(all(float(t.abs().max()) > 0 for t in (ref_rad, *ref_back)),
+            f"{label}: a reference of the K8b check is zero on every checked ray")
+    errs_f = rel_errors([("radiance", rad[rays], ref_rad)])
+    check_errors(f"{label}: K8b forward against the plain march", errs_f, {"radiance": 1e-6})
+    errs_b = rel_errors(list(zip(
+        ("density", "baked", "entry", "dirs", "p_phase"),
+        (back.density, back.baked, back.entry[rays], back.dirs[rays], back.p_phase[rays]),
+        ref_back)))
+    check_errors(f"{label}: K8b adjoint against autograd of the plain march", errs_b,
+                 {"density": 1e-4, "baked": 1e-4, "entry": 1e-4, "dirs": 1e-4, "p_phase": 1e-4})
+    return errs_f, errs_b, back, ref_back, plain_f, plain_b
+
+
+def deepest_replay(label, steps, back, ref_back, rays, n: int = 64) -> None:
+    """The R - prefix replay on the ``n`` rays of ``rays`` with the most
+    steps with sigma != 0 (the most terms in the prefix): each ray's d/d
+    entry and d/d dirs against the plain version's (``ref_back``, indexed
+    as ``rays``), relative to that ray's largest."""
+    order = torch.argsort(steps[rays, 1], descending=True)[:n]
+    deep = rays[order]
+    per_ray = max(
+        float(((a[deep] - b[order]).abs().amax(dim=1)
+               / b[order].abs().amax(dim=1).clamp_min(1e-30)).max())
+        for a, b in ((back.entry, ref_back[2]), (back.dirs, ref_back[3])))
+    print(f"{label}: K8b replay (R - prefix) on the {n} rays with the most steps with sigma != 0 "
+          f"({int(steps[deep, 1].min())}-{int(steps[deep, 1].max())}; "
+          f"{int(steps[deep, 0].min())}-{int(steps[deep, 0].max())} in the box): max per-ray "
+          f"relative err of d/d entry and d/d dirs={per_ray:.3g}", flush=True)
+
+
+def diff_kernel_rows(diff, ins_ops, scene, kw, launches, sun_leaves, sun_w, sun_args) -> list:
+    """K8a, K8b (forward, adjoint) and the sun march (forward, adjoint) at
+    the defaults point, baked: each against its plain version on the same
+    inputs, its time by CUDA events, the plain version's and the bound from
+    the steps this data needs."""
+    m, args, g_rad, steps, rad, back = diff_kernel_inputs(
+        diff, scene, dict(kw, use_baked_inscatter=True))
+    meta = m.meta
+    density = scene.density
+    v = density.numel()
+    n = m.entry.shape[0]
+    n_in = int(steps[:, 0].sum().item())
+    with torch.no_grad():
+        sun_n = scene.sun_dir / torch.linalg.norm(scene.sun_dir)
+    light = tuple(sun_n.tolist())
+    # K3 takes the light as host floats: the bake's forward reads the
+    # normalised sun direction back once a call.
+    reads = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reads):
+        sun_n.tolist()
+    read_us = (time.perf_counter() - t0) / reads * 1e6
+    trans = ins_ops.launch_bake(density, meta.bbox, light, meta.step, meta.density_multiplier,
+                                False)
+    bake_ms = time_ms(lambda: ins_ops.launch_bake(density, meta.bbox, light, meta.step,
+                                                  meta.density_multiplier, False), 10)
+    fwd_ms = time_ms(lambda: diff.render_single_scatter(scene, device=density.device, **kw), 10)
+    print(f"diff K3 light read-back (defaults point): {read_us:.1f} us a call on an idle queue, "
+          f"{read_us / 1e3 / fwd_ms:.4f} of the forward's {fwd_ms:.3f} ms (K3 {bake_ms:.4f} ms)",
+          flush=True)
+    gbar = back.baked.reshape(-1).contiguous()
+    adj = diff.launch_bake_adjoint(density, meta.bbox, light, meta.density_multiplier, meta.step,
+                                   trans, gbar)
+    # K8a against autograd of the plain bake on the same upstream.
+    dl = density.detach().requires_grad_(True)
+    ll = sun_n.detach().requires_grad_(True)
+    bbox_t = diff._bbox(density)
+
+    def plain_adjoint():
+        out = diff.bake_inscatter_diff_plain(dl, bbox_t, ll, meta.density_multiplier, meta.step)
+        return torch.autograd.grad(out, (dl, ll), gbar.reshape(density.shape))
+
+    ref_adj, plain_a = host_call(plain_adjoint)
+    errs_a = rel_errors([("density", adj[0], ref_adj[0]), ("light_dir", adj[1], ref_adj[1])])
+    check_errors("diff K8a against autograd of the plain bake", errs_a,
+                 {"density": 1e-4, "light_dir": 1e-3})
+    ms_a = time_ms(lambda: diff.launch_bake_adjoint(density, meta.bbox, light,
+                                                    meta.density_multiplier, meta.step, trans,
+                                                    gbar), 5)
+    voxels_g = int((gbar != 0).sum().item())
+    steps_a = voxels_g * ins_ops.bake_steps(meta.step, False)
+
+    # K8b forward and adjoint against the plain march on the same inputs
+    # (every ray with an upstream gradient: those that hit the box).
+    hit_rays = torch.nonzero(m.hit).squeeze(1)
+    errs_f, errs_b, _, ref_back, plain_f, plain_b = k8b_against_plain(
+        "diff defaults", diff, m, args, rad, g_rad, hit_rays, kw["remat_chunk"], back=back)
+    deepest_replay("diff defaults", steps, back, ref_back, hit_rays)
+    ms_f = time_ms(lambda: diff.launch_march(*args), 20)
+    ms_b = time_ms(lambda: diff.launch_march_bwd(*args[:7], rad, g_rad, meta), 20)
+
+    # The sun march on its own, at the main path's voxel centres.
+    dens_s, sun_s, pos_s = (t.detach() for t in sun_leaves)
+    to_sun = diff._to_sun(sun_s).contiguous()
+    dm_s, n_s, step_s = sun_args
+    sun_steps = torch.zeros(pos_s.shape[0], dtype=torch.int32, device=pos_s.device)
+    t_k = diff.launch_sun_march(dens_s, to_sun, pos_s, dm_s, n_s, step_s, steps=sun_steps)
+    steps_s = int(sun_steps.to(torch.int64).sum())
+    ms_s = time_ms(lambda: diff.launch_sun_march(dens_s, to_sun, pos_s, dm_s, n_s, step_s), 10)
+    ms_sb = time_ms(lambda: diff.launch_sun_march_bwd(dens_s, to_sun, pos_s, t_k, sun_w, dm_s,
+                                                      n_s, step_s), 10)
+    with torch.no_grad():
+        t_p, plain_s = host_call(lambda: diff.sun_transmittance_plain(dens_s, sun_s, pos_s,
+                                                                       *sun_args))
+
+    def plain_sun_back():
+        ls = [t.detach().requires_grad_(True) for t in (dens_s, sun_s, pos_s)]
+        return torch.autograd.grad(
+            (diff.sun_transmittance_plain(*ls, *sun_args) * sun_w).sum(), ls)
+
+    ref_sun, plain_sb = host_call(plain_sun_back)
+    err_s = (t_k - t_p).abs().max().item()
+    k_sun_grads = diff.launch_sun_march_bwd(dens_s, to_sun, pos_s, t_k, sun_w, dm_s, n_s, step_s)
+    err_sb = (k_sun_grads[0] - ref_sun[0]).abs().max().item()
+
+    grid_b = v * 4
+    ops_f, ops_b = k8b_ops(steps)
+    print(f"diff kernels (defaults point, baked; {card_line()}): K8a ms={ms_a:.4f} "
+          f"voxels_with_gradient={voxels_g} of {v} voxel_steps={steps_a} plain_ms={plain_a:.1f}; "
+          f"K8b rays={n} steps_in_box={n_in} steps_with_sigma={int(steps[:, 1].sum())} "
+          f"forward_ms={ms_f:.4f} plain_ms={plain_f:.1f} "
+          f"adjoint_ms={ms_b:.4f} plain_forward+backward_ms={plain_b:.1f}; sun march "
+          f"points={pos_s.shape[0]} steps={steps_s} ms={ms_s:.4f} plain_ms={plain_s:.1f} "
+          f"adjoint_ms={ms_sb:.4f} plain_forward+backward_ms={plain_sb:.1f}", flush=True)
+    ray_in = n * (12 + 12 + 4 + 1 + 4)
+    rows = [
+        dict(kernel_row("K8a adjoint bake", "deepestscatter_tpu_torch/csrc/diff.cu",
+                        "deepestscatter_tpu/render/diff.py:299", errs_a["density"][1], ms_a,
+                        plain_a, 4 * grid_b, steps_a * K8A_OPS_PER_VOXEL_STEP),
+             launches=launches["K8a"]),
+        dict(kernel_row("K8b quadrature march", "deepestscatter_tpu_torch/csrc/diff.cu",
+                        "deepestscatter_tpu/render/diff.py:198", errs_f["radiance"][1], ms_f,
+                        plain_f, 2 * grid_b + ray_in, ops_f),
+             launches=launches["K8b"]),
+        dict(kernel_row("K8b quadrature march adjoint", "deepestscatter_tpu_torch/csrc/diff.cu",
+                        "deepestscatter_tpu/render/diff.py:198", errs_b["density"][1], ms_b,
+                        plain_b, 4 * grid_b + ray_in + n * 32, ops_b),
+             launches=launches["K8b adjoint"]),
+        dict(kernel_row("K8b sun march", "deepestscatter_tpu_torch/csrc/diff.cu",
+                        "deepestscatter_tpu/render/diff.py:64", err_s, ms_s, plain_s,
+                        grid_b + pos_s.shape[0] * 16, steps_s * K8B_SUN_OPS_PER_STEP),
+             launches=launches["K8b sun"]),
+        dict(kernel_row("K8b sun march adjoint", "deepestscatter_tpu_torch/csrc/diff.cu",
+                        "deepestscatter_tpu/render/diff.py:64", err_sb, ms_sb, plain_sb,
+                        2 * grid_b + pos_s.shape[0] * 44, steps_s * K8B_SUN_BWD_OPS_PER_STEP),
+             launches=launches["K8b sun adjoint"]),
+    ]
+    return rows
+
+
+def diff_frame_kernels(diff, ins_ops, scene, kw) -> None:
+    """K3, K8a and K8b at the frame point: times by CUDA events beside
+    their bounds, and K8a and K8b against their plain versions on a part of
+    the frame's work at its own shapes (the plain bake of every voxel would
+    keep ~60 GB for its backward): K8b's forward and adjoint on the
+    FRAME_CHECK_RAYS rays with the most steps in the box (the R - prefix
+    over the frame's depth, the float32 atomics of the density and
+    baked-grid scatters), K8a with the upstream restricted to the
+    FRAME_CHECK_SLICES z-slices where it is most often nonzero (each
+    march's clamped samples on the box's faces, the float32 slope of the
+    light gradient)."""
+    m, args, g_rad, steps, rad, back = diff_kernel_inputs(diff, scene, kw)
+    meta = m.meta
+    density = scene.density
+    v = density.numel()
+    with torch.no_grad():
+        sun_n = scene.sun_dir / torch.linalg.norm(scene.sun_dir)
+    light = tuple(sun_n.tolist())
+    n_bake = ins_ops.bake_steps(meta.step, False)
+    bake = lambda: ins_ops.launch_bake(density, meta.bbox, light, meta.step,  # noqa: E731
+                                       meta.density_multiplier, False)
+    trans = bake()
+    gbar = back.baked.reshape(-1).contiguous()
+    ms3 = time_ms(bake, 3)
+    ms_a = time_ms(lambda: diff.launch_bake_adjoint(density, meta.bbox, light,
+                                                    meta.density_multiplier, meta.step, trans,
+                                                    gbar), 3)
+    ms_f = time_ms(lambda: diff.launch_march(*args), 5)
+    ms_b = time_ms(lambda: diff.launch_march_bwd(*args[:7], rad, g_rad, meta), 5)
+    n_in, n_lit = (int(x) for x in steps.to(torch.int64).sum(dim=0).tolist())
+    ops_f, ops_b = k8b_ops(steps)
+    voxels_g = int((gbar != 0).sum().item())
+    b3 = v * n_bake * K3_OPS_PER_VOXEL_STEP / F32_OPS_PER_S * 1e3
+    ba = voxels_g * n_bake * K8A_OPS_PER_VOXEL_STEP / F32_OPS_PER_S * 1e3
+    bf = ops_f / F32_OPS_PER_S * 1e3
+    bb = ops_b / F32_OPS_PER_S * 1e3
+    print(f"diff kernels (frame point; {card_line()}): K3 forward ms={ms3:.3f} "
+          f"(voxels={v} steps={n_bake} bound_ms={b3:.3f}); K8a ms={ms_a:.3f} "
+          f"(voxels_with_gradient={voxels_g} bound_ms={ba:.3f}); K8b rays={m.entry.shape[0]} "
+          f"hit={int(m.hit.sum())} steps_in_box={n_in} steps_with_sigma={n_lit} "
+          f"forward_ms={ms_f:.3f} (bound_ms={bf:.4f}) adjoint_ms={ms_b:.3f} (bound_ms={bb:.4f})",
+          flush=True)
+
+    # K8b on the rays with the most steps with sigma != 0, against the plain
+    # march at the frame's depth.
+    rays = torch.argsort(steps[:, 1], descending=True)[:FRAME_CHECK_RAYS]
+    label = (f"diff frame ({FRAME_CHECK_RAYS} rays, {int(steps[rays, 1].min())}-"
+             f"{int(steps[rays, 1].max())} steps with sigma != 0, {int(steps[rays, 0].min())}-"
+             f"{int(steps[rays, 0].max())} in the box, of {meta.n_steps})")
+    _, _, back_k, ref_back, _, plain_b = k8b_against_plain(
+        label, diff, m, args, rad, g_rad, rays, kw["remat_chunk"], time_forward=False)
+    deepest_replay("diff frame", steps, back_k, ref_back, rays)
+    print(f"{label}: plain_forward+backward_ms={plain_b:.1f}", flush=True)
+    del back_k, ref_back
+
+    # K8a on a slab of z-slices, against autograd of the plain bake of it.
+    nz, ny, nx = density.shape
+    per_slice = (gbar.reshape(density.shape) != 0).sum(dim=(1, 2))
+    z0 = int(per_slice.unfold(0, FRAME_CHECK_SLICES, 1).sum(dim=1).argmax())
+    block = torch.arange(z0 * ny * nx, (z0 + FRAME_CHECK_SLICES) * ny * nx,
+                         device=density.device)
+    g_block = torch.zeros_like(gbar)
+    g_block[block] = gbar[block]
+    adj = diff.launch_bake_adjoint(density, meta.bbox, light, meta.density_multiplier, meta.step,
+                                   trans, g_block)
+    dl = density.detach().requires_grad_(True)
+    ll = sun_n.detach().requires_grad_(True)
+
+    def plain_adjoint():
+        out = diff.bake_inscatter_diff_plain(dl, diff._bbox(density), ll,
+                                             meta.density_multiplier, meta.step, voxels=block)
+        return out.detach(), torch.autograd.grad(out, (dl, ll), gbar[block])
+
+    (t_plain, ref_adj), plain_a = host_call(plain_adjoint)
+    require(all(float(t.abs().max()) > 0 for t in ref_adj),
+            "diff frame K8a: a reference gradient of the slab is zero")
+    face = torch.zeros(density.shape, dtype=torch.bool, device=density.device)
+    for axis in range(3):
+        face.index_fill_(axis, torch.tensor([0, density.shape[axis] - 1],
+                                            device=density.device), True)
+    face_err = float((adj[0] - ref_adj[0])[face].abs().max() / ref_adj[0].abs().max())
+    print(f"diff frame K8a block: z={z0}-{z0 + FRAME_CHECK_SLICES - 1} voxels={block.numel()} "
+          f"with_gradient={int((gbar[block] != 0).sum())} forward_bitwise="
+          f"{torch.equal(t_plain, trans[block])} face_texels_with_gradient="
+          f"{int((ref_adj[0][face] != 0).sum())} face_err_over_max={face_err:.3g} "
+          f"plain_forward+backward_ms={plain_a:.1f}", flush=True)
+    check_errors("diff frame K8a (the slab's upstream) against autograd of the plain bake",
+                 rel_errors([("density", adj[0], ref_adj[0]), ("light_dir", adj[1], ref_adj[1])]),
+                 {"density": 1e-4, "light_dir": 1e-3})
+
+
 def run() -> dict:
     """All phases; returns the kernel rows with their launch counts."""
     import deepestscatter_tpu_torch as port
@@ -2076,6 +2758,9 @@ def run() -> dict:
         phase_cli(config, tasks, exr, models_dir, Path(tmp.name), dev)
     finally:
         tmp.cleanup()
+
+    # -- the differentiable renderer's main path, counted ------------------------
+    kernels += phase_diff(port, config, prog, ins_ops, dev)
     return kernels
 
 

@@ -12,7 +12,11 @@ kernels (``csrc/``):
 - the progressive path tracer that makes the ground truth: its bounce loop
   (K4, ``render.pathtracer``) under ``render.progressive``;
 - the row-gather probe (P1, P2, ``probes.gather``), the card's gather
-  ceiling for the march kernels.
+  ceiling for the march kernels;
+- differentiable single-scatter rendering (``render.diff``): images and
+  their gradients with respect to the density voxels, the sun direction,
+  the camera and the light, through K3 (the bake's forward), K8a (its
+  adjoint) and K8b (the quadrature march and its adjoint).
 
 Each kernel's wrapper runs a plain PyTorch version on CPU tensors.
 
@@ -26,7 +30,9 @@ reads this package's trained exports or the JAX package's
 It imports torch, numpy and the standard library only; entry points
 (``build_scene``, ``bake``, ``render_disney``, ``DisneyRenderer``,
 ``render_baked``, ``BakedRenderer``, ``ProgressiveRenderer``,
-``render_subframe``, ``trace_tick_moments``)
+``render_subframe``, ``trace_tick_moments``; ``render.diff``'s
+``diff_scene_from_numpy``, ``render_single_scatter``, ``render_and_grads``,
+``bake_inscatter_diff``, ``sun_transmittance``)
 run on ``device="cuda"`` unless the caller passes ``device="cpu"``.
 """
 

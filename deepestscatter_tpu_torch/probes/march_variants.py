@@ -339,13 +339,15 @@ def render_variants(lib, dev) -> dict:
         k4[key]["ms"] = ms
         print(f"K4 {key}: {json.dumps(k4[key])}", flush=True)
 
-    ref3 = inscatter._launch(params, static, True)
+    k3_args = (params.density_mips[0], static.bbox, static.light_direction, static.sample_step,
+               static.density_multiplier, True)
+    ref3 = inscatter.launch_bake(*k3_args)
     k3: Dict[str, dict] = {}
     k3_fns = {}
     for v in VOXELS:
         def bake(v=v):
             lib.ds_variant(0, 0, v)  # (K4's choice unused here)
-            return inscatter._launch(params, static, True, lib=lib)
+            return inscatter.launch_bake(*k3_args, lib=lib)
 
         k3[f"V={v}"] = dict(equal=torch.equal(bake(), ref3))
         k3_fns[f"V={v}"] = bake

@@ -1,0 +1,713 @@
+"""Differentiable single-scatter rendering: images and their gradients with
+respect to the density voxels, the sun direction, the camera and the light,
+with the in-scatter bake's forward on K3 and two kernels of their own
+(``csrc/diff.cu``): K8a, the bake's adjoint, and K8b, the quadrature march
+and its adjoint (also the per-point sun march).
+
+The port of the single-scatter half of ``deepestscatter_tpu.render.diff``:
+a deterministic quadrature of the single-scattering integral along each
+camera ray,
+
+    L(ray) = sum_k T_view(k) (1 - exp(-sigma_k step)) t_sun(x_k) p(theta) r,
+
+the in-scatter ``t_sun`` read from a differentiably baked grid (the
+renderer's semantics, ``bake_inscatter_diff``) or marched toward the sun
+from each point (``sun_transmittance``), each evaluated at the segment's
+free-flight mean point.
+
+On CUDA tensors the wrappers (``render_single_scatter``,
+``render_and_grads``, ``bake_inscatter_diff``, ``sun_transmittance``) run
+the kernels, each bound to autograd by a ``torch.autograd.Function`` whose
+backward is a kernel too; on CPU tensors they run the plain PyTorch
+versions on autograd (``*_plain``), which rematerialize each chunk of
+``remat_chunk`` march steps and each bake step under
+``torch.utils.checkpoint`` as the JAX package does under
+``jax.checkpoint``.  The kernels store no march state and ignore
+``remat_chunk``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from .. import cuda_build
+from ..config import fov_tan_halves
+from ..device import check_on, resolve_device
+from ..ops import grid as grid_ops
+from ..ops import phase as phase_ops
+from . import inscatter
+
+
+class DiffScene(NamedTuple):
+    """Differentiable scene inputs (the leaves gradients address)."""
+
+    density: torch.Tensor  # [Z, Y, X] raw density in [0, 1]
+    sun_dir: torch.Tensor  # [3] direction FROM the sun (not normalized)
+    eye: torch.Tensor  # [3] camera position
+    look_at: torch.Tensor  # [3]
+    light_radiance: torch.Tensor  # [3]
+
+
+def diff_scene_from_numpy(density, sun_dir, eye, look_at, light_radiance,
+                          device="cuda") -> DiffScene:
+    """A ``DiffScene`` of float32 copies of numpy arrays (the JAX
+    ``DiffScene``'s leaves) on ``device``."""
+    dev = resolve_device(device)
+    return DiffScene(*(
+        torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+        for a in (density, sun_dir, eye, look_at, light_radiance)
+    ))
+
+
+def _bbox_host(shape) -> Tuple[float, float, float]:
+    return tuple(float(v) for v in grid_ops.bbox_size_from_shape(tuple(shape)))
+
+
+def _bbox(density: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(_bbox_host(density.shape), dtype=torch.float32, device=density.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mie(device: str) -> torch.Tensor:
+    return phase_ops.load_phase_table(device).mie
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, rematerialized in the backward pass where a gradient
+    is being recorded."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def _step_distance(step: float, i: int) -> float:
+    """float32 ``step * i``, as the kernels and the JAX package form it."""
+    return float(np.float32(step) * np.float32(i))
+
+
+def sample_density(density: torch.Tensor, bbox: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Trilinear density at local coordinates in [0, bbox] (zero outside
+    the box)."""
+    u = pos / bbox
+    inside = ((u >= 0.0) & (u <= 1.0)).all(dim=-1)
+    return torch.where(inside, grid_ops.sample_trilinear(density, u), 0.0)
+
+
+def camera_rays(eye: torch.Tensor, look_at: torch.Tensor, width: int, height: int,
+                hfov_deg: float = 30.0, up=(0.0, 1.0, 0.0)):
+    """Differentiable pinhole ray bundle → (origins [N, 3], dirs [N, 3])."""
+    up = torch.tensor(up, dtype=torch.float32, device=eye.device)
+    w = look_at - eye
+    wlen = torch.linalg.norm(w)
+    u = torch.linalg.cross(w, up)
+    u = u / torch.linalg.norm(u)
+    v = torch.linalg.cross(u, w)
+    v = v / torch.linalg.norm(v)
+    tan_h, tan_v = fov_tan_halves(hfov_deg, width, height)
+    u = u * wlen * tan_h
+    v = v * wlen * tan_v
+    xs = grid_ops.true_div(torch.arange(width, dtype=torch.float32, device=eye.device),
+                           float(width)) * 2.0 - 1.0
+    ys = grid_ops.true_div(torch.arange(height, dtype=torch.float32, device=eye.device),
+                           float(height)) * 2.0 - 1.0
+    dy, dx = torch.meshgrid(ys, xs, indexing="ij")
+    d = dx[..., None] * u + dy[..., None] * v + w
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    o = eye.expand(d.shape)
+    return o.reshape(-1, 3), d.reshape(-1, 3)
+
+
+# ---------------------------------------------------------------------------
+# The sun march (diff.py:64-88): plain version, kernel, wrapper.
+# ---------------------------------------------------------------------------
+
+
+def _to_sun(sun_dir: torch.Tensor) -> torch.Tensor:
+    return -sun_dir / torch.linalg.norm(sun_dir)
+
+
+def _sun_march_plain(density, to_sun, pos, density_multiplier, n_steps, sample_step):
+    """exp(-tau) toward ``to_sun`` from ``pos`` [..., 3]: every step's
+    sample at once, tau summed in step order."""
+    bbox = _bbox(density)
+    step = _f32(sample_step)
+    s = torch.tensor([_step_distance(step, i + 1) for i in range(n_steps)],
+                     dtype=torch.float32, device=pos.device)
+    p = pos[..., None, :] + to_sun * s[:, None]
+    sigma = sample_density(density, bbox, p) * density_multiplier
+    tau = torch.zeros(pos.shape[:-1], dtype=torch.float32, device=pos.device)
+    for j in range(n_steps):
+        tau = tau + sigma[..., j] * step
+    return torch.exp(-tau)
+
+
+def sun_transmittance_plain(density, sun_dir, pos, density_multiplier: float, n_steps: int,
+                            sample_step: float = 1.0 / 256.0) -> torch.Tensor:
+    """Plain version of the sun march: Beer-Lambert transmittance from
+    ``pos`` [..., 3] toward the sun, rematerialized in the backward pass."""
+    return _remat(
+        lambda d, sd, p: _sun_march_plain(d, _to_sun(sd), p, density_multiplier, n_steps,
+                                          sample_step),
+        density, sun_dir, pos)
+
+
+_SUN_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
+]
+_SUN_BWD_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+]
+
+
+def _check_grid(density: torch.Tensor) -> None:
+    if density.dtype != torch.float32 or density.dim() != 3 or not density.is_contiguous():
+        raise ValueError("density must be a contiguous float32 [Z, Y, X] grid")
+    if density.numel() >= 2**31:
+        raise ValueError("the diff kernels take fewer than 2^31 voxels")
+
+
+def _check_vec(name: str, t: Optional[torch.Tensor], n: int) -> None:
+    if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
+                          or t.numel() != n):
+        raise ValueError(f"{name} must be a contiguous float32 tensor of {n} values")
+
+
+def _grid_consts(density, sample_step, density_multiplier, *extra):
+    return (ctypes.c_float * (5 + len(extra)))(
+        *_bbox_host(density.shape), sample_step, density_multiplier, *extra)
+
+
+def launch_sun_march(density, to_sun, pos, density_multiplier, n_steps, sample_step,
+                     steps: Optional[torch.Tensor] = None, lib=None) -> torch.Tensor:
+    """The sun march's kernel (``ds_sun_march``) from ``pos`` [N, 3] → T [N].
+    ``steps``: None, or an int32 [N] the kernel fills with each point's
+    samples in the box."""
+    _check_grid(density)
+    cuda_build.require_vec3(pos=pos)
+    _check_vec("to_sun", to_sun, 3)
+    if steps is not None and (steps.dtype != torch.int32 or steps.shape != pos.shape[:1]):
+        raise ValueError("steps must be an int32 [N] tensor")
+    fn = (lib or cuda_build.load("diff")).ds_sun_march
+    fn.argtypes = _SUN_ARGTYPES
+    fn.restype = ctypes.c_int
+    nz, ny, nx = density.shape
+    out = torch.empty(pos.shape[0], dtype=torch.float32, device=pos.device)
+    cuda_build.check(
+        fn(cuda_build.ptr(density), cuda_build.ptr(to_sun), nx, ny, nz,
+           _grid_consts(density, sample_step, density_multiplier), n_steps,
+           cuda_build.ptr(pos), pos.shape[0], cuda_build.ptr(out), cuda_build.ptr(steps),
+           cuda_build.stream_handle()),
+        "sun march kernel",
+    )
+    launch_sun_march.launches += 1
+    return out
+
+
+#: Kernel launches so far (counted where the kernel is launched, nowhere
+#: else); likewise every ``launch_*`` of this module.
+launch_sun_march.launches = 0
+
+
+def launch_sun_march_bwd(density, to_sun, pos, trans, g_trans, density_multiplier, n_steps,
+                         sample_step, lib=None):
+    """The sun march's adjoint (``ds_sun_march_bwd``) → (d density, d pos
+    [N, 3], d to_sun [3])."""
+    _check_grid(density)
+    cuda_build.require_vec3(pos=pos)
+    n = pos.shape[0]
+    _check_vec("to_sun", to_sun, 3)
+    _check_vec("trans", trans, n)
+    _check_vec("g_trans", g_trans, n)
+    fn = (lib or cuda_build.load("diff")).ds_sun_march_bwd
+    fn.argtypes = _SUN_BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    nz, ny, nx = density.shape
+    d_dens = torch.zeros_like(density)
+    d_pos = torch.empty_like(pos)
+    d_ts = torch.empty_like(pos)
+    cuda_build.check(
+        fn(cuda_build.ptr(density), cuda_build.ptr(to_sun), nx, ny, nz,
+           _grid_consts(density, sample_step, density_multiplier), n_steps,
+           cuda_build.ptr(pos), cuda_build.ptr(trans), cuda_build.ptr(g_trans), n,
+           cuda_build.ptr(d_dens), cuda_build.ptr(d_pos), cuda_build.ptr(d_ts),
+           cuda_build.stream_handle()),
+        "sun march adjoint kernel",
+    )
+    launch_sun_march_bwd.launches += 1
+    return d_dens, d_pos, d_ts.sum(dim=0)
+
+
+launch_sun_march_bwd.launches = 0
+
+
+class _SunMarch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, density, to_sun, pos, density_multiplier, n_steps, sample_step):
+        flat = pos.reshape(-1, 3).contiguous()
+        trans = launch_sun_march(density, to_sun, flat, density_multiplier, n_steps,
+                                 sample_step)
+        ctx.save_for_backward(density, to_sun, flat, trans)
+        ctx.args = (density_multiplier, n_steps, sample_step)
+        ctx.pos_shape = pos.shape
+        return trans.reshape(pos.shape[:-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        density, to_sun, flat, trans = ctx.saved_tensors
+        d_dens, d_pos, d_ts = launch_sun_march_bwd(
+            density, to_sun, flat, trans, g.reshape(-1).contiguous(), *ctx.args)
+        return d_dens, d_ts, d_pos.reshape(ctx.pos_shape), None, None, None
+
+
+def sun_transmittance(density, sun_dir, pos, density_multiplier: float, n_steps: int,
+                      sample_step: float = 1.0 / 256.0, device="cuda") -> torch.Tensor:
+    """Differentiable in-scatter: Beer-Lambert transmittance from ``pos``
+    [..., 3] toward the sun — the kernel for tensors on the card, the plain
+    version for CPU tensors."""
+    dev = resolve_device(device)
+    check_on(dev, density, sun_dir, pos)
+    if density.is_cuda:
+        return _SunMarch.apply(density, _to_sun(sun_dir).contiguous(), pos,
+                               _f32(density_multiplier), n_steps, _f32(sample_step))
+    return sun_transmittance_plain(density, sun_dir, pos, density_multiplier, n_steps,
+                                   sample_step)
+
+
+# ---------------------------------------------------------------------------
+# The in-scatter bake (diff.py:270-309): forward on K3, adjoint K8a.
+# ---------------------------------------------------------------------------
+
+
+def bake_inscatter_diff_plain(density, bbox, light_dir, density_multiplier,
+                              sample_step: float,
+                              voxels: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the differentiable bake → T [Z, Y, X]:
+    ``render.inscatter.sun_transmittance_plain``'s exact mode (no early-out,
+    no quantization), each step rematerialized in the backward pass.  The
+    steps' density gradients are summed in float64 (the grid enters each
+    step as a float32 copy of a float64 one: the same values): a texel on
+    the box's faces takes the clamped samples of every march that leaves
+    across it, which a float32 sum over the steps rounds to ~1e-3.
+    ``voxels``: flat z-major indices [M] to bake only those voxels → T [M]."""
+    base = inscatter.voxel_base(density.shape, density.device)
+    if voxels is not None:
+        base = base[voxels]
+    step = _f32(sample_step)
+    to_light = -light_dir
+
+    def body(trans, dens64, tl, s):
+        pos = base + tl * s
+        sigma = grid_ops.sample_trilinear(dens64.to(torch.float32), pos / bbox)
+        return trans * torch.exp(-(sigma * density_multiplier) * step)
+
+    trans = torch.ones(base.shape[:1], dtype=torch.float32, device=density.device)
+    dens64 = density.to(torch.float64)
+    for i in range(inscatter.bake_steps(step, False)):
+        trans = _remat(functools.partial(body, s=_step_distance(step, i)), trans, dens64,
+                       to_light)
+    return trans if voxels is not None else trans.reshape(density.shape)
+
+
+_ADJ_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p,
+]
+
+
+def launch_bake_adjoint(density, bbox, light_dir, density_multiplier, sample_step, trans,
+                        g_trans, lib=None):
+    """K8a (``ds_bake_adjoint``): the bake's adjoint at T ``trans`` for the
+    upstream ``g_trans`` (both [V]) → (d density [Z, Y, X], d light_dir
+    [3]).  ``bbox``, ``light_dir``: the host floats the forward ran with."""
+    _check_grid(density)
+    v = density.numel()
+    _check_vec("trans", trans, v)
+    _check_vec("g_trans", g_trans, v)
+    lib = lib or cuda_build.load("diff")
+    lib.ds_diff_threads.restype = ctypes.c_int
+    blocks = -(-v // lib.ds_diff_threads())
+    fn = lib.ds_bake_adjoint
+    fn.argtypes = _ADJ_ARGTYPES
+    fn.restype = ctypes.c_int
+    nz, ny, nx = density.shape
+    consts = (ctypes.c_float * 9)(*bbox, *light_dir, sample_step, density_multiplier,
+                                  float(max(nx, ny, nz)))
+    d_dens = torch.zeros(density.shape, dtype=torch.float64, device=density.device)
+    partials = torch.zeros((blocks, 3), dtype=torch.float32, device=density.device)
+    cuda_build.check(
+        fn(cuda_build.ptr(density), nx, ny, nz, consts, inscatter.bake_steps(sample_step, False),
+           cuda_build.ptr(trans), cuda_build.ptr(g_trans), cuda_build.ptr(d_dens),
+           cuda_build.ptr(partials), cuda_build.stream_handle()),
+        "bake adjoint kernel",
+    )
+    launch_bake_adjoint.launches += 1
+    return d_dens.to(torch.float32), partials.to(torch.float64).sum(dim=0).to(torch.float32)
+
+
+launch_bake_adjoint.launches = 0
+
+
+class _BakeDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, density, light_dir, bbox, density_multiplier, sample_step):
+        # K3 takes the light as host floats: one read-back a call.
+        light = tuple(light_dir.detach().tolist())
+        _check_grid(density)
+        trans = inscatter.launch_bake(density, bbox, light, sample_step, density_multiplier,
+                                      early_out=False)
+        ctx.save_for_backward(density, trans)
+        ctx.args = (bbox, light, density_multiplier, sample_step)
+        return trans.reshape(density.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        density, trans = ctx.saved_tensors
+        d_dens, d_light = launch_bake_adjoint(density, *ctx.args, trans,
+                                              g.reshape(-1).contiguous())
+        return d_dens, d_light, None, None, None
+
+
+def _bake(density, bbox, light_dir, density_multiplier, sample_step, kernels: bool):
+    if kernels:
+        return _BakeDiff.apply(density, light_dir, _bbox_host(density.shape),
+                               _f32(density_multiplier), _f32(sample_step))
+    return bake_inscatter_diff_plain(density, bbox, light_dir, density_multiplier, sample_step)
+
+
+def bake_inscatter_diff(density, bbox, light_dir, density_multiplier, sample_step: float,
+                        device="cuda") -> torch.Tensor:
+    """Differentiable sun-transmittance bake of a ``[Z, Y, X]`` density →
+    T [Z, Y, X] (``render.inscatter.bake``'s exact mode): K3 forward and
+    K8a backward for tensors on the card, the plain version for CPU
+    tensors.  ``light_dir``: normalized, pointing from the sun."""
+    dev = resolve_device(device)
+    check_on(dev, density, bbox, light_dir)
+    if density.is_cuda:
+        host = tuple(bbox.detach().tolist())
+        if host != _bbox_host(density.shape):
+            raise ValueError(f"bbox {host} is not the density's {_bbox_host(density.shape)}")
+    return _bake(density, bbox, light_dir, density_multiplier, sample_step, density.is_cuda)
+
+
+# ---------------------------------------------------------------------------
+# The quadrature march (diff.py:198-238): plain version, K8b, the render.
+# ---------------------------------------------------------------------------
+
+
+class MarchMeta(NamedTuple):
+    """The quadrature march's host values (float32 values as floats)."""
+
+    bbox: Tuple[float, float, float]
+    step: float
+    density_multiplier: float
+    sun_ratio: float
+    n_steps: int  # steps marched: remat_chunk times the chunks
+    sun_steps: int
+
+
+def quadrature_march_plain(density, baked, to_sun, entry, dirs, p_phase, meta: MarchMeta,
+                           remat_chunk: int) -> torch.Tensor:
+    """Plain version of K8b: the radiance sum of every ray [N] (rays that
+    miss the box included), in-scatter from ``baked`` or, where it is None,
+    the sun march toward ``to_sun``; each chunk of ``remat_chunk`` steps
+    rematerialized in the backward pass."""
+    bbox = torch.tensor(meta.bbox, dtype=torch.float32, device=density.device)
+    step, dm, sun_ratio = meta.step, meta.density_multiplier, meta.sun_ratio
+
+    def t_sun_at(p):
+        if baked is not None:
+            return grid_ops.sample_trilinear(baked, p / bbox)
+        return _remat(lambda d, ts, q: _sun_march_plain(d, ts, q, dm, meta.sun_steps, step),
+                      density, to_sun, p)
+
+    def chunk(tau, radiance, i0):
+        for i in range(i0, i0 + remat_chunk):
+            p = entry + dirs * _step_distance(step, i + 1)
+            sigma = sample_density(density, bbox, p) * dm
+            t_view = torch.exp(-tau)
+            seg = 1.0 - torch.exp(-sigma * step)
+            # The segment's free-flight mean point (diff.py:217-223).
+            sig = torch.clamp(sigma, min=1e-6)
+            a = sig * step
+            em = -torch.expm1(-a)
+            exact = 1.0 / sig - step * torch.exp(-a) / torch.clamp(em, min=1e-30)
+            taylor = step * (0.5 - grid_ops.true_div(a, 12.0))
+            mean_x = torch.where(a < 1e-3, taylor, exact)
+            p_nee = p - dirs * (step - mean_x)[:, None]
+            contrib = t_view * seg * t_sun_at(p_nee) * p_phase * sun_ratio
+            tau = tau + sigma * step
+            radiance = radiance + contrib
+        return tau, radiance
+
+    tau = torch.zeros(entry.shape[0], dtype=torch.float32, device=entry.device)
+    radiance = torch.zeros_like(tau)
+    for i0 in range(0, meta.n_steps, remat_chunk):
+        tau, radiance = _remat(functools.partial(chunk, i0=i0), tau, radiance)
+    return radiance
+
+
+_MARCH_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
+]
+_MARCH_BWD_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+]
+
+
+def _march_inputs(density, baked, to_sun, entry, dirs, p_phase, hit):
+    _check_grid(density)
+    if baked is not None:
+        _check_grid(baked)
+        if baked.shape != density.shape:
+            raise ValueError("the baked grid must have the density's shape")
+    else:
+        _check_vec("to_sun", to_sun, 3)
+    cuda_build.require_vec3(entry=entry, dirs=dirs)
+    n = entry.shape[0]
+    _check_vec("p_phase", p_phase, n)
+    if hit.dtype != torch.uint8 or not hit.is_contiguous() or hit.numel() != n:
+        raise ValueError(f"hit must be a contiguous uint8 tensor of {n} values")
+    return n
+
+
+def _march_consts(meta: MarchMeta):
+    return (ctypes.c_float * 6)(*meta.bbox, meta.step, meta.density_multiplier, meta.sun_ratio)
+
+
+def launch_march(density, baked, to_sun, entry, dirs, p_phase, hit, meta: MarchMeta,
+                 steps: Optional[torch.Tensor] = None, lib=None) -> torch.Tensor:
+    """K8b's forward (``ds_diff_march``) → the radiance sum [N] (0 where
+    ``hit`` [N] uint8 is 0).  ``steps``: None, or an int32 [N, 2] the kernel
+    fills with each ray's steps in the box and steps with sigma != 0."""
+    n = _march_inputs(density, baked, to_sun, entry, dirs, p_phase, hit)
+    if steps is not None and (steps.dtype != torch.int32 or steps.shape != (n, 2)):
+        raise ValueError("steps must be an int32 [N, 2] tensor")
+    fn = (lib or cuda_build.load("diff")).ds_diff_march
+    fn.argtypes = _MARCH_ARGTYPES
+    fn.restype = ctypes.c_int
+    nz, ny, nx = density.shape
+    rad = torch.empty(n, dtype=torch.float32, device=entry.device)
+    cuda_build.check(
+        fn(cuda_build.ptr(density), cuda_build.ptr(baked), cuda_build.ptr(to_sun), nx, ny, nz,
+           _march_consts(meta), meta.n_steps, meta.sun_steps, cuda_build.ptr(entry),
+           cuda_build.ptr(dirs), cuda_build.ptr(p_phase), cuda_build.ptr(hit), n,
+           cuda_build.ptr(rad), cuda_build.ptr(steps), cuda_build.stream_handle()),
+        "quadrature march kernel",
+    )
+    launch_march.launches += 1
+    return rad
+
+
+launch_march.launches = 0
+
+
+class MarchGrads(NamedTuple):
+    density: torch.Tensor  # [Z, Y, X]
+    baked: Optional[torch.Tensor]  # [Z, Y, X] (baked in-scatter)
+    to_sun: Optional[torch.Tensor]  # [3] (pointwise in-scatter)
+    entry: torch.Tensor  # [N, 3]
+    dirs: torch.Tensor  # [N, 3]
+    p_phase: torch.Tensor  # [N]
+
+
+def launch_march_bwd(density, baked, to_sun, entry, dirs, p_phase, hit, radiance, g_rad,
+                     meta: MarchMeta, lib=None) -> MarchGrads:
+    """K8b's backward (``ds_diff_march_bwd``) for the upstream ``g_rad``
+    [N] at the forward's ``radiance`` [N]."""
+    n = _march_inputs(density, baked, to_sun, entry, dirs, p_phase, hit)
+    _check_vec("radiance", radiance, n)
+    _check_vec("g_rad", g_rad, n)
+    fn = (lib or cuda_build.load("diff")).ds_diff_march_bwd
+    fn.argtypes = _MARCH_BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    nz, ny, nx = density.shape
+    d_dens = torch.zeros_like(density)
+    d_baked = None if baked is None else torch.zeros_like(baked)
+    d_entry = torch.empty_like(entry)
+    d_dirs = torch.empty_like(dirs)
+    d_phase = torch.empty_like(p_phase)
+    d_ts = torch.empty_like(entry) if baked is None else None
+    cuda_build.check(
+        fn(cuda_build.ptr(density), cuda_build.ptr(baked), cuda_build.ptr(to_sun), nx, ny, nz,
+           _march_consts(meta), meta.n_steps, meta.sun_steps, cuda_build.ptr(entry),
+           cuda_build.ptr(dirs), cuda_build.ptr(p_phase), cuda_build.ptr(hit),
+           cuda_build.ptr(radiance), cuda_build.ptr(g_rad), n, cuda_build.ptr(d_dens),
+           cuda_build.ptr(d_baked), cuda_build.ptr(d_entry), cuda_build.ptr(d_dirs),
+           cuda_build.ptr(d_phase), cuda_build.ptr(d_ts), cuda_build.stream_handle()),
+        "quadrature march adjoint kernel",
+    )
+    launch_march_bwd.launches += 1
+    return MarchGrads(d_dens, d_baked, None if d_ts is None else d_ts.sum(dim=0), d_entry,
+                      d_dirs, d_phase)
+
+
+launch_march_bwd.launches = 0
+
+
+class _QuadratureMarch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, density, baked, to_sun, entry, dirs, p_phase, hit, meta):
+        rad = launch_march(density, baked, to_sun, entry, dirs, p_phase, hit, meta)
+        ctx.save_for_backward(density, baked, to_sun, entry, dirs, p_phase, hit, rad)
+        ctx.meta = meta
+        return rad
+
+    @staticmethod
+    def backward(ctx, g):
+        density, baked, to_sun, entry, dirs, p_phase, hit, rad = ctx.saved_tensors
+        d = launch_march_bwd(density, baked, to_sun, entry, dirs, p_phase, hit, rad,
+                             g.contiguous(), ctx.meta)
+        return d.density, d.baked, d.to_sun, d.entry, d.dirs, d.p_phase, None, None
+
+
+class MarchSetup(NamedTuple):
+    """What the quadrature march takes: the in-scatter (a baked grid, or
+    the sun direction for the sun march), the rays and their hit flags, the
+    phase value of each ray and the host values."""
+
+    baked: Optional[torch.Tensor]  # [Z, Y, X]
+    to_sun: Optional[torch.Tensor]  # [3]
+    entry: torch.Tensor  # [N, 3]
+    dirs: torch.Tensor  # [N, 3]
+    p_phase: torch.Tensor  # [N]
+    hit: torch.Tensor  # [N] bool
+    meta: MarchMeta
+
+
+def march_setup(scene: DiffScene, width, height, density_multiplier, n_steps, sun_steps,
+                sample_step, sun_cos_half_angle, remat_chunk, use_baked_inscatter,
+                kernels: bool) -> MarchSetup:
+    """The render's work before the march (diff.py:153-196): the camera
+    rays, their box entry, the phase and the in-scatter (baked through K3
+    where ``kernels``)."""
+    density, sun_dir = scene.density, scene.sun_dir
+    bbox = _bbox(density)
+    sun_n = sun_dir / torch.linalg.norm(sun_dir)
+    origins, dirs = camera_rays(scene.eye, scene.look_at, width, height)
+    baked = to_sun = None
+    if use_baked_inscatter:
+        baked = _bake(density, bbox, sun_n, density_multiplier, sample_step, kernels)
+    else:
+        to_sun = _to_sun(sun_dir)
+
+    # Axis-parallel rays have a zero direction component; the guarded
+    # reciprocal keeps the backward pass finite (0 * inf = NaN in reverse
+    # mode even for rays the final `where` masks out).
+    half = bbox * 0.5
+    tiny = torch.full_like(dirs, 1e-9)
+    safe = torch.where(dirs.abs() < 1e-9, torch.where(dirs >= 0.0, tiny, -tiny), dirs)
+    inv = 1.0 / safe
+    t0 = (-half - origins) * inv
+    t1 = (half - origins) * inv
+    t_near = torch.clamp(torch.amax(torch.minimum(t0, t1), dim=-1), min=1e-4)
+    t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
+    hit = t_near < t_far
+    entry = origins + dirs * t_near[:, None] + half
+
+    cos_light = (-sun_n * dirs).sum(dim=-1)
+    p_phase = phase_ops.eval_phase(_mie(str(density.device)), cos_light)
+    sun_area = 2.0 * math.pi * (1.0 - sun_cos_half_angle)
+    meta = MarchMeta(
+        bbox=_bbox_host(density.shape), step=_f32(sample_step),
+        density_multiplier=_f32(density_multiplier), sun_ratio=_f32(sun_area / (4.0 * math.pi)),
+        n_steps=-(-n_steps // remat_chunk) * remat_chunk, sun_steps=sun_steps,
+    )
+    return MarchSetup(baked, to_sun, entry, dirs, p_phase, hit, meta)
+
+
+def _render(scene: DiffScene, width, height, density_multiplier, n_steps, sun_steps,
+            sample_step, sun_cos_half_angle, remat_chunk, use_baked_inscatter, kernels: bool):
+    m = march_setup(scene, width, height, density_multiplier, n_steps, sun_steps, sample_step,
+                    sun_cos_half_angle, remat_chunk, use_baked_inscatter, kernels)
+    if kernels:
+        radiance = _QuadratureMarch.apply(
+            scene.density, m.baked, None if m.to_sun is None else m.to_sun.contiguous(),
+            m.entry.contiguous(), m.dirs.contiguous(), m.p_phase.contiguous(),
+            m.hit.to(torch.uint8), m.meta)
+    else:
+        radiance = quadrature_march_plain(scene.density, m.baked, m.to_sun, m.entry, m.dirs,
+                                          m.p_phase, m.meta, remat_chunk)
+    rgb = scene.light_radiance[None, :] * radiance[:, None]
+    rgb = torch.where(m.hit[:, None], rgb, 0.0)
+    return rgb.reshape(height, width, 3)
+
+
+def render_single_scatter(
+    scene: DiffScene,
+    width: int = 64,
+    height: int = 32,
+    density_multiplier: float = 100.0,
+    n_steps: int = 256,
+    sun_steps: int = 128,
+    sample_step: float = 1.0 / 256.0,
+    sun_cos_half_angle: float = math.cos(math.radians(0.53) / 2.0),
+    remat_chunk: int = 32,
+    use_baked_inscatter: bool = True,
+    device="cuda",
+) -> torch.Tensor:
+    """Differentiable single-scatter render → [height, width, 3].
+
+    ``use_baked_inscatter`` (default) reads the NEE sun transmittance from a
+    differentiably baked grid sampled trilinearly (the renderer's
+    semantics); ``False`` marches the sun from every sample point
+    (``sun_steps`` steps).  The march runs ``remat_chunk`` times
+    ``ceil(n_steps / remat_chunk)`` steps.  On the card: K3 and K8a (the
+    bake), K8b (the march); on the CPU: the plain versions."""
+    dev = resolve_device(device)
+    check_on(dev, *scene)
+    return _render(scene, width, height, density_multiplier, n_steps, sun_steps, sample_step,
+                   sun_cos_half_angle, remat_chunk, use_baked_inscatter,
+                   kernels=scene.density.is_cuda)
+
+
+def render_single_scatter_plain(
+    scene: DiffScene,
+    width: int = 64,
+    height: int = 32,
+    density_multiplier: float = 100.0,
+    n_steps: int = 256,
+    sun_steps: int = 128,
+    sample_step: float = 1.0 / 256.0,
+    sun_cos_half_angle: float = math.cos(math.radians(0.53) / 2.0),
+    remat_chunk: int = 32,
+    use_baked_inscatter: bool = True,
+) -> torch.Tensor:
+    """Plain version of ``render_single_scatter`` on the scene's device
+    (the plain bake and march on autograd): the kernels' oracle."""
+    return _render(scene, width, height, density_multiplier, n_steps, sun_steps, sample_step,
+                   sun_cos_half_angle, remat_chunk, use_baked_inscatter, kernels=False)
+
+
+def render_and_grads(scene: DiffScene, device="cuda", **kw):
+    """(image, gradients of the image mean w.r.t. every scene leaf as a
+    ``DiffScene``)."""
+    dev = resolve_device(device)
+    check_on(dev, *scene)
+    leaves = [t.detach().requires_grad_(True) for t in scene]
+    img = render_single_scatter(DiffScene(*leaves), device=dev, **kw)
+    grads = torch.autograd.grad(img.mean(), leaves, allow_unused=True)
+    return img.detach(), DiffScene(*(
+        torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)))

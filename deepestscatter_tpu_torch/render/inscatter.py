@@ -24,17 +24,18 @@ from ..ops import grid as grid_ops
 from ..scene import SceneParams, SceneStatic
 
 
-def bake_steps(static: SceneStatic, early_out: bool) -> int:
+def bake_steps(sample_step: float, early_out: bool) -> int:
     """Step count: ``round(1/step)`` with early-out, else enough to cover
     the box diagonal."""
     if early_out:
-        return int(round(1.0 / static.sample_step))
-    return int(math.ceil(math.sqrt(3.0) / static.sample_step)) + 2
+        return int(round(1.0 / sample_step))
+    return int(math.ceil(math.sqrt(3.0) / sample_step)) + 2
 
 
-def voxel_base(static: SceneStatic, device) -> torch.Tensor:
-    """Voxel-corner positions ``(x, y, z) / max_dim`` [V, 3], z-major."""
-    nz, ny, nx = static.grid_shape
+def voxel_base(grid_shape, device) -> torch.Tensor:
+    """Voxel-corner positions ``(x, y, z) / max_dim`` [V, 3], z-major, of a
+    ``[Z, Y, X]`` grid."""
+    nz, ny, nx = grid_shape
     max_dim = float(max(nx, ny, nz))
     v = torch.arange(nz * ny * nx, device=device)
     x = (v % nx).to(torch.float32)
@@ -55,13 +56,13 @@ def sun_transmittance_plain(
     step count (its work)."""
     dens = params.density_mips[0]
     dev = dens.device
-    base = voxel_base(static, dev)
+    base = voxel_base(static.grid_shape, dev)
     step = static.sample_step
     dm = static.density_multiplier
     to_light = -params.light_dir
     trans = torch.ones(base.shape[:1], dtype=torch.float32, device=dev)
     steps = torch.zeros(base.shape[:1], dtype=torch.int64, device=dev)
-    for i in range(bake_steps(static, early_out)):
+    for i in range(bake_steps(step, early_out)):
         active = trans * 255.0 >= 1.0 if early_out else None
         if early_out and not bool(active.any()):
             break
@@ -90,14 +91,16 @@ _ARGTYPES = [
 MAX_ROW = 14336
 
 
-def _launch(params, static, early_out, lib=None) -> torch.Tensor:
-    """K3 on the scene's device.  ``lib``: another library with the same
-    ``ds_bake`` entry point (the tests' host build of the kernel's device
-    functions, the alternatives ``probes/march_variants.py`` times)."""
-    dens = params.density_mips[0]
+def launch_bake(dens, bbox, light_dir, sample_step, density_multiplier, early_out,
+                lib=None) -> torch.Tensor:
+    """K3 over a ``[Z, Y, X]`` texture ``dens`` on its device → T [V].
+    ``bbox``, ``light_dir``: host floats (float32 values); ``lib``: another
+    library with the same ``ds_bake`` entry point (the tests' host build of
+    the kernel's device functions, the alternatives
+    ``probes/march_variants.py`` times)."""
     if dens.dtype not in (torch.uint8, torch.float32) or not dens.is_contiguous():
         raise ValueError("density must be a contiguous uint8 or float32 grid")
-    nz, ny, nx = static.grid_shape
+    nz, ny, nx = dens.shape
     if dens.numel() >= 2**31 or nx > MAX_ROW:
         raise ValueError(f"K3 takes fewer than 2^31 voxels and rows of at most {MAX_ROW}")
     fn = (lib or cuda_build.load("inscatter")).ds_bake
@@ -105,13 +108,12 @@ def _launch(params, static, early_out, lib=None) -> torch.Tensor:
     fn.restype = ctypes.c_int
     out = torch.empty((dens.numel(),), dtype=torch.float32, device=dens.device)
     consts = (ctypes.c_float * 9)(
-        *static.bbox, *static.light_direction, static.sample_step,
-        static.density_multiplier, float(max(nx, ny, nz)),
+        *bbox, *light_dir, sample_step, density_multiplier, float(max(nx, ny, nz)),
     )
     cuda_build.check(
         fn(
             cuda_build.ptr(dens), int(dens.dtype == torch.uint8), nx, ny, nz,
-            consts, bake_steps(static, early_out), int(early_out),
+            consts, bake_steps(sample_step, early_out), int(early_out),
             cuda_build.ptr(out), cuda_build.stream_handle(),
         ),
         "bake kernel",
@@ -128,7 +130,8 @@ def sun_transmittance(
     """K3's wrapper: per-voxel sun transmittance [V] — the kernel for a
     scene on the card, the plain version for a CPU scene."""
     if params.density_mips[0].is_cuda:
-        return _launch(params, static, early_out)
+        return launch_bake(params.density_mips[0], static.bbox, static.light_direction,
+                           static.sample_step, static.density_multiplier, early_out)
     return sun_transmittance_plain(params, static, early_out)
 
 

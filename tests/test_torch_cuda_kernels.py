@@ -38,6 +38,14 @@ trainer's optimizer rule on the card, given the CPU's gradients, is within
 a relative 1e-6 of the CPU's; a training step's loss on the card within a
 relative 1e-4 of the CPU's (cuBLAS and the CPU sum in other orders).
 
+The differentiable renderer (``render.diff``) on a 24^3 cumulus, both
+in-scatter modes: image and gradients through the kernels (K3's forward,
+K8a, K8b) against the plain versions on the card and on the CPU, the image
+within 1e-5 of its largest value, the density gradient within 1e-4 of its
+largest, the other leaves within 1e-3; the bake's forward bitwise equal to
+the plain bake; the sun march within 1e-6 (T) and 1e-4 (gradients); two
+runs' images bitwise equal, their gradients within 1e-5 (atomics).
+
 The render task (``tasks.render_cloud``, NN and BNN, from ``.pt``
 exports) on the card against the CPU: frames within rtol 1e-3 on >= 99.5 %
 of pixels.
@@ -911,3 +919,118 @@ def test_render_cloud_card_matches_cpu(card, kind, tmp_path):
     assert np.abs(ref).max() > 0
     close = np.isclose(got, ref, rtol=1e-3, atol=1e-6 * np.abs(ref).max()).all(axis=-1)
     assert close.mean() >= 0.995
+
+
+# -- the differentiable renderer: K3's forward, K8a, K8b ------------------------
+
+#: A small frame of the defaults point's kind on a 24^3 cumulus (steps of
+#: 1/128 to 1.75, past the box diagonal).
+DIFF_KW = dict(width=32, height=16, density_multiplier=100.0, n_steps=224, sun_steps=64,
+               sample_step=1.0 / 128.0, remat_chunk=32,
+               sun_cos_half_angle=math.cos(math.radians(0.53) / 2.0))
+#: Image relative to its largest value; gradients each relative to theirs.
+DIFF_TOL = {"image": 1e-5, "density": 1e-4, "sun_dir": 1e-3, "eye": 1e-3, "look_at": 1e-3,
+            "light_radiance": 1e-3}
+
+
+def _diff_scene(dev, res=24):
+    from deepestscatter_tpu_torch.ops import grid as grid_ops
+    from deepestscatter_tpu_torch.render import diff
+
+    density = grid_ops.normalize_density(procedural.cumulus(resolution=res, seed=29))
+    return diff.diff_scene_from_numpy(
+        density, np.asarray([-0.3, -0.9, 0.1], np.float32),
+        np.asarray([2.5, -0.4, 0.0], np.float32), np.zeros(3, np.float32),
+        np.full(3, 1e6, np.float32), device=dev)
+
+
+def _diff_grads(scene, baked, kernels):
+    from deepestscatter_tpu_torch.render import diff
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in scene]
+    kw = dict(DIFF_KW, use_baked_inscatter=baked)
+    if kernels:
+        img = diff.render_single_scatter(diff.DiffScene(*leaves), device=scene.density.device,
+                                         **kw)
+    else:
+        img = diff.render_single_scatter_plain(diff.DiffScene(*leaves), **kw)
+    return [img.detach()] + list(torch.autograd.grad(img.mean(), leaves))
+
+
+def _diff_close(got, want):
+    for name, a, b in zip(DIFF_TOL, got, want):
+        a, b = a.double().cpu(), b.double().cpu()
+        assert float((a - b).abs().max()) <= DIFF_TOL[name] * float(b.abs().max()), name
+
+
+@pytest.mark.parametrize("baked", [True, False], ids=["baked", "pointwise"])
+def test_diff_kernels_match_plain(card, baked):
+    scene = _diff_scene(card)
+    got = _diff_grads(scene, baked, kernels=True)
+    assert float(got[0].max()) > 0 and all(bool(torch.isfinite(t).all()) for t in got)
+    _diff_close(got, _diff_grads(scene, baked, kernels=False))
+
+
+@pytest.mark.parametrize("baked", [True, False], ids=["baked", "pointwise"])
+def test_diff_card_matches_cpu(card, baked):
+    _diff_close(_diff_grads(_diff_scene(card), baked, kernels=True),
+                _diff_grads(_diff_scene("cpu"), baked, kernels=False))
+
+
+def test_diff_bake_forward_is_k3_bitwise(card):
+    from deepestscatter_tpu_torch.render import diff
+
+    scene = _diff_scene(card)
+    sun_n = scene.sun_dir / torch.linalg.norm(scene.sun_dir)
+    bbox = diff._bbox(scene.density)
+    before = inscatter.sun_transmittance.launches
+    got = diff.bake_inscatter_diff(scene.density, bbox, sun_n, 100.0, 1.0 / 128.0, device=card)
+    assert inscatter.sun_transmittance.launches == before + 1
+    assert torch.equal(got, diff.bake_inscatter_diff_plain(scene.density, bbox, sun_n, 100.0,
+                                                           1.0 / 128.0))
+
+
+def test_diff_sun_transmittance_matches_plain(card):
+    from deepestscatter_tpu_torch.render import diff
+
+    scene = _diff_scene(card)
+    pos = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (5000, 3))
+                           .astype(np.float32)).to(card)
+    w = torch.from_numpy(np.random.default_rng(4).random(5000).astype(np.float32)).to(card)
+    out = []
+    for fn in (diff.sun_transmittance, diff.sun_transmittance_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (scene.density, scene.sun_dir, pos)]
+        kw = {"device": card} if fn is diff.sun_transmittance else {}
+        t = fn(*leaves, 100.0, 64, 1.0 / 128.0, **kw)
+        out.append([t.detach()] + list(torch.autograd.grad((t * w).sum(), leaves)))
+    (t_k, *g_k), (t_p, *g_p) = out
+    assert float((t_k - t_p).abs().max()) <= 1e-6
+    for a, b in zip(g_k, g_p):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    # The samples the kernel reports taking in the box (a line crosses it once).
+    to_sun = diff._to_sun(scene.sun_dir).contiguous()
+    steps = torch.zeros(5000, dtype=torch.int32, device=card)
+    diff.launch_sun_march(scene.density, to_sun, pos, 100.0, 64, 1.0 / 128.0, steps=steps)
+    s = torch.tensor([diff._step_distance(1.0 / 128.0, j + 1) for j in range(64)], device=card)
+    u = (pos[:, None, :] + to_sun * s[:, None]) / diff._bbox(scene.density)
+    assert torch.equal(steps, ((u >= 0) & (u <= 1)).all(dim=-1).sum(dim=1).to(torch.int32))
+
+
+def test_diff_wrappers_count_launches(card):
+    from deepestscatter_tpu_torch.render import diff
+
+    fns = (inscatter.sun_transmittance, diff.launch_bake_adjoint, diff.launch_march,
+           diff.launch_march_bwd)
+    before = [f.launches for f in fns]
+    diff.render_and_grads(_diff_scene(card), device=card, **DIFF_KW)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
+
+
+def test_diff_gradients_repeat_within_atomic_order(card):
+    """Atomics add in another order each run: the image is bitwise the
+    same, the gradients within 1e-5 of their largest values."""
+    scene = _diff_scene(card)
+    a, b = (_diff_grads(scene, True, kernels=True) for _ in range(2))
+    assert torch.equal(a[0], b[0])
+    for x, y in zip(a[1:], b[1:]):
+        assert float((x - y).abs().max()) <= 1e-5 * float(y.abs().max())

@@ -1,6 +1,8 @@
 """K4 (path-trace bounce loop), K3 (in-scatter bake), K1 (camera march),
 K2 (descriptor stencil), K5 (probe interpolation), K7a (first-scatter
-sampler), K7b (radiance experiments) and K10 (batch assembly) on the host.
+sampler), K7b (radiance experiments), K10 (batch assembly), K8a (the
+differentiable bake's adjoint) and K8b (the quadrature march and the sun
+march, forward and adjoint) on the host.
 
 ``tests/torch_kernel_host.cpp`` compiles the kernels' device functions
 (``csrc/pathtrace.cu``, ``csrc/inscatter.cu``, ``csrc/march.cu``,
@@ -65,6 +67,18 @@ arithmetic the kernels share with their host build.
   the plain version (``index_select``, ``true_div`` by 256, ``cat``)
   bitwise, in both layouts, for rows in any order, repeated rows and a
   batch of one; an index outside the table gives a row of NaN.
+- K8b's forward (``march_ray``) within 1e-6 of the plain march's largest
+  value in both in-scatter modes, 0 on rays that miss, stopping at the box
+  exit (its step counts); its adjoint (``march_ray_adjoint``) within 1e-5
+  of autograd of the plain march for the density, the baked grid or the
+  sun direction, the entries, directions and phase values, and on the 8
+  deepest rays within 1e-4 of each ray's largest (the R - prefix replay);
+  finite on axis-parallel rays and exactly 0 on rays that miss.  K8a
+  (``bake_adjoint_voxel``, float64 sums) within 1e-6 of autograd of the
+  plain bake (float64 sums over the steps too), the light gradient within
+  1e-5.  The sun march and its adjoint within 1e-6 and 1e-5.  The render's
+  autograd Functions over the host build within 1e-6 (image), 1e-5
+  (density) and 1e-4 (the other leaves) of the plain render.
 - All match the plain PyTorch versions within the tolerances of
   ``test_torch_cuda_kernels.py``: glibc's ``expf``/``logf``/``sinf``/
   ``cosf``/``acosf`` are not torch's, so step counts agree on >= 99 % of
@@ -83,6 +97,7 @@ Skips only where g++ is absent.
 
 import ctypes
 import dataclasses
+import math
 import shutil
 import subprocess
 from pathlib import Path
@@ -96,7 +111,7 @@ from deepestscatter_tpu_torch.data import collectors, procedural
 from deepestscatter_tpu_torch.ops import descriptor, march
 from deepestscatter_tpu_torch.ops import rng as rng_ops
 from deepestscatter_tpu_torch.ops import tetra
-from deepestscatter_tpu_torch.render import baked, camera, inscatter, pathtracer
+from deepestscatter_tpu_torch.render import baked, camera, diff, inscatter, pathtracer
 from deepestscatter_tpu_torch.train import device_data
 
 HOST_SOURCE = Path(__file__).with_name("torch_kernel_host.cpp")
@@ -247,10 +262,12 @@ def test_k3_row_equals_voxel(host_lib, bake_density, light, early_out):
     )
     params, static = build_scene(cfg, density, device="cpu")
     assert static.grid_shape == (20, 28, 36)
+    k3 = (params.density_mips[0], static.bbox, static.light_direction, static.sample_step,
+          static.density_multiplier, early_out)
     host_lib.host_set_bake(0)
-    ref = inscatter._launch(params, static, early_out, lib=host_lib)
+    ref = inscatter.launch_bake(*k3, lib=host_lib)
     host_lib.host_set_bake(1)
-    got = inscatter._launch(params, static, early_out, lib=host_lib)
+    got = inscatter.launch_bake(*k3, lib=host_lib)
     assert torch.equal(got, ref)
     if early_out:  # the early-out fires
         assert bool((got * 255.0 < 1.0).any())
@@ -730,3 +747,190 @@ def test_k10_rows_outside_the_table_are_nan(host_lib):
     out = device_data._launch_baked(*(t[k] for k in ("probes", "rt", "powers", "omega", "alpha",
                                                      "labels")), idx, lib=host_lib)
     assert all(bool(o[bad].isnan().all()) and not bool(o[~bad].isnan().any()) for o in out)
+
+
+# -- K8a (the bake's adjoint) and K8b (the quadrature march, the sun march) ---
+
+#: A 12^3 random cloud (zero on a 3-voxel shell), tests/test_diff_render.py's
+#: frame arguments with 128 steps of 1/64 (two box lengths: every ray that
+#: hits leaves the box before its last step, where the kernels stop).
+DIFF_KW = dict(width=12, height=8, density_multiplier=40.0, n_steps=128, sun_steps=48,
+               sample_step=1.0 / 64.0, remat_chunk=16,
+               sun_cos_half_angle=math.cos(math.radians(0.53) / 2.0))
+
+
+def _diff_scene(eye=(2.5, -0.4, 0.0), res=12):
+    d = np.zeros((res,) * 3, np.float32)
+    d[3:-3, 3:-3, 3:-3] = np.random.default_rng(0).random((res - 6,) * 3).astype(np.float32)
+    return diff.diff_scene_from_numpy(d / d.max(), np.asarray([-0.3, -0.9, 0.1], np.float32),
+                                      np.asarray(eye, np.float32), np.zeros(3, np.float32),
+                                      np.full(3, 1e6, np.float32), device="cpu")
+
+
+@pytest.fixture(scope="module", params=["baked", "pointwise"])
+def diff_rig(request):
+    """(scene, render arguments, the march's inputs through the plain bake,
+    a random upstream gradient a ray: 0 where the ray misses)."""
+    scene = _diff_scene(eye=(3.0, -0.4, 0.2))
+    kw = dict(DIFF_KW, use_baked_inscatter=request.param == "baked")
+    with torch.no_grad():
+        m = diff.march_setup(scene, kernels=False, **kw)
+    g = torch.from_numpy(np.random.default_rng(1).random(m.hit.shape[0]).astype(np.float32))
+    return scene, kw, m, torch.where(m.hit, g, 0.0).contiguous()
+
+
+def _march_args(scene, m):
+    return (scene.density, m.baked, None if m.to_sun is None else m.to_sun.contiguous(),
+            m.entry.contiguous(), m.dirs.contiguous(), m.p_phase.contiguous(),
+            m.hit.to(torch.uint8), m.meta)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def test_k8b_forward_equals_plain_and_stops_at_the_box_exit(host_lib, diff_rig):
+    scene, kw, m, _ = diff_rig
+    assert bool((~m.hit).any())  # some rays miss the box
+    steps = torch.zeros((m.hit.shape[0], 2), dtype=torch.int32)
+    got = diff.launch_march(*_march_args(scene, m), steps=steps, lib=host_lib)
+    with torch.no_grad():
+        ref = diff.quadrature_march_plain(scene.density, m.baked, m.to_sun, m.entry, m.dirs,
+                                          m.p_phase, m.meta, kw["remat_chunk"])
+    assert _rel(got[m.hit], ref[m.hit]) <= 1e-6
+    assert bool((got[~m.hit] == 0).all())
+    # Every ray that hits stops at the box exit, before the last step; the
+    # in-scatter is read on the steps with sigma != 0.
+    assert bool((steps[m.hit, 0] > 0).all()) and int(steps[:, 0].max()) < m.meta.n_steps
+    assert bool((steps[:, 1] <= steps[:, 0]).all()) and int(steps[:, 1].sum()) > 0
+
+
+def test_k8b_adjoint_equals_autograd(host_lib, diff_rig):
+    scene, kw, m, g = diff_rig
+    args = _march_args(scene, m)
+    rad = diff.launch_march(*args, lib=host_lib)
+    got = diff.launch_march_bwd(*args[:7], rad, g, m.meta, lib=host_lib)
+    names = ["density", "entry", "dirs", "p_phase", "baked" if m.baked is not None else "to_sun"]
+    leaves = {n: (getattr(scene, n) if n == "density" else getattr(m, n)).detach().clone()
+              .requires_grad_(True) for n in names}
+    ref = diff.quadrature_march_plain(
+        leaves["density"], leaves.get("baked"), leaves.get("to_sun"), leaves["entry"],
+        leaves["dirs"], leaves["p_phase"], m.meta, kw["remat_chunk"])
+    want = dict(zip(names, torch.autograd.grad(ref, list(leaves.values()), g)))
+    for name in names:
+        assert _rel(getattr(got, name), want[name]) <= 1e-5, name
+    # The replay's R - prefix on the deepest rays: each ray's d/d entry and
+    # d/d dirs against autograd's, relative to that ray's largest.
+    steps = torch.zeros((m.hit.shape[0], 2), dtype=torch.int32)
+    diff.launch_march(*args, steps=steps, lib=host_lib)
+    deep = torch.argsort(steps[:, 0], descending=True)[:8]
+    for name in ("entry", "dirs"):
+        a, b = getattr(got, name)[deep], want[name][deep]
+        assert float(((a - b).abs().amax(1) / b.abs().amax(1).clamp_min(1e-30)).max()) <= 1e-4, name
+
+
+def test_k8b_adjoint_of_missed_and_axis_parallel_rays_is_finite(host_lib):
+    """An eye on the x axis (the centre pixel's ray has zero y and z
+    components) far enough that the frame's border rays miss: every
+    gradient finite, exactly 0 on the rays that miss."""
+    scene = _diff_scene(eye=(3.0, 0.0, 0.0))
+    for baked in (True, False):
+        with torch.no_grad():
+            m = diff.march_setup(scene, kernels=False,
+                                 **dict(DIFF_KW, use_baked_inscatter=baked))
+        assert bool(((m.dirs[:, 1] == 0) & (m.dirs[:, 2] == 0)).any())
+        assert bool((~m.hit).any())
+        args = _march_args(scene, m)
+        rad = diff.launch_march(*args, lib=host_lib)
+        got = diff.launch_march_bwd(*args[:7], rad, torch.ones_like(rad), m.meta, lib=host_lib)
+        for t in got:
+            assert t is None or bool(torch.isfinite(t).all())
+        assert bool((got.entry[~m.hit] == 0).all()) and bool((got.p_phase[~m.hit] == 0).all())
+
+
+def test_k8a_equals_autograd_of_the_plain_bake(host_lib):
+    """K8a on an upstream gradient of every voxel (a quarter of them 0)
+    against autograd of the plain bake: the density gradient (summed in
+    float64 by both) within 1e-6 of its largest value, the light's 1e-5."""
+    scene = _diff_scene()
+    density = scene.density
+    sun_n = scene.sun_dir / torch.linalg.norm(scene.sun_dir)
+    bbox, light, dm, step = diff._bbox_host(density.shape), tuple(sun_n.tolist()), 40.0, 1 / 64
+    trans = inscatter.launch_bake(density, bbox, light, step, dm, False, lib=host_lib)
+    rng = np.random.default_rng(2)
+    g = torch.from_numpy((rng.random(density.numel()) * (rng.random(density.numel()) > 0.25))
+                         .astype(np.float32))
+    got_d, got_l = diff.launch_bake_adjoint(density, bbox, light, dm, step, trans, g,
+                                            lib=host_lib)
+    dl = density.clone().requires_grad_(True)
+    ll = sun_n.clone().requires_grad_(True)
+    out = diff.bake_inscatter_diff_plain(dl, diff._bbox(density), ll, dm, step)
+    assert _rel(trans.reshape(density.shape), out.detach()) <= 1e-6
+    want_d, want_l = torch.autograd.grad(out, (dl, ll), g.reshape(density.shape))
+    assert _rel(got_d, want_d) <= 1e-6
+    assert _rel(got_l, want_l) <= 1e-5
+
+
+def test_k8a_on_a_block_equals_the_plain_bake_of_the_block(host_lib):
+    """The upstream gradient restricted to a slab of voxels (its x and y
+    faces included) through K8a against autograd of the plain bake of those
+    voxels alone (chip_smoke.py's check at its frame point)."""
+    scene = _diff_scene()
+    density = scene.density
+    sun_n = scene.sun_dir / torch.linalg.norm(scene.sun_dir)
+    bbox, light, dm, step = diff._bbox_host(density.shape), tuple(sun_n.tolist()), 40.0, 1 / 64
+    trans = inscatter.launch_bake(density, bbox, light, step, dm, False, lib=host_lib)
+    block = torch.arange(5 * 144, 7 * 144)  # z = 5, 6
+    g = torch.zeros(density.numel())
+    g[block] = torch.from_numpy(np.random.default_rng(5).random(block.numel()).astype(np.float32))
+    got_d, got_l = diff.launch_bake_adjoint(density, bbox, light, dm, step, trans, g,
+                                            lib=host_lib)
+    dl = density.clone().requires_grad_(True)
+    ll = sun_n.clone().requires_grad_(True)
+    out = diff.bake_inscatter_diff_plain(dl, diff._bbox(density), ll, dm, step, voxels=block)
+    assert _rel(trans[block], out.detach()) <= 1e-6
+    want_d, want_l = torch.autograd.grad(out, (dl, ll), g[block])
+    assert _rel(got_d, want_d) <= 1e-6 and bool((want_d[:, :, 0] != 0).any())
+    assert _rel(got_l, want_l) <= 1e-5
+
+
+def test_sun_march_equals_plain(host_lib):
+    scene = _diff_scene()
+    pos = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (200, 3)).astype(np.float32))
+    to_sun = diff._to_sun(scene.sun_dir).contiguous()
+    steps = torch.zeros(200, dtype=torch.int32)
+    got = diff.launch_sun_march(scene.density, to_sun, pos, 40.0, 48, 1 / 64, steps=steps,
+                                lib=host_lib)
+    leaves = [t.clone().requires_grad_(True) for t in (scene.density, scene.sun_dir, pos)]
+    ref = diff.sun_transmittance_plain(*leaves, 40.0, 48, 1 / 64)
+    assert float((got - ref.detach()).abs().max()) <= 1e-6 and bool((got < 0.9).any())
+    # The samples in the box (a line crosses it once): the march's work.
+    s = torch.tensor([diff._step_distance(1 / 64, j + 1) for j in range(48)])
+    u = (pos[:, None, :] + to_sun * s[:, None]) / diff._bbox(scene.density)
+    inside = ((u >= 0) & (u <= 1)).all(dim=-1).sum(dim=1)
+    assert torch.equal(steps, inside.to(torch.int32)) and int(steps.min()) < 48
+    w = torch.from_numpy(np.random.default_rng(4).random(200).astype(np.float32))
+    d_dens, d_pos, d_ts = diff.launch_sun_march_bwd(scene.density, to_sun, pos, got, w, 40.0, 48,
+                                                    1 / 64, lib=host_lib)
+    want = torch.autograd.grad((ref * w).sum(), leaves)
+    assert _rel(d_dens, want[0]) <= 1e-5 and _rel(d_pos, want[2]) <= 1e-5
+    # d/d sun_dir through the normalisation, as the wrapper's autograd does.
+    sd = scene.sun_dir.clone().requires_grad_(True)
+    (d_sun,) = torch.autograd.grad(diff._to_sun(sd), sd, d_ts)
+    assert _rel(d_sun, want[1]) <= 1e-4
+
+
+@pytest.mark.parametrize("baked", [True, False], ids=["baked", "pointwise"])
+def test_render_and_grads_through_the_kernels(host_lib, monkeypatch, baked):
+    """The autograd Functions over the host build (K3, K8a, K8b) against
+    the plain render's image and gradients of every leaf."""
+    monkeypatch.setattr(cuda_build, "load", lambda name: host_lib)
+    scene = _diff_scene()
+    kw = dict(DIFF_KW, use_baked_inscatter=baked)
+    leaves = [t.clone().requires_grad_(True) for t in scene]
+    img = diff._render(diff.DiffScene(*leaves), kernels=True, **kw)
+    grads = torch.autograd.grad(img.mean(), leaves)
+    ref_img, ref = diff.render_and_grads(scene, device="cpu", **kw)
+    assert _rel(img.detach(), ref_img) <= 1e-6
+    for name, a, b in zip(diff.DiffScene._fields, grads, ref):
+        assert _rel(a, b) <= (1e-5 if name == "density" else 1e-4), name

@@ -55,7 +55,7 @@ def test_import_pulls_in_no_jax():
         "deepestscatter_tpu_torch.train.device_data, deepestscatter_tpu_torch.train.entries, "
         "deepestscatter_tpu_torch.utils.png, deepestscatter_tpu_torch.models.flax_msgpack, "
         "deepestscatter_tpu_torch.render.viewer, deepestscatter_tpu_torch.eval_e2e, "
-        "deepestscatter_tpu_torch.__main__\n"
+        "deepestscatter_tpu_torch.__main__, deepestscatter_tpu_torch.render.diff\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -89,7 +89,8 @@ def test_no_module_imports_jax_or_the_jax_package():
             "data/store.py", "data/records.py", "data/clouds.py",
             "data/scenesetups.py", "data/vdb.py", "data/blosc1.py", "data/datasets.py",
             "train/trainer.py", "train/device_data.py", "train/entries.py", "utils/png.py",
-            "models/flax_msgpack.py", "render/viewer.py", "eval_e2e.py", "__main__.py"} <= names
+            "models/flax_msgpack.py", "render/viewer.py", "eval_e2e.py", "__main__.py",
+            "render/diff.py"} <= names
     bad = [
         (str(f.relative_to(PKG)), m)
         for f in files
@@ -300,3 +301,31 @@ def test_entry_points_default_to_the_card(no_card, tmp_path):
         assert p.parse_args(argv).device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["render", "procedural:8:1", "--out", str(tmp_path)])
+
+
+def test_diff_entry_points_default_to_the_card(no_card):
+    """The differentiable renderer's entry points run on the card unless
+    given ``device="cpu"``."""
+    from deepestscatter_tpu_torch.render import diff
+
+    leaves = (np.zeros((8, 8, 8), np.float32), np.asarray([-0.3, -0.9, 0.1], np.float32),
+              np.asarray([2.0, -0.3, 0.0], np.float32), np.zeros(3, np.float32),
+              np.full(3, 1e6, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        diff.diff_scene_from_numpy(*leaves)
+    scene = diff.diff_scene_from_numpy(*leaves, device="cpu")
+    kw = dict(width=4, height=2, n_steps=8, remat_chunk=8, sun_steps=4)
+    pos = torch.full((2, 3), 0.5)
+    bbox = torch.ones(3)
+    for call in (lambda **d: diff.render_single_scatter(scene, **kw, **d),
+                 lambda **d: diff.render_and_grads(scene, **kw, **d),
+                 lambda **d: diff.bake_inscatter_diff(scene.density, bbox, -scene.sun_dir,
+                                                      100.0, 1.0 / 8.0, **d),
+                 lambda **d: diff.sun_transmittance(scene.density, scene.sun_dir, pos, 100.0, 4,
+                                                    **d)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        out = call(device="cpu")
+        for t in (out if isinstance(out, tuple) else (out,)):
+            for leaf in (t if isinstance(t, tuple) else (t,)):
+                assert bool(torch.isfinite(leaf).all())

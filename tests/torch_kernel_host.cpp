@@ -1,7 +1,8 @@
 // Host build of the path-trace (K4, and K7b: its per-pixel experiment
 // bases and deferred scatters), in-scatter bake (K3), camera march (K1),
 // descriptor (K2), probe interpolation (K5), scatter-sample (K7a, its
-// rounds of attempts) and batch-assembly (K10) kernels' device functions, for
+// rounds of attempts), batch-assembly (K10), adjoint-bake (K8a) and
+// quadrature-march (K8b) kernels' device functions, for
 // tests/test_torch_kernel_host.py:
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off -DDS_HOST_EMULATION
@@ -9,8 +10,10 @@
 //       -I deepestscatter_tpu_torch/csrc tests/torch_kernel_host.cpp
 //
 // It exports ds_pathtrace, ds_radiance, ds_bake, ds_march, ds_descriptor,
-// ds_probes, ds_samples, ds_assemble_disney and ds_assemble_baked with the
-// signatures of the device entry points,
+// ds_probes, ds_samples, ds_assemble_disney, ds_assemble_baked,
+// ds_bake_adjoint, ds_diff_march, ds_diff_march_bwd, ds_sun_march and
+// ds_sun_march_bwd with the signatures of the device entry points (the
+// atomics of K8a and K8b as plain adds),
 // so the wrappers' _launch drives it on CPU tensors; host_set_pathtrace,
 // host_set_radiance, host_set_bake, host_set_march, host_set_descriptor,
 // host_set_probes and host_set_samples choose what they compute.
@@ -26,6 +29,7 @@
 #include "probes.cu"
 #include "samples.cu"
 #include "assemble.cu"
+#include "diff.cu"
 
 namespace {
 
@@ -610,6 +614,108 @@ int ds_assemble_baked(const void* probes, const void* rt, const float* powers,
     omega_out[i] = omega[r];
     alpha_out[i] = alpha[r];
     lab[i] = labels[r];
+  }
+  return 0;
+}
+
+// K8a, K8b and the sun march: the device functions over every item, one
+// after the other; K8a's light gradient summed a block of kDiffThreads
+// voxels into each partial row.
+int ds_diff_threads() { return ds::diff::kDiffThreads; }
+
+int ds_bake_adjoint(const float* dens, int nx, int ny, int nz, const float* consts,
+                    int n_steps, const float* trans, const float* gbar, double* d_dens,
+                    float* partials, void* /*stream*/) {
+  const int64_t n = (int64_t)nx * ny * nz;
+  const ds::diff::AdjConsts c = ds::diff::adj_consts(nx, ny, nz, consts);
+  for (int64_t b = 0; b * ds::diff::kDiffThreads < n; ++b) {
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+    for (int64_t v = b * ds::diff::kDiffThreads;
+         v < n && v < (b + 1) * ds::diff::kDiffThreads; ++v) {
+      float dl[3] = {0.0f, 0.0f, 0.0f};
+      ds::diff::bake_adjoint_voxel(v, dens, c, n_steps, trans[v], gbar[v], d_dens, dl);
+      for (int a = 0; a < 3; ++a) acc[a] += dl[a];
+    }
+    for (int a = 0; a < 3; ++a) partials[3 * b + a] = acc[a];
+  }
+  return 0;
+}
+
+int ds_diff_march(const float* dens, const float* baked, const float* to_sun, int nx, int ny,
+                  int nz, const float* consts, int n_steps, int sun_steps, const float* entry,
+                  const float* dirs, const float* phase, const uint8_t* hit, int64_t n,
+                  float* rad, int* steps, void* /*stream*/) {
+  const ds::diff::MarchConsts c =
+      ds::diff::march_consts(nx, ny, nz, consts, n_steps, sun_steps, baked != nullptr);
+  for (int64_t r = 0; r < n; ++r) {
+    int counts[2] = {0, 0};
+    rad[r] = 0.0f;
+    if (hit[r]) {
+      const float ts0[3] = {0.0f, 0.0f, 0.0f};
+      rad[r] = ds::diff::march_ray(dens, baked, c, baked ? ts0 : to_sun, entry + 3 * r,
+                                   dirs + 3 * r, phase[r], counts);
+    }
+    if (steps != nullptr) {
+      steps[2 * r] = counts[0];
+      steps[2 * r + 1] = counts[1];
+    }
+  }
+  return 0;
+}
+
+int ds_diff_march_bwd(const float* dens, const float* baked, const float* to_sun, int nx,
+                      int ny, int nz, const float* consts, int n_steps, int sun_steps,
+                      const float* entry, const float* dirs, const float* phase,
+                      const uint8_t* hit, const float* rad, const float* g_rad, int64_t n,
+                      float* d_dens, float* d_baked, float* d_entry, float* d_dirs,
+                      float* d_phase, float* d_ts, void* /*stream*/) {
+  const ds::diff::MarchConsts c =
+      ds::diff::march_consts(nx, ny, nz, consts, n_steps, sun_steps, baked != nullptr);
+  for (int64_t r = 0; r < n; ++r) {
+    float de[3] = {0.0f, 0.0f, 0.0f}, dd[3] = {0.0f, 0.0f, 0.0f}, dts[3] = {0.0f, 0.0f, 0.0f};
+    float dphase = 0.0f;
+    if (hit[r] && g_rad[r] != 0.0f) {
+      const float ts0[3] = {0.0f, 0.0f, 0.0f};
+      dphase = ds::diff::march_ray_adjoint(dens, baked, c, baked ? ts0 : to_sun, entry + 3 * r,
+                                           dirs + 3 * r, phase[r], rad[r], g_rad[r], d_dens,
+                                           d_baked, de, dd, dts);
+    }
+    for (int a = 0; a < 3; ++a) {
+      d_entry[3 * r + a] = de[a];
+      d_dirs[3 * r + a] = dd[a];
+      if (d_ts != nullptr) d_ts[3 * r + a] = dts[a];
+    }
+    d_phase[r] = dphase;
+  }
+  return 0;
+}
+
+int ds_sun_march(const float* dens, const float* to_sun, int nx, int ny, int nz,
+                 const float* consts, int n_steps, const float* pos, int64_t n, float* out,
+                 int* steps, void* /*stream*/) {
+  const ds::diff::Grid3 g = ds::diff::grid3(nx, ny, nz, consts);
+  for (int64_t r = 0; r < n; ++r) {
+    int n_in;
+    out[r] = ds::diff::sun_march(dens, g, consts[3], consts[4], n_steps, pos + 3 * r, to_sun,
+                                 &n_in);
+    if (steps != nullptr) steps[r] = n_in;
+  }
+  return 0;
+}
+
+int ds_sun_march_bwd(const float* dens, const float* to_sun, int nx, int ny, int nz,
+                     const float* consts, int n_steps, const float* pos, const float* trans,
+                     const float* g_trans, int64_t n, float* d_dens, float* d_pos, float* d_ts,
+                     void* /*stream*/) {
+  const ds::diff::Grid3 g = ds::diff::grid3(nx, ny, nz, consts);
+  for (int64_t r = 0; r < n; ++r) {
+    float dq[3] = {0.0f, 0.0f, 0.0f}, dts[3] = {0.0f, 0.0f, 0.0f};
+    ds::diff::sun_march_adjoint(dens, g, consts[3], consts[4], n_steps, pos + 3 * r, to_sun,
+                                trans[r], g_trans[r], d_dens, dq, dts);
+    for (int a = 0; a < 3; ++a) {
+      d_pos[3 * r + a] = dq[a];
+      d_ts[3 * r + a] = dts[a];
+    }
   }
   return 0;
 }
