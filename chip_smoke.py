@@ -9,7 +9,8 @@ Phases, one output line each:
 
 1. ``env`` / ``build``: the card, torch and CUDA versions; the kernels
    built from ``deepestscatter_tpu_torch/csrc`` (one nvcc per source, in
-   parallel, P1's designs included) with their ptxas register reports.
+   parallel, P1's designs and the first designs of K8a and K8b's adjoint
+   included) with their ptxas register reports.
 2. ``K3`` / ``K1`` / ``K2``: each kernel against its plain PyTorch version
    at the operating point's shapes, with the tolerance it must meet, its
    time (CUDA events), the plain version's time and the work counts its
@@ -194,7 +195,10 @@ Phases, one output line each:
     forward (K3, ``early_out=0``) bitwise equal to the plain bake there and
     at the frame point, the sun march within 1e-6 (T) and its gradients,
     K8a and K8b each against autograd of its plain version on the same
-    inputs; the card against the plain version on the CPU on a 16^3 crop,
+    inputs, and K8b's replay (the running prefix R - C) on the 64 rays with
+    the most steps with sigma != 0 within 1e-4 of each ray's largest d/d
+    entry and d/d dirs, at both points; the card against the plain version
+    on the CPU on a 16^3 crop,
     both modes, at the same tolerances; at the frame point the image and
     gradients finite, the density, sun and eye gradients nonzero, the image
     bitwise equal over two runs and the gradients within 1e-5 (atomics),
@@ -206,8 +210,13 @@ Phases, one output line each:
     within 5 %, median pixel error below 0.1).  It prints the forward and
     forward + backward times at both points, the plain version's time and
     peak memory at the defaults point, each kernel's time (CUDA events)
-    beside its bound and its plain version's, and peak memory.  The kernels
-    line's K8a and K8b rows are at the defaults point, baked.
+    beside its bound and its plain version's, K8a's and K8b's adjoint's
+    beside their first designs timed in turns in the same call
+    (``csrc/diff_variants.cu``: a thread a voxel, a thread a ray; timed by
+    ``probes/march_variants.py::against_first``, the host enqueueing ahead
+    behind a spin kernel that must outlast it) with the largest
+    difference of each output from theirs, and peak memory.  The
+    kernels line's K8a and K8b rows are at the defaults point, baked.
 
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
@@ -358,6 +367,9 @@ K8B_SUN_BWD_OPS_PER_STEP = 150
 #: to a slab of z-slices.
 FRAME_CHECK_RAYS = 2048
 FRAME_CHECK_SLICES = 4
+#: The R - prefix replay's error on the deepest rays, relative to each
+#: ray's largest value: K8b's adjoint's tolerance for d/d entry and d/d dirs.
+REPLAY_TOL = 1e-4
 
 
 class Failed(Exception):
@@ -466,8 +478,9 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
                 bound_by="bytes" if tb >= to else "operations", library_ms=library_ms)
 
 
-#: Sources built beside the package's: P1's designs (probes.gather.variants).
-EXTRA_SOURCES = ("gather_variants",)
+#: Sources built beside the package's: P1's designs (probes.gather.variants)
+#: and the first designs of K8a and K8b's adjoint (csrc/diff_variants.cu).
+EXTRA_SOURCES = ("gather_variants", "diff_variants")
 
 
 def phase_build(cuda_build) -> None:
@@ -2400,7 +2413,7 @@ def deepest_replay(label, steps, back, ref_back, rays, n: int = 64) -> None:
     """The R - prefix replay on the ``n`` rays of ``rays`` with the most
     steps with sigma != 0 (the most terms in the prefix): each ray's d/d
     entry and d/d dirs against the plain version's (``ref_back``, indexed
-    as ``rays``), relative to that ray's largest."""
+    as ``rays``), relative to that ray's largest, within REPLAY_TOL."""
     order = torch.argsort(steps[rays, 1], descending=True)[:n]
     deep = rays[order]
     per_ray = max(
@@ -2410,7 +2423,9 @@ def deepest_replay(label, steps, back, ref_back, rays, n: int = 64) -> None:
     print(f"{label}: K8b replay (R - prefix) on the {n} rays with the most steps with sigma != 0 "
           f"({int(steps[deep, 1].min())}-{int(steps[deep, 1].max())}; "
           f"{int(steps[deep, 0].min())}-{int(steps[deep, 0].max())} in the box): max per-ray "
-          f"relative err of d/d entry and d/d dirs={per_ray:.3g}", flush=True)
+          f"relative err of d/d entry and d/d dirs={per_ray:.3g} (tol {REPLAY_TOL:g})", flush=True)
+    require(per_ray <= REPLAY_TOL, f"{label}: K8b's replay error {per_ray:.3g} on the deepest rays "
+            f"is past {REPLAY_TOL:g}")
 
 
 def diff_kernel_rows(diff, ins_ops, scene, kw, launches, sun_leaves, sun_w, sun_args) -> list:
@@ -2418,6 +2433,8 @@ def diff_kernel_rows(diff, ins_ops, scene, kw, launches, sun_leaves, sun_w, sun_
     the defaults point, baked: each against its plain version on the same
     inputs, its time by CUDA events, the plain version's and the bound from
     the steps this data needs."""
+    from deepestscatter_tpu_torch.probes.march_variants import against_first
+
     m, args, g_rad, steps, rad, back = diff_kernel_inputs(
         diff, scene, dict(kw, use_baked_inscatter=True))
     meta = m.meta
@@ -2460,9 +2477,6 @@ def diff_kernel_rows(diff, ins_ops, scene, kw, launches, sun_leaves, sun_w, sun_
     errs_a = rel_errors([("density", adj[0], ref_adj[0]), ("light_dir", adj[1], ref_adj[1])])
     check_errors("diff K8a against autograd of the plain bake", errs_a,
                  {"density": 1e-4, "light_dir": 1e-3})
-    ms_a = time_ms(lambda: diff.launch_bake_adjoint(density, meta.bbox, light,
-                                                    meta.density_multiplier, meta.step, trans,
-                                                    gbar), 5)
     voxels_g = int((gbar != 0).sum().item())
     steps_a = voxels_g * ins_ops.bake_steps(meta.step, False)
 
@@ -2473,7 +2487,9 @@ def diff_kernel_rows(diff, ins_ops, scene, kw, launches, sun_leaves, sun_w, sun_
         "diff defaults", diff, m, args, rad, g_rad, hit_rays, kw["remat_chunk"], back=back)
     deepest_replay("diff defaults", steps, back, ref_back, hit_rays)
     ms_f = time_ms(lambda: diff.launch_march(*args), 20)
-    ms_b = time_ms(lambda: diff.launch_march_bwd(*args[:7], rad, g_rad, meta), 20)
+    first = against_first((density, meta.bbox, light, meta.density_multiplier, meta.step, trans,
+                           gbar), (*args[:7], rad, g_rad, meta), 5, 20)
+    ms_a, ms_b = first["ms_a"], first["ms_b"]
 
     # The sun march on its own, at the main path's voxel centres.
     dens_s, sun_s, pos_s = (t.detach() for t in sun_leaves)
@@ -2502,10 +2518,13 @@ def diff_kernel_rows(diff, ins_ops, scene, kw, launches, sun_leaves, sun_w, sun_
     grid_b = v * 4
     ops_f, ops_b = k8b_ops(steps)
     print(f"diff kernels (defaults point, baked; {card_line()}): K8a ms={ms_a:.4f} "
+          f"(first design {first['ms_a_first']:.4f} in turns) "
           f"voxels_with_gradient={voxels_g} of {v} voxel_steps={steps_a} plain_ms={plain_a:.1f}; "
           f"K8b rays={n} steps_in_box={n_in} steps_with_sigma={int(steps[:, 1].sum())} "
           f"forward_ms={ms_f:.4f} plain_ms={plain_f:.1f} "
-          f"adjoint_ms={ms_b:.4f} plain_forward+backward_ms={plain_b:.1f}; sun march "
+          f"adjoint_ms={ms_b:.4f} (first design {first['ms_b_first']:.4f} in turns) "
+          f"plain_forward+backward_ms={plain_b:.1f}; against the first designs "
+          f"{json.dumps({k: float(f'{e:.3g}') for k, e in first['rel_err'].items()})}; sun march "
           f"points={pos_s.shape[0]} steps={steps_s} ms={ms_s:.4f} plain_ms={plain_s:.1f} "
           f"adjoint_ms={ms_sb:.4f} plain_forward+backward_ms={plain_sb:.1f}", flush=True)
     ray_in = n * (12 + 12 + 4 + 1 + 4)
@@ -2545,6 +2564,8 @@ def diff_frame_kernels(diff, ins_ops, scene, kw) -> None:
     FRAME_CHECK_SLICES z-slices where it is most often nonzero (each
     march's clamped samples on the box's faces, the float32 slope of the
     light gradient)."""
+    from deepestscatter_tpu_torch.probes.march_variants import against_first
+
     m, args, g_rad, steps, rad, back = diff_kernel_inputs(diff, scene, kw)
     meta = m.meta
     density = scene.density
@@ -2558,11 +2579,10 @@ def diff_frame_kernels(diff, ins_ops, scene, kw) -> None:
     trans = bake()
     gbar = back.baked.reshape(-1).contiguous()
     ms3 = time_ms(bake, 3)
-    ms_a = time_ms(lambda: diff.launch_bake_adjoint(density, meta.bbox, light,
-                                                    meta.density_multiplier, meta.step, trans,
-                                                    gbar), 3)
+    first = against_first((density, meta.bbox, light, meta.density_multiplier, meta.step, trans,
+                           gbar), (*args[:7], rad, g_rad, meta), 3, 5)
+    ms_a, ms_b = first["ms_a"], first["ms_b"]
     ms_f = time_ms(lambda: diff.launch_march(*args), 5)
-    ms_b = time_ms(lambda: diff.launch_march_bwd(*args[:7], rad, g_rad, meta), 5)
     n_in, n_lit = (int(x) for x in steps.to(torch.int64).sum(dim=0).tolist())
     ops_f, ops_b = k8b_ops(steps)
     voxels_g = int((gbar != 0).sum().item())
@@ -2572,9 +2592,12 @@ def diff_frame_kernels(diff, ins_ops, scene, kw) -> None:
     bb = ops_b / F32_OPS_PER_S * 1e3
     print(f"diff kernels (frame point; {card_line()}): K3 forward ms={ms3:.3f} "
           f"(voxels={v} steps={n_bake} bound_ms={b3:.3f}); K8a ms={ms_a:.3f} "
-          f"(voxels_with_gradient={voxels_g} bound_ms={ba:.3f}); K8b rays={m.entry.shape[0]} "
+          f"(first design {first['ms_a_first']:.3f} in turns; "
+          f"voxels_with_gradient={voxels_g} bound_ms={ba:.3f}); K8b rays={m.entry.shape[0]} "
           f"hit={int(m.hit.sum())} steps_in_box={n_in} steps_with_sigma={n_lit} "
-          f"forward_ms={ms_f:.3f} (bound_ms={bf:.4f}) adjoint_ms={ms_b:.3f} (bound_ms={bb:.4f})",
+          f"forward_ms={ms_f:.3f} (bound_ms={bf:.4f}) adjoint_ms={ms_b:.3f} "
+          f"(first design {first['ms_b_first']:.3f} in turns; bound_ms={bb:.4f}); against the first "
+          f"designs {json.dumps({k: float(f'{e:.3g}') for k, e in first['rel_err'].items()})}",
           flush=True)
 
     # K8b on the rays with the most steps with sigma != 0, against the plain

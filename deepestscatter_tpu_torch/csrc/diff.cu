@@ -55,26 +55,62 @@
 // box exit, after which every term is an exact 0; a bake voxel with g == 0
 // does no step), from the counts ds_diff_march and ds_sun_march report.
 //
-// The design: a thread a voxel (K8a) or a ray (K8b), scattering by
-// atomicAdd into device memory.  K8a's first form, eight atomics a
-// voxel-step, spent seconds at chip_smoke.py's frame point (256^3 cumulus,
-// 889 steps, 2.6 M voxels with a gradient) on the box's face texels, and
-// lost the density gradient there in float32 (every march that
-// leaves the box adds its clamped samples to a face texel, against float64
-// sums).  It now sums in float64 and merges its atomics along runs of steps
-// that read the same texels (bake_adjoint_voxel).  A gather for K8a
-// (for a fixed step every voxel's sample is the same translate, so
-// d/d density is a transposed 2x2x2 stencil summed over the steps, clamped
-// at the faces) would be deterministic and free of atomics: the candidate
-// for its next redesign.
+// The design.  K8b's forward and the sun march run a thread a ray or
+// point.  The two adjoints were redesigned for the card; their first forms,
+// a thread a voxel and a thread a ray, stay as bake_adjoint_voxel and
+// march_ray_adjoint: the per-item statements of what they compute, and the
+// designs csrc/diff_variants.cu times them against.
+//
+//   K8a, a block an x-row segment (K3's row form, csrc/inscatter.cu), a
+//   warp 32 V contiguous voxels of it, V = kAdjVoxels a thread.  At step i
+//   every voxel of row (y, z) samples the same y and z: the row's y/z
+//   cells, weights, slopes and the four density rows (z0|z1) x (y0|y1) the
+//   taps read are computed once a row-step (adj_row_step).  A voxel sums
+//   its weights along a run of steps in one cell in registers
+//   (bake_adjoint_voxel's runs: the same float32 values, float64 sums) and
+//   adds drho times them by float64 atomics when the run ends; its slope,
+//   for the light gradient, regroups taps_slope's sum (the rows' x
+//   differences, the rows interpolated along x and differenced in y and
+//   z: a third of the operations).  A warp whose voxels have no gradient
+//   leaves at once; the taps come from the grid through L1.
+//   Measured against the first design, in the same run
+//   (probes/march_variants.py, chip_smoke.py): about a sixth faster at
+//   256^3.  Summing the runs in a float64 accumulator of the four rows in
+//   shared memory, flushed when (y0, z0) changes, was slower than the
+//   first design (60.4 ms against 43.1 at 256^3; PERF.md) and is not
+//   kept: shared float64 atomics are compare-and-swap loops, and plain
+//   read-modify-writes after a warp's merge of lanes on one texel are
+//   latency chains, where the global atomics are fire and forget.
+//   K8b's adjoint, G lanes a ray (K1's form, csrc/march.cu; G = 32 where
+//   every ray's 32 lanes fit the card's thread slots at once, else 8,
+//   ds_diff_lanes; so a ray's float32 sums take another order past that
+//   count of rays):
+//   lane l takes step c * G + l of chunk c.  The chunk's in-box span comes
+//   from a ballot, tau, the prefix C and dP from the lanes' values in step
+//   order (lane_fold: the additions of the per-ray loop, in its order), so
+//   every per-step value equals march_ray_adjoint's.  A cell spans about two
+//   steps at 256^3 (four at the defaults point), so consecutive lanes often
+//   scatter into the same eight texels: a segmented scan over the group
+//   sums them (group_deposit) and the last lane of each run of equal cells
+//   does the eight atomics.  The first design, a thread a ray, lost about half its time
+//   to its atomics' texel contention.
 #include "common.cuh"
 
 namespace ds {
 namespace diff {
 
-// Threads a block of every diff kernel; ds_bake_adjoint writes one row of
-// light-gradient partials a block.
+// Threads a block of the march and sun-march kernels, and the most a block
+// of K8a's row kernel.
 constexpr int kDiffThreads = 128;
+// K8a: voxels a thread of its row kernel.  K8b's adjoint: lanes a ray,
+// kDiffLanesFew where rays x kDiffLanesFew threads fit the card's thread
+// slots, else kDiffLanes.  Measured (probes/march_variants.py, H100 at
+// 700 W): 32 lanes 0.057 ms against 8 lanes' 0.104 on the defaults point's
+// 2,048 rays; on the 256^3 frame's march at 16,384 to 131,072 rays 8 lanes
+// are 9-28 % faster than 32 (16 lanes within 4 % of 8).
+constexpr int kAdjVoxels = 2;
+constexpr int kDiffLanes = 8;
+constexpr int kDiffLanesFew = 32;
 
 // *p += v: an atomicAdd on the card, a plain add in the host build.  A
 // zero adds nothing and is skipped.
@@ -85,6 +121,28 @@ __device__ __forceinline__ void add_to(G* p, float v) {
   *p += (G)v;
 #else
   atomicAdd(p, (G)v);
+#endif
+}
+
+// The grid scatters of the march's adjoint go through an Add (add(p, v):
+// *p += v); the package's is add_to.  csrc/diff_variants.cu aims them
+// elsewhere, so that probes/march_variants.py splits the adjoint's time.
+struct AddTo {
+  template <typename G>
+  __device__ __forceinline__ void operator()(G* p, float v) const {
+    add_to(p, v);
+  }
+};
+
+__device__ __forceinline__ unsigned group_bits(int n) {
+  return n >= 32 ? 0xffffffffu : (1u << n) - 1u;
+}
+
+__device__ __forceinline__ int lowest_lane(unsigned bits) {
+#ifdef DS_HOST_EMULATION
+  return __builtin_ctz(bits);
+#else
+  return __ffs(bits) - 1;
 #endif
 }
 
@@ -176,16 +234,23 @@ __device__ __forceinline__ void taps_slope(const float* __restrict__ grid, const
   du[2] = gz * t.sz;
 }
 
-// Adds s * w_k to the eight texels, and returns d (s * sample) / d p.
-template <typename G>
-__device__ __forceinline__ void taps_adjoint(const float* __restrict__ grid, const Grid3& g,
-                                             const Taps& t, float s, G* d_grid, float* dp) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) add_to(d_grid + t.idx[k], s * t.w[k]);
+// d (s * sample) / d p into dp.
+__device__ __forceinline__ void taps_point_slope(const float* __restrict__ grid, const Grid3& g,
+                                                 const Taps& t, float s, float* dp) {
   float du[3];
   taps_slope(grid, t, du);
 #pragma unroll
   for (int a = 0; a < 3; ++a) dp[a] = div_exact(s * du[a], g.bbox[a], g.inv_bbox[a]);
+}
+
+// Adds s * w_k to the eight texels, and returns d (s * sample) / d p.
+template <typename G, class Add>
+__device__ __forceinline__ void taps_adjoint(const float* __restrict__ grid, const Grid3& g,
+                                             const Taps& t, float s, G* d_grid, float* dp,
+                                             const Add& add) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) add(d_grid + t.idx[k], s * t.w[k]);
+  taps_point_slope(grid, g, t, s, dp);
 }
 
 __device__ __forceinline__ void unit_coords(const Grid3& g, const float* p, float* u) {
@@ -231,11 +296,12 @@ __device__ __forceinline__ float sun_march(const float* __restrict__ dens, const
 
 // The sun march's adjoint for upstream gT at T: density texels by atomics,
 // d/dq into dq and d/d to_sun into dts (both added to).
+template <class Add>
 __device__ __forceinline__ void sun_march_adjoint(const float* __restrict__ dens,
                                                   const Grid3& g, float step, float dm, int n,
                                                   const float* q, const float* ts, float T,
                                                   float gT, float* d_dens, float* dq,
-                                                  float* dts) {
+                                                  float* dts, const Add& add) {
   // dtau = -gT T; dsigma_j = dtau step; d sample_j = dsigma_j dm.
   const float drho = ((-(gT * T)) * step) * dm;
   if (drho == 0.0f) return;
@@ -251,7 +317,7 @@ __device__ __forceinline__ void sun_march_adjoint(const float* __restrict__ dens
     }
     was_in = true;
     float dp[3];
-    taps_adjoint(dens, g, taps_at(g, u[0], u[1], u[2]), drho, d_dens, dp);
+    taps_adjoint(dens, g, taps_at(g, u[0], u[1], u[2]), drho, d_dens, dp, add);
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       dq[a] += dp[a];
@@ -295,11 +361,11 @@ struct Step {
   float q[3];  // the NEE point
 };
 
-// Step i of the ray (entry e, direction d) at optical depth tau; false
-// where the sample lies outside the box (sigma = 0 there, an exact 0 term).
-__device__ __forceinline__ bool step_at(const float* __restrict__ dens, const MarchConsts& c,
-                                        const float* e, const float* d, int i, float tau,
-                                        Step& st) {
+// Step i of the ray (entry e, direction d) but its view transmittance
+// st.tv (the one value that carries from step to step); false where the
+// sample lies outside the box (sigma = 0 there, an exact 0 term).
+__device__ __forceinline__ bool step_sample(const float* __restrict__ dens, const MarchConsts& c,
+                                            const float* e, const float* d, int i, Step& st) {
   st.s = c.step * (float)(i + 1);
   const float p[3] = {e[0] + d[0] * st.s, e[1] + d[1] * st.s, e[2] + d[2] * st.s};
   float u[3];
@@ -307,7 +373,6 @@ __device__ __forceinline__ bool step_at(const float* __restrict__ dens, const Ma
   if (!inside_unit(u)) return false;
   st.tp = taps_at(c.g, u[0], u[1], u[2]);
   st.sigma = taps_value(dens, st.tp) * c.dm;
-  st.tv = expf(-tau);
   st.e1 = expf(-st.sigma * c.step);
   st.seg = 1.0f - st.e1;
   // The free-flight mean point within the segment, diff.py:217-223.
@@ -321,6 +386,15 @@ __device__ __forceinline__ bool step_at(const float* __restrict__ dens, const Ma
   const float back = c.step - st.mean_x;
 #pragma unroll
   for (int a = 0; a < 3; ++a) st.q[a] = p[a] - d[a] * back;
+  return true;
+}
+
+// step_sample at optical depth tau.
+__device__ __forceinline__ bool step_at(const float* __restrict__ dens, const MarchConsts& c,
+                                        const float* e, const float* d, int i, float tau,
+                                        Step& st) {
+  if (!step_sample(dens, c, e, d, i, st)) return false;
+  st.tv = expf(-tau);
   return true;
 }
 
@@ -382,13 +456,73 @@ __device__ __forceinline__ float march_ray(const float* __restrict__ dens,
   return rad;
 }
 
-// The ray's adjoint for upstream g at the forward's radiance R: density
-// (and baked-grid) texels by atomics; d/d entry, d/d dirs, d/d to_sun
-// (pointwise) added to de, dd, dts; returns d/d phase.
+// Step st's adjoint, for upstream g at the forward's radiance R, given its
+// in-scatter S (baked: taps tq) and the prefix C through it: the density
+// texels' values (at st.tp.idx) into vd[8], the baked grid's (at tq.idx;
+// zeros where nothing is scattered) into vb[8]; the pointwise sun march's
+// density adjoint through add; d/d entry, d/d dirs, d/d to_sun added to
+// de, dd, dts.
+template <class Add>
+__device__ __forceinline__ void step_adjoint(const float* __restrict__ dens,
+                                             const float* __restrict__ baked,
+                                             const MarchConsts& c, const float* ts,
+                                             const float* d, float phase, float R, float g,
+                                             const Step& st, float S, const Taps& tq, float C,
+                                             float* d_dens, float* vd, float* vb, float* de,
+                                             float* dd, float* dts, const Add& add) {
+  const float tvseg = st.tv * st.seg;
+  // Through the later steps' view transmittance, and the segment weight.
+  float dsigma = g * ((-c.step) * (R - C)) +
+                 g * ((((st.tv * (st.e1 * c.step)) * S) * phase) * c.sun_ratio);
+  const float dS = ((tvseg * phase) * c.sun_ratio) * g;
+  float dp[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) vb[k] = 0.0f;
+  if (dS != 0.0f) {
+    float dq[3] = {0.0f, 0.0f, 0.0f};
+    if (c.baked) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) vb[k] = dS * tq.w[k];
+      taps_point_slope(baked, c.g, tq, dS, dq);
+    } else {
+      sun_march_adjoint(dens, c.g, c.step, c.dm, c.sun_steps, st.q, ts, S, dS, d_dens, dq, dts,
+                        add);
+    }
+    // q = p - d (step - mean_x).
+    const float back = c.step - st.mean_x;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      dp[a] += dq[a];
+      dd[a] += dq[a] * (-back);
+    }
+    if (st.sigma > 1e-6f) {  // sig = max(sigma, 1e-6)
+      const float dmean = (dq[0] * d[0] + dq[1] * d[1]) + dq[2] * d[2];
+      dsigma = dsigma + dmean * mean_x_slope(st, c.step);
+    }
+  }
+  const float s = dsigma * c.dm;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) vd[k] = s * st.tp.w[k];
+  float dps[3];
+  taps_point_slope(dens, c.g, st.tp, s, dps);
+  // p = e + d s.
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t = dp[a] + dps[a];
+    de[a] += t;
+    dd[a] += t * st.s;
+  }
+}
+
+// The ray's adjoint for upstream g at the forward's radiance R, a step at a
+// time (the first design: a thread a ray): density (and baked-grid) texels
+// through add; d/d entry, d/d dirs, d/d to_sun (pointwise) added to de,
+// dd, dts; returns d/d phase.
+template <class Add>
 __device__ __forceinline__ float march_ray_adjoint(
     const float* __restrict__ dens, const float* __restrict__ baked, const MarchConsts& c,
     const float* ts, const float* e, const float* d, float phase, float R, float g,
-    float* d_dens, float* d_baked, float* de, float* dd, float* dts) {
+    float* d_dens, float* d_baked, float* de, float* dd, float* dts, const Add& add) {
   float tau = 0.0f, C = 0.0f, dP = 0.0f;
   bool was_in = false;
   for (int i = 0; i < c.n_steps; ++i) {
@@ -403,43 +537,79 @@ __device__ __forceinline__ float march_ray_adjoint(
     const float tvseg = st.tv * st.seg;
     C = C + ((tvseg * S) * phase) * c.sun_ratio;  // the prefix through this step
     dP = dP + (tvseg * S) * c.sun_ratio;
-    // Through the later steps' view transmittance, and the segment weight.
-    float dsigma = g * ((-c.step) * (R - C)) +
-                   g * ((((st.tv * (st.e1 * c.step)) * S) * phase) * c.sun_ratio);
-    const float dS = ((tvseg * phase) * c.sun_ratio) * g;
-    float dp[3] = {0.0f, 0.0f, 0.0f};
-    if (dS != 0.0f) {
-      float dq[3] = {0.0f, 0.0f, 0.0f};
-      if (c.baked) {
-        taps_adjoint(baked, c.g, tq, dS, d_baked, dq);
-      } else {
-        sun_march_adjoint(dens, c.g, c.step, c.dm, c.sun_steps, st.q, ts, S, dS, d_dens, dq,
-                          dts);
-      }
-      // q = p - d (step - mean_x).
-      const float back = c.step - st.mean_x;
+    float vd[8], vb[8];
+    step_adjoint(dens, baked, c, ts, d, phase, R, g, st, S, tq, C, d_dens, vd, vb, de, dd, dts,
+                 add);
+    if (c.baked) {
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        dp[a] += dq[a];
-        dd[a] += dq[a] * (-back);
-      }
-      if (st.sigma > 1e-6f) {  // sig = max(sigma, 1e-6)
-        const float dmean = (dq[0] * d[0] + dq[1] * d[1]) + dq[2] * d[2];
-        dsigma = dsigma + dmean * mean_x_slope(st, c.step);
-      }
+      for (int k = 0; k < 8; ++k) add(d_baked + tq.idx[k], vb[k]);
     }
-    float dps[3];
-    taps_adjoint(dens, c.g, st.tp, dsigma * c.dm, d_dens, dps);
-    // p = e + d s.
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float t = dp[a] + dps[a];
-      de[a] += t;
-      dd[a] += t * st.s;
-    }
+    for (int k = 0; k < 8; ++k) add(d_dens + st.tp.idx[k], vd[k]);
     tau = tau + st.sigma * c.step;
   }
   return dP * g;
+}
+
+// -- the lane form: G lanes a ray, lane l on step c * G + l of chunk c -------
+
+// One lane's step of a chunk: whether it lies in the box, its values (st.tv
+// once the chunk's tau is known) and its in-scatter.
+struct LaneDiff {
+  bool in;
+  Step st;
+  float S;
+  Taps tq;
+};
+
+__device__ __forceinline__ void lane_sample(const float* __restrict__ dens,
+                                            const float* __restrict__ baked,
+                                            const MarchConsts& c, const float* ts,
+                                            const float* e, const float* d, int i,
+                                            LaneDiff& L) {
+  L.in = i < c.n_steps && step_sample(dens, c, e, d, i, L.st);
+  L.S = 0.0f;
+  if (L.in) L.S = t_sun_at(dens, baked, c, ts, L.st.q, &L.tq);
+}
+
+// The steps of a chunk the ray takes: lanes [start, end); ended where the
+// ray left the box in it.  Bit k of `in` is set where lane k's sample lies
+// in the box; before the ray's first such step (was_in false) the lanes
+// out of the box are skipped, after it the first lane out of the box ends
+// the ray (march_ray_adjoint's continue and break).
+struct LaneSpan {
+  int start, end;
+  bool ended;
+};
+
+__device__ __forceinline__ LaneSpan lane_span(unsigned in, bool was_in, int G) {
+  LaneSpan s;
+  s.start = 0;
+  if (!was_in) {
+    if (in == 0u) {
+      s.start = s.end = G;
+      s.ended = false;
+      return s;
+    }
+    s.start = lowest_lane(in);
+  }
+  const unsigned out = ~in & group_bits(G) & ~group_bits(s.start);
+  s.end = out != 0u ? lowest_lane(out) : G;
+  s.ended = out != 0u;
+  return s;
+}
+
+// x0 + x_of(lo) + ... + x_of(hi - 1), in that order, x_of(k) giving lane
+// k's value (a shuffle on the card: every lane calls it for every k).
+template <int G, class X>
+__device__ __forceinline__ float lane_fold(float x0, int lo, int hi, X x_of) {
+  float t = x0;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const float xk = x_of(k);
+    if (k >= lo && k < hi) t = t + xk;
+  }
+  return t;
 }
 
 // ---------------------------------------------------------------------------
@@ -473,9 +643,11 @@ inline AdjConsts adj_consts(int nx, int ny, int nz, const float* k) {
 // replay merges a clamped axis's two taps (one texel), sums each texel's
 // weights in registers while the step's texels are the last step's, and
 // adds drho times the sums once they change (and at the end).
+template <class Add = AddTo>
 __device__ __forceinline__ void bake_adjoint_voxel(int64_t v, const float* __restrict__ dens,
                                                    const AdjConsts& c, int n_steps, float T,
-                                                   float gbar, double* d_dens, float* dl) {
+                                                   float gbar, double* d_dens, float* dl,
+                                                   const Add& add = Add()) {
   if (gbar == 0.0f) return;
   const int x = (int)(v % c.g.nx);
   const int y = (int)((v / c.g.nx) % c.g.ny);
@@ -509,7 +681,7 @@ __device__ __forceinline__ void bake_adjoint_voxel(int64_t v, const float* __res
     const int mx = cx ? 1 : 2, my = cy ? 1 : 2, mz = cz ? 1 : 2;
     const bool same = t.idx[0] == key && flags == merged;
     if (!same) {
-      for (int j = 0; j < n_run; ++j) add_to(d_dens + run_idx[j], drho * run_w[j]);
+      for (int j = 0; j < n_run; ++j) add(d_dens + run_idx[j], drho * run_w[j]);
       key = t.idx[0];
       merged = flags;
     }
@@ -529,7 +701,211 @@ __device__ __forceinline__ void bake_adjoint_voxel(int64_t v, const float* __res
     }
     n_run = j;
   }
-  for (int j = 0; j < n_run; ++j) add_to(d_dens + run_idx[j], drho * run_w[j]);
+  for (int j = 0; j < n_run; ++j) add(d_dens + run_idx[j], drho * run_w[j]);
+}
+
+// -- the row form: the voxels of an x-row at one step ------------------------
+
+// What the voxels of row (y, z) share at step i: the distance s; the y and
+// z weights and slope scales (taps_at's); wzy[q] = wz[iz] * wy[iy] of the
+// four texture rows q = iz * 2 + iy the taps read, and the same products
+// with a clamped axis's two taps merged (bake_adjoint_voxel's, 0 where
+// merged away: the run weights'); the rows' offsets; the window key
+// z0 * ny + y0 (a change ends every run).
+struct AdjRow {
+  float s;
+  float wy[2], wz[2];
+  float sy, sz;
+  float wzy[4];
+  float mzy[4];
+  int off[4];
+  int key;
+};
+
+__device__ __forceinline__ AdjRow adj_row_step(const AdjConsts& c, float by, float bz, int i) {
+  AdjRow r;
+  r.s = c.step * (float)i;
+  const float py = by + (-c.light[1]) * r.s, pz = bz + (-c.light[2]) * r.s;
+  const float ty = div_exact(py, c.g.bbox[1], c.g.inv_bbox[1]) * (float)c.g.ny - 0.5f;
+  const float tz = div_exact(pz, c.g.bbox[2], c.g.inv_bbox[2]) * (float)c.g.nz - 0.5f;
+  const AxisCell cy = axis_cell(ty, c.g.ny);
+  const AxisCell cz = axis_cell(tz, c.g.nz);
+  r.wy[0] = 1.0f - cy.frac;
+  r.wy[1] = cy.frac;
+  r.wz[0] = 1.0f - cz.frac;
+  r.wz[1] = cz.frac;
+  r.sy = floorf(ty) < 0.0f ? 0.0f : (float)c.g.ny;
+  r.sz = floorf(tz) < 0.0f ? 0.0f : (float)c.g.nz;
+  const bool my = cy.i0 == cy.i1, mz = cz.i0 == cz.i1;
+  const float wym[2] = {my ? r.wy[0] + r.wy[1] : r.wy[0], my ? 0.0f : r.wy[1]};
+  const float wzm[2] = {mz ? r.wz[0] + r.wz[1] : r.wz[0], mz ? 0.0f : r.wz[1]};
+  const int ys[2] = {cy.i0, cy.i1};
+  const int zs[2] = {cz.i0, cz.i1};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int iy = q & 1, iz = q >> 1;
+    r.wzy[q] = r.wz[iz] * r.wy[iy];
+    r.mzy[q] = wzm[iz] * wym[iy];
+    r.off[q] = (zs[iz] * c.g.ny + ys[iy]) * c.g.nx;
+  }
+  r.key = cz.i0 * c.g.ny + cy.i0;
+  return r;
+}
+
+// One voxel of a row: its base x, drho (0: no gradient, no run), its
+// light-gradient sum, its last step's texel column x0 (-1 before the
+// window's first step) and its run: the summed weights of slot
+// k = ix + 2 * q since its step in column x0.
+struct AdjVoxel {
+  float bx, drho;
+  float dl[3];
+  int x0;
+  float w[8];
+};
+
+__device__ __forceinline__ void adj_voxel_init(AdjVoxel& v, const AdjConsts& c, int x, float T,
+                                               float gbar) {
+  v.bx = (float)x / c.max_dim;
+  // dT / dsigma_k = -step T at every step; d sample_k = dsigma_k dm.
+  v.drho = ((-(gbar * T)) * c.step) * c.dm;
+  v.dl[0] = v.dl[1] = v.dl[2] = 0.0f;
+  v.x0 = -1;
+}
+
+// A voxel's x cell at row step r (taps_at's x axis).
+struct XCell {
+  int i0, i1;
+  float wx[2];
+  float sx;
+};
+
+__device__ __forceinline__ XCell adj_x_cell(const AdjConsts& c, const AdjRow& r, float bx) {
+  const float px = bx + (-c.light[0]) * r.s;
+  const float tx = div_exact(px, c.g.bbox[0], c.g.inv_bbox[0]) * (float)c.g.nx - 0.5f;
+  const AxisCell cx = axis_cell(tx, c.g.nx);
+  XCell x;
+  x.i0 = cx.i0;
+  x.i1 = cx.i1;
+  x.wx[0] = 1.0f - cx.frac;
+  x.wx[1] = cx.frac;
+  x.sx = floorf(tx) < 0.0f ? 0.0f : (float)c.g.nx;
+  return x;
+}
+
+// Whether v's run ends at a step in column x0.
+__device__ __forceinline__ bool adj_run_ends(const AdjVoxel& v, int x0) {
+  return v.x0 >= 0 && x0 != v.x0;
+}
+
+// v's run, where it has one and it ends, straight into the density
+// gradient at the window's rows off[4]: the values drho * w that
+// bake_adjoint_voxel adds, by float64 atomics (add_to; zeros skipped).
+__device__ __forceinline__ void adj_run_add(const AdjVoxel& v, bool ends, const int* off, int nx,
+                                            double* d_dens) {
+  if (!ends || v.drho == 0.0f) return;
+  const int x1 = v.x0 + 1 > nx - 1 ? nx - 1 : v.x0 + 1;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) add_to(d_dens + off[k >> 1] + ((k & 1) ? x1 : v.x0), v.drho * v.w[k]);
+}
+
+// Voxel v's step in cell xc at row step r, from the window's density rows
+// (dens + off[q], the taps read through L1): its slope into the light gradient, and its run's
+// weights (a new run where the column changed).  The caller has added an
+// ended run; v.x0 becomes the step's column.  The slope is taps_slope's
+// sum regrouped (the rows' x differences, and the rows interpolated along
+// x, differenced in y and z): a third of its operations, the same value
+// to float32 rounding.
+__device__ __forceinline__ void adj_voxel_step(const float* __restrict__ dens, const int* off,
+                                               const AdjConsts& c, const AdjRow& r,
+                                               const XCell& xc, AdjVoxel& v) {
+  float gx = 0.0f, e[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float v0 = dens[off[q] + xc.i0], v1 = dens[off[q] + xc.i1];
+    gx = q == 0 ? r.wzy[0] * (v1 - v0) : gx + r.wzy[q] * (v1 - v0);
+    e[q] = v0 * xc.wx[0] + v1 * xc.wx[1];
+  }
+  const float gy = r.wz[0] * (e[1] - e[0]) + r.wz[1] * (e[3] - e[2]);
+  const float gz = r.wy[0] * (e[2] - e[0]) + r.wy[1] * (e[3] - e[1]);
+  const float du[3] = {gx * xc.sx, gy * r.sy, gz * r.sz};
+  // p = base + (-light) s.
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    v.dl[a] -= div_exact(v.drho * du[a], c.g.bbox[a], c.g.inv_bbox[a]) * r.s;
+  }
+  const bool mx = xc.i0 == xc.i1;
+  const float wxm[2] = {mx ? xc.wx[0] + xc.wx[1] : xc.wx[0], mx ? 0.0f : xc.wx[1]};
+  if (xc.i0 != v.x0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v.w[k] = r.mzy[k >> 1] * wxm[k & 1];
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v.w[k] += r.mzy[k >> 1] * wxm[k & 1];
+  }
+  v.x0 = xc.i0;
+}
+
+// Row (y, z)'s adjoint, one voxel after the other at each step: the
+// formulation the row kernel runs with a block of threads (each ended run
+// added straight into the gradient, as the kernel's lanes add theirs).
+// vox: scratch of nx voxels; dl: the row's light gradient, each voxel's
+// summed in float64 in x order.
+__device__ __forceinline__ void bake_adjoint_row(int y, int z, const float* __restrict__ dens,
+                                                 const AdjConsts& c, int n_steps,
+                                                 const float* trans_row, const float* g_row,
+                                                 AdjVoxel* vox, double* d_dens, double* dl) {
+  const int nx = c.g.nx;
+  const float by = (float)y / c.max_dim, bz = (float)z / c.max_dim;
+  bool any = false;
+  for (int x = 0; x < nx; ++x) {
+    adj_voxel_init(vox[x], c, x, trans_row[x], g_row[x]);
+    any = any || vox[x].drho != 0.0f;
+  }
+  dl[0] = dl[1] = dl[2] = 0.0;
+  if (!any) return;
+  int key = -1, off[4] = {0, 0, 0, 0};
+  for (int i = 0; i < n_steps; ++i) {
+    const AdjRow r = adj_row_step(c, by, bz, i);
+    if (r.key != key) {
+      for (int x = 0; x < nx; ++x) {
+        adj_run_add(vox[x], vox[x].x0 >= 0, off, nx, d_dens);
+        vox[x].x0 = -1;
+      }
+      key = r.key;
+      for (int q = 0; q < 4; ++q) off[q] = r.off[q];
+    }
+    for (int x = 0; x < nx; ++x) {
+      AdjVoxel& v = vox[x];
+      if (v.drho == 0.0f) continue;
+      const XCell xc = adj_x_cell(c, r, v.bx);
+      adj_run_add(v, adj_run_ends(v, xc.i0), off, nx, d_dens);
+      adj_voxel_step(dens, off, c, r, xc, v);
+    }
+  }
+  for (int x = 0; x < nx; ++x) adj_run_add(vox[x], vox[x].x0 >= 0, off, nx, d_dens);
+  for (int x = 0; x < nx; ++x) {
+    for (int a = 0; a < 3; ++a) dl[a] += (double)vox[x].dl[a];
+  }
+}
+
+// The row kernel's launch: threads a block and segments a row for V voxels
+// a thread (K3's launch_rows), and the partial rows of the light gradient
+// (one a warp).
+struct RowLaunch {
+  int threads, segments;
+  int64_t blocks;
+  int64_t partials;  // one a warp
+};
+
+inline RowLaunch row_launch(int nx, int ny, int nz, int V) {
+  RowLaunch L;
+  const int per_thread = (nx + V - 1) / V;
+  L.threads = (per_thread + 31) / 32 * 32;
+  if (L.threads > kDiffThreads) L.threads = kDiffThreads;
+  L.segments = (nx + L.threads * V - 1) / (L.threads * V);
+  L.blocks = (int64_t)ny * nz * L.segments;
+  L.partials = L.blocks * (L.threads / 32);
+  return L;
 }
 
 }  // namespace diff
@@ -541,8 +917,9 @@ using ds::diff::kDiffThreads;
 
 // Sums each thread's v[3] over the block into out[3] (thread 0 writes), in
 // a fixed order.
-__device__ __forceinline__ void block_sum3(float* v, float* out) {
-  __shared__ float warp_sums[kDiffThreads / 32][3];
+template <typename F>
+__device__ __forceinline__ void block_sum3(F* v, F* out) {
+  __shared__ F warp_sums[kDiffThreads / 32][3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
 #pragma unroll
@@ -555,20 +932,104 @@ __device__ __forceinline__ void block_sum3(float* v, float* out) {
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int a = 0; a < 3; ++a) {
-      float acc = 0.0f;
+      F acc = 0;
       for (int w = 0; w < (int)(blockDim.x >> 5); ++w) acc += warp_sums[w][a];
       out[a] = acc;
     }
   }
 }
 
-__global__ void __launch_bounds__(kDiffThreads) bake_adjoint_kernel(
-    const float* __restrict__ dens, ds::diff::AdjConsts c, int n_steps, const float* __restrict__ trans,
-    const float* __restrict__ gbar, double* d_dens, float* partials, int64_t n) {
-  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  float dl[3] = {0.0f, 0.0f, 0.0f};
-  if (v < n) ds::diff::bake_adjoint_voxel(v, dens, c, n_steps, trans[v], gbar[v], d_dens, dl);
-  block_sum3(dl, partials + 3 * (int64_t)blockIdx.x);
+// K8a: block (row = y + ny * z, segment) of blockDim.x * V voxels; warp w
+// carries the 32 V voxels from segment * blockDim.x * V + w * 32 * V, lane
+// t of them x = ... + j * 32 + t, j < V (bake_adjoint_row over a block of
+// threads).  Warps are independent: one without a voxel with a gradient
+// leaves at once.  Each lane adds its runs that end by float64 atomics,
+// fire and forget (adj_run_add).  partials: each warp's light gradient, at
+// (block index) * warps + warp.
+template <int V>
+__global__ void __launch_bounds__(kDiffThreads) bake_adjoint_rows_kernel(
+    const float* __restrict__ dens, ds::diff::AdjConsts c, int n_steps,
+    const float* __restrict__ trans, const float* __restrict__ gbar, double* __restrict__ d_dens,
+    double* __restrict__ partials) {
+  const int nx = c.g.nx, ny = c.g.ny;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x;
+  const int y = row % ny, z = row / ny;
+  const int x0 = (blockIdx.y * warps + warp) * 32 * V + lane;
+  const float by = (float)y / c.max_dim, bz = (float)z / c.max_dim;
+  double* part_out =
+      partials + 3 * (((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * warps + warp);
+  ds::diff::AdjVoxel vox[V];
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int x = x0 + j * 32;
+    float T = 0.0f, g = 0.0f;
+    if (x < nx) {
+      T = trans[(int64_t)row * nx + x];
+      g = gbar[(int64_t)row * nx + x];
+    }
+    ds::diff::adj_voxel_init(vox[j], c, x, T, g);
+    any = any || vox[j].drho != 0.0f;
+  }
+  if (!__any_sync(0xffffffffu, any)) {
+    if (lane == 0) part_out[0] = part_out[1] = part_out[2] = 0.0;
+    return;
+  }
+  int key = -1, off[4] = {0, 0, 0, 0};
+  for (int i = 0; i < n_steps; ++i) {
+    const ds::diff::AdjRow r = ds::diff::adj_row_step(c, by, bz, i);
+    if (r.key != key) {  // the same for the whole warp: every run ends
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        ds::diff::adj_run_add(vox[j], vox[j].x0 >= 0, off, nx, d_dens);
+        vox[j].x0 = -1;
+      }
+      key = r.key;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) off[q] = r.off[q];
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      ds::diff::AdjVoxel& v = vox[j];
+      if (v.drho == 0.0f) continue;
+      const ds::diff::XCell xc = ds::diff::adj_x_cell(c, r, v.bx);
+      ds::diff::adj_run_add(v, ds::diff::adj_run_ends(v, xc.i0), off, nx, d_dens);
+      ds::diff::adj_voxel_step(dens, off, c, r, xc, v);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    ds::diff::adj_run_add(vox[j], vox[j].x0 >= 0, off, nx, d_dens);
+  }
+  double part[3] = {0.0, 0.0, 0.0};
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) part[a] += (double)vox[j].dl[a];
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) part[a] += __shfl_down_sync(0xffffffffu, part[a], o);
+  }
+  if (lane == 0) {
+    for (int a = 0; a < 3; ++a) part_out[a] = part[a];
+  }
+}
+
+// K8a with V voxels a thread (ds_bake_adjoint's arguments).
+template <int V>
+static int bake_adjoint_rows(const float* dens, int nx, int ny, int nz, const float* consts,
+                             int n_steps, const float* trans, const float* gbar,
+                             double* d_dens, double* partials, void* stream) {
+  if ((int64_t)nx * ny * nz <= 0) return 0;
+  const ds::diff::AdjConsts c = ds::diff::adj_consts(nx, ny, nz, consts);
+  const ds::diff::RowLaunch L = ds::diff::row_launch(nx, ny, nz, V);
+  const dim3 grid((unsigned)(ny * nz), (unsigned)L.segments);
+  bake_adjoint_rows_kernel<V><<<grid, L.threads, 0, (cudaStream_t)stream>>>(
+      dens, c, n_steps, trans, gbar, d_dens, partials);
+  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ void load3(const float* p, int64_t r, float* out) {
@@ -600,32 +1061,165 @@ __global__ void __launch_bounds__(kDiffThreads) march_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kDiffThreads) march_bwd_kernel(
+// Sums the eight values v[8] of the lanes of a group over each run of
+// consecutive lanes with equal keys (the first texel of a step's cell, a
+// ray's steps in one cell being consecutive; negative where the lane
+// scatters nothing), by a segmented scan over the group; the last lane of
+// each run adds the sums to the eight texels idx[8] through add (a zero
+// adds nothing).
+template <int G, class Add>
+__device__ __forceinline__ void group_deposit(unsigned gmask, int gl, int shift, int key,
+                                              const int* idx, float* v, float* grid,
+                                              const Add& add) {
+  // Runs numbered by their first lanes: equal numbers are consecutive.
+  const int below = __shfl_up_sync(gmask, key, 1, G);
+  const unsigned heads = __ballot_sync(gmask, gl == 0 || below != key) >> shift;
+  const int run = __popc(heads & ds::diff::group_bits(gl + 1));
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) {
+    const int ro = __shfl_up_sync(gmask, run, o, G);
+    const bool take = gl >= o && ro == run;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float x = __shfl_up_sync(gmask, v[k], o, G);
+      if (take) v[k] = v[k] + x;
+    }
+  }
+  if (key >= 0 && (gl == G - 1 || ((heads >> (gl + 1)) & 1u))) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) add(grid + idx[k], v[k]);
+  }
+}
+
+// K8b's adjoint: rays x G threads, group g of G lanes taking ray
+// blockIdx * (threads / G) + g a chunk of G steps at a time.
+template <int G, class Add>
+__device__ __forceinline__ void march_bwd_lanes(
+    const float* __restrict__ dens, const float* __restrict__ baked,
+    const float* __restrict__ to_sun, const ds::diff::MarchConsts& c,
+    const float* __restrict__ entry, const float* __restrict__ dirs,
+    const float* __restrict__ phase, const uint8_t* __restrict__ hit,
+    const float* __restrict__ rad, const float* __restrict__ g_rad, int64_t n, float* d_dens,
+    float* d_baked, float* d_entry, float* d_dirs, float* d_phase, float* d_ts,
+    const Add& add) {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two up to 32");
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (G - 1);
+  const int shift = lane - gl;
+  const unsigned gmask = ds::diff::group_bits(G) << shift;
+  const int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (r >= n) return;  // whole groups: the block is a multiple of G
+  float de[3] = {0.0f, 0.0f, 0.0f}, dd[3] = {0.0f, 0.0f, 0.0f}, dts[3] = {0.0f, 0.0f, 0.0f};
+  float dP = 0.0f;
+  const float g = g_rad[r];
+  if (hit[r] && g != 0.0f) {  // uniform over the group
+    float ts[3] = {0.0f, 0.0f, 0.0f}, e[3], d[3];
+    if (!c.baked) load3(to_sun, 0, ts);
+    load3(entry, r, e);
+    load3(dirs, r, d);
+    const float ph = phase[r], R = rad[r];
+    float tau = 0.0f, C = 0.0f;
+    bool was_in = false;
+    for (int i0 = 0; i0 < c.n_steps; i0 += G) {
+      ds::diff::LaneDiff L;
+      ds::diff::lane_sample(dens, baked, c, ts, e, d, i0 + gl, L);
+      const unsigned in = __ballot_sync(gmask, L.in) >> shift;
+      const ds::diff::LaneSpan sp = ds::diff::lane_span(in, was_in, G);
+      const bool mine = gl >= sp.start && gl < sp.end;
+      // tau before this lane's step and after the chunk, in step order.
+      const float xs = mine ? L.st.sigma * c.step : 0.0f;
+      auto sig_of = [&](int k) { return __shfl_sync(gmask, xs, k, G); };
+      const float tau_l = ds::diff::lane_fold<G>(tau, sp.start, gl, sig_of);
+      tau = ds::diff::lane_fold<G>(tau, sp.start, sp.end, sig_of);
+      float term = 0.0f, dterm = 0.0f;
+      if (mine) {
+        L.st.tv = expf(-tau_l);
+        const float tvseg = L.st.tv * L.st.seg;
+        term = ((tvseg * L.S) * ph) * c.sun_ratio;
+        dterm = (tvseg * L.S) * c.sun_ratio;
+      }
+      // The prefix through this lane's step; dP through the chunk.
+      const float C_l = ds::diff::lane_fold<G>(
+          C, sp.start, gl + 1, [&](int k) { return __shfl_sync(gmask, term, k, G); });
+      C = ds::diff::lane_fold<G>(C, sp.start, sp.end,
+                                 [&](int k) { return __shfl_sync(gmask, term, k, G); });
+      dP = ds::diff::lane_fold<G>(dP, sp.start, sp.end,
+                                  [&](int k) { return __shfl_sync(gmask, dterm, k, G); });
+      float vd[8], vb[8];
+      int key_d = -1 - gl, key_b = -1 - gl;
+      if (mine) {
+        ds::diff::step_adjoint(dens, baked, c, ts, d, ph, R, g, L.st, L.S, L.tq, C_l, d_dens, vd,
+                               vb, de, dd, dts, add);
+        key_d = L.st.tp.idx[0];
+        if (c.baked) key_b = L.tq.idx[0];
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) vd[k] = vb[k] = 0.0f;
+      }
+      if (c.baked) {
+        // A lane without a lit step scatters nothing into the baked grid.
+        bool lit = false;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) lit = lit || vb[k] != 0.0f;
+        if (!lit) key_b = -1 - gl;
+        if (__any_sync(gmask, lit)) {
+          group_deposit<G>(gmask, gl, shift, key_b, L.tq.idx, vb, d_baked, add);
+        }
+      }
+      group_deposit<G>(gmask, gl, shift, key_d, L.st.tp.idx, vd, d_dens, add);
+      was_in = was_in || sp.start < sp.end;
+      if (sp.ended) break;
+    }
+  }
+  // The group's sums, lane 0 writing.
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+      de[a] += __shfl_down_sync(gmask, de[a], o, G);
+      dd[a] += __shfl_down_sync(gmask, dd[a], o, G);
+      dts[a] += __shfl_down_sync(gmask, dts[a], o, G);
+    }
+  }
+  if (gl == 0) {
+    for (int a = 0; a < 3; ++a) {
+      d_entry[3 * r + a] = de[a];
+      d_dirs[3 * r + a] = dd[a];
+      if (d_ts != nullptr) d_ts[3 * r + a] = dts[a];
+    }
+    d_phase[r] = dP * g;
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(kDiffThreads) march_bwd_lanes_kernel(
     const float* __restrict__ dens, const float* __restrict__ baked,
     const float* __restrict__ to_sun, ds::diff::MarchConsts c, const float* __restrict__ entry,
     const float* __restrict__ dirs, const float* __restrict__ phase,
     const uint8_t* __restrict__ hit, const float* __restrict__ rad,
     const float* __restrict__ g_rad, int64_t n, float* d_dens, float* d_baked, float* d_entry,
     float* d_dirs, float* d_phase, float* d_ts) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  float de[3] = {0.0f, 0.0f, 0.0f}, dd[3] = {0.0f, 0.0f, 0.0f}, dts[3] = {0.0f, 0.0f, 0.0f};
-  float dphase = 0.0f;
-  const float g = g_rad[r];
-  if (hit[r] && g != 0.0f) {
-    float ts[3] = {0.0f, 0.0f, 0.0f}, e[3], d[3];
-    if (!c.baked) load3(to_sun, 0, ts);
-    load3(entry, r, e);
-    load3(dirs, r, d);
-    dphase = ds::diff::march_ray_adjoint(dens, baked, c, ts, e, d, phase[r], rad[r], g, d_dens,
-                                   d_baked, de, dd, dts);
-  }
-  for (int a = 0; a < 3; ++a) {
-    d_entry[3 * r + a] = de[a];
-    d_dirs[3 * r + a] = dd[a];
-    if (d_ts != nullptr) d_ts[3 * r + a] = dts[a];
-  }
-  d_phase[r] = dphase;
+  march_bwd_lanes<G>(dens, baked, to_sun, c, entry, dirs, phase, hit, rad, g_rad, n, d_dens,
+                     d_baked, d_entry, d_dirs, d_phase, d_ts, ds::diff::AddTo());
+}
+
+// K8b's adjoint with G lanes a ray (ds_diff_march_bwd's arguments).
+template <int G>
+static int march_bwd_lanes_launch(const float* dens, const float* baked, const float* to_sun,
+                                  int nx, int ny, int nz, const float* consts, int n_steps,
+                                  int sun_steps, const float* entry, const float* dirs,
+                                  const float* phase, const uint8_t* hit, const float* rad,
+                                  const float* g_rad, int64_t n, float* d_dens, float* d_baked,
+                                  float* d_entry, float* d_dirs, float* d_phase, float* d_ts,
+                                  void* stream) {
+  if (n <= 0) return 0;
+  const ds::diff::MarchConsts c =
+      ds::diff::march_consts(nx, ny, nz, consts, n_steps, sun_steps, baked != nullptr);
+  const unsigned blocks = (unsigned)((n * G + kDiffThreads - 1) / kDiffThreads);
+  march_bwd_lanes_kernel<G><<<blocks, kDiffThreads, 0, (cudaStream_t)stream>>>(
+      dens, baked, to_sun, c, entry, dirs, phase, hit, rad, g_rad, n, d_dens, d_baked, d_entry,
+      d_dirs, d_phase, d_ts);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kDiffThreads) sun_march_kernel(
@@ -651,7 +1245,7 @@ __global__ void __launch_bounds__(kDiffThreads) sun_march_bwd_kernel(
   load3(to_sun, 0, ts);
   load3(pos, r, q);
   ds::diff::sun_march_adjoint(dens, g, step, dm, n_steps, q, ts, trans[r], g_trans[r], d_dens, dq,
-                        dts);
+                              dts, ds::diff::AddTo());
   for (int a = 0; a < 3; ++a) {
     d_pos[3 * r + a] = dq[a];
     d_ts[3 * r + a] = dts[a];
@@ -664,21 +1258,36 @@ static unsigned blocks_for(int64_t n) {
 
 extern "C" {
 
-int ds_diff_threads() { return kDiffThreads; }
+// K8a's voxels a thread; K8b's adjoint's lanes a ray for n rays: 32 where
+// n x 32 threads fit the card's thread slots (its SMs x 2048), else 8.
+int ds_adjoint_voxels() { return ds::diff::kAdjVoxels; }
+int ds_diff_lanes(int64_t n) {
+  static int slots = 0;
+  if (slots == 0) {
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    int per_sm = 0;
+    cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, device);
+    slots = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  return n * ds::diff::kDiffLanesFew <= slots ? ds::diff::kDiffLanesFew : ds::diff::kDiffLanes;
+}
+
+// K8a's light-gradient partial rows for an [nz, ny, nx] grid.
+int64_t ds_bake_adjoint_blocks(int nx, int ny, int nz) {
+  return ds::diff::row_launch(nx, ny, nz, ds::diff::kAdjVoxels).partials;
+}
 
 // K8a.  dens, trans, gbar: [nz * ny * nx] float32; d_dens: float64,
 // zeroed by the caller and added to; consts as ds_bake's (bbox[3],
-// light_dir[3], step, dm, max_dim); partials: [blocks][3], blocks =
-// ceil(V / threads).
+// light_dir[3], step, dm, max_dim); partials: float64
+// [ds_bake_adjoint_blocks][3].
 int ds_bake_adjoint(const float* dens, int nx, int ny, int nz, const float* consts,
                     int n_steps, const float* trans, const float* gbar, double* d_dens,
-                    float* partials, void* stream) {
-  const int64_t n = (int64_t)nx * ny * nz;
-  if (n <= 0) return 0;
-  const ds::diff::AdjConsts c = ds::diff::adj_consts(nx, ny, nz, consts);
-  bake_adjoint_kernel<<<blocks_for(n), kDiffThreads, 0, (cudaStream_t)stream>>>(
-      dens, c, n_steps, trans, gbar, d_dens, partials, n);
-  return (int)cudaGetLastError();
+                    double* partials, void* stream) {
+  return bake_adjoint_rows<ds::diff::kAdjVoxels>(
+      dens, nx, ny, nz, consts, n_steps, trans, gbar, d_dens, partials, stream);
 }
 
 // K8b forward.  baked: the in-scatter grid (NULL: the sun march from
@@ -705,13 +1314,14 @@ int ds_diff_march_bwd(const float* dens, const float* baked, const float* to_sun
                       const uint8_t* hit, const float* rad, const float* g_rad, int64_t n,
                       float* d_dens, float* d_baked, float* d_entry, float* d_dirs,
                       float* d_phase, float* d_ts, void* stream) {
-  if (n <= 0) return 0;
-  const ds::diff::MarchConsts c =
-      ds::diff::march_consts(nx, ny, nz, consts, n_steps, sun_steps, baked != nullptr);
-  march_bwd_kernel<<<blocks_for(n), kDiffThreads, 0, (cudaStream_t)stream>>>(
-      dens, baked, to_sun, c, entry, dirs, phase, hit, rad, g_rad, n, d_dens, d_baked, d_entry,
-      d_dirs, d_phase, d_ts);
-  return (int)cudaGetLastError();
+  if (ds_diff_lanes(n) == ds::diff::kDiffLanes) {
+    return march_bwd_lanes_launch<ds::diff::kDiffLanes>(
+        dens, baked, to_sun, nx, ny, nz, consts, n_steps, sun_steps, entry, dirs, phase, hit,
+        rad, g_rad, n, d_dens, d_baked, d_entry, d_dirs, d_phase, d_ts, stream);
+  }
+  return march_bwd_lanes_launch<ds::diff::kDiffLanesFew>(
+      dens, baked, to_sun, nx, ny, nz, consts, n_steps, sun_steps, entry, dirs, phase, hit, rad,
+      g_rad, n, d_dens, d_baked, d_entry, d_dirs, d_phase, d_ts, stream);
 }
 
 // The sun march from pos[n][3] toward to_sun[3]; consts: bbox[3], step, dm;

@@ -28,9 +28,34 @@ one card.
   ``K7B_DESIGNS``: its first design (K4's item queue with a per-lane
   experiment base) and the deferred scatters at each number of parked
   lanes and lookahead, reported with the SIMT efficiency of the march
-  (steps over 32 x march slots) and the crossings a resolve step handles.
+  (steps over 32 x march slots) and the crossings a resolve step handles;
+- K8a and K8b's adjoint (``csrc/diff.cu``, built from
+  ``csrc/diff_variants.cu``, which includes only that source) in each
+  design of ``K8A_DESIGNS`` and ``K8B_DESIGNS``: K8a as a thread a voxel
+  (its first design) and as rows of V voxels a thread; K8b's adjoint as a
+  thread a ray (its first design) and with G lanes a ray; and, for the first
+  design and the package's, with its grid scatters aimed at a scratch
+  slot of its own a thread and left out (``SCATTERS``): what its atomics
+  and its arithmetic each cost; K8a's first design likewise.  Then K8b's
+  adjoint at G = 8, 16 and 32 on the frame point's cloud at the smaller
+  frames of ``LANE_POINTS``, around the ray count where the package
+  switches from 32 lanes a ray to 8 (``ds_diff_lanes``).
 
-Every alternative runs at the main paths' operating point (the 256^3
+The diff kernels run at chip_smoke.py's two points of ``render.diff``:
+the defaults point (64 x 32, 256 steps of 1/256, dm 100, the 64^3 cloud
+of seed 29, baked) and the frame point (the 256^3 cumulus of seed 11, 512
+x 256, 896 steps of 1/512, dm 200, baked), on the main path's inputs
+(K8b's upstream that of the image mean, K8a's the baked grid's gradient
+from K8b's adjoint); each alternative with its scatters in place against
+the package's kernel (K8a within 1e-12 of the density gradient's largest
+value, K8b's adjoint within 1e-5 of each leaf's largest).  Their times
+are CUDA-event means with the host enqueueing ahead of the card
+(``ahead_ms``: a launch at the defaults point is shorter than its
+wrapper's host time), the alternatives timed in turns as below.
+chip_smoke.py times the package's kernels against their first designs
+through ``against_first``.
+
+Every other alternative runs at the main paths' operating point (the 256^3
 procedural cumulus of seed 11, 2000 m, uint8 textures; K4 on the 512^2
 tick of 2 subframes, K3 on the whole grid with early-out, K1 on both passes
 of the 512 x 256 neural frame's rays, K2 on that frame's shading points in
@@ -44,9 +69,10 @@ backward, twice.
 
 Run on the card::
 
-    python -m deepestscatter_tpu_torch.probes.march_variants [--collector-only]
+    python -m deepestscatter_tpu_torch.probes.march_variants [--collector-only | --diff-only]
 
-``--collector-only`` runs K7a's and K7b's alternatives alone.  Prints
+``--collector-only`` runs K7a's and K7b's alternatives alone,
+``--diff-only`` K8a's and K8b's.  Prints
 one line an alternative, then one JSON object as the last line; exits 1
 without a card or if an alternative disagrees.
 """
@@ -55,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import re
 import subprocess
@@ -94,6 +121,32 @@ K7B_DESIGNS = {"first design (items)": (0, 24, 2),
                "deferred P=20 K=1": (1, 20, 1), "deferred P=20 K=4": (1, 20, 4)}
 #: The neural frame (chip_smoke.py's): 512 x 256.
 NEURAL_WIDTH, NEURAL_HEIGHT = 512, 256
+#: K8a's alternatives (``ds_diff_variant``'s codes): 0 a thread a voxel
+#: (its first design); the row kernel with V voxels a thread, each lane's
+#: runs by float64 atomics (the package runs ``kAdjVoxels``).
+K8A_DESIGNS = {"first design (a thread a voxel)": 0, **{f"rows V={v}": v for v in (1, 2, 4)}}
+#: K8b's adjoint: 0 a thread a ray (its first design), G lanes a ray (the
+#: package runs ``ds_diff_lanes(rays)``: 32 where every ray's 32 lanes fit
+#: the card's thread slots, else 8).
+K8B_DESIGNS = {"first design (a thread a ray)": 0, **{f"G={g}": g for g in (4, 8, 16, 32)}}
+#: Its grid scatters: atomics into the grids, a scratch slot a thread, none.
+SCATTERS = {"atomics": 0, "scratch slot": 1, "no atomics": 2}
+#: chip_smoke.py's diff points: (cloud resolution, seed, sun, eye, render
+#: arguments); the sun and eye None for the scene configuration's.
+DIFF_POINTS = {
+    "defaults": (64, 29, (-0.3, -0.9, 0.1), (2.5, -0.4, 0.0), {}),
+    "frame": (256, 11, None, None,
+              dict(width=512, height=256, density_multiplier=200.0, n_steps=896,
+                   sample_step=1.0 / 512.0, remat_chunk=32)),
+}
+#: The frame point's cloud and march at smaller frames (width, height):
+#: 4,096 to 65,536 rays, around the count where K8b's adjoint's lanes a
+#: ray switch from 32 to 8 (past 8,448 rays on 132 SMs: rays x 32 above
+#: the card's thread slots).
+LANE_POINTS = {f"frame {w}x{h}": (w, h)
+               for w, h in ((64, 64), (128, 64), (128, 128), (256, 128), (256, 256))}
+#: K8b's adjoint's leaves.
+LEAVES = ("density", "baked", "entry", "dirs", "p_phase")
 
 
 def time_ms(fn: Callable[[], object], reps: int) -> float:
@@ -109,13 +162,51 @@ def time_ms(fn: Callable[[], object], reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def in_turns(fns: Dict[str, Callable[[], object]], reps: int) -> Dict[str, List[float]]:
-    """Each function's time, measured forward then backward over the keys,
-    twice."""
+#: Clock cycles a call the card spins for before the calls ahead_ms times
+#: (torch.cuda._sleep; about 0.2 ms a call); four times as many after a
+#: try in which the host fell behind, for at most AHEAD_TRIES tries.
+AHEAD_CYCLES_PER_CALL = 400_000
+AHEAD_TRIES = 4
+
+
+def ahead_ms(fn: Callable[[], object], reps: int) -> float:
+    """``fn``'s mean device time over ``reps`` calls after one warm-up, by
+    CUDA events with the host ahead of the card: a spin kernel holds the
+    stream while the host enqueues the events and the calls, so that the
+    events see the calls back to back and not the wrapper's host time
+    between them.  The start event must still be pending once every call
+    is enqueued (the spin outlasted the enqueueing); where it is not, the
+    calls are timed again behind a spin four times as long.  Raises if the
+    host falls behind AHEAD_TRIES times."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = AHEAD_CYCLES_PER_CALL * reps
+    for _ in range(AHEAD_TRIES):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        ahead = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        print(f"ahead_ms: the host fell behind a spin of {cycles} cycles; timing again",
+              flush=True)
+        cycles *= 4
+    raise RuntimeError(f"ahead_ms: the host fell behind the card {AHEAD_TRIES} times")
+
+
+def in_turns(fns: Dict[str, Callable[[], object]], reps: int,
+             timer: Callable[[Callable[[], object], int], float] = time_ms
+             ) -> Dict[str, List[float]]:
+    """Each function's time by ``timer``, measured forward then backward
+    over the keys, twice."""
     ms: Dict[str, List[float]] = {k: [] for k in fns}
     keys = list(fns)
     for k in (keys + keys[::-1]) * 2:
-        ms[k].append(time_ms(fns[k], reps))
+        ms[k].append(timer(fns[k], reps))
     return ms
 
 
@@ -300,6 +391,199 @@ def k7b_variants(lib, params, static) -> Dict[str, dict]:
     return out
 
 
+@functools.lru_cache(maxsize=2)
+def cloud(res: int, seed: int) -> np.ndarray:
+    """The normalised procedural cumulus of a diff point."""
+    from ..ops import grid as grid_ops
+
+    return grid_ops.normalize_density(procedural.cumulus(resolution=res, seed=seed))
+
+
+def diff_inputs(diff, res: int, seed: int, sun, eye, kw: dict, dev):
+    """A diff point's main-path kernel inputs: the march's (through K3),
+    the upstream of the image mean a ray, the forward's radiance, K8b's
+    adjoint and K8a's inputs (the bake's T, the baked grid's gradient)."""
+    base = config.SceneConfig()
+    density = cloud(res, seed)
+    scene = diff.diff_scene_from_numpy(
+        density, np.asarray(sun or base.light.direction, np.float32),
+        np.asarray(eye or base.camera.eye, np.float32), np.zeros(3, np.float32),
+        np.full(3, 1e6, np.float32), device=dev)
+    with torch.no_grad():
+        m = diff.march_setup(scene, **{**diff_defaults(diff), **kw}, use_baked_inscatter=True,
+                             kernels=True)
+        n = m.entry.shape[0]
+        args = (scene.density, m.baked, None, m.entry.contiguous(), m.dirs.contiguous(),
+                m.p_phase.contiguous(), m.hit.to(torch.uint8), m.meta)
+        g_rad = torch.where(m.hit, scene.light_radiance.sum() / (3 * n),
+                            torch.zeros((), device=dev)).to(torch.float32).contiguous()
+        rad = diff.launch_march(*args)
+        back = diff.launch_march_bwd(*args[:7], rad, g_rad, m.meta)
+        sun_n = scene.sun_dir / torch.linalg.norm(scene.sun_dir)
+    meta = m.meta
+    trans = inscatter.launch_bake(scene.density, meta.bbox, tuple(sun_n.tolist()), meta.step,
+                                  meta.density_multiplier, False)
+    adj = (scene.density, meta.bbox, tuple(sun_n.tolist()), meta.density_multiplier, meta.step,
+           trans, back.baked.reshape(-1).contiguous())
+    return args, rad, g_rad, back, adj
+
+
+def diff_defaults(diff) -> dict:
+    """``render_single_scatter``'s defaults but the scene and device."""
+    import inspect
+
+    params = inspect.signature(diff.render_single_scatter).parameters
+    return {k: p.default for k, p in params.items()
+            if k not in ("scene", "device", "use_baked_inscatter")}
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def diff_lib(lib) -> int:
+    """Types ``csrc/diff_variants.cu``'s entry points in ``lib``; returns
+    the package's K8a voxels a thread."""
+    lib.ds_diff_variant.argtypes = [ctypes.c_int] * 3
+    lib.ds_diff_variant.restype = None
+    lib.ds_diff_lanes.argtypes = [ctypes.c_int64]
+    lib.ds_diff_lanes.restype = ctypes.c_int
+    return lib_const(lib, "ds_adjoint_voxels")
+
+
+def k8a_design(lib, adj, design: int, lanes: int, scatter: int = 0, float64: bool = True):
+    """K8a in ``design`` (``K8A_DESIGNS``' codes) on the wrapper's
+    arguments ``adj``, as a call."""
+    from ..render import diff
+
+    def run():
+        lib.ds_diff_variant(design, lanes, scatter)
+        return diff.launch_bake_adjoint(*adj, lib=lib, float64=float64)
+
+    return run
+
+
+def k8b_design(lib, bwd, voxels: int, lanes: int, scatter: int = 0):
+    """K8b's adjoint with ``lanes`` lanes a ray (0: a thread a ray) on the
+    wrapper's arguments ``bwd``, as a call."""
+    from ..render import diff
+
+    def run():
+        lib.ds_diff_variant(voxels, lanes, scatter)
+        return diff.launch_march_bwd(*bwd, lib=lib)
+
+    return run
+
+
+def against_first(adj, bwd, reps_a: int, reps_b: int) -> dict:
+    """K8a and K8b's adjoint, the package's kernels against their first
+    designs (a thread a voxel, a thread a ray; ``csrc/diff_variants.cu``)
+    on the same inputs in one call: each pair's mean ms over four turns
+    by ``ahead_ms``, and each output's largest difference over its largest
+    value (K8a's density gradient in float64).  ``adj``, ``bwd``: the
+    arguments of ``launch_bake_adjoint`` and ``launch_march_bwd``."""
+    from ..render import diff
+
+    lib = cuda_build.load("diff_variants")
+    voxels = diff_lib(lib)
+    lanes = lib.ds_diff_lanes(bwd[3].shape[0])
+    first_a, first_b = k8a_design(lib, adj, 0, lanes, float64=False), k8b_design(lib, bwd, voxels, 0)
+    ta = in_turns({"new": lambda: diff.launch_bake_adjoint(*adj), "first": first_a}, reps_a,
+                  ahead_ms)
+    tb = in_turns({"new": lambda: diff.launch_march_bwd(*bwd), "first": first_b}, reps_b,
+                  ahead_ms)
+    new_b, old_b = diff.launch_march_bwd(*bwd), first_b()
+    errs = {"K8a density": rel_err(diff.launch_bake_adjoint(*adj, float64=True)[0],
+                                   k8a_design(lib, adj, 0, lanes)()[0])}
+    errs.update({f"K8b {f}": rel_err(getattr(new_b, f), getattr(old_b, f)) for f in LEAVES})
+    mean = lambda ms: sum(ms) / len(ms)  # noqa: E731
+    return dict(ms_a=mean(ta["new"]), ms_a_first=mean(ta["first"]), ms_b=mean(tb["new"]),
+                ms_b_first=mean(tb["first"]), lanes=lanes, rel_err=errs)
+
+
+def diff_variants(lib, dev) -> dict:
+    """K8a and K8b's adjoint in each design against the package's, at both
+    diff points; the scatter split of K8b's adjoint (the first design and
+    the package's) and of K8a's first design; K8b's adjoint's lanes a ray
+    at LANE_POINTS."""
+    from ..render import diff
+
+    voxels = diff_lib(lib)
+    out: Dict[str, dict] = {}
+    ok = True
+
+    def report(point, row):
+        nonlocal ok
+        for key, r in row.items():
+            print(f"diff {point} {key}: {json.dumps(r)}", flush=True)
+            ok = ok and r.get("equal", True)
+        out[point] = row
+
+    def k8b_row(row, fns, key, gl, sc, bwd, back):
+        fns[key] = k8b_design(lib, bwd, voxels, gl, sc)
+        row[key] = {}
+        if not sc:
+            got = fns[key]()
+            errs = {f: rel_err(getattr(got, f), getattr(back, f)) for f in LEAVES}
+            row[key].update(rel_err=errs, equal=all(e <= 1e-5 for e in errs.values()))
+
+    for point, (res, seed, sun, eye, kw) in DIFF_POINTS.items():
+        args, rad, g_rad, back, adj = diff_inputs(diff, res, seed, sun, eye, kw, dev)
+        bwd = (*args[:7], rad, g_rad, args[7])
+        lanes = lib.ds_diff_lanes(args[3].shape[0])  # the package's for these rays
+        ref_a = diff.launch_bake_adjoint(*adj, float64=True)
+        row: Dict[str, dict] = {}
+        fns = {}
+        for key, v in K8A_DESIGNS.items():
+            fns[f"K8a {key}"] = k8a_design(lib, adj, v, lanes)
+            got = fns[f"K8a {key}"]()
+            errs = dict(density=rel_err(got[0], ref_a[0]), light_dir=rel_err(got[1], ref_a[1]))
+            row[f"K8a {key}"] = dict(rel_err=errs, equal=errs["density"] <= 1e-12
+                                     and errs["light_dir"] <= 1e-5)
+        for skey, sc in list(SCATTERS.items())[1:]:  # the first design's scatters
+            row[f"K8a first design (a thread a voxel) {skey}"] = {}
+            fns[f"K8a first design (a thread a voxel) {skey}"] = k8a_design(lib, adj, 0, lanes, sc)
+        for key, ms in in_turns(fns, 3 if point == "frame" else 10, ahead_ms).items():
+            row[key]["ms"] = ms
+        fns = {}
+        for key, gl in K8B_DESIGNS.items():
+            for skey, sc in SCATTERS.items():
+                if sc and gl not in (0, lanes):
+                    continue
+                k8b_row(row, fns, f"K8b adjoint {key}" + (f" {skey}" if sc else ""), gl, sc, bwd,
+                        back)
+        for key, ms in in_turns(fns, 5 if point == "frame" else 20, ahead_ms).items():
+            row[key]["ms"] = ms
+        report(point, row)
+        del args, rad, g_rad, back, adj, bwd
+    res, seed, sun, eye, kw = DIFF_POINTS["frame"]
+    for point, (w, h) in LANE_POINTS.items():
+        args, rad, g_rad, back, _ = diff_inputs(diff, res, seed, sun, eye,
+                                                dict(kw, width=w, height=h), dev)
+        bwd = (*args[:7], rad, g_rad, args[7])
+        row = {"package": dict(rays=int(args[3].shape[0]),
+                               lanes=lib.ds_diff_lanes(args[3].shape[0]))}
+        fns = {}
+        for gl in (8, 16, 32):
+            k8b_row(row, fns, f"K8b adjoint G={gl}", gl, 0, bwd, back)
+        for key, ms in in_turns(fns, 10, ahead_ms).items():
+            row[key]["ms"] = ms
+        report(point, row)
+        del args, rad, g_rad, back, bwd
+    lib.ds_diff_variant(voxels, K8B_DESIGNS["G=8"], 0)
+    out["ok"] = ok
+    return out
+
+
+def lib_const(lib, name: str) -> int:
+    """An int a library's entry point ``name()`` returns."""
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    return int(fn())
+
+
 def render_variants(lib, dev) -> dict:
     """K4, K3, K1 and K2's alternatives on the path tracer's and the neural
     frame's operating points."""
@@ -367,8 +651,11 @@ def render_variants(lib, dev) -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--collector-only", action="store_true",
-                        help="time only K7a's and K7b's alternatives")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--collector-only", action="store_true",
+                      help="time only K7a's and K7b's alternatives")
+    only.add_argument("--diff-only", action="store_true",
+                      help="time only K8a's and K8b's adjoint's alternatives")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("march_variants: needs a CUDA card", file=sys.stderr)
@@ -376,8 +663,19 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     t0 = time.time()
+    dev = torch.device("cuda")
+    if opts.diff_only:
+        cuda_build.build(["inscatter", "diff", "diff_variants"])
+        regs = ptxas((cuda_build.BUILD_DIR / "diff_variants.log").read_text())
+        print(f"build: {time.time() - t0:.1f}s ptxas={json.dumps(regs)}", flush=True)
+        report = dict(card=card, diff=diff_variants(cuda_build.load("diff_variants"), dev),
+                      ptxas=regs)
+        report["ok"] = report["diff"]["ok"]
+        print(card, flush=True)
+        print(json.dumps(report), flush=True)
+        return 0 if report["ok"] else 1
     cuda_build.build(["pathtrace", "inscatter", "march", "descriptor", "samples",
-                      "march_variants"])
+                      "march_variants", "diff", "diff_variants"])
     lib = cuda_build.load("march_variants")
     lib.ds_variant.argtypes = [ctypes.c_int] * 3
     lib.ds_variant.restype = None
@@ -390,8 +688,10 @@ def main(argv=None) -> int:
     regs = ptxas((cuda_build.BUILD_DIR / "march_variants.log").read_text())
     print(f"build: {time.time() - t0:.1f}s ptxas={json.dumps(regs)}", flush=True)
 
-    dev = torch.device("cuda")
     report = {"card": card} if opts.collector_only else dict(card=card, **render_variants(lib, dev))
+    if not opts.collector_only:
+        report["diff"] = diff_variants(cuda_build.load("diff_variants"), dev)
+        report["ok"] = report["ok"] and report["diff"]["ok"]
     params, static = collector_scene(dev, bake=True)
     report["K7a"] = k7a_variants(lib, params, static)
     report["K7b"] = k7b_variants(lib, params, static)

@@ -331,25 +331,27 @@ _ADJ_ARGTYPES = [
 
 
 def launch_bake_adjoint(density, bbox, light_dir, density_multiplier, sample_step, trans,
-                        g_trans, lib=None):
+                        g_trans, lib=None, float64: bool = False):
     """K8a (``ds_bake_adjoint``): the bake's adjoint at T ``trans`` for the
     upstream ``g_trans`` (both [V]) → (d density [Z, Y, X], d light_dir
-    [3]).  ``bbox``, ``light_dir``: the host floats the forward ran with."""
+    [3]), float32, or the kernel's float64 sums where ``float64``.
+    ``bbox``, ``light_dir``: the host floats the forward ran with."""
     _check_grid(density)
     v = density.numel()
     _check_vec("trans", trans, v)
     _check_vec("g_trans", g_trans, v)
+    nz, ny, nx = density.shape
     lib = lib or cuda_build.load("diff")
-    lib.ds_diff_threads.restype = ctypes.c_int
-    blocks = -(-v // lib.ds_diff_threads())
+    lib.ds_bake_adjoint_blocks.argtypes = [ctypes.c_int] * 3
+    lib.ds_bake_adjoint_blocks.restype = ctypes.c_int64
+    blocks = lib.ds_bake_adjoint_blocks(nx, ny, nz)
     fn = lib.ds_bake_adjoint
     fn.argtypes = _ADJ_ARGTYPES
     fn.restype = ctypes.c_int
-    nz, ny, nx = density.shape
     consts = (ctypes.c_float * 9)(*bbox, *light_dir, sample_step, density_multiplier,
                                   float(max(nx, ny, nz)))
     d_dens = torch.zeros(density.shape, dtype=torch.float64, device=density.device)
-    partials = torch.zeros((blocks, 3), dtype=torch.float32, device=density.device)
+    partials = torch.zeros((blocks, 3), dtype=torch.float64, device=density.device)
     cuda_build.check(
         fn(cuda_build.ptr(density), nx, ny, nz, consts, inscatter.bake_steps(sample_step, False),
            cuda_build.ptr(trans), cuda_build.ptr(g_trans), cuda_build.ptr(d_dens),
@@ -357,7 +359,10 @@ def launch_bake_adjoint(density, bbox, light_dir, density_multiplier, sample_ste
         "bake adjoint kernel",
     )
     launch_bake_adjoint.launches += 1
-    return d_dens.to(torch.float32), partials.to(torch.float64).sum(dim=0).to(torch.float32)
+    d_light = partials.sum(dim=0)
+    if float64:
+        return d_dens, d_light
+    return d_dens.to(torch.float32), d_light.to(torch.float32)
 
 
 launch_bake_adjoint.launches = 0

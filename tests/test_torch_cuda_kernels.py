@@ -44,7 +44,13 @@ K8a, K8b) against the plain versions on the card and on the CPU, the image
 within 1e-5 of its largest value, the density gradient within 1e-4 of its
 largest, the other leaves within 1e-3; the bake's forward bitwise equal to
 the plain bake; the sun march within 1e-6 (T) and 1e-4 (gradients); two
-runs' images bitwise equal, their gradients within 1e-5 (atomics).
+runs' images bitwise equal, their gradients within 1e-5 (atomics).  On the
+render's own inputs, K8b's adjoint (G lanes a ray) within 1e-5 of each
+leaf's largest of autograd of the plain march and of its first design (a
+thread a ray), K8a (rows) within 1e-6 of autograd of the plain bake and
+within 1e-12 of its first design (a thread a voxel: both sum the same
+float32 terms in float64; the first designs build from
+``csrc/diff_variants.cu``).
 
 The render task (``tasks.render_cloud``, NN and BNN, from ``.pt``
 exports) on the card against the CPU: frames within rtol 1e-3 on >= 99.5 %
@@ -70,6 +76,7 @@ K7b: counts equal, per-point sums within 1e-5 (x) and 1e-4 (x^2) of their
 largest values.
 """
 
+import ctypes
 import dataclasses
 import math
 
@@ -963,12 +970,69 @@ def _diff_close(got, want):
         assert float((a - b).abs().max()) <= DIFF_TOL[name] * float(b.abs().max()), name
 
 
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
 @pytest.mark.parametrize("baked", [True, False], ids=["baked", "pointwise"])
 def test_diff_kernels_match_plain(card, baked):
+    """The render's image and gradients through the kernels against the
+    plain versions; then each adjoint kernel on the render's own inputs:
+    K8b's adjoint (G lanes a ray) against autograd of the plain march
+    (within 1e-5 of each leaf's largest) and against its first design, a
+    thread a ray (``csrc/diff_variants.cu``, within 1e-5); K8a (rows)
+    against autograd of the plain bake (1e-6) and its first design, a
+    thread a voxel (the same float32 terms in float64 sums: 1e-12)."""
+    from deepestscatter_tpu_torch.render import diff
+
     scene = _diff_scene(card)
     got = _diff_grads(scene, baked, kernels=True)
     assert float(got[0].max()) > 0 and all(bool(torch.isfinite(t).all()) for t in got)
     _diff_close(got, _diff_grads(scene, baked, kernels=False))
+
+    variants = cuda_build.load("diff_variants")
+    variants.ds_diff_variant.argtypes = [ctypes.c_int] * 3
+    kw = dict(DIFF_KW, use_baked_inscatter=baked)
+    with torch.no_grad():
+        m = diff.march_setup(scene, kernels=True, **kw)
+    args = (scene.density, m.baked, None if m.to_sun is None else m.to_sun.contiguous(),
+            m.entry.contiguous(), m.dirs.contiguous(), m.p_phase.contiguous(),
+            m.hit.to(torch.uint8), m.meta)
+    g = torch.from_numpy(np.random.default_rng(9).random(m.hit.shape[0]).astype(np.float32))
+    g = torch.where(m.hit, g.to(card), 0.0).contiguous()
+    rad = diff.launch_march(*args)
+    back = diff.launch_march_bwd(*args[:7], rad, g, m.meta)
+    variants.ds_diff_variant(4, 0, 0)
+    first = diff.launch_march_bwd(*args[:7], rad, g, m.meta, lib=variants)
+    names = ["density", "entry", "dirs", "p_phase", "baked" if baked else "to_sun"]
+    leaves = {n: (getattr(scene, n) if n == "density" else getattr(m, n)).detach().clone()
+              .requires_grad_(True) for n in names}
+    ref = diff.quadrature_march_plain(leaves["density"], leaves.get("baked"),
+                                      leaves.get("to_sun"), leaves["entry"], leaves["dirs"],
+                                      leaves["p_phase"], m.meta, kw["remat_chunk"])
+    want = dict(zip(names, torch.autograd.grad(ref, list(leaves.values()), g)))
+    for name in names:
+        assert _rel(getattr(back, name), want[name]) <= 1e-5, name
+        assert _rel(getattr(back, name), getattr(first, name)) <= 1e-5, name
+    if not baked:
+        return
+    sun_n = scene.sun_dir / torch.linalg.norm(scene.sun_dir)
+    light = tuple(sun_n.tolist())
+    trans = inscatter.launch_bake(scene.density, m.meta.bbox, light, m.meta.step,
+                                  m.meta.density_multiplier, False)
+    adj = (scene.density, m.meta.bbox, light, m.meta.density_multiplier, m.meta.step, trans,
+           back.baked.reshape(-1).contiguous())
+    d_dens, d_light = diff.launch_bake_adjoint(*adj, float64=True)
+    variants.ds_diff_variant(0, 8, 0)
+    p_dens, p_light = diff.launch_bake_adjoint(*adj, lib=variants, float64=True)
+    assert _rel(d_dens, p_dens) <= 1e-12 and _rel(d_light, p_light) <= 1e-5
+    dl = scene.density.clone().requires_grad_(True)
+    ll = sun_n.clone().requires_grad_(True)
+    out = diff.bake_inscatter_diff_plain(dl, diff._bbox(scene.density), ll,
+                                         m.meta.density_multiplier, m.meta.step)
+    w_dens, w_light = torch.autograd.grad(out, (dl, ll), back.baked)
+    assert _rel(d_dens, w_dens) <= 1e-6 and _rel(d_light, w_light) <= 1e-5
 
 
 @pytest.mark.parametrize("baked", [True, False], ids=["baked", "pointwise"])

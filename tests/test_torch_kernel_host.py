@@ -69,16 +69,31 @@ arithmetic the kernels share with their host build.
   batch of one; an index outside the table gives a row of NaN.
 - K8b's forward (``march_ray``) within 1e-6 of the plain march's largest
   value in both in-scatter modes, 0 on rays that miss, stopping at the box
-  exit (its step counts); its adjoint (``march_ray_adjoint``) within 1e-5
-  of autograd of the plain march for the density, the baked grid or the
-  sun direction, the entries, directions and phase values, and on the 8
+  exit (its step counts); its adjoint (the kernel's lanes) within 1e-5 of
+  autograd of the plain march for the density, the baked grid or the sun
+  direction, the entries, directions and phase values, and on the 8
   deepest rays within 1e-4 of each ray's largest (the R - prefix replay);
   finite on axis-parallel rays and exactly 0 on rays that miss.  K8a
-  (``bake_adjoint_voxel``, float64 sums) within 1e-6 of autograd of the
+  (``bake_adjoint_row``, float64 sums) within 1e-6 of autograd of the
   plain bake (float64 sums over the steps too), the light gradient within
   1e-5.  The sun march and its adjoint within 1e-6 and 1e-5.  The render's
   autograd Functions over the host build within 1e-6 (image), 1e-5
   (density) and 1e-4 (the other leaves) of the plain render.
+- K8a's row form (``bake_adjoint_row``: the row's y/z work once a step,
+  each voxel's runs of steps in one cell, their float32 sums added in
+  float64) equals its per-voxel first design ``bake_adjoint_voxel``
+  within float64 rounding (1e-12 of the density gradient's largest value:
+  the same float32 terms summed in another order; measured 1.2e-15) on
+  the 20 x 28 x 36 grid, for four light directions (one axis-parallel),
+  with every face's texels reached; the light gradient (its slope
+  regrouped) within 1e-6 (measured 1.4e-7).
+- K8b's adjoint in chunks of G lanes a ray (``lane_span``, ``lane_fold``,
+  ``step_adjoint``, the grid scatters summed over runs of lanes in one
+  cell) equals its per-ray first design ``march_ray_adjoint`` bitwise at
+  G = 1 and within 1e-5 of each leaf's largest at G = 8 and 32 (the
+  kernel's two; measured: at most 8.0e-7, d/d to_sun; 4.7e-7 the
+  density's), on the 24^3 cumulus of ``test_torch_cuda_kernels.py``,
+  baked and pointwise.
 - All match the plain PyTorch versions within the tolerances of
   ``test_torch_cuda_kernels.py``: glibc's ``expf``/``logf``/``sinf``/
   ``cosf``/``acosf`` are not torch's, so step counts agree on >= 99 % of
@@ -141,6 +156,7 @@ def host_lib(tmp_path_factory):
     lib.host_set_probes.argtypes = [ctypes.c_int]
     lib.host_set_samples.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.host_set_radiance.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.host_set_diff.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -869,6 +885,94 @@ def test_k8a_equals_autograd_of_the_plain_bake(host_lib):
     want_d, want_l = torch.autograd.grad(out, (dl, ll), g.reshape(density.shape))
     assert _rel(got_d, want_d) <= 1e-6
     assert _rel(got_l, want_l) <= 1e-5
+
+
+@pytest.mark.parametrize("light", list(LIGHTS))
+def test_k8a_rows_equal_the_voxel_loop(host_lib, light):
+    """K8a's row form against its per-voxel first design on the 20 x 28 x 36
+    grid (rows of 36, a box that is not a power of two: IEEE divisions),
+    224 steps of 1/128 (past the box's diagonal: every march leaves the
+    box), a quarter of the upstream 0."""
+    density = torch.from_numpy(_smooth_grid())
+    to_light = np.asarray(LIGHTS[light], np.float64)
+    light_dir = tuple(float(v) for v in (to_light / np.linalg.norm(to_light)).astype(np.float32))
+    bbox, dm, step = diff._bbox_host(density.shape), 60.0, 1.0 / 128.0
+    trans = inscatter.launch_bake(density, bbox, light_dir, step, dm, False, lib=host_lib)
+    rng = np.random.default_rng(6)
+    g = torch.from_numpy((rng.random(density.numel()) * (rng.random(density.numel()) > 0.25))
+                         .astype(np.float32))
+    got = {}
+    try:
+        for mode in (0, 1):
+            host_lib.host_set_diff(mode, 1, 0)
+            got[mode] = diff.launch_bake_adjoint(density, bbox, light_dir, dm, step, trans, g,
+                                                 lib=host_lib, float64=True)
+    finally:
+        host_lib.host_set_diff(1, 1, 0)
+    (ref_d, ref_l), (row_d, row_l) = got[0], got[1]
+    assert _rel(row_d, ref_d) <= 1e-12
+    assert _rel(row_l, ref_l) <= 1e-6
+    # Every face's texels take a gradient: the voxels on it, and on the
+    # faces the marches leave across, the clamped samples of every march.
+    faces = [ref_d.select(a, e) for a in range(3) for e in (0, density.shape[a] - 1)]
+    assert all(bool((f != 0).any()) for f in faces)
+
+
+#: The card tests' differentiable frame (test_torch_cuda_kernels.py): the
+#: 24^3 cumulus of seed 29, 32 x 16, 224 steps of 1/128.
+CARD_DIFF_KW = dict(width=32, height=16, density_multiplier=100.0, n_steps=224, sun_steps=64,
+                    sample_step=1.0 / 128.0, remat_chunk=32,
+                    sun_cos_half_angle=math.cos(math.radians(0.53) / 2.0))
+
+
+@pytest.fixture(scope="module", params=["baked", "pointwise"])
+def lanes_rig(request):
+    """The card tests' 24^3 scene, its march inputs (through the plain
+    bake), a random upstream a ray (0 where the ray misses)."""
+    from deepestscatter_tpu_torch.ops import grid as grid_ops
+
+    density = grid_ops.normalize_density(procedural.cumulus(resolution=24, seed=29))
+    scene = diff.diff_scene_from_numpy(
+        density, np.asarray([-0.3, -0.9, 0.1], np.float32),
+        np.asarray([2.5, -0.4, 0.0], np.float32), np.zeros(3, np.float32),
+        np.full(3, 1e6, np.float32), device="cpu")
+    kw = dict(CARD_DIFF_KW, use_baked_inscatter=request.param == "baked")
+    with torch.no_grad():
+        m = diff.march_setup(scene, kernels=False, **kw)
+    g = torch.from_numpy(np.random.default_rng(9).random(m.hit.shape[0]).astype(np.float32))
+    g = torch.where(m.hit, g, 0.0).contiguous()
+    return scene, m, g, _march_args(scene, m)
+
+
+def _march_bwd(host_lib, args, g, m, mode, lanes):
+    host_lib.host_set_diff(1, mode, lanes)
+    try:
+        rad = diff.launch_march(*args, lib=host_lib)
+        return diff.launch_march_bwd(*args[:7], rad, g, m.meta, lib=host_lib)
+    finally:
+        host_lib.host_set_diff(1, 1, 0)
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+def test_k8b_lanes_equal_the_ray_loop(host_lib, lanes_rig, lanes):
+    """K8b's adjoint in chunks of G lanes a ray against its per-ray first
+    replay: bitwise at G = 1 (the chunk logic alone), within 1e-5 of each
+    leaf's largest at G = 8 and 32 (the lanes' sums of d/d entry, dirs and
+    to_sun, and the runs' sums of the grid scatters, in another float32
+    order)."""
+    scene, m, g, args = lanes_rig
+    ref = _march_bwd(host_lib, args, g, m, 0, 0)
+    got = _march_bwd(host_lib, args, g, m, 1, lanes)
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(ref, name)
+        if b is None:
+            assert a is None, name
+            continue
+        assert float(b.abs().max()) > 0, name
+        if lanes == 1:
+            assert torch.equal(a, b), name
+        else:
+            assert _rel(a, b) <= 1e-5, name
 
 
 def test_k8a_on_a_block_equals_the_plain_bake_of_the_block(host_lib):

@@ -11,12 +11,13 @@
 //
 // It exports ds_pathtrace, ds_radiance, ds_bake, ds_march, ds_descriptor,
 // ds_probes, ds_samples, ds_assemble_disney, ds_assemble_baked,
-// ds_bake_adjoint, ds_diff_march, ds_diff_march_bwd, ds_sun_march and
-// ds_sun_march_bwd with the signatures of the device entry points (the
+// ds_bake_adjoint(_blocks), ds_diff_march, ds_diff_march_bwd, ds_sun_march
+// and ds_sun_march_bwd with the signatures of the device entry points (the
 // atomics of K8a and K8b as plain adds),
 // so the wrappers' _launch drives it on CPU tensors; host_set_pathtrace,
 // host_set_radiance, host_set_bake, host_set_march, host_set_descriptor,
-// host_set_probes and host_set_samples choose what they compute.
+// host_set_probes, host_set_samples and host_set_diff choose what they
+// compute.
 #include <math.h>
 #include <stdint.h>
 
@@ -52,6 +53,12 @@ int samples_warps = ds::kSampleWarps;  // W of mode 2
 // parked lanes (the kernel's).
 int radiance_mode = 1;
 int radiance_park_at = ds::kParkAt;
+// K8a: 0 bake_adjoint_voxel a voxel (its first design); 1 bake_adjoint_row a
+// row (the kernel's).  K8b's adjoint: 0 march_ray_adjoint a ray (its first
+// design); 1 chunks of diff_lanes lanes a ray (the kernel's).
+int adjoint_mode = 1;
+int diff_mode = 1;
+int diff_lanes = ds::diff::kDiffLanes;  // 1, 8 or 32
 
 template <int K, typename T>
 void trace_items(const T* dens, const T* insc, int nx, int ny, int nz,
@@ -370,6 +377,112 @@ int samples(const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
   return 0;
 }
 
+// K8b's adjoint for ray r in chunks of G lanes: each chunk's lanes
+// computed one after the other into arrays (what the card's ballot and
+// shuffles deliver), the grid scatters summed over runs of lanes in one
+// cell as group_deposit's segmented scan sums them (the same additions, in
+// the same tree order), the group's sums of d/d entry, dirs and to_sun as
+// the kernel's shuffle tree.
+template <int G>
+float march_bwd_chunks(const float* dens, const float* baked, const ds::diff::MarchConsts& c,
+                       const float* ts, const float* e, const float* d, float ph, float R,
+                       float g, float* d_dens, float* d_baked, float* de_out, float* dd_out,
+                       float* dts_out) {
+  const ds::diff::AddTo add;
+  float de[G][3] = {}, dd[G][3] = {}, dts[G][3] = {};
+  float tau = 0.0f, C = 0.0f, dP = 0.0f;
+  bool was_in = false;
+  for (int i0 = 0; i0 < c.n_steps; i0 += G) {
+    ds::diff::LaneDiff L[G];
+    unsigned in = 0u;
+    for (int l = 0; l < G; ++l) {
+      ds::diff::lane_sample(dens, baked, c, ts, e, d, i0 + l, L[l]);
+      in |= (unsigned)L[l].in << l;
+    }
+    const ds::diff::LaneSpan sp = ds::diff::lane_span(in, was_in, G);
+    float xs[G], term[G], dterm[G], tau_l[G], C_l[G];
+    for (int l = 0; l < G; ++l) {
+      const bool mine = l >= sp.start && l < sp.end;
+      xs[l] = mine ? L[l].st.sigma * c.step : 0.0f;
+    }
+    auto sig_of = [&](int k) { return xs[k]; };
+    for (int l = 0; l < G; ++l) tau_l[l] = ds::diff::lane_fold<G>(tau, sp.start, l, sig_of);
+    tau = ds::diff::lane_fold<G>(tau, sp.start, sp.end, sig_of);
+    for (int l = 0; l < G; ++l) {
+      term[l] = dterm[l] = 0.0f;
+      if (l >= sp.start && l < sp.end) {
+        L[l].st.tv = expf(-tau_l[l]);
+        const float tvseg = L[l].st.tv * L[l].st.seg;
+        term[l] = ((tvseg * L[l].S) * ph) * c.sun_ratio;
+        dterm[l] = (tvseg * L[l].S) * c.sun_ratio;
+      }
+    }
+    auto term_of = [&](int k) { return term[k]; };
+    for (int l = 0; l < G; ++l) C_l[l] = ds::diff::lane_fold<G>(C, sp.start, l + 1, term_of);
+    C = ds::diff::lane_fold<G>(C, sp.start, sp.end, term_of);
+    dP = ds::diff::lane_fold<G>(dP, sp.start, sp.end, [&](int k) { return dterm[k]; });
+    float vd[G][8] = {}, vb[G][8] = {};
+    int key_d[G], key_b[G];
+    bool lit_any = false;
+    for (int l = 0; l < G; ++l) {
+      key_d[l] = key_b[l] = -1 - l;
+      if (l < sp.start || l >= sp.end) continue;
+      ds::diff::step_adjoint(dens, baked, c, ts, d, ph, R, g, L[l].st, L[l].S, L[l].tq, C_l[l],
+                             d_dens, vd[l], vb[l], de[l], dd[l], dts[l], add);
+      key_d[l] = L[l].st.tp.idx[0];
+      bool lit = false;
+      for (int k = 0; k < 8; ++k) lit = lit || vb[l][k] != 0.0f;
+      if (c.baked && lit) key_b[l] = L[l].tq.idx[0];
+      lit_any = lit_any || lit;
+    }
+    // group_deposit over arrays: runs numbered by their first lanes, then
+    // the segmented scan level by level.
+    auto deposit = [&](const int* key, float (*v)[8], bool baked_grid) {
+      int run[G];
+      bool head[G];
+      for (int l = 0, n_run = 0; l < G; ++l) {
+        head[l] = l == 0 || key[l - 1] != key[l];
+        n_run += head[l] ? 1 : 0;
+        run[l] = n_run;
+      }
+      for (int o = 1; o < G; o <<= 1) {
+        float prev[G][8];
+        for (int l = 0; l < G; ++l) {
+          for (int k = 0; k < 8; ++k) prev[l][k] = v[l][k];
+        }
+        for (int l = o; l < G; ++l) {
+          if (run[l - o] != run[l]) continue;
+          for (int k = 0; k < 8; ++k) v[l][k] = v[l][k] + prev[l - o][k];
+        }
+      }
+      for (int l = 0; l < G; ++l) {
+        if (key[l] < 0 || !(l == G - 1 || head[l + 1])) continue;
+        const ds::diff::Taps& t = baked_grid ? L[l].tq : L[l].st.tp;
+        for (int k = 0; k < 8; ++k) add((baked_grid ? d_baked : d_dens) + t.idx[k], v[l][k]);
+      }
+    };
+    if (c.baked && lit_any) deposit(key_b, vb, true);
+    deposit(key_d, vd, false);
+    was_in = was_in || sp.start < sp.end;
+    if (sp.ended) break;
+  }
+  for (int o = G / 2; o > 0; o >>= 1) {
+    for (int l = 0; l < o; ++l) {
+      for (int a = 0; a < 3; ++a) {
+        de[l][a] += de[l + o][a];
+        dd[l][a] += dd[l + o][a];
+        dts[l][a] += dts[l + o][a];
+      }
+    }
+  }
+  for (int a = 0; a < 3; ++a) {
+    de_out[a] = de[0][a];
+    dd_out[a] = dd[0][a];
+    dts_out[a] = dts[0][a];
+  }
+  return dP * g;
+}
+
 }  // namespace
 
 extern "C" {
@@ -419,6 +532,15 @@ void host_set_samples(int mode, int lanes) {
 void host_set_radiance(int mode, int park_at) {
   radiance_mode = mode;
   radiance_park_at = park_at > 0 ? park_at : ds::kParkAt;
+}
+
+// K8a: adjoint 0 bake_adjoint_voxel a voxel, 1 bake_adjoint_row a row.
+// K8b's adjoint: march 0 march_ray_adjoint a ray, 1 chunks of `lanes`
+// lanes (1, 8 or 32; 0 for the kernel's kDiffLanes).
+void host_set_diff(int adjoint, int march, int lanes) {
+  adjoint_mode = adjoint;
+  diff_mode = march;
+  diff_lanes = lanes > 0 ? lanes : ds::diff::kDiffLanes;
 }
 
 int ds_pathtrace(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
@@ -619,15 +741,30 @@ int ds_assemble_baked(const void* probes, const void* rt, const float* powers,
 }
 
 // K8a, K8b and the sun march: the device functions over every item, one
-// after the other; K8a's light gradient summed a block of kDiffThreads
-// voxels into each partial row.
-int ds_diff_threads() { return ds::diff::kDiffThreads; }
+// after the other.  K8a's light gradient: per-voxel, summed a block of
+// kDiffThreads voxels into each partial row (the first design); per-row, a
+// row's voxels summed in float64 into the row's partial.
+int64_t ds_bake_adjoint_blocks(int nx, int ny, int nz) {
+  const int64_t rows = ds::diff::row_launch(nx, ny, nz, ds::diff::kAdjVoxels).blocks;
+  const int64_t voxels = ((int64_t)nx * ny * nz + ds::diff::kDiffThreads - 1) /
+                         ds::diff::kDiffThreads;
+  return rows > voxels ? rows : voxels;
+}
 
 int ds_bake_adjoint(const float* dens, int nx, int ny, int nz, const float* consts,
                     int n_steps, const float* trans, const float* gbar, double* d_dens,
-                    float* partials, void* /*stream*/) {
+                    double* partials, void* /*stream*/) {
   const int64_t n = (int64_t)nx * ny * nz;
   const ds::diff::AdjConsts c = ds::diff::adj_consts(nx, ny, nz, consts);
+  if (adjoint_mode == 1) {
+    std::vector<ds::diff::AdjVoxel> vox(nx);
+    for (int row = 0; row < ny * nz; ++row) {
+      ds::diff::bake_adjoint_row(row % ny, row / ny, dens, c, n_steps, trans + (int64_t)row * nx,
+                                 gbar + (int64_t)row * nx, vox.data(), d_dens,
+                                 partials + 3 * (int64_t)row);
+    }
+    return 0;
+  }
   for (int64_t b = 0; b * ds::diff::kDiffThreads < n; ++b) {
     float acc[3] = {0.0f, 0.0f, 0.0f};
     for (int64_t v = b * ds::diff::kDiffThreads;
@@ -676,9 +813,24 @@ int ds_diff_march_bwd(const float* dens, const float* baked, const float* to_sun
     float dphase = 0.0f;
     if (hit[r] && g_rad[r] != 0.0f) {
       const float ts0[3] = {0.0f, 0.0f, 0.0f};
-      dphase = ds::diff::march_ray_adjoint(dens, baked, c, baked ? ts0 : to_sun, entry + 3 * r,
-                                           dirs + 3 * r, phase[r], rad[r], g_rad[r], d_dens,
-                                           d_baked, de, dd, dts);
+      const float* ts = baked ? ts0 : to_sun;
+      const float *e = entry + 3 * r, *d = dirs + 3 * r;
+#define DS_CHUNKS(G)                                                                       \
+  march_bwd_chunks<G>(dens, baked, c, ts, e, d, phase[r], rad[r], g_rad[r], d_dens, d_baked, de, \
+                      dd, dts)
+      if (diff_mode == 0) {
+        dphase = ds::diff::march_ray_adjoint(dens, baked, c, ts, e, d, phase[r], rad[r], g_rad[r],
+                                             d_dens, d_baked, de, dd, dts, ds::diff::AddTo());
+      } else if (diff_lanes == 1) {
+        dphase = DS_CHUNKS(1);
+      } else if (diff_lanes == 8) {
+        dphase = DS_CHUNKS(8);
+      } else if (diff_lanes == 32) {
+        dphase = DS_CHUNKS(32);
+      } else {
+        return -1;
+      }
+#undef DS_CHUNKS
     }
     for (int a = 0; a < 3; ++a) {
       d_entry[3 * r + a] = de[a];
@@ -711,7 +863,7 @@ int ds_sun_march_bwd(const float* dens, const float* to_sun, int nx, int ny, int
   for (int64_t r = 0; r < n; ++r) {
     float dq[3] = {0.0f, 0.0f, 0.0f}, dts[3] = {0.0f, 0.0f, 0.0f};
     ds::diff::sun_march_adjoint(dens, g, consts[3], consts[4], n_steps, pos + 3 * r, to_sun,
-                                trans[r], g_trans[r], d_dens, dq, dts);
+                                trans[r], g_trans[r], d_dens, dq, dts, ds::diff::AddTo());
     for (int a = 0; a < 3; ++a) {
       d_pos[3 * r + a] = dq[a];
       d_ts[3 * r + a] = dts[a];
