@@ -9,8 +9,8 @@ Phases, one output line each:
 
 1. ``env`` / ``build``: the card, torch and CUDA versions; the kernels
    built from ``deepestscatter_tpu_torch/csrc`` (one nvcc per source, in
-   parallel, P1's designs and the first designs of K8a and K8b's adjoint
-   included) with their ptxas register reports.
+   parallel, P1's designs and the first designs of K8a and K8b included)
+   with their ptxas register reports.
 2. ``K3`` / ``K1`` / ``K2``: each kernel against its plain PyTorch version
    at the operating point's shapes, with the tolerance it must meet, its
    time (CUDA events), the plain version's time and the work counts its
@@ -210,13 +210,22 @@ Phases, one output line each:
     within 5 %, median pixel error below 0.1).  It prints the forward and
     forward + backward times at both points, the plain version's time and
     peak memory at the defaults point, each kernel's time (CUDA events)
-    beside its bound and its plain version's, K8a's and K8b's adjoint's
-    beside their first designs timed in turns in the same call
-    (``csrc/diff_variants.cu``: a thread a voxel, a thread a ray; timed by
-    ``probes/march_variants.py::against_first``, the host enqueueing ahead
-    behind a spin kernel that must outlast it) with the largest
-    difference of each output from theirs, and peak memory.  The
-    kernels line's K8a and K8b rows are at the defaults point, baked.
+    beside its bound and its plain version's, each kernel beside its first
+    design timed in turns in the same call (``csrc/diff_variants.cu``: a
+    thread a voxel, ray or point; timed by
+    ``probes/march_variants.py::against_first``,
+    ``forward_against_first`` and ``sun_against_first``, the host
+    enqueueing ahead behind a spin kernel that must outlast it) with the
+    largest difference of each output from theirs (K8b's forward and the
+    sun march's T bitwise), at both points and in both in-scatter modes;
+    K8b's forward in each design (lanes a ray) at the defaults point, the
+    sun march and its adjoint in each design (a thread or G lanes a point)
+    at the 262,144 voxel centres; peak memory.  K8b's forward is held bitwise to the plain march at both
+    points in both modes.  The kernels line's K8a and K8b rows are at the
+    defaults point, baked, and K8b's again pointwise (its bound counting
+    the sun march's samples at the lit steps, and for the adjoint at the
+    dark steps too, those counted by the sun march kernel at their NEE
+    points).
 
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
@@ -361,6 +370,16 @@ K8B_BWD_OPS_PER_STEP = 480
 K8B_BWD_DARK_OPS_PER_STEP = 290
 K8B_SUN_OPS_PER_STEP = 100
 K8B_SUN_BWD_OPS_PER_STEP = 150
+#: Pointwise in-scatter: K8b's forward a lit step less the baked-grid
+#: sample (~90), plus the sun march's samples it takes (K8B_SUN_OPS_PER_STEP
+#: each); its backward a lit step less the baked-grid sample, slope and 8
+#: weighted atomic adds (~150) and a dark step less the baked-grid sample,
+#: plus the sun march's samples at every step in the box (the in-scatter
+#: S, K8B_SUN_OPS_PER_STEP each) and its adjoint's at the lit steps
+#: (K8B_SUN_BWD_OPS_PER_STEP each).
+K8B_PW_OPS_PER_STEP = 130
+K8B_PW_BWD_OPS_PER_STEP = 330
+K8B_PW_BWD_DARK_OPS_PER_STEP = 200
 #: The frame point's checks against the plain versions, on a part of its
 #: work at its own shapes: K8b on the rays with the most steps with
 #: sigma != 0 (the longest prefix sums), K8a with the upstream restricted
@@ -2140,7 +2159,7 @@ def diff_kernel_inputs(diff, scene, kw):
                 m.dirs.contiguous(), m.p_phase.contiguous(), m.hit.to(torch.uint8), m.meta)
         g_rad = torch.where(m.hit, scene.light_radiance.sum() / (3 * n),
                             torch.zeros((), device=m.hit.device)).to(torch.float32).contiguous()
-        steps = torch.zeros((n, 2), dtype=torch.int32, device=m.hit.device)
+        steps = torch.zeros((n, 3), dtype=torch.int32, device=m.hit.device)
         rad = diff.launch_march(*args, steps=steps)
         back = diff.launch_march_bwd(*args[:7], rad, g_rad, m.meta)
     return m, args, g_rad, steps, rad, back
@@ -2183,8 +2202,11 @@ def phase_diff(port, config, prog, ins_ops, dev) -> list:
         f.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
-    main = {b: diff.render_and_grads(scene64, device=dev, use_baked_inscatter=b)
-            for b in (True, False)}
+    main = {}
+    for b in (True, False):
+        before = {k: f.launches for k, f in launchers.items()}
+        main[b] = diff.render_and_grads(scene64, device=dev, use_baked_inscatter=b)
+    pointwise_launches = {k: f.launches - before[k] for k, f in launchers.items()}
     torch.cuda.reset_peak_memory_stats()
     frame = diff_grads(diff, scene256, kw_frame, weights=weights)
     torch.cuda.synchronize()
@@ -2197,8 +2219,8 @@ def phase_diff(port, config, prog, ins_ops, dev) -> list:
     launches = {k: f.launches for k, f in launchers.items()}
     print(f"diff: main path (render_and_grads at the defaults point, both in-scatter modes; "
           f"the frame point's image and gradients; sun_transmittance and its gradient at "
-          f"{centres.shape[0]} voxel centres) {time.time() - t0:.2f}s launches={json.dumps(launches)}",
-          flush=True)
+          f"{centres.shape[0]} voxel centres) {time.time() - t0:.2f}s launches={json.dumps(launches)} "
+          f"(pointwise render_and_grads: {json.dumps(pointwise_launches)})", flush=True)
     require(all(n > 0 for n in launches.values()),
             f"a kernel of the diff path never launched: {launches}")
 
@@ -2348,20 +2370,29 @@ def phase_diff(port, config, prog, ins_ops, dev) -> list:
     # -- each kernel at both points: time, bound, the plain version ------------
     rows = diff_kernel_rows(diff, ins_ops, scene64, render_kw(diff), launches, sun_leaves,
                             sun_w, sun_args)
-    lap("the kernel rows at the defaults point")
+    lap("the kernel rows at the defaults point, baked, and the sun march")
+    rows += diff_pointwise_rows(diff, scene64, render_kw(diff), pointwise_launches)
+    lap("the kernel rows at the defaults point, pointwise")
     diff_frame_kernels(diff, ins_ops, scene256, kw_frame)
     lap("the kernels at the frame point")
     print(f"diff: phase {time.time() - t_phase:.1f}s", flush=True)
     return rows
 
 
-def k8b_ops(steps: torch.Tensor):
-    """K8b's forward and adjoint operations for this run's steps [N, 2]
-    (steps in the box, steps with sigma != 0)."""
-    n_in, n_lit = (int(v) for v in steps.to(torch.int64).sum(dim=0).tolist())
+def k8b_ops(steps: torch.Tensor, dark_sun: int = 0):
+    """K8b's forward and adjoint operations for this run's steps [N, 3]
+    (steps in the box, steps with sigma != 0, the sun march's samples at
+    those: pointwise only); pointwise also ``dark_sun``, the sun march's
+    samples at the steps with sigma == 0 (the adjoint's in-scatter there)."""
+    n_in, n_lit, sun = (int(v) for v in steps.to(torch.int64).sum(dim=0).tolist())
     dark = n_in - n_lit
-    return (n_lit * K8B_OPS_PER_STEP + dark * K8B_DARK_OPS_PER_STEP,
-            n_lit * K8B_BWD_OPS_PER_STEP + dark * K8B_BWD_DARK_OPS_PER_STEP)
+    if sun == 0:  # baked
+        return (n_lit * K8B_OPS_PER_STEP + dark * K8B_DARK_OPS_PER_STEP,
+                n_lit * K8B_BWD_OPS_PER_STEP + dark * K8B_BWD_DARK_OPS_PER_STEP)
+    return (n_lit * K8B_PW_OPS_PER_STEP + dark * K8B_DARK_OPS_PER_STEP
+            + sun * K8B_SUN_OPS_PER_STEP,
+            n_lit * K8B_PW_BWD_OPS_PER_STEP + dark * K8B_PW_BWD_DARK_OPS_PER_STEP
+            + (sun + dark_sun) * K8B_SUN_OPS_PER_STEP + sun * K8B_SUN_BWD_OPS_PER_STEP)
 
 
 def k8b_against_plain(label, diff, m, args, rad, g_rad, rays, remat_chunk, back=None,
@@ -2379,13 +2410,16 @@ def k8b_against_plain(label, diff, m, args, rad, g_rad, rays, remat_chunk, back=
         g_sub = torch.zeros_like(g_rad)
         g_sub[rays] = g_rad[rays]
         back = diff.launch_march_bwd(*args[:7], rad, g_sub, meta)
-    leaves = [args[0].detach().requires_grad_(True), m.baked.detach().requires_grad_(True)] + [
+    baked = m.baked is not None
+    insc = m.baked if baked else m.to_sun  # the in-scatter's leaf
+    leaves = [args[0].detach().requires_grad_(True), insc.detach().requires_grad_(True)] + [
         t[rays].detach().requires_grad_(True) for t in args[3:6]]
 
     def plain_march(grad):
         with torch.set_grad_enabled(grad):
-            return diff.quadrature_march_plain(leaves[0], leaves[1], None, leaves[2], leaves[3],
-                                               leaves[4], meta, remat_chunk)
+            return diff.quadrature_march_plain(
+                leaves[0], leaves[1] if baked else None, None if baked else leaves[1], leaves[2],
+                leaves[3], leaves[4], meta, remat_chunk)
 
     ref_rad, plain_f = host_call(lambda: plain_march(False)) if time_forward else (None, None)
 
@@ -2400,12 +2434,15 @@ def k8b_against_plain(label, diff, m, args, rad, g_rad, rays, remat_chunk, back=
             f"{label}: a reference of the K8b check is zero on every checked ray")
     errs_f = rel_errors([("radiance", rad[rays], ref_rad)])
     check_errors(f"{label}: K8b forward against the plain march", errs_f, {"radiance": 1e-6})
+    require(errs_f["radiance"][1] == 0.0,
+            f"{label}: K8b's forward is not bitwise equal to the plain march")
+    ins = "baked" if baked else "to_sun"
     errs_b = rel_errors(list(zip(
-        ("density", "baked", "entry", "dirs", "p_phase"),
-        (back.density, back.baked, back.entry[rays], back.dirs[rays], back.p_phase[rays]),
+        ("density", ins, "entry", "dirs", "p_phase"),
+        (back.density, getattr(back, ins), back.entry[rays], back.dirs[rays], back.p_phase[rays]),
         ref_back)))
     check_errors(f"{label}: K8b adjoint against autograd of the plain march", errs_b,
-                 {"density": 1e-4, "baked": 1e-4, "entry": 1e-4, "dirs": 1e-4, "p_phase": 1e-4})
+                 {"density": 1e-4, ins: 1e-4, "entry": 1e-4, "dirs": 1e-4, "p_phase": 1e-4})
     return errs_f, errs_b, back, ref_back, plain_f, plain_b
 
 
@@ -2433,7 +2470,8 @@ def diff_kernel_rows(diff, ins_ops, scene, kw, launches, sun_leaves, sun_w, sun_
     the defaults point, baked: each against its plain version on the same
     inputs, its time by CUDA events, the plain version's and the bound from
     the steps this data needs."""
-    from deepestscatter_tpu_torch.probes.march_variants import against_first
+    from deepestscatter_tpu_torch import cuda_build
+    from deepestscatter_tpu_torch.probes import march_variants as mv
 
     m, args, g_rad, steps, rad, back = diff_kernel_inputs(
         diff, scene, dict(kw, use_baked_inscatter=True))
@@ -2486,10 +2524,12 @@ def diff_kernel_rows(diff, ins_ops, scene, kw, launches, sun_leaves, sun_w, sun_
     errs_f, errs_b, _, ref_back, plain_f, plain_b = k8b_against_plain(
         "diff defaults", diff, m, args, rad, g_rad, hit_rays, kw["remat_chunk"], back=back)
     deepest_replay("diff defaults", steps, back, ref_back, hit_rays)
-    ms_f = time_ms(lambda: diff.launch_march(*args), 20)
-    first = against_first((density, meta.bbox, light, meta.density_multiplier, meta.step, trans,
-                           gbar), (*args[:7], rad, g_rad, meta), 5, 20)
+    fwd = forward_against_first("diff defaults baked", mv, args, 20)
+    ms_f = fwd["ms"]
+    first = mv.against_first((density, meta.bbox, light, meta.density_multiplier, meta.step,
+                              trans, gbar), (*args[:7], rad, g_rad, meta), 5, 20)
     ms_a, ms_b = first["ms_a"], first["ms_b"]
+    forward_sweep("diff defaults baked", mv, args, 20)
 
     # The sun march on its own, at the main path's voxel centres.
     dens_s, sun_s, pos_s = (t.detach() for t in sun_leaves)
@@ -2498,9 +2538,17 @@ def diff_kernel_rows(diff, ins_ops, scene, kw, launches, sun_leaves, sun_w, sun_
     sun_steps = torch.zeros(pos_s.shape[0], dtype=torch.int32, device=pos_s.device)
     t_k = diff.launch_sun_march(dens_s, to_sun, pos_s, dm_s, n_s, step_s, steps=sun_steps)
     steps_s = int(sun_steps.to(torch.int64).sum())
-    ms_s = time_ms(lambda: diff.launch_sun_march(dens_s, to_sun, pos_s, dm_s, n_s, step_s), 10)
-    ms_sb = time_ms(lambda: diff.launch_sun_march_bwd(dens_s, to_sun, pos_s, t_k, sun_w, dm_s,
-                                                      n_s, step_s), 10)
+    sun_fwd = (dens_s, to_sun, pos_s, dm_s, n_s, step_s)
+    sun_bwd = (dens_s, to_sun, pos_s, t_k, sun_w, dm_s, n_s, step_s)
+    sun_first = sun_against_first(f"diff sun march ({pos_s.shape[0]} voxel centres)", mv,
+                                  sun_fwd, sun_bwd, 10)
+    ms_s, ms_sb = sun_first["ms"], sun_first["ms_bwd"]
+    lib = cuda_build.load("diff_variants")
+    for key, r in mv.sun_sweep(lib, sun_fwd, sun_bwd, 10).items():
+        print(f"diff sun march designs ({pos_s.shape[0]} voxel centres; {card_line()}) {key}: "
+              f"{json.dumps(r)}", flush=True)
+        require(r.get("bitwise", True) and r.get("equal", True),
+                f"diff sun march design {key} disagrees with the package's")
     with torch.no_grad():
         t_p, plain_s = host_call(lambda: diff.sun_transmittance_plain(dens_s, sun_s, pos_s,
                                                                        *sun_args))
@@ -2521,12 +2569,15 @@ def diff_kernel_rows(diff, ins_ops, scene, kw, launches, sun_leaves, sun_w, sun_
           f"(first design {first['ms_a_first']:.4f} in turns) "
           f"voxels_with_gradient={voxels_g} of {v} voxel_steps={steps_a} plain_ms={plain_a:.1f}; "
           f"K8b rays={n} steps_in_box={n_in} steps_with_sigma={int(steps[:, 1].sum())} "
-          f"forward_ms={ms_f:.4f} plain_ms={plain_f:.1f} "
+          f"forward_ms={ms_f:.4f} (first design {fwd['ms_first']:.4f} in turns; "
+          f"{fwd['lanes']} lanes a ray) plain_ms={plain_f:.1f} "
           f"adjoint_ms={ms_b:.4f} (first design {first['ms_b_first']:.4f} in turns) "
           f"plain_forward+backward_ms={plain_b:.1f}; against the first designs "
           f"{json.dumps({k: float(f'{e:.3g}') for k, e in first['rel_err'].items()})}; sun march "
-          f"points={pos_s.shape[0]} steps={steps_s} ms={ms_s:.4f} plain_ms={plain_s:.1f} "
-          f"adjoint_ms={ms_sb:.4f} plain_forward+backward_ms={plain_sb:.1f}", flush=True)
+          f"points={pos_s.shape[0]} steps={steps_s} ms={ms_s:.4f} (first design "
+          f"{sun_first['ms_first']:.4f}) plain_ms={plain_s:.1f} adjoint_ms={ms_sb:.4f} (first "
+          f"design {sun_first['ms_bwd_first']:.4f}) plain_forward+backward_ms={plain_sb:.1f}",
+          flush=True)
     ray_in = n * (12 + 12 + 4 + 1 + 4)
     rows = [
         dict(kernel_row("K8a adjoint bake", "deepestscatter_tpu_torch/csrc/diff.cu",
@@ -2553,6 +2604,123 @@ def diff_kernel_rows(diff, ins_ops, scene, kw, launches, sun_leaves, sun_w, sun_
     return rows
 
 
+def forward_against_first(label, mv, args, reps) -> dict:
+    """K8b's forward against its first design (a thread a ray) in turns:
+    the radiance and the step counts bitwise equal."""
+    r = mv.forward_against_first(args, reps)
+    print(f"{label}: K8b forward ms={r['ms']:.4f} first design (a thread a ray) "
+          f"ms={r['ms_first']:.4f} in turns, {r['lanes']} lanes a ray, rays={args[3].shape[0]}, "
+          f"bitwise (radiance, step counts)={r['bitwise']} ({card_line()})", flush=True)
+    require(r["bitwise"], f"{label}: K8b's forward differs from its first design")
+    return r
+
+
+def forward_sweep(label, mv, args, reps) -> None:
+    """K8b's forward in each design of march_variants.FORWARD_DESIGNS, each
+    bitwise against the package's kernel."""
+    from deepestscatter_tpu_torch import cuda_build
+
+    lib = cuda_build.load("diff_variants")
+    mv.diff_lib(lib)
+    for key, r in mv.forward_sweep(lib, args, reps).items():
+        print(f"{label} designs ({args[3].shape[0]} rays; {card_line()}) {key}: {json.dumps(r)}",
+              flush=True)
+        require(r["bitwise"], f"{label}: K8b forward design {key} differs from the package's")
+
+
+def sun_against_first(label, mv, fwd, bwd, reps) -> dict:
+    """The sun march and its adjoint against their first designs (a thread
+    a point) in turns: T and the samples bitwise, the adjoint within 1e-5
+    of each output's largest."""
+    r = mv.sun_against_first(fwd, bwd, reps)
+    print(f"{label}: sun march ms={r['ms']:.4f} (a thread a point) first design "
+          f"ms={r['ms_first']:.4f}; adjoint ms={r['ms_bwd']:.4f} (a thread a point, runs merged) "
+          f"first design ms={r['ms_bwd_first']:.4f}; in turns; T and samples bitwise="
+          f"{r['bitwise']} adjoint against the first design "
+          f"{json.dumps({k: float(f'{e:.3g}') for k, e in r['rel_err'].items()})} (tol 1e-5) "
+          f"({card_line()})", flush=True)
+    require(r["bitwise"] and all(e <= 1e-5 for e in r["rel_err"].values()),
+            f"{label}: the sun march differs from its first design")
+    return r
+
+
+def dark_step_sun_samples(diff, args, meta) -> tuple:
+    """(the sun march's samples in the box at the NEE points of the steps in
+    the box with sigma == 0, those steps): K8b's adjoint reads the
+    in-scatter there (the segment weight's slope), its forward does not.
+    The points from step_sample's expressions (at sigma == 0 its Taylor
+    mean point), counted by the sun march kernel."""
+    density, _, to_sun, entry, dirs = args[:5]
+    hit = args[6].bool()
+    e, d = entry[hit], dirs[hit]
+    step = meta.step
+    s = torch.tensor([diff._step_distance(step, i + 1) for i in range(meta.n_steps)],
+                     dtype=torch.float32, device=e.device)
+    bbox = diff._bbox(density)
+    p = e[:, None, :] + d[:, None, :] * s[:, None]
+    u = p / bbox
+    inside = ((u >= 0.0) & (u <= 1.0)).all(dim=-1)
+    sigma = diff.sample_density(density, bbox, p.reshape(-1, 3)).reshape(inside.shape)
+    dark = inside & (sigma * meta.density_multiplier == 0.0)
+    a = torch.tensor(1e-6 * step, dtype=torch.float32)
+    back = step - step * (0.5 - a / 12.0)
+    q = (p - d[:, None, :] * back.to(e.device))[dark].contiguous()
+    counts = torch.zeros(q.shape[0], dtype=torch.int32, device=e.device)
+    diff.launch_sun_march(density, to_sun, q, meta.density_multiplier, meta.sun_steps, step,
+                          steps=counts)
+    return int(counts.to(torch.int64).sum()), int(dark.sum())
+
+
+def diff_pointwise_rows(diff, scene, kw, launches) -> list:
+    """K8b's forward and adjoint at the defaults point in pointwise mode:
+    against the plain march (the forward bitwise) and its replay, each
+    against its first design in turns, the G sweep of the forward, the
+    bound from the steps and the sun march's samples this data needs; the
+    kernel rows with the pointwise render's launches."""
+    from deepestscatter_tpu_torch.probes import march_variants as mv
+
+    m, args, g_rad, steps, rad, back = diff_kernel_inputs(
+        diff, scene, dict(kw, use_baked_inscatter=False))
+    meta = m.meta
+    n = m.entry.shape[0]
+    hit_rays = torch.nonzero(m.hit).squeeze(1)
+    label = "diff defaults pointwise"
+    errs_f, errs_b, _, ref_back, plain_f, plain_b = k8b_against_plain(
+        label, diff, m, args, rad, g_rad, hit_rays, kw["remat_chunk"], back=back)
+    deepest_replay(label, steps, back, ref_back, hit_rays)
+    fwd = forward_against_first(label, mv, args, 10)
+    adj = mv.against_first(None, (*args[:7], rad, g_rad, meta), 0, 10)
+    print(f"{label}: K8b adjoint ms={adj['ms_b']:.4f} first design (a thread a ray) "
+          f"ms={adj['ms_b_first']:.4f} in turns, {adj['lanes']} lanes a ray; against it "
+          f"{json.dumps({k: float(f'{e:.3g}') for k, e in adj['rel_err'].items()})} (tol 1e-5)",
+          flush=True)
+    require(all(e <= 1e-5 for e in adj["rel_err"].values()),
+            f"{label}: K8b's adjoint differs from its first design")
+    forward_sweep(label, mv, args, 10)
+    dark_sun, dark = dark_step_sun_samples(diff, args, meta)
+    n_in, n_lit, sun = (int(v) for v in steps.to(torch.int64).sum(dim=0).tolist())
+    ops_f, ops_b = k8b_ops(steps, dark_sun)
+    print(f"{label}: K8b rays={n} steps_in_box={n_in} steps_with_sigma={n_lit} "
+          f"sun_samples_at_those={sun} steps_with_sigma_0={n_in - n_lit} (by PyTorch's sample "
+          f"{dark}) sun_samples_at_those={dark_sun} forward_ops={ops_f} adjoint_ops={ops_b} "
+          f"forward_bound_ms={ops_f / F32_OPS_PER_S * 1e3:.4f} "
+          f"adjoint_bound_ms={ops_b / F32_OPS_PER_S * 1e3:.4f} plain_ms={plain_f:.1f} "
+          f"plain_forward+backward_ms={plain_b:.1f}", flush=True)
+    grid_b = scene.density.numel() * 4
+    ray_in = n * (12 + 12 + 4 + 1 + 4)
+    return [
+        dict(kernel_row("K8b quadrature march (pointwise)", "deepestscatter_tpu_torch/csrc/diff.cu",
+                        "deepestscatter_tpu/render/diff.py:198", errs_f["radiance"][1], fwd["ms"],
+                        plain_f, grid_b + ray_in + 12, ops_f),
+             launches=launches["K8b"]),
+        dict(kernel_row("K8b quadrature march adjoint (pointwise)",
+                        "deepestscatter_tpu_torch/csrc/diff.cu",
+                        "deepestscatter_tpu/render/diff.py:198", errs_b["density"][1], adj["ms_b"],
+                        plain_b, 2 * grid_b + ray_in + n * 32 + 12, ops_b),
+             launches=launches["K8b adjoint"]),
+    ]
+
+
 def diff_frame_kernels(diff, ins_ops, scene, kw) -> None:
     """K3, K8a and K8b at the frame point: times by CUDA events beside
     their bounds, and K8a and K8b against their plain versions on a part of
@@ -2564,7 +2732,7 @@ def diff_frame_kernels(diff, ins_ops, scene, kw) -> None:
     FRAME_CHECK_SLICES z-slices where it is most often nonzero (each
     march's clamped samples on the box's faces, the float32 slope of the
     light gradient)."""
-    from deepestscatter_tpu_torch.probes.march_variants import against_first
+    from deepestscatter_tpu_torch.probes import march_variants as mv
 
     m, args, g_rad, steps, rad, back = diff_kernel_inputs(diff, scene, kw)
     meta = m.meta
@@ -2579,11 +2747,12 @@ def diff_frame_kernels(diff, ins_ops, scene, kw) -> None:
     trans = bake()
     gbar = back.baked.reshape(-1).contiguous()
     ms3 = time_ms(bake, 3)
-    first = against_first((density, meta.bbox, light, meta.density_multiplier, meta.step, trans,
-                           gbar), (*args[:7], rad, g_rad, meta), 3, 5)
+    first = mv.against_first((density, meta.bbox, light, meta.density_multiplier, meta.step,
+                              trans, gbar), (*args[:7], rad, g_rad, meta), 3, 5)
     ms_a, ms_b = first["ms_a"], first["ms_b"]
-    ms_f = time_ms(lambda: diff.launch_march(*args), 5)
-    n_in, n_lit = (int(x) for x in steps.to(torch.int64).sum(dim=0).tolist())
+    fwd = forward_against_first("diff frame", mv, args, 5)
+    ms_f = fwd["ms"]
+    n_in, n_lit = (int(x) for x in steps[:, :2].to(torch.int64).sum(dim=0).tolist())
     ops_f, ops_b = k8b_ops(steps)
     voxels_g = int((gbar != 0).sum().item())
     b3 = v * n_bake * K3_OPS_PER_VOXEL_STEP / F32_OPS_PER_S * 1e3
@@ -2595,7 +2764,8 @@ def diff_frame_kernels(diff, ins_ops, scene, kw) -> None:
           f"(first design {first['ms_a_first']:.3f} in turns; "
           f"voxels_with_gradient={voxels_g} bound_ms={ba:.3f}); K8b rays={m.entry.shape[0]} "
           f"hit={int(m.hit.sum())} steps_in_box={n_in} steps_with_sigma={n_lit} "
-          f"forward_ms={ms_f:.3f} (bound_ms={bf:.4f}) adjoint_ms={ms_b:.3f} "
+          f"forward_ms={ms_f:.3f} (first design {fwd['ms_first']:.3f} in turns; "
+          f"bound_ms={bf:.4f}) adjoint_ms={ms_b:.3f} "
           f"(first design {first['ms_b_first']:.3f} in turns; bound_ms={bb:.4f}); against the first "
           f"designs {json.dumps({k: float(f'{e:.3g}') for k, e in first['rel_err'].items()})}",
           flush=True)

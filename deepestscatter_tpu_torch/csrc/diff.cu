@@ -7,10 +7,11 @@
 //        (csrc/inscatter.cu::ds_bake with early_out = 0: the same positions
 //        base + to_light * (step * i), the same taps, T *= exp(-sigma step)).
 //   K8b  ds_diff_march / ds_diff_march_bwd: the quadrature march of
-//        render_single_scatter (diff.py:198-238) and its adjoint, one thread
-//        a ray; ds_sun_march / ds_sun_march_bwd: the per-point sun march
-//        sun_transmittance (diff.py:64-88) and its adjoint, one thread a
-//        point.  The same sun march is the quadrature's pointwise in-scatter.
+//        render_single_scatter (diff.py:198-238) and its adjoint, G lanes a
+//        ray; ds_sun_march / ds_sun_march_bwd: the per-point sun march
+//        sun_transmittance (diff.py:64-88) and its adjoint, G lanes or one
+//        thread a point.  The same sun march is the quadrature's pointwise
+//        in-scatter.
 //
 // Neither adjoint stores the march.  XLA's reverse mode keeps a float a
 // voxel a step (the bake) or a carry a ray a step (the march) and
@@ -55,11 +56,12 @@
 // box exit, after which every term is an exact 0; a bake voxel with g == 0
 // does no step), from the counts ds_diff_march and ds_sun_march report.
 //
-// The design.  K8b's forward and the sun march run a thread a ray or
-// point.  The two adjoints were redesigned for the card; their first forms,
-// a thread a voxel and a thread a ray, stay as bake_adjoint_voxel and
-// march_ray_adjoint: the per-item statements of what they compute, and the
-// designs csrc/diff_variants.cu times them against.
+// The design.  Every kernel here was redesigned for the card; the first
+// forms, a thread a voxel, ray or point, stay as bake_adjoint_voxel,
+// march_ray, march_ray_adjoint, sun_march and sun_march_adjoint: the
+// per-item statements of what they compute, and the designs
+// csrc/diff_variants.cu times them against (chip_smoke.py,
+// probes/march_variants.py; PERF.md).
 //
 //   K8a, a block an x-row segment (K3's row form, csrc/inscatter.cu), a
 //   warp 32 V contiguous voxels of it, V = kAdjVoxels a thread.  At step i
@@ -87,13 +89,28 @@
 //   count of rays):
 //   lane l takes step c * G + l of chunk c.  The chunk's in-box span comes
 //   from a ballot, tau, the prefix C and dP from the lanes' values in step
-//   order (lane_fold: the additions of the per-ray loop, in its order), so
+//   order (lane_sum: the additions of the per-ray loop, in its order), so
 //   every per-step value equals march_ray_adjoint's.  A cell spans about two
 //   steps at 256^3 (four at the defaults point), so consecutive lanes often
 //   scatter into the same eight texels: a segmented scan over the group
 //   sums them (group_deposit) and the last lane of each run of equal cells
 //   does the eight atomics.  The first design, a thread a ray, lost about half its time
 //   to its atomics' texel contention.
+//   K8b's forward, the adjoint's lane form (ds_diff_forward_lanes: 32, 16
+//   or 8 lanes a ray by the ray count): every lane samples the density at
+//   its step, the span from a ballot, tau before each lane and after the
+//   chunk and the radiance folded in step order (lane_sum, the lanes
+//   outside the span adding an exact +0), so the radiance equals
+//   march_ray's bitwise; only a lit lane takes its segment weight and NEE
+//   point and reads the in-scatter, as march_ray does (in pointwise mode
+//   its own sun march).  The first design ran a thread a ray, 16 blocks at
+//   2,048 rays, each ray's chain of samples serial behind its early exit.
+//   The sun march, a thread a point: strided samples, and in its adjoint
+//   each run of steps in one cell summed in registers before its eight
+//   atomics.  At the main path's voxel centres neighbouring threads march
+//   neighbouring points, so their loads and atomics coalesce across the
+//   warp; G lanes a point (sun_march_lanes, csrc/diff_variants.cu) lost
+//   there, its ballots and folds costing more than they save.
 #include "common.cuh"
 
 namespace ds {
@@ -271,6 +288,20 @@ __device__ __forceinline__ bool inside_unit(const float* u) {
 // march stops there.  *n_in: the samples taken in the box.
 // ---------------------------------------------------------------------------
 
+// Sun step j from q: its distance *s and unit coordinates u; false where
+// the sample lies outside the box.
+__device__ __forceinline__ bool sun_point(const Grid3& g, float step, const float* q,
+                                          const float* ts, int j, float* s, float* u) {
+  *s = step * (float)(j + 1);
+  const float p[3] = {q[0] + ts[0] * *s, q[1] + ts[1] * *s, q[2] + ts[2] * *s};
+  unit_coords(g, p, u);
+  return inside_unit(u);
+}
+
+// Strided: each sample through trilinear_strided (the same taps, weights
+// and sum order as taps_value(taps_at), so the same value, in 32-bit
+// index math without the Taps kept); else taps_value (the first designs').
+template <bool Strided = false>
 __device__ __forceinline__ float sun_march(const float* __restrict__ dens, const Grid3& g,
                                            float step, float dm, int n, const float* q,
                                            const float* ts, int* n_in) {
@@ -278,25 +309,27 @@ __device__ __forceinline__ float sun_march(const float* __restrict__ dens, const
   bool was_in = false;
   *n_in = 0;
   for (int j = 0; j < n; ++j) {
-    const float s = step * (float)(j + 1);
-    const float p[3] = {q[0] + ts[0] * s, q[1] + ts[1] * s, q[2] + ts[2] * s};
-    float u[3];
-    unit_coords(g, p, u);
-    if (!inside_unit(u)) {
+    float s, u[3];
+    if (!sun_point(g, step, q, ts, j, &s, u)) {
       if (was_in) break;
       continue;
     }
     was_in = true;
     ++*n_in;
-    const float sigma = taps_value(dens, taps_at(g, u[0], u[1], u[2])) * dm;
+    const float sigma = (Strided ? trilinear_strided(dens, g.nx, g.ny, g.nz, u[0], u[1], u[2])
+                                 : taps_value(dens, taps_at(g, u[0], u[1], u[2]))) *
+                        dm;
     tau = tau + sigma * step;
   }
   return expf(-tau);
 }
 
 // The sun march's adjoint for upstream gT at T: density texels by atomics,
-// d/dq into dq and d/d to_sun into dts (both added to).
-template <class Add>
+// d/dq into dq and d/d to_sun into dts (both added to).  With Merge, a run
+// of steps in one cell sums its weights in registers and adds drho times
+// the sums once the cell changes (and at the end), as K8a's runs do: eight
+// atomics a run, not a step (the same terms to float32 rounding).
+template <bool Merge, class Add>
 __device__ __forceinline__ void sun_march_adjoint(const float* __restrict__ dens,
                                                   const Grid3& g, float step, float dm, int n,
                                                   const float* q, const float* ts, float T,
@@ -306,23 +339,46 @@ __device__ __forceinline__ void sun_march_adjoint(const float* __restrict__ dens
   const float drho = ((-(gT * T)) * step) * dm;
   if (drho == 0.0f) return;
   bool was_in = false;
+  int key = -1, run_idx[8];
+  float run_w[8];
   for (int j = 0; j < n; ++j) {
-    const float s = step * (float)(j + 1);
-    const float p[3] = {q[0] + ts[0] * s, q[1] + ts[1] * s, q[2] + ts[2] * s};
-    float u[3];
-    unit_coords(g, p, u);
-    if (!inside_unit(u)) {
+    float s, u[3];
+    if (!sun_point(g, step, q, ts, j, &s, u)) {
       if (was_in) break;
       continue;
     }
     was_in = true;
+    const Taps t = taps_at(g, u[0], u[1], u[2]);
     float dp[3];
-    taps_adjoint(dens, g, taps_at(g, u[0], u[1], u[2]), drho, d_dens, dp, add);
+    if (Merge) {
+      if (t.idx[0] != key) {
+        if (key >= 0) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) add(d_dens + run_idx[k], drho * run_w[k]);
+        }
+        key = t.idx[0];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          run_idx[k] = t.idx[k];
+          run_w[k] = t.w[k];
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) run_w[k] += t.w[k];
+      }
+      taps_point_slope(dens, g, t, drho, dp);
+    } else {
+      taps_adjoint(dens, g, t, drho, d_dens, dp, add);
+    }
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       dq[a] += dp[a];
       dts[a] += dp[a] * s;
     }
+  }
+  if (Merge && key >= 0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) add(d_dens + run_idx[k], drho * run_w[k]);
   }
 }
 
@@ -361,11 +417,11 @@ struct Step {
   float q[3];  // the NEE point
 };
 
-// Step i of the ray (entry e, direction d) but its view transmittance
-// st.tv (the one value that carries from step to step); false where the
-// sample lies outside the box (sigma = 0 there, an exact 0 term).
-__device__ __forceinline__ bool step_sample(const float* __restrict__ dens, const MarchConsts& c,
-                                            const float* e, const float* d, int i, Step& st) {
+// Step i's density: st.s, st.tp and st.sigma; false where the sample lies
+// outside the box (sigma = 0 there, an exact 0 term).
+__device__ __forceinline__ bool step_density(const float* __restrict__ dens,
+                                             const MarchConsts& c, const float* e,
+                                             const float* d, int i, Step& st) {
   st.s = c.step * (float)(i + 1);
   const float p[3] = {e[0] + d[0] * st.s, e[1] + d[1] * st.s, e[2] + d[2] * st.s};
   float u[3];
@@ -373,6 +429,27 @@ __device__ __forceinline__ bool step_sample(const float* __restrict__ dens, cons
   if (!inside_unit(u)) return false;
   st.tp = taps_at(c.g, u[0], u[1], u[2]);
   st.sigma = taps_value(dens, st.tp) * c.dm;
+  return true;
+}
+
+// step_density's st.s and st.sigma alone (no taps kept): the same taps,
+// weights and sum order through trilinear_strided, so the same sigma.
+__device__ __forceinline__ bool step_sigma(const float* __restrict__ dens, const MarchConsts& c,
+                                           const float* e, const float* d, int i, Step& st) {
+  st.s = c.step * (float)(i + 1);
+  const float p[3] = {e[0] + d[0] * st.s, e[1] + d[1] * st.s, e[2] + d[2] * st.s};
+  float u[3];
+  unit_coords(c.g, p, u);
+  if (!inside_unit(u)) return false;
+  st.sigma = trilinear_strided(dens, c.g.nx, c.g.ny, c.g.nz, u[0], u[1], u[2]) * c.dm;
+  return true;
+}
+
+// The rest of step_sample past step_density: the segment weight and the
+// NEE point.
+__device__ __forceinline__ void step_segment(const MarchConsts& c, const float* e,
+                                             const float* d, Step& st) {
+  const float p[3] = {e[0] + d[0] * st.s, e[1] + d[1] * st.s, e[2] + d[2] * st.s};
   st.e1 = expf(-st.sigma * c.step);
   st.seg = 1.0f - st.e1;
   // The free-flight mean point within the segment, diff.py:217-223.
@@ -386,6 +463,15 @@ __device__ __forceinline__ bool step_sample(const float* __restrict__ dens, cons
   const float back = c.step - st.mean_x;
 #pragma unroll
   for (int a = 0; a < 3; ++a) st.q[a] = p[a] - d[a] * back;
+}
+
+// Step i of the ray (entry e, direction d) but its view transmittance
+// st.tv (the one value that carries from step to step); false where the
+// sample lies outside the box.
+__device__ __forceinline__ bool step_sample(const float* __restrict__ dens, const MarchConsts& c,
+                                            const float* e, const float* d, int i, Step& st) {
+  if (!step_density(dens, c, e, d, i, st)) return false;
+  step_segment(c, e, d, st);
   return true;
 }
 
@@ -409,23 +495,26 @@ __device__ __forceinline__ float mean_x_slope(const Step& st, float step) {
 }
 
 // The in-scatter at q: the baked grid's trilinear tap (taps into *tq), or
-// the sun march.
+// the sun march (its samples in the box into *n_sun; 0 baked; Strided:
+// sun_march's).
+template <bool Strided = false>
 __device__ __forceinline__ float t_sun_at(const float* __restrict__ dens,
                                           const float* __restrict__ baked,
                                           const MarchConsts& c, const float* ts, const float* q,
-                                          Taps* tq) {
+                                          Taps* tq, int* n_sun) {
   if (c.baked) {
     float u[3];
     unit_coords(c.g, q, u);
     *tq = taps_at(c.g, u[0], u[1], u[2]);
+    *n_sun = 0;
     return taps_value(baked, *tq);
   }
-  int n_in;
-  return sun_march(dens, c.g, c.step, c.dm, c.sun_steps, q, ts, &n_in);
+  return sun_march<Strided>(dens, c.g, c.step, c.dm, c.sun_steps, q, ts, n_sun);
 }
 
 // A ray's radiance sum; counts[0] its steps in the box, counts[1] those
-// with sigma != 0 (where the in-scatter is read).
+// with sigma != 0 (where the in-scatter is read), counts[2] the sun
+// march's samples in the box at those steps (0 baked).
 __device__ __forceinline__ float march_ray(const float* __restrict__ dens,
                                            const float* __restrict__ baked,
                                            const MarchConsts& c, const float* ts,
@@ -433,7 +522,7 @@ __device__ __forceinline__ float march_ray(const float* __restrict__ dens,
                                            int* counts) {
   float tau = 0.0f, rad = 0.0f;
   bool was_in = false;
-  int n_in = 0, n_lit = 0;
+  int n_in = 0, n_lit = 0, n_sun = 0;
   for (int i = 0; i < c.n_steps; ++i) {
     Step st;
     if (!step_at(dens, c, e, d, i, tau, st)) {
@@ -446,13 +535,16 @@ __device__ __forceinline__ float march_ray(const float* __restrict__ dens,
     if (st.sigma != 0.0f) {
       ++n_lit;
       Taps tq;
-      const float S = t_sun_at(dens, baked, c, ts, st.q, &tq);
+      int ns;
+      const float S = t_sun_at(dens, baked, c, ts, st.q, &tq, &ns);
+      n_sun += ns;
       rad = rad + (((st.tv * st.seg) * S) * phase) * c.sun_ratio;
     }
     tau = tau + st.sigma * c.step;
   }
   counts[0] = n_in;
   counts[1] = n_lit;
+  counts[2] = n_sun;
   return rad;
 }
 
@@ -485,8 +577,8 @@ __device__ __forceinline__ void step_adjoint(const float* __restrict__ dens,
       for (int k = 0; k < 8; ++k) vb[k] = dS * tq.w[k];
       taps_point_slope(baked, c.g, tq, dS, dq);
     } else {
-      sun_march_adjoint(dens, c.g, c.step, c.dm, c.sun_steps, st.q, ts, S, dS, d_dens, dq, dts,
-                        add);
+      sun_march_adjoint<false>(dens, c.g, c.step, c.dm, c.sun_steps, st.q, ts, S, dS, d_dens, dq,
+                               dts, add);
     }
     // q = p - d (step - mean_x).
     const float back = c.step - st.mean_x;
@@ -533,7 +625,8 @@ __device__ __forceinline__ float march_ray_adjoint(
     }
     was_in = true;
     Taps tq;
-    const float S = t_sun_at(dens, baked, c, ts, st.q, &tq);
+    int ns;
+    const float S = t_sun_at(dens, baked, c, ts, st.q, &tq, &ns);
     const float tvseg = st.tv * st.seg;
     C = C + ((tvseg * S) * phase) * c.sun_ratio;  // the prefix through this step
     dP = dP + (tvseg * S) * c.sun_ratio;
@@ -569,7 +662,8 @@ __device__ __forceinline__ void lane_sample(const float* __restrict__ dens,
                                             LaneDiff& L) {
   L.in = i < c.n_steps && step_sample(dens, c, e, d, i, L.st);
   L.S = 0.0f;
-  if (L.in) L.S = t_sun_at(dens, baked, c, ts, L.st.q, &L.tq);
+  int ns;
+  if (L.in) L.S = t_sun_at<true>(dens, baked, c, ts, L.st.q, &L.tq, &ns);
 }
 
 // The steps of a chunk the ray takes: lanes [start, end); ended where the
@@ -599,17 +693,30 @@ __device__ __forceinline__ LaneSpan lane_span(unsigned in, bool was_in, int G) {
   return s;
 }
 
-// x0 + x_of(lo) + ... + x_of(hi - 1), in that order, x_of(k) giving lane
-// k's value (a shuffle on the card: every lane calls it for every k).
+// x0 + x_of(0) + ... + x_of(G - 1), in that order, and into *before lane
+// `at`'s prefix x0 + ... + x_of(at - 1), in one pass; x_of(k) gives lane
+// k's value (a shuffle on the card: every lane calls it for every k).  The
+// lanes outside a chunk's span (and, in a sum over lit steps, the dark
+// ones) give +0, so this is the sum over the span's values alone, in step
+// order, bitwise: x + 0 == x for every float but -0, and a running sum
+// from +0 is never -0 (-0 results only from two -0 under round-to-nearest).
 template <int G, class X>
-__device__ __forceinline__ float lane_fold(float x0, int lo, int hi, X x_of) {
+__device__ __forceinline__ float lane_sum(float x0, int at, X x_of, float* before) {
   float t = x0;
+  *before = x0;
 #pragma unroll
   for (int k = 0; k < G; ++k) {
     const float xk = x_of(k);
-    if (k >= lo && k < hi) t = t + xk;
+    if (k == at) *before = t;
+    t = t + xk;
   }
   return t;
+}
+
+template <int G, class X>
+__device__ __forceinline__ float lane_sum(float x0, X x_of) {
+  float before;
+  return lane_sum<G>(x0, -1, x_of, &before);
 }
 
 // ---------------------------------------------------------------------------
@@ -1038,29 +1145,6 @@ __device__ __forceinline__ void load3(const float* p, int64_t r, float* out) {
   out[2] = p[3 * r + 2];
 }
 
-__global__ void __launch_bounds__(kDiffThreads) march_kernel(
-    const float* __restrict__ dens, const float* __restrict__ baked,
-    const float* __restrict__ to_sun, ds::diff::MarchConsts c, const float* __restrict__ entry,
-    const float* __restrict__ dirs, const float* __restrict__ phase,
-    const uint8_t* __restrict__ hit, int64_t n, float* rad, int* steps) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  int counts[2] = {0, 0};
-  float out = 0.0f;
-  if (hit[r]) {
-    float ts[3] = {0.0f, 0.0f, 0.0f}, e[3], d[3];
-    if (!c.baked) load3(to_sun, 0, ts);
-    load3(entry, r, e);
-    load3(dirs, r, d);
-    out = ds::diff::march_ray(dens, baked, c, ts, e, d, phase[r], counts);
-  }
-  rad[r] = out;
-  if (steps != nullptr) {
-    steps[2 * r] = counts[0];
-    steps[2 * r + 1] = counts[1];
-  }
-}
-
 // Sums the eight values v[8] of the lanes of a group over each run of
 // consecutive lanes with equal keys (the first texel of a step's cell, a
 // ray's steps in one cell being consecutive; negative where the lane
@@ -1091,6 +1175,185 @@ __device__ __forceinline__ void group_deposit(unsigned gmask, int gl, int shift,
   }
 }
 
+// The lane setup of a group of G lanes: the lane's index in its group, the
+// group's first lane in the warp and its mask.
+struct GroupLanes {
+  int gl, shift;
+  unsigned mask;
+};
+
+template <int G>
+__device__ __forceinline__ GroupLanes group_lanes() {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two up to 32");
+  GroupLanes L;
+  const int lane = threadIdx.x & 31;
+  L.gl = lane & (G - 1);
+  L.shift = lane - L.gl;
+  L.mask = ds::diff::group_bits(G) << L.shift;
+  return L;
+}
+
+// v[3] summed over the group (a shuffle tree), on lane 0.
+template <int G, typename T>
+__device__ __forceinline__ void group_sum3(const GroupLanes& gr, T* v) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) v[a] += __shfl_down_sync(gr.mask, v[a], o, G);
+  }
+}
+
+// K8b's forward: rays x G threads, group g of G lanes taking ray
+// blockIdx * (threads / G) + g a chunk of G steps at a time (march_ray in
+// the adjoint's lane form).  Every lane samples the density at its step
+// (step_sigma); the chunk's span comes from a ballot, tau before each lane
+// and after the chunk from one pass over the lanes, the radiance from the
+// lanes' terms in step order (lane_sum, a lane outside the span or dark
+// giving +0): march_ray's additions in its order, so the radiance and the
+// counts equal march_ray's bitwise.  Only a lit lane (sigma != 0) takes
+// the rest of its step (the segment weight, the NEE point) and reads the
+// in-scatter, as march_ray does: the baked grid's tap or, in pointwise
+// mode, its own sun march.
+template <int G>
+__global__ void __launch_bounds__(kDiffThreads) march_lanes_kernel(
+    const float* __restrict__ dens, const float* __restrict__ baked,
+    const float* __restrict__ to_sun, ds::diff::MarchConsts c, const float* __restrict__ entry,
+    const float* __restrict__ dirs, const float* __restrict__ phase,
+    const uint8_t* __restrict__ hit, int64_t n, float* rad, int* steps) {
+  const GroupLanes gr = group_lanes<G>();
+  const int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (r >= n) return;  // whole groups: the block is a multiple of G
+  int n_in = 0, n_lit = 0, n_sun = 0;
+  float R = 0.0f;
+  if (hit[r]) {  // uniform over the group
+    float ts[3] = {0.0f, 0.0f, 0.0f}, e[3], d[3];
+    if (!c.baked) load3(to_sun, 0, ts);
+    load3(entry, r, e);
+    load3(dirs, r, d);
+    const float ph = phase[r];
+    float tau = 0.0f;
+    bool was_in = false;
+    for (int i0 = 0; i0 < c.n_steps; i0 += G) {
+      ds::diff::Step st;
+      const bool in =
+          i0 + gr.gl < c.n_steps && ds::diff::step_sigma(dens, c, e, d, i0 + gr.gl, st);
+      const unsigned bits = __ballot_sync(gr.mask, in) >> gr.shift;
+      const ds::diff::LaneSpan sp = ds::diff::lane_span(bits, was_in, G);
+      const bool mine = gr.gl >= sp.start && gr.gl < sp.end;
+      const float xs = mine ? st.sigma * c.step : 0.0f;
+      float tau_l;
+      tau = ds::diff::lane_sum<G>(
+          tau, gr.gl, [&](int k) { return __shfl_sync(gr.mask, xs, k, G); }, &tau_l);
+      // sigma == 0: seg == 0, the term is an exact 0.
+      const bool lit = mine && st.sigma != 0.0f;
+      const unsigned lit_bits = __ballot_sync(gr.mask, lit) >> gr.shift;
+      if (lit) ds::diff::step_segment(c, e, d, st);
+      float S = 0.0f;
+      if (lit) {
+        ds::diff::Taps tq;
+        int ns;
+        S = ds::diff::t_sun_at<true>(dens, baked, c, ts, st.q, &tq, &ns);
+        n_sun += ns;
+      }
+      float term = 0.0f;
+      if (lit) term = (((expf(-tau_l) * st.seg) * S) * ph) * c.sun_ratio;
+      R = ds::diff::lane_sum<G>(R, [&](int k) { return __shfl_sync(gr.mask, term, k, G); });
+      n_in += sp.end - sp.start;
+      n_lit += __popc(lit_bits);
+      was_in = was_in || sp.start < sp.end;
+      if (sp.ended) break;
+    }
+  }
+  // Each lit lane's sun samples, summed over the group.
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) n_sun += __shfl_down_sync(gr.mask, n_sun, o, G);
+  if (gr.gl == 0) {
+    rad[r] = R;
+    if (steps != nullptr) {
+      steps[3 * r] = n_in;
+      steps[3 * r + 1] = n_lit;
+      steps[3 * r + 2] = n_sun;
+    }
+  }
+}
+
+// K8b's forward with G lanes a ray (ds_diff_march's arguments).
+template <int G>
+static int march_lanes_launch(const float* dens, const float* baked, const float* to_sun,
+                              int nx, int ny, int nz, const float* consts, int n_steps,
+                              int sun_steps, const float* entry, const float* dirs,
+                              const float* phase, const uint8_t* hit, int64_t n, float* rad,
+                              int* steps, void* stream) {
+  if (n <= 0) return 0;
+  const ds::diff::MarchConsts c =
+      ds::diff::march_consts(nx, ny, nz, consts, n_steps, sun_steps, baked != nullptr);
+  const unsigned blocks = (unsigned)((n * G + kDiffThreads - 1) / kDiffThreads);
+  march_lanes_kernel<G><<<blocks, kDiffThreads, 0, (cudaStream_t)stream>>>(
+      dens, baked, to_sun, c, entry, dirs, phase, hit, n, rad, steps);
+  return (int)cudaGetLastError();
+}
+
+// The sun march a thread a point, each sample through trilinear_strided.
+__global__ void __launch_bounds__(kDiffThreads) sun_march_points_kernel(
+    const float* __restrict__ dens, const float* __restrict__ to_sun, ds::diff::Grid3 g, float step,
+    float dm, int n_steps, const float* __restrict__ pos, int64_t n, float* out, int* steps) {
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  float ts[3], q[3];
+  load3(to_sun, 0, ts);
+  load3(pos, r, q);
+  int n_in;
+  out[r] = ds::diff::sun_march<true>(dens, g, step, dm, n_steps, q, ts, &n_in);
+  if (steps != nullptr) steps[r] = n_in;
+}
+
+// Its adjoint a thread a point, each run of steps in one cell merged in
+// registers before its eight atomics (sun_march_adjoint's Merge).
+template <class Add = ds::diff::AddTo>
+__global__ void __launch_bounds__(kDiffThreads) sun_march_bwd_points_kernel(
+    const float* __restrict__ dens, const float* __restrict__ to_sun, ds::diff::Grid3 g, float step,
+    float dm, int n_steps, const float* __restrict__ pos, const float* __restrict__ trans,
+    const float* __restrict__ g_trans, int64_t n, float* d_dens, float* d_pos, float* d_ts) {
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  float ts[3], q[3], dq[3] = {0.0f, 0.0f, 0.0f}, dts[3] = {0.0f, 0.0f, 0.0f};
+  load3(to_sun, 0, ts);
+  load3(pos, r, q);
+  ds::diff::sun_march_adjoint<true>(dens, g, step, dm, n_steps, q, ts, trans[r], g_trans[r],
+                                    d_dens, dq, dts, Add());
+  for (int a = 0; a < 3; ++a) {
+    d_pos[3 * r + a] = dq[a];
+    d_ts[3 * r + a] = dts[a];
+  }
+}
+
+// The sun march and its adjoint a thread a point (ds_sun_march's and
+// ds_sun_march_bwd's arguments).
+static int sun_march_launch(const float* dens, const float* to_sun, int nx, int ny, int nz,
+                            const float* consts, int n_steps, const float* pos, int64_t n,
+                            float* out, int* steps, void* stream) {
+  if (n <= 0) return 0;
+  const ds::diff::Grid3 g = ds::diff::grid3(nx, ny, nz, consts);
+  const unsigned blocks = (unsigned)((n + kDiffThreads - 1) / kDiffThreads);
+  sun_march_points_kernel<<<blocks, kDiffThreads, 0, (cudaStream_t)stream>>>(
+      dens, to_sun, g, consts[3], consts[4], n_steps, pos, n, out, steps);
+  return (int)cudaGetLastError();
+}
+
+template <class Add = ds::diff::AddTo>
+static int sun_march_bwd_launch(const float* dens, const float* to_sun, int nx, int ny, int nz,
+                                const float* consts, int n_steps, const float* pos,
+                                const float* trans, const float* g_trans, int64_t n,
+                                float* d_dens, float* d_pos, float* d_ts, void* stream) {
+  if (n <= 0) return 0;
+  const ds::diff::Grid3 g = ds::diff::grid3(nx, ny, nz, consts);
+  const unsigned blocks = (unsigned)((n + kDiffThreads - 1) / kDiffThreads);
+  sun_march_bwd_points_kernel<Add><<<blocks, kDiffThreads, 0, (cudaStream_t)stream>>>(
+      dens, to_sun, g, consts[3], consts[4], n_steps, pos, trans, g_trans, n, d_dens, d_pos,
+      d_ts);
+  return (int)cudaGetLastError();
+}
+
 // K8b's adjoint: rays x G threads, group g of G lanes taking ray
 // blockIdx * (threads / G) + g a chunk of G steps at a time.
 template <int G, class Add>
@@ -1102,11 +1365,9 @@ __device__ __forceinline__ void march_bwd_lanes(
     const float* __restrict__ rad, const float* __restrict__ g_rad, int64_t n, float* d_dens,
     float* d_baked, float* d_entry, float* d_dirs, float* d_phase, float* d_ts,
     const Add& add) {
-  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two up to 32");
-  const int lane = threadIdx.x & 31;
-  const int gl = lane & (G - 1);
-  const int shift = lane - gl;
-  const unsigned gmask = ds::diff::group_bits(G) << shift;
+  const GroupLanes gr = group_lanes<G>();
+  const int gl = gr.gl, shift = gr.shift;
+  const unsigned gmask = gr.mask;
   const int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (r >= n) return;  // whole groups: the block is a multiple of G
   float de[3] = {0.0f, 0.0f, 0.0f}, dd[3] = {0.0f, 0.0f, 0.0f}, dts[3] = {0.0f, 0.0f, 0.0f};
@@ -1128,9 +1389,9 @@ __device__ __forceinline__ void march_bwd_lanes(
       const bool mine = gl >= sp.start && gl < sp.end;
       // tau before this lane's step and after the chunk, in step order.
       const float xs = mine ? L.st.sigma * c.step : 0.0f;
-      auto sig_of = [&](int k) { return __shfl_sync(gmask, xs, k, G); };
-      const float tau_l = ds::diff::lane_fold<G>(tau, sp.start, gl, sig_of);
-      tau = ds::diff::lane_fold<G>(tau, sp.start, sp.end, sig_of);
+      float tau_l;
+      tau = ds::diff::lane_sum<G>(
+          tau, gl, [&](int k) { return __shfl_sync(gmask, xs, k, G); }, &tau_l);
       float term = 0.0f, dterm = 0.0f;
       if (mine) {
         L.st.tv = expf(-tau_l);
@@ -1138,13 +1399,13 @@ __device__ __forceinline__ void march_bwd_lanes(
         term = ((tvseg * L.S) * ph) * c.sun_ratio;
         dterm = (tvseg * L.S) * c.sun_ratio;
       }
-      // The prefix through this lane's step; dP through the chunk.
-      const float C_l = ds::diff::lane_fold<G>(
-          C, sp.start, gl + 1, [&](int k) { return __shfl_sync(gmask, term, k, G); });
-      C = ds::diff::lane_fold<G>(C, sp.start, sp.end,
-                                 [&](int k) { return __shfl_sync(gmask, term, k, G); });
-      dP = ds::diff::lane_fold<G>(dP, sp.start, sp.end,
-                                  [&](int k) { return __shfl_sync(gmask, dterm, k, G); });
+      // The prefix through this lane's step (the next addition after the
+      // prefix before it); dP through the chunk.
+      float C_before;
+      C = ds::diff::lane_sum<G>(
+          C, gl, [&](int k) { return __shfl_sync(gmask, term, k, G); }, &C_before);
+      const float C_l = C_before + term;
+      dP = ds::diff::lane_sum<G>(dP, [&](int k) { return __shfl_sync(gmask, dterm, k, G); });
       float vd[8], vb[8];
       int key_d = -1 - gl, key_b = -1 - gl;
       if (mine) {
@@ -1172,15 +1433,9 @@ __device__ __forceinline__ void march_bwd_lanes(
     }
   }
   // The group's sums, lane 0 writing.
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-#pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1) {
-      de[a] += __shfl_down_sync(gmask, de[a], o, G);
-      dd[a] += __shfl_down_sync(gmask, dd[a], o, G);
-      dts[a] += __shfl_down_sync(gmask, dts[a], o, G);
-    }
-  }
+  group_sum3<G>(gr, de);
+  group_sum3<G>(gr, dd);
+  group_sum3<G>(gr, dts);
   if (gl == 0) {
     for (int a = 0; a < 3; ++a) {
       d_entry[3 * r + a] = de[a];
@@ -1222,56 +1477,35 @@ static int march_bwd_lanes_launch(const float* dens, const float* baked, const f
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kDiffThreads) sun_march_kernel(
-    const float* __restrict__ dens, const float* __restrict__ to_sun, ds::diff::Grid3 g, float step,
-    float dm, int n_steps, const float* __restrict__ pos, int64_t n, float* out, int* steps) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  float ts[3], q[3];
-  load3(to_sun, 0, ts);
-  load3(pos, r, q);
-  int n_in;
-  out[r] = ds::diff::sun_march(dens, g, step, dm, n_steps, q, ts, &n_in);
-  if (steps != nullptr) steps[r] = n_in;
-}
-
-__global__ void __launch_bounds__(kDiffThreads) sun_march_bwd_kernel(
-    const float* __restrict__ dens, const float* __restrict__ to_sun, ds::diff::Grid3 g, float step,
-    float dm, int n_steps, const float* __restrict__ pos, const float* __restrict__ trans,
-    const float* __restrict__ g_trans, int64_t n, float* d_dens, float* d_pos, float* d_ts) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  float ts[3], q[3], dq[3] = {0.0f, 0.0f, 0.0f}, dts[3] = {0.0f, 0.0f, 0.0f};
-  load3(to_sun, 0, ts);
-  load3(pos, r, q);
-  ds::diff::sun_march_adjoint(dens, g, step, dm, n_steps, q, ts, trans[r], g_trans[r], d_dens, dq,
-                              dts, ds::diff::AddTo());
-  for (int a = 0; a < 3; ++a) {
-    d_pos[3 * r + a] = dq[a];
-    d_ts[3 * r + a] = dts[a];
-  }
-}
-
-static unsigned blocks_for(int64_t n) {
-  return (unsigned)((n + kDiffThreads - 1) / kDiffThreads);
-}
-
 extern "C" {
 
-// K8a's voxels a thread; K8b's adjoint's lanes a ray for n rays: 32 where
-// n x 32 threads fit the card's thread slots (its SMs x 2048), else 8.
-int ds_adjoint_voxels() { return ds::diff::kAdjVoxels; }
-int ds_diff_lanes(int64_t n) {
-  static int slots = 0;
+// The card's thread slots (its SMs x 2048).
+static int64_t thread_slots() {
+  static int64_t slots = 0;
   if (slots == 0) {
     int device = 0, sms = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     int per_sm = 0;
     cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, device);
-    slots = sms * per_sm > 0 ? sms * per_sm : 1;
+    slots = (int64_t)sms * per_sm > 0 ? (int64_t)sms * per_sm : 1;
   }
-  return n * ds::diff::kDiffLanesFew <= slots ? ds::diff::kDiffLanesFew : ds::diff::kDiffLanes;
+  return slots;
+}
+
+// K8a's voxels a thread; K8b's adjoint's lanes a ray for n rays: 32 where
+// n x 32 threads fit the card's thread slots, else 8.
+int ds_adjoint_voxels() { return ds::diff::kAdjVoxels; }
+int ds_diff_lanes(int64_t n) {
+  return n * ds::diff::kDiffLanesFew <= thread_slots() ? ds::diff::kDiffLanesFew
+                                                       : ds::diff::kDiffLanes;
+}
+
+// K8b's forward's lanes a ray for n rays: 32 where n x 32 threads fill at
+// most half the card's thread slots, 16 where n x 16 fit them, else 8.
+int ds_diff_forward_lanes(int64_t n) {
+  if (2 * n * 32 <= thread_slots()) return 32;
+  return n * 16 <= thread_slots() ? 16 : 8;
 }
 
 // K8a's light-gradient partial rows for an [nz, ny, nx] grid.
@@ -1293,17 +1527,22 @@ int ds_bake_adjoint(const float* dens, int nx, int ny, int nz, const float* cons
 // K8b forward.  baked: the in-scatter grid (NULL: the sun march from
 // to_sun[3]); consts: bbox[3], step, dm, sun_ratio; entry, dirs: [n][3];
 // phase: [n]; hit: [n] (a ray that misses writes 0); rad: [n]; steps: NULL
-// or [n][2] (steps in the box, steps with sigma != 0).
+// or [n][3] (steps in the box, steps with sigma != 0, the sun march's
+// samples in the box at those steps: 0 baked).  ds_diff_forward_lanes(n)
+// lanes a ray.
 int ds_diff_march(const float* dens, const float* baked, const float* to_sun, int nx, int ny,
                   int nz, const float* consts, int n_steps, int sun_steps, const float* entry,
                   const float* dirs, const float* phase, const uint8_t* hit, int64_t n,
                   float* rad, int* steps, void* stream) {
-  if (n <= 0) return 0;
-  const ds::diff::MarchConsts c =
-      ds::diff::march_consts(nx, ny, nz, consts, n_steps, sun_steps, baked != nullptr);
-  march_kernel<<<blocks_for(n), kDiffThreads, 0, (cudaStream_t)stream>>>(
-      dens, baked, to_sun, c, entry, dirs, phase, hit, n, rad, steps);
-  return (int)cudaGetLastError();
+#define DS_FWD(G)                                                                        \
+  march_lanes_launch<G>(dens, baked, to_sun, nx, ny, nz, consts, n_steps, sun_steps, entry, \
+                        dirs, phase, hit, n, rad, steps, stream)
+  switch (ds_diff_forward_lanes(n)) {
+    case 32: return DS_FWD(32);
+    case 16: return DS_FWD(16);
+    default: return DS_FWD(8);
+  }
+#undef DS_FWD
 }
 
 // K8b backward: d_dens (and d_baked) zeroed by the caller and added to;
@@ -1324,28 +1563,22 @@ int ds_diff_march_bwd(const float* dens, const float* baked, const float* to_sun
       g_rad, n, d_dens, d_baked, d_entry, d_dirs, d_phase, d_ts, stream);
 }
 
-// The sun march from pos[n][3] toward to_sun[3]; consts: bbox[3], step, dm;
-// steps: NULL or [n] (each point's samples in the box).
+// The sun march from pos[n][3] toward to_sun[3], a thread a point; consts:
+// bbox[3], step, dm; steps: NULL or [n] (each point's samples in the box).
 int ds_sun_march(const float* dens, const float* to_sun, int nx, int ny, int nz,
                  const float* consts, int n_steps, const float* pos, int64_t n, float* out,
                  int* steps, void* stream) {
-  if (n <= 0) return 0;
-  const ds::diff::Grid3 g = ds::diff::grid3(nx, ny, nz, consts);
-  sun_march_kernel<<<blocks_for(n), kDiffThreads, 0, (cudaStream_t)stream>>>(
-      dens, to_sun, g, consts[3], consts[4], n_steps, pos, n, out, steps);
-  return (int)cudaGetLastError();
+  return sun_march_launch(dens, to_sun, nx, ny, nz, consts, n_steps, pos, n, out, steps, stream);
 }
 
+// Its adjoint, a thread a point: d_dens zeroed by the caller and added to;
+// d_pos, d_ts: [n][3].
 int ds_sun_march_bwd(const float* dens, const float* to_sun, int nx, int ny, int nz,
                      const float* consts, int n_steps, const float* pos, const float* trans,
                      const float* g_trans, int64_t n, float* d_dens, float* d_pos, float* d_ts,
                      void* stream) {
-  if (n <= 0) return 0;
-  const ds::diff::Grid3 g = ds::diff::grid3(nx, ny, nz, consts);
-  sun_march_bwd_kernel<<<blocks_for(n), kDiffThreads, 0, (cudaStream_t)stream>>>(
-      dens, to_sun, g, consts[3], consts[4], n_steps, pos, trans, g_trans, n, d_dens, d_pos,
-      d_ts);
-  return (int)cudaGetLastError();
+  return sun_march_bwd_launch(dens, to_sun, nx, ny, nz, consts, n_steps, pos, trans, g_trans, n,
+                              d_dens, d_pos, d_ts, stream);
 }
 
 }  // extern "C"

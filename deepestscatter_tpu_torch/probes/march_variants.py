@@ -36,10 +36,17 @@ one card.
   thread a ray (its first design) and with G lanes a ray; and, for the first
   design and the package's, with its grid scatters aimed at a scratch
   slot of its own a thread and left out (``SCATTERS``): what its atomics
-  and its arithmetic each cost; K8a's first design likewise.  Then K8b's
-  adjoint at G = 8, 16 and 32 on the frame point's cloud at the smaller
-  frames of ``LANE_POINTS``, around the ray count where the package
-  switches from 32 lanes a ray to 8 (``ds_diff_lanes``).
+  and its arithmetic each cost; K8a's first design likewise.  K8b's
+  forward in each design of ``FORWARD_DESIGNS`` (a thread a ray, its first
+  design, and G lanes a ray) at both points and in pointwise mode at the
+  defaults point.  Then K8b's adjoint at G = 8, 16 and 32 and its forward
+  in each design on the frame point's cloud at the smaller frames of
+  ``LANE_POINTS``, around the ray counts where the package's lanes a ray
+  change (``ds_diff_lanes``, ``ds_diff_forward_lanes``); the sun march and
+  its adjoint in each design of ``SUN_DESIGNS`` (a thread a point, their
+  first design; the package's thread a point; G lanes a point), the
+  adjoint's atomics left out too, at each count of ``SUN_POINTS`` in each
+  of ``SUN_ORDERS``.
 
 The diff kernels run at chip_smoke.py's two points of ``render.diff``:
 the defaults point (64 x 32, 256 steps of 1/256, dm 100, the 64^3 cloud
@@ -51,9 +58,10 @@ the package's kernel (K8a within 1e-12 of the density gradient's largest
 value, K8b's adjoint within 1e-5 of each leaf's largest).  Their times
 are CUDA-event means with the host enqueueing ahead of the card
 (``ahead_ms``: a launch at the defaults point is shorter than its
-wrapper's host time), the alternatives timed in turns as below.
-chip_smoke.py times the package's kernels against their first designs
-through ``against_first``.
+wrapper's host time), the alternatives timed in turns as below; the
+forwards bitwise against the package's kernel.  chip_smoke.py times the
+package's kernels against their first designs through ``against_first``,
+``forward_against_first`` and ``sun_against_first``.
 
 Every other alternative runs at the main paths' operating point (the 256^3
 procedural cumulus of seed 11, 2000 m, uint8 textures; K4 on the 512^2
@@ -72,7 +80,7 @@ Run on the card::
     python -m deepestscatter_tpu_torch.probes.march_variants [--collector-only | --diff-only]
 
 ``--collector-only`` runs K7a's and K7b's alternatives alone,
-``--diff-only`` K8a's and K8b's.  Prints
+``--diff-only`` K8a's, K8b's and the sun march's.  Prints
 one line an alternative, then one JSON object as the last line; exits 1
 without a card or if an alternative disagrees.
 """
@@ -131,6 +139,22 @@ K8A_DESIGNS = {"first design (a thread a voxel)": 0, **{f"rows V={v}": v for v i
 K8B_DESIGNS = {"first design (a thread a ray)": 0, **{f"G={g}": g for g in (4, 8, 16, 32)}}
 #: Its grid scatters: atomics into the grids, a scratch slot a thread, none.
 SCATTERS = {"atomics": 0, "scratch slot": 1, "no atomics": 2}
+#: K8b's forward: 0 a thread a ray (its first design), G lanes a ray (the
+#: package runs ``ds_diff_forward_lanes(rays)``).
+FORWARD_DESIGNS = {"first design (a thread a ray)": 0, **{f"G={g}": g for g in (4, 8, 16, 32)}}
+#: The sun march and its adjoint: 0 a thread a point (their first design),
+#: 1 the package's thread a point, G lanes a point (``csrc/diff_variants.cu``).
+SUN_DESIGNS = {"first design (a thread a point)": 0,
+               "a thread a point (strided samples; the adjoint's runs merged)": 1,
+               **{f"G={g}": g for g in (8, 16, 32)}}
+#: The sun march's points: the 64^3 cloud's voxel centres, the first n in
+#: voxel order (a slab of z-slices: neighbouring threads on neighbouring
+#: points, as the voxel centres and a frame's NEE points in pixel order
+#: come) or n at random: where lanes a point and a thread a point each win.
+SUN_POINTS = (2048, 8192, 32768, 131072, 262144)
+SUN_ORDERS = ("voxel", "random")
+#: The sun march's density multiplier, steps and step (chip_smoke.py's).
+SUN_ARGS = (100.0, 128, 1.0 / 256.0)
 #: chip_smoke.py's diff points: (cloud resolution, seed, sun, eye, render
 #: arguments); the sun and eye None for the scene configuration's.
 DIFF_POINTS = {
@@ -145,8 +169,8 @@ DIFF_POINTS = {
 #: the card's thread slots).
 LANE_POINTS = {f"frame {w}x{h}": (w, h)
                for w, h in ((64, 64), (128, 64), (128, 128), (256, 128), (256, 256))}
-#: K8b's adjoint's leaves.
-LEAVES = ("density", "baked", "entry", "dirs", "p_phase")
+#: K8b's adjoint's leaves (baked or to_sun None by the in-scatter mode).
+LEAVES = ("density", "baked", "to_sun", "entry", "dirs", "p_phase")
 
 
 def time_ms(fn: Callable[[], object], reps: int) -> float:
@@ -399,10 +423,11 @@ def cloud(res: int, seed: int) -> np.ndarray:
     return grid_ops.normalize_density(procedural.cumulus(resolution=res, seed=seed))
 
 
-def diff_inputs(diff, res: int, seed: int, sun, eye, kw: dict, dev):
-    """A diff point's main-path kernel inputs: the march's (through K3),
-    the upstream of the image mean a ray, the forward's radiance, K8b's
-    adjoint and K8a's inputs (the bake's T, the baked grid's gradient)."""
+def diff_inputs(diff, res: int, seed: int, sun, eye, kw: dict, dev, baked: bool = True):
+    """A diff point's main-path kernel inputs: the march's (through K3
+    where ``baked``), the upstream of the image mean a ray, the forward's
+    radiance, K8b's adjoint and K8a's inputs (the bake's T, the baked
+    grid's gradient; None pointwise)."""
     base = config.SceneConfig()
     density = cloud(res, seed)
     scene = diff.diff_scene_from_numpy(
@@ -410,16 +435,19 @@ def diff_inputs(diff, res: int, seed: int, sun, eye, kw: dict, dev):
         np.asarray(eye or base.camera.eye, np.float32), np.zeros(3, np.float32),
         np.full(3, 1e6, np.float32), device=dev)
     with torch.no_grad():
-        m = diff.march_setup(scene, **{**diff_defaults(diff), **kw}, use_baked_inscatter=True,
+        m = diff.march_setup(scene, **{**diff_defaults(diff), **kw}, use_baked_inscatter=baked,
                              kernels=True)
         n = m.entry.shape[0]
-        args = (scene.density, m.baked, None, m.entry.contiguous(), m.dirs.contiguous(),
-                m.p_phase.contiguous(), m.hit.to(torch.uint8), m.meta)
+        args = (scene.density, m.baked, None if m.to_sun is None else m.to_sun.contiguous(),
+                m.entry.contiguous(), m.dirs.contiguous(), m.p_phase.contiguous(),
+                m.hit.to(torch.uint8), m.meta)
         g_rad = torch.where(m.hit, scene.light_radiance.sum() / (3 * n),
                             torch.zeros((), device=dev)).to(torch.float32).contiguous()
         rad = diff.launch_march(*args)
         back = diff.launch_march_bwd(*args[:7], rad, g_rad, m.meta)
         sun_n = scene.sun_dir / torch.linalg.norm(scene.sun_dir)
+    if not baked:
+        return args, rad, g_rad, back, None
     meta = m.meta
     trans = inscatter.launch_bake(scene.density, meta.bbox, tuple(sun_n.tolist()), meta.step,
                                   meta.density_multiplier, False)
@@ -448,9 +476,37 @@ def diff_lib(lib) -> int:
     the package's K8a voxels a thread."""
     lib.ds_diff_variant.argtypes = [ctypes.c_int] * 3
     lib.ds_diff_variant.restype = None
-    lib.ds_diff_lanes.argtypes = [ctypes.c_int64]
-    lib.ds_diff_lanes.restype = ctypes.c_int
+    lib.ds_diff_forward_variant.argtypes = [ctypes.c_int] * 3
+    lib.ds_diff_forward_variant.restype = None
+    for name in ("ds_diff_lanes", "ds_diff_forward_lanes"):
+        getattr(lib, name).argtypes = [ctypes.c_int64]
+        getattr(lib, name).restype = ctypes.c_int
     return lib_const(lib, "ds_adjoint_voxels")
+
+
+def package_choice(lib, rays: int) -> dict:
+    """The package's choices for ``rays`` rays, by ``variant``'s names."""
+    return dict(k8a=lib_const(lib, "ds_adjoint_voxels"), k8b=lib.ds_diff_lanes(rays), scatter=0,
+                march=lib.ds_diff_forward_lanes(rays), sun=1, sun_bwd=1)
+
+
+def variant(lib, rays: int, **choice):
+    """A call that sets every alternative of ``csrc/diff_variants.cu``:
+    the package's for ``rays`` rays but where ``choice`` names another (K8a
+    ``k8a``, K8b's adjoint ``k8b`` and its ``scatter``, K8b's forward
+    ``march``, the sun march ``sun`` and ``sun_bwd``)."""
+    c = {**package_choice(lib, rays), **choice}
+
+    def apply():
+        lib.ds_diff_variant(c["k8a"], c["k8b"], c["scatter"])
+        lib.ds_diff_forward_variant(c["march"], c["sun"], c["sun_bwd"])
+
+    return apply
+
+
+def set_variant(lib, rays: int, **choice) -> None:
+    """``variant``'s choice, set now."""
+    variant(lib, rays, **choice)()
 
 
 def k8a_design(lib, adj, design: int, lanes: int, scatter: int = 0, float64: bool = True):
@@ -458,8 +514,10 @@ def k8a_design(lib, adj, design: int, lanes: int, scatter: int = 0, float64: boo
     arguments ``adj``, as a call."""
     from ..render import diff
 
+    choose = variant(lib, 1, k8a=design, k8b=lanes, scatter=scatter)
+
     def run():
-        lib.ds_diff_variant(design, lanes, scatter)
+        choose()
         return diff.launch_bake_adjoint(*adj, lib=lib, float64=float64)
 
     return run
@@ -470,11 +528,57 @@ def k8b_design(lib, bwd, voxels: int, lanes: int, scatter: int = 0):
     wrapper's arguments ``bwd``, as a call."""
     from ..render import diff
 
+    choose = variant(lib, bwd[3].shape[0], k8a=voxels, k8b=lanes, scatter=scatter)
+
     def run():
-        lib.ds_diff_variant(voxels, lanes, scatter)
+        choose()
         return diff.launch_march_bwd(*bwd, lib=lib)
 
     return run
+
+
+def forward_design(lib, fwd, march: int, steps=None):
+    """K8b's forward with ``march`` lanes a ray (0: a thread a ray) on the
+    wrapper's arguments ``fwd``, as a call."""
+    from ..render import diff
+
+    choose = variant(lib, fwd[3].shape[0], march=march)
+
+    def run():
+        choose()
+        return diff.launch_march(*fwd, steps=steps, lib=lib)
+
+    return run
+
+
+def sun_design(lib, sun_args, lanes: int, adjoint: bool, scatter: int = 0):
+    """The sun march (or its adjoint) with ``lanes`` lanes a point (0: its
+    first design; 1: the package's thread a point) on the
+    wrapper's arguments ``sun_args`` (those of ``launch_sun_march``, or of
+    ``launch_sun_march_bwd``; its scatters left out where ``scatter`` is
+    2), as a call."""
+    from ..render import diff
+
+    choose = variant(lib, sun_args[2].shape[0], scatter=scatter,
+                     **{"sun_bwd" if adjoint else "sun": lanes})
+
+    def run():
+        choose()
+        if adjoint:
+            return diff.launch_sun_march_bwd(*sun_args, lib=lib)
+        return diff.launch_sun_march(*sun_args, lib=lib)
+
+    return run
+
+
+def mean(ms: List[float]) -> float:
+    return sum(ms) / len(ms)
+
+
+def pair_in_turns(new, first, reps: int) -> tuple:
+    """(new's, first's) mean ms over four turns by ``ahead_ms``."""
+    t = in_turns({"new": new, "first": first}, reps, ahead_ms)
+    return mean(t["new"]), mean(t["first"])
 
 
 def against_first(adj, bwd, reps_a: int, reps_b: int) -> dict:
@@ -483,31 +587,152 @@ def against_first(adj, bwd, reps_a: int, reps_b: int) -> dict:
     on the same inputs in one call: each pair's mean ms over four turns
     by ``ahead_ms``, and each output's largest difference over its largest
     value (K8a's density gradient in float64).  ``adj``, ``bwd``: the
-    arguments of ``launch_bake_adjoint`` and ``launch_march_bwd``."""
+    arguments of ``launch_bake_adjoint`` (None: no K8a, pointwise) and
+    ``launch_march_bwd``."""
     from ..render import diff
 
     lib = cuda_build.load("diff_variants")
     voxels = diff_lib(lib)
     lanes = lib.ds_diff_lanes(bwd[3].shape[0])
-    first_a, first_b = k8a_design(lib, adj, 0, lanes, float64=False), k8b_design(lib, bwd, voxels, 0)
-    ta = in_turns({"new": lambda: diff.launch_bake_adjoint(*adj), "first": first_a}, reps_a,
-                  ahead_ms)
-    tb = in_turns({"new": lambda: diff.launch_march_bwd(*bwd), "first": first_b}, reps_b,
-                  ahead_ms)
+    first_b = k8b_design(lib, bwd, voxels, 0)
+    out = dict(lanes=lanes, rel_err={})
+    if adj is not None:
+        out["ms_a"], out["ms_a_first"] = pair_in_turns(
+            lambda: diff.launch_bake_adjoint(*adj), k8a_design(lib, adj, 0, lanes, float64=False),
+            reps_a)
+        out["rel_err"]["K8a density"] = rel_err(diff.launch_bake_adjoint(*adj, float64=True)[0],
+                                                k8a_design(lib, adj, 0, lanes)()[0])
+    out["ms_b"], out["ms_b_first"] = pair_in_turns(lambda: diff.launch_march_bwd(*bwd), first_b,
+                                                   reps_b)
     new_b, old_b = diff.launch_march_bwd(*bwd), first_b()
-    errs = {"K8a density": rel_err(diff.launch_bake_adjoint(*adj, float64=True)[0],
-                                   k8a_design(lib, adj, 0, lanes)()[0])}
-    errs.update({f"K8b {f}": rel_err(getattr(new_b, f), getattr(old_b, f)) for f in LEAVES})
-    mean = lambda ms: sum(ms) / len(ms)  # noqa: E731
-    return dict(ms_a=mean(ta["new"]), ms_a_first=mean(ta["first"]), ms_b=mean(tb["new"]),
-                ms_b_first=mean(tb["first"]), lanes=lanes, rel_err=errs)
+    out["rel_err"].update({f"K8b {f}": rel_err(getattr(new_b, f), getattr(old_b, f))
+                           for f in LEAVES if getattr(old_b, f) is not None})
+    return out
+
+
+def forward_against_first(fwd, reps: int) -> dict:
+    """K8b's forward, the package's kernel against its first design (a
+    thread a ray) on the same inputs in one call: mean ms over four turns
+    by ``ahead_ms``, and whether the radiance and the step counts are
+    bitwise equal.  ``fwd``: ``launch_march``'s arguments."""
+    from ..render import diff
+
+    lib = cuda_build.load("diff_variants")
+    diff_lib(lib)
+    n = fwd[3].shape[0]
+    steps = [torch.zeros((n, 3), dtype=torch.int32, device=fwd[3].device) for _ in range(2)]
+    first = forward_design(lib, fwd, 0)
+    ms, ms_first = pair_in_turns(lambda: diff.launch_march(*fwd), first, reps)
+    new = diff.launch_march(*fwd, steps=steps[0])
+    old = forward_design(lib, fwd, 0, steps=steps[1])()
+    return dict(ms=ms, ms_first=ms_first, lanes=lib.ds_diff_forward_lanes(n),
+                bitwise=bool(torch.equal(new, old) and torch.equal(steps[0], steps[1])))
+
+
+def sun_against_first(fwd, bwd, reps: int) -> dict:
+    """The sun march and its adjoint, the package's kernels against their
+    first designs (a thread a point) on the same inputs in one call: mean
+    ms over four turns each by ``ahead_ms``; T and the samples bitwise,
+    the adjoint's outputs by their largest difference over their largest.
+    ``fwd``, ``bwd``: the arguments of ``launch_sun_march`` and
+    ``launch_sun_march_bwd``."""
+    from ..render import diff
+
+    lib = cuda_build.load("diff_variants")
+    diff_lib(lib)
+    ms, ms_first = pair_in_turns(lambda: diff.launch_sun_march(*fwd), sun_design(lib, fwd, 0, False),
+                                 reps)
+    ms_b, ms_b_first = pair_in_turns(lambda: diff.launch_sun_march_bwd(*bwd),
+                                     sun_design(lib, bwd, 0, True), reps)
+    n = fwd[2].shape[0]
+    steps = [torch.zeros(n, dtype=torch.int32, device=fwd[2].device) for _ in range(2)]
+    new = diff.launch_sun_march(*fwd, steps=steps[0])
+    old = sun_design(lib, (*fwd, steps[1]), 0, False)()
+    new_b, old_b = diff.launch_sun_march_bwd(*bwd), sun_design(lib, bwd, 0, True)()
+    return dict(ms=ms, ms_first=ms_first, ms_bwd=ms_b, ms_bwd_first=ms_b_first,
+                bitwise=bool(torch.equal(new, old) and torch.equal(steps[0], steps[1])),
+                rel_err={k: rel_err(a, b) for k, a, b in zip(("density", "pos", "to_sun"),
+                                                             new_b, old_b)})
+
+
+def forward_sweep(lib, fwd, reps: int) -> Dict[str, dict]:
+    """K8b's forward in each design of ``FORWARD_DESIGNS`` on ``fwd``, in
+    turns by ``ahead_ms``; each bitwise against the package's kernel."""
+    from ..render import diff
+
+    n = fwd[3].shape[0]
+    ref = diff.launch_march(*fwd)
+    row: Dict[str, dict] = {}
+    fns = {}
+    for key, g in FORWARD_DESIGNS.items():
+        name = f"K8b forward {key}"
+        fns[name] = forward_design(lib, fwd, g)
+        row[name] = dict(bitwise=bool(torch.equal(fns[name](), ref)))
+    for key, ms in in_turns(fns, reps, ahead_ms).items():
+        row[key]["ms"] = ms
+    set_variant(lib, n)
+    return row
+
+
+def sun_sweep(lib, fwd, bwd, reps: int) -> Dict[str, dict]:
+    """The sun march and its adjoint in each design of ``SUN_DESIGNS`` on
+    ``fwd`` / ``bwd``, in turns by ``ahead_ms``: T bitwise against the
+    package's kernel, the adjoint within 1e-5 of each output's largest."""
+    from ..render import diff
+
+    ref, ref_b = diff.launch_sun_march(*fwd), diff.launch_sun_march_bwd(*bwd)
+    row: Dict[str, dict] = {}
+    fns = {}
+    for key, g in SUN_DESIGNS.items():
+        fns[f"sun march {key}"] = sun_design(lib, fwd, g, False)
+        row[f"sun march {key}"] = dict(bitwise=bool(torch.equal(fns[f"sun march {key}"](), ref)))
+    for key, ms in in_turns(fns, reps, ahead_ms).items():
+        row[key]["ms"] = ms
+    fns = {}
+    for key, g in SUN_DESIGNS.items():
+        fns[f"sun adjoint {key}"] = sun_design(lib, bwd, g, True)
+        errs = [rel_err(a, b) for a, b in zip(fns[f"sun adjoint {key}"](), ref_b)]
+        row[f"sun adjoint {key}"] = dict(rel_err=max(errs), equal=max(errs) <= 1e-5)
+        if g in (0, 1):  # the split: its scatters left out
+            fns[f"sun adjoint {key} no atomics"] = sun_design(lib, bwd, g, True, scatter=2)
+            row[f"sun adjoint {key} no atomics"] = {}
+    for key, ms in in_turns(fns, reps, ahead_ms).items():
+        row[key]["ms"] = ms
+    set_variant(lib, 1)
+    row["package"] = dict(points=int(fwd[2].shape[0]))
+    return row
+
+
+def sun_inputs(diff, dev, points: int = 0, order: str = "voxel"):
+    """The sun march's inputs at chip_smoke.py's: the 262,144 voxel centres
+    of the defaults point's 64^3 cloud (if given, the first ``points`` of
+    them in ``order`` "voxel", or ``points`` at random) toward its sun, 128
+    steps of 1/256, dm 100, the upstream rng(8)'s; (launch_sun_march's,
+    launch_sun_march_bwd's arguments)."""
+    res, seed, sun, _, _ = DIFF_POINTS["defaults"]
+    density = torch.from_numpy(cloud(res, seed)).to(dev).contiguous()
+    centres = torch.from_numpy(np.stack(np.meshgrid(
+        *(np.arange(n, dtype=np.float32) + 0.5 for n in density.shape), indexing="ij")[::-1], -1)
+        .reshape(-1, 3) / np.float32(max(density.shape))).to(dev).contiguous()
+    w = torch.from_numpy(np.random.default_rng(8).random(centres.shape[0])
+                         .astype(np.float32)).to(dev)
+    if points:
+        pick = (torch.arange(points) if order == "voxel" else
+                torch.from_numpy(np.random.default_rng(14).permutation(centres.shape[0])[:points]))
+        centres, w = centres[pick.to(dev)].contiguous(), w[pick.to(dev)].contiguous()
+    to_sun = diff._to_sun(torch.tensor(sun, dtype=torch.float32, device=dev)).contiguous()
+    fwd = (density, to_sun, centres, *SUN_ARGS)
+    trans = diff.launch_sun_march(*fwd)
+    return fwd, (density, to_sun, centres, trans, w, *SUN_ARGS)
 
 
 def diff_variants(lib, dev) -> dict:
     """K8a and K8b's adjoint in each design against the package's, at both
     diff points; the scatter split of K8b's adjoint (the first design and
-    the package's) and of K8a's first design; K8b's adjoint's lanes a ray
-    at LANE_POINTS."""
+    the package's) and of K8a's first design; K8b's forward in each design
+    at both points and pointwise at the defaults point; K8b's adjoint's and
+    forward's lanes a ray at LANE_POINTS; the sun march and its adjoint in
+    each design at the 262,144 voxel centres and other counts and orders."""
     from ..render import diff
 
     voxels = diff_lib(lib)
@@ -518,7 +743,8 @@ def diff_variants(lib, dev) -> dict:
         nonlocal ok
         for key, r in row.items():
             print(f"diff {point} {key}: {json.dumps(r)}", flush=True)
-            ok = ok and r.get("equal", True)
+            if isinstance(r, dict):
+                ok = ok and r.get("equal", True) and r.get("bitwise", True)
         out[point] = row
 
     def k8b_row(row, fns, key, gl, sc, bwd, back):
@@ -526,7 +752,8 @@ def diff_variants(lib, dev) -> dict:
         row[key] = {}
         if not sc:
             got = fns[key]()
-            errs = {f: rel_err(getattr(got, f), getattr(back, f)) for f in LEAVES}
+            errs = {f: rel_err(getattr(got, f), getattr(back, f)) for f in LEAVES
+                    if getattr(back, f) is not None}
             row[key].update(rel_err=errs, equal=all(e <= 1e-5 for e in errs.values()))
 
     for point, (res, seed, sun, eye, kw) in DIFF_POINTS.items():
@@ -556,23 +783,34 @@ def diff_variants(lib, dev) -> dict:
                         back)
         for key, ms in in_turns(fns, 5 if point == "frame" else 20, ahead_ms).items():
             row[key]["ms"] = ms
+        row.update(forward_sweep(lib, args, 5 if point == "frame" else 20))
         report(point, row)
         del args, rad, g_rad, back, adj, bwd
+    res, seed, sun, eye, kw = DIFF_POINTS["defaults"]
+    args, rad, g_rad, back, _ = diff_inputs(diff, res, seed, sun, eye, kw, dev, baked=False)
+    report("defaults pointwise", forward_sweep(lib, args, 10))
+    del args, rad, g_rad, back
     res, seed, sun, eye, kw = DIFF_POINTS["frame"]
     for point, (w, h) in LANE_POINTS.items():
         args, rad, g_rad, back, _ = diff_inputs(diff, res, seed, sun, eye,
                                                 dict(kw, width=w, height=h), dev)
         bwd = (*args[:7], rad, g_rad, args[7])
         row = {"package": dict(rays=int(args[3].shape[0]),
-                               lanes=lib.ds_diff_lanes(args[3].shape[0]))}
+                               lanes=lib.ds_diff_lanes(args[3].shape[0]),
+                               forward_lanes=lib.ds_diff_forward_lanes(args[3].shape[0]))}
         fns = {}
         for gl in (8, 16, 32):
             k8b_row(row, fns, f"K8b adjoint G={gl}", gl, 0, bwd, back)
         for key, ms in in_turns(fns, 10, ahead_ms).items():
             row[key]["ms"] = ms
+        row.update(forward_sweep(lib, args, 10))
         report(point, row)
         del args, rad, g_rad, back, bwd
-    lib.ds_diff_variant(voxels, K8B_DESIGNS["G=8"], 0)
+    for order in SUN_ORDERS:
+        for points in SUN_POINTS:
+            fwd, bwd = sun_inputs(diff, dev, points, order)
+            report(f"sun march ({points} points, {order} order)", sun_sweep(lib, fwd, bwd, 10))
+    set_variant(lib, 1)
     out["ok"] = ok
     return out
 
@@ -655,7 +893,7 @@ def main(argv=None) -> int:
     only.add_argument("--collector-only", action="store_true",
                       help="time only K7a's and K7b's alternatives")
     only.add_argument("--diff-only", action="store_true",
-                      help="time only K8a's and K8b's adjoint's alternatives")
+                      help="time only the diff kernels' alternatives")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("march_variants: needs a CUDA card", file=sys.stderr)

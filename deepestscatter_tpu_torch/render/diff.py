@@ -505,11 +505,12 @@ def _march_consts(meta: MarchMeta):
 def launch_march(density, baked, to_sun, entry, dirs, p_phase, hit, meta: MarchMeta,
                  steps: Optional[torch.Tensor] = None, lib=None) -> torch.Tensor:
     """K8b's forward (``ds_diff_march``) → the radiance sum [N] (0 where
-    ``hit`` [N] uint8 is 0).  ``steps``: None, or an int32 [N, 2] the kernel
-    fills with each ray's steps in the box and steps with sigma != 0."""
+    ``hit`` [N] uint8 is 0).  ``steps``: None, or an int32 [N, 3] the kernel
+    fills with each ray's steps in the box, its steps with sigma != 0 and
+    the sun march's samples in the box at those steps (0 baked)."""
     n = _march_inputs(density, baked, to_sun, entry, dirs, p_phase, hit)
-    if steps is not None and (steps.dtype != torch.int32 or steps.shape != (n, 2)):
-        raise ValueError("steps must be an int32 [N, 2] tensor")
+    if steps is not None and (steps.dtype != torch.int32 or steps.shape != (n, 3)):
+        raise ValueError("steps must be an int32 [N, 3] tensor")
     fn = (lib or cuda_build.load("diff")).ds_diff_march
     fn.argtypes = _MARCH_ARGTYPES
     fn.restype = ctypes.c_int

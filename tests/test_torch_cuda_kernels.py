@@ -45,11 +45,15 @@ within 1e-5 of its largest value, the density gradient within 1e-4 of its
 largest, the other leaves within 1e-3; the bake's forward bitwise equal to
 the plain bake; the sun march within 1e-6 (T) and 1e-4 (gradients); two
 runs' images bitwise equal, their gradients within 1e-5 (atomics).  On the
-render's own inputs, K8b's adjoint (G lanes a ray) within 1e-5 of each
-leaf's largest of autograd of the plain march and of its first design (a
-thread a ray), K8a (rows) within 1e-6 of autograd of the plain bake and
-within 1e-12 of its first design (a thread a voxel: both sum the same
-float32 terms in float64; the first designs build from
+render's own inputs, K8b's forward (G lanes a ray) bitwise equal to the
+plain march and to its first design (a thread a ray), K8b's adjoint (G
+lanes a ray) within 1e-5 of each leaf's largest of autograd of the plain
+march and of its first design (a thread a ray), K8a (rows) within 1e-6 of
+autograd of the plain bake and within 1e-12 of its first design (a thread
+a voxel: both sum the same float32 terms in float64); the sun march (a
+thread a point, strided samples) bitwise equal to its first design, its
+adjoint (runs of steps in one cell merged) within 1e-5 (the first designs
+build from
 ``csrc/diff_variants.cu``).
 
 The render task (``tasks.render_cloud``, NN and BNN, from ``.pt``
@@ -978,12 +982,14 @@ def _rel(a, b) -> float:
 @pytest.mark.parametrize("baked", [True, False], ids=["baked", "pointwise"])
 def test_diff_kernels_match_plain(card, baked):
     """The render's image and gradients through the kernels against the
-    plain versions; then each adjoint kernel on the render's own inputs:
-    K8b's adjoint (G lanes a ray) against autograd of the plain march
-    (within 1e-5 of each leaf's largest) and against its first design, a
-    thread a ray (``csrc/diff_variants.cu``, within 1e-5); K8a (rows)
-    against autograd of the plain bake (1e-6) and its first design, a
-    thread a voxel (the same float32 terms in float64 sums: 1e-12)."""
+    plain versions; then each kernel on the render's own inputs: K8b's
+    forward (G lanes a ray) bitwise equal to the plain march and to its
+    first design, a thread a ray (``csrc/diff_variants.cu``; the step
+    counts too); K8b's adjoint (G lanes a ray) against autograd of the
+    plain march (within 1e-5 of each leaf's largest) and against its first
+    design, a thread a ray (within 1e-5); K8a (rows) against autograd of
+    the plain bake (1e-6) and its first design, a thread a voxel (the same
+    float32 terms in float64 sums: 1e-12)."""
     from deepestscatter_tpu_torch.render import diff
 
     scene = _diff_scene(card)
@@ -993,6 +999,7 @@ def test_diff_kernels_match_plain(card, baked):
 
     variants = cuda_build.load("diff_variants")
     variants.ds_diff_variant.argtypes = [ctypes.c_int] * 3
+    variants.ds_diff_forward_variant.argtypes = [ctypes.c_int] * 3
     kw = dict(DIFF_KW, use_baked_inscatter=baked)
     with torch.no_grad():
         m = diff.march_setup(scene, kernels=True, **kw)
@@ -1001,7 +1008,17 @@ def test_diff_kernels_match_plain(card, baked):
             m.hit.to(torch.uint8), m.meta)
     g = torch.from_numpy(np.random.default_rng(9).random(m.hit.shape[0]).astype(np.float32))
     g = torch.where(m.hit, g.to(card), 0.0).contiguous()
-    rad = diff.launch_march(*args)
+    n = m.hit.shape[0]
+    steps = torch.zeros((n, 3), dtype=torch.int32, device=card)
+    rad = diff.launch_march(*args, steps=steps)
+    with torch.no_grad():
+        plain = diff.quadrature_march_plain(*args[:6], m.meta, kw["remat_chunk"])
+    assert torch.equal(rad[m.hit], plain[m.hit]) and bool((rad[~m.hit] == 0).all())
+    first_steps = torch.zeros_like(steps)
+    variants.ds_diff_forward_variant(0, 1, 1)  # the forward's first design
+    first_rad = diff.launch_march(*args, steps=first_steps, lib=variants)
+    assert torch.equal(rad, first_rad) and torch.equal(steps, first_steps)
+    assert int(steps[:, 1].sum()) > 0 and (int(steps[:, 2].sum()) > 0) == (not baked)
     back = diff.launch_march_bwd(*args[:7], rad, g, m.meta)
     variants.ds_diff_variant(4, 0, 0)
     first = diff.launch_march_bwd(*args[:7], rad, g, m.meta, lib=variants)
@@ -1074,10 +1091,23 @@ def test_diff_sun_transmittance_matches_plain(card):
     # The samples the kernel reports taking in the box (a line crosses it once).
     to_sun = diff._to_sun(scene.sun_dir).contiguous()
     steps = torch.zeros(5000, dtype=torch.int32, device=card)
-    diff.launch_sun_march(scene.density, to_sun, pos, 100.0, 64, 1.0 / 128.0, steps=steps)
+    got = diff.launch_sun_march(scene.density, to_sun, pos, 100.0, 64, 1.0 / 128.0, steps=steps)
     s = torch.tensor([diff._step_distance(1.0 / 128.0, j + 1) for j in range(64)], device=card)
     u = (pos[:, None, :] + to_sun * s[:, None]) / diff._bbox(scene.density)
     assert torch.equal(steps, ((u >= 0) & (u <= 1)).all(dim=-1).sum(dim=1).to(torch.int32))
+    # Against the first design (csrc/diff_variants.cu): T and the samples
+    # bitwise, the adjoint within 1e-5 of each output's largest (its runs
+    # merged: its sums in another float32 order).
+    variants = cuda_build.load("diff_variants")
+    variants.ds_diff_forward_variant.argtypes = [ctypes.c_int] * 3
+    variants.ds_diff_forward_variant(8, 0, 0)
+    first_steps = torch.zeros_like(steps)
+    first = diff.launch_sun_march(scene.density, to_sun, pos, 100.0, 64, 1.0 / 128.0,
+                                  steps=first_steps, lib=variants)
+    assert torch.equal(got, first) and torch.equal(steps, first_steps)
+    bwd = (scene.density, to_sun, pos, got, w, 100.0, 64, 1.0 / 128.0)
+    for a, b in zip(diff.launch_sun_march_bwd(*bwd), diff.launch_sun_march_bwd(*bwd, lib=variants)):
+        assert _rel(a, b) <= 1e-5
 
 
 def test_diff_wrappers_count_launches(card):

@@ -87,13 +87,25 @@ arithmetic the kernels share with their host build.
   the 20 x 28 x 36 grid, for four light directions (one axis-parallel),
   with every face's texels reached; the light gradient (its slope
   regrouped) within 1e-6 (measured 1.4e-7).
-- K8b's adjoint in chunks of G lanes a ray (``lane_span``, ``lane_fold``,
+- K8b's adjoint in chunks of G lanes a ray (``lane_span``, ``lane_sum``,
   ``step_adjoint``, the grid scatters summed over runs of lanes in one
   cell) equals its per-ray first design ``march_ray_adjoint`` bitwise at
   G = 1 and within 1e-5 of each leaf's largest at G = 8 and 32 (the
   kernel's two; measured: at most 8.0e-7, d/d to_sun; 4.7e-7 the
   density's), on the 24^3 cumulus of ``test_torch_cuda_kernels.py``,
   baked and pointwise.
+- K8b's forward in chunks of G lanes a ray (``step_sigma``,
+  ``lane_span``, ``lane_sum``; pointwise each lit lane's own sun march)
+  equals its per-ray first design ``march_ray`` bitwise in the radiance
+  and the three step counts at G = 1, 8 and 32, baked and pointwise, with
+  each ray's first step in the box on a chunk's lane 0, 7 or 31 and with a
+  cap of 45 steps inside a chunk.  The kernels' sun march, a thread a point
+  (strided samples), and the lane form of ``csrc/diff_variants.cu`` in
+  chunks of G lanes a point equal ``sun_march`` bitwise in T and the
+  samples in the box (points entering the box on the way, a cap of 45
+  steps inside a chunk, and the main path's 128); their adjoints (the
+  thread's merged runs; ``group_deposit``'s runs) within 1e-5 of
+  ``sun_march_adjoint``'s largest value of each output, bitwise at G = 1.
 - All match the plain PyTorch versions within the tolerances of
   ``test_torch_cuda_kernels.py``: glibc's ``expf``/``logf``/``sinf``/
   ``cosf``/``acosf`` are not torch's, so step counts agree on >= 99 % of
@@ -157,6 +169,7 @@ def host_lib(tmp_path_factory):
     lib.host_set_samples.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.host_set_radiance.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.host_set_diff.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.host_set_diff_forward.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -808,7 +821,7 @@ def _rel(a, b):
 def test_k8b_forward_equals_plain_and_stops_at_the_box_exit(host_lib, diff_rig):
     scene, kw, m, _ = diff_rig
     assert bool((~m.hit).any())  # some rays miss the box
-    steps = torch.zeros((m.hit.shape[0], 2), dtype=torch.int32)
+    steps = torch.zeros((m.hit.shape[0], 3), dtype=torch.int32)
     got = diff.launch_march(*_march_args(scene, m), steps=steps, lib=host_lib)
     with torch.no_grad():
         ref = diff.quadrature_march_plain(scene.density, m.baked, m.to_sun, m.entry, m.dirs,
@@ -819,6 +832,11 @@ def test_k8b_forward_equals_plain_and_stops_at_the_box_exit(host_lib, diff_rig):
     # in-scatter is read on the steps with sigma != 0.
     assert bool((steps[m.hit, 0] > 0).all()) and int(steps[:, 0].max()) < m.meta.n_steps
     assert bool((steps[:, 1] <= steps[:, 0]).all()) and int(steps[:, 1].sum()) > 0
+    # The sun march's samples at the steps with sigma != 0: pointwise only.
+    if m.baked is None:
+        assert int(steps[:, 2].sum()) > 0 and bool((steps[steps[:, 1] == 0, 2] == 0).all())
+    else:
+        assert int(steps[:, 2].abs().sum()) == 0
 
 
 def test_k8b_adjoint_equals_autograd(host_lib, diff_rig):
@@ -837,7 +855,7 @@ def test_k8b_adjoint_equals_autograd(host_lib, diff_rig):
         assert _rel(getattr(got, name), want[name]) <= 1e-5, name
     # The replay's R - prefix on the deepest rays: each ray's d/d entry and
     # d/d dirs against autograd's, relative to that ray's largest.
-    steps = torch.zeros((m.hit.shape[0], 2), dtype=torch.int32)
+    steps = torch.zeros((m.hit.shape[0], 3), dtype=torch.int32)
     diff.launch_march(*args, steps=steps, lib=host_lib)
     deep = torch.argsort(steps[:, 0], descending=True)[:8]
     for name in ("entry", "dirs"):
@@ -973,6 +991,104 @@ def test_k8b_lanes_equal_the_ray_loop(host_lib, lanes_rig, lanes):
             assert torch.equal(a, b), name
         else:
             assert _rel(a, b) <= 1e-5, name
+
+
+def _forward_mode(host_lib, march=1, lanes=0, sun=2, sun_lanes=0):
+    """A context setting the host build's K8b forward and sun march
+    (host_set_diff_forward), the kernels' again on leaving."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        host_lib.host_set_diff_forward(march, lanes, sun, sun_lanes)
+        try:
+            yield
+        finally:
+            host_lib.host_set_diff_forward(1, 0, 2, 0)
+
+    return ctx()
+
+
+def _first_in_box(e, d, meta):
+    """Each ray's first step in the box (-1: none), as the kernels sample."""
+    s = torch.tensor([diff._step_distance(meta.step, i + 1) for i in range(meta.n_steps)])
+    u = (e[:, None, :] + d[:, None, :] * s[:, None]) / torch.tensor(meta.bbox)
+    inside = ((u >= 0) & (u <= 1)).all(dim=-1)
+    return torch.where(inside.any(dim=1), inside.to(torch.int64).argmax(dim=1), -1)
+
+
+@pytest.mark.parametrize("back", [0, 7, 31])
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+def test_k8b_forward_lanes_equal_the_ray_loop(host_lib, lanes_rig, lanes, back):
+    """K8b's forward in chunks of G lanes a ray (march_lanes_kernel's
+    lane_span, lane_sum; pointwise with each lit lane's own sun
+    march) equals its per-ray first design march_ray
+    bitwise: the radiance and the three step counts.  The entries moved
+    back along the ray by ``back`` and a half steps put each ray's first
+    step in the box on lane 7 (a chunk's last at G = 8) or 31 (its last at
+    32); the march capped at 45 steps ends inside a chunk."""
+    scene, m, g, args = lanes_rig
+    e = (args[3] - args[4] * ((back + 0.5) * m.meta.step)).contiguous() if back else args[3]
+    first = _first_in_box(e, args[4], m.meta)
+    assert float((first[m.hit] == back).to(torch.float64).mean()) > 0.5
+    n = m.hit.shape[0]
+    for meta in (m.meta, m.meta._replace(n_steps=45)):
+        a = (*args[:3], e, *args[4:7], meta)
+        ref_steps = torch.zeros((n, 3), dtype=torch.int32)
+        with _forward_mode(host_lib, march=0):
+            ref = diff.launch_march(*a, steps=ref_steps, lib=host_lib)
+        if meta.n_steps == 45:  # the cap ends rays still in the box
+            assert bool((ref_steps[:, 0] == 45 - back).any())
+        else:
+            assert float(ref.abs().max()) > 0 and int(ref_steps[:, 1].sum()) > 0
+        steps = torch.zeros((n, 3), dtype=torch.int32)
+        with _forward_mode(host_lib, march=1, lanes=lanes):
+            got = diff.launch_march(*a, steps=steps, lib=host_lib)
+        assert torch.equal(got, ref), meta.n_steps
+        assert torch.equal(steps, ref_steps), meta.n_steps
+
+
+@pytest.mark.parametrize("n_steps", [45, 128])
+@pytest.mark.parametrize("mode, lanes", [(2, 0), (1, 1), (1, 8), (1, 32)],
+                         ids=["thread-a-point", "lanes-1", "lanes-8", "lanes-32"])
+def test_sun_march_lanes_equal_the_point_loop(host_lib, mode, lanes, n_steps):
+    """The kernels' sun march, a thread a point (strided samples; the
+    adjoint's runs of steps in one cell merged), equals its first design
+    sun_march bitwise in T and the samples in the box, on points in and
+    around the box (some enter it after their first steps), with 45 steps
+    (a cap inside a chunk of 8 or 32) and with the main path's 128; its
+    adjoint within 1e-5 of each output's largest.  The lane form of
+    csrc/diff_variants.cu in chunks of G lanes a point (sun_march_lanes)
+    likewise, its adjoint (sun_march_adjoint_lanes: runs of lanes in one
+    cell summed before their adds, d/dq and d/d to_sun summed over the
+    lanes) bitwise at G = 1."""
+    scene = _diff_scene()
+    pos = torch.from_numpy(np.random.default_rng(12).uniform(-0.25, 1.25, (400, 3))
+                           .astype(np.float32))
+    to_sun = diff._to_sun(scene.sun_dir).contiguous()
+    w = torch.from_numpy(np.random.default_rng(13).random(400).astype(np.float32))
+    out = {}
+    for sun in (0, mode):  # the first design, then the design under test
+        steps = torch.zeros(400, dtype=torch.int32)
+        with _forward_mode(host_lib, sun=sun, sun_lanes=lanes):
+            t = diff.launch_sun_march(scene.density, to_sun, pos, 40.0, n_steps, 1 / 64,
+                                      steps=steps, lib=host_lib)
+            back = diff.launch_sun_march_bwd(scene.density, to_sun, pos, t, w, 40.0, n_steps,
+                                             1 / 64, lib=host_lib)
+        out[sun] = (t, steps, back)
+    (t0, s0, b0), (t1, s1, b1) = out[0], out[mode]
+    assert torch.equal(t1, t0) and torch.equal(s1, s0)
+    assert bool((t0 < 0.9).any()) and bool((s0 == 0).any())
+    # 45 steps: the cap ends marches still in the box; 128: the box's exit.
+    assert bool((s0 == 45).any()) if n_steps == 45 else int(s0.max()) in range(46, n_steps)
+    inside = ((pos >= 0) & (pos <= 1)).all(dim=1)
+    assert bool((~inside & (s0 > 0)).any())  # points that enter the box on the way
+    for a, b in zip(b1, b0):
+        assert float(b.abs().max()) > 0
+        if mode == 1 and lanes == 1:
+            assert torch.equal(a, b)
+        else:
+            assert _rel(a, b) <= 1e-5
 
 
 def test_k8a_on_a_block_equals_the_plain_bake_of_the_block(host_lib):

@@ -16,8 +16,8 @@
 // atomics of K8a and K8b as plain adds),
 // so the wrappers' _launch drives it on CPU tensors; host_set_pathtrace,
 // host_set_radiance, host_set_bake, host_set_march, host_set_descriptor,
-// host_set_probes, host_set_samples and host_set_diff choose what they
-// compute.
+// host_set_probes, host_set_samples, host_set_diff and
+// host_set_diff_forward choose what they compute.
 #include <math.h>
 #include <stdint.h>
 
@@ -59,6 +59,16 @@ int radiance_park_at = ds::kParkAt;
 int adjoint_mode = 1;
 int diff_mode = 1;
 int diff_lanes = ds::diff::kDiffLanes;  // 1, 8 or 32
+// K8b's forward: 0 march_ray a ray (its first design); 1 chunks of
+// fwd_lanes lanes a ray (the kernel's).  The sun march and its adjoint: 0
+// sun_march and sun_march_adjoint a point (their first designs); 1 chunks
+// of sun_lanes lanes a point (csrc/diff_variants.cu's lane form); 2 a point
+// at a time with strided samples and the adjoint's runs merged (the
+// kernels').
+int fwd_mode = 1;
+int fwd_lanes = ds::diff::kDiffLanes;  // 1, 8 or 32
+int sun_mode = 2;
+int sun_lanes = 8;  // 1, 8 or 32
 
 template <int K, typename T>
 void trace_items(const T* dens, const T* insc, int nx, int ny, int nz,
@@ -377,6 +387,179 @@ int samples(const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
   return 0;
 }
 
+// group_deposit over arrays of G lanes: runs of equal keys numbered by
+// their first lanes, the segmented scan level by level (the same additions
+// in the same tree order), the last lane of each run adding its sums to
+// the texels idx_of(lane) (a negative key adds nothing).
+template <int G, class I>
+void host_deposit(const int* key, float (*v)[8], I idx_of, float* grid) {
+  const ds::diff::AddTo add;
+  int run[G];
+  bool head[G];
+  for (int l = 0, n_run = 0; l < G; ++l) {
+    head[l] = l == 0 || key[l - 1] != key[l];
+    n_run += head[l] ? 1 : 0;
+    run[l] = n_run;
+  }
+  for (int o = 1; o < G; o <<= 1) {
+    float prev[G][8];
+    for (int l = 0; l < G; ++l) {
+      for (int k = 0; k < 8; ++k) prev[l][k] = v[l][k];
+    }
+    for (int l = o; l < G; ++l) {
+      if (run[l - o] != run[l]) continue;
+      for (int k = 0; k < 8; ++k) v[l][k] = v[l][k] + prev[l - o][k];
+    }
+  }
+  for (int l = 0; l < G; ++l) {
+    if (key[l] < 0 || !(l == G - 1 || head[l + 1])) continue;
+    const int* idx = idx_of(l);
+    for (int k = 0; k < 8; ++k) add(grid + idx[k], v[l][k]);
+  }
+}
+
+// v[l][3] summed over the lanes as the kernels' shuffle tree sums them
+// into lane 0.
+template <int G>
+void host_group_sum3(float (*v)[3], float* out) {
+  for (int o = G / 2; o > 0; o >>= 1) {
+    for (int l = 0; l < o; ++l) {
+      for (int a = 0; a < 3; ++a) v[l][a] += v[l + o][a];
+    }
+  }
+  for (int a = 0; a < 3; ++a) out[a] = v[0][a];
+}
+
+// The sun march from q in chunks of G lanes (csrc/diff_variants.cu's
+// sun_march_lanes): each
+// chunk's lanes one after the other into arrays, the span from their
+// in-box bits, tau folded in step order.
+template <int G>
+float sun_march_chunks(const float* dens, const ds::diff::Grid3& g, float step, float dm, int n,
+                       const float* q, const float* ts, int* n_in) {
+  float tau = 0.0f;
+  bool was_in = false;
+  int count = 0;
+  for (int j0 = 0; j0 < n; j0 += G) {
+    float xs[G];
+    unsigned in = 0u;
+    for (int l = 0; l < G; ++l) {
+      float s, u[3];
+      xs[l] = 0.0f;
+      if (j0 + l < n && ds::diff::sun_point(g, step, q, ts, j0 + l, &s, u)) {
+        xs[l] = (ds::trilinear_strided(dens, g.nx, g.ny, g.nz, u[0], u[1], u[2]) * dm) * step;
+        in |= 1u << l;
+      }
+    }
+    const ds::diff::LaneSpan sp = ds::diff::lane_span(in, was_in, G);
+    for (int l = 0; l < G; ++l) {
+      if (l < sp.start || l >= sp.end) xs[l] = 0.0f;
+    }
+    tau = ds::diff::lane_sum<G>(tau, [&](int k) { return xs[k]; });
+    count += sp.end - sp.start;
+    was_in = was_in || sp.start < sp.end;
+    if (sp.ended) break;
+  }
+  *n_in = count;
+  return expf(-tau);
+}
+
+// The sun march's adjoint in chunks of G lanes (sun_march_adjoint_lanes):
+// the density scatters summed over runs of lanes in one cell
+// (host_deposit), d/dq and d/d to_sun summed over the lanes at the end.
+template <int G>
+void sun_march_adjoint_chunks(const float* dens, const ds::diff::Grid3& g, float step, float dm,
+                              int n, const float* q, const float* ts, float T, float gT,
+                              float* d_dens, float* dq_out, float* dts_out) {
+  float dq[G][3] = {}, dts[G][3] = {};
+  const float drho = ((-(gT * T)) * step) * dm;
+  bool was_in = false;
+  for (int j0 = 0; drho != 0.0f && j0 < n; j0 += G) {
+    ds::diff::Taps t[G];
+    float s[G];
+    unsigned in = 0u;
+    for (int l = 0; l < G; ++l) {
+      float u[3];
+      if (j0 + l < n && ds::diff::sun_point(g, step, q, ts, j0 + l, &s[l], u)) {
+        t[l] = ds::diff::taps_at(g, u[0], u[1], u[2]);
+        in |= 1u << l;
+      }
+    }
+    const ds::diff::LaneSpan sp = ds::diff::lane_span(in, was_in, G);
+    float v[G][8] = {};
+    int key[G];
+    for (int l = 0; l < G; ++l) {
+      key[l] = -1 - l;
+      if (l < sp.start || l >= sp.end) continue;
+      for (int k = 0; k < 8; ++k) v[l][k] = drho * t[l].w[k];
+      float dp[3];
+      ds::diff::taps_point_slope(dens, g, t[l], drho, dp);
+      for (int a = 0; a < 3; ++a) {
+        dq[l][a] += dp[a];
+        dts[l][a] += dp[a] * s[l];
+      }
+      key[l] = t[l].idx[0];
+    }
+    host_deposit<G>(key, v, [&](int l) { return t[l].idx; }, d_dens);
+    was_in = was_in || sp.start < sp.end;
+    if (sp.ended) break;
+  }
+  host_group_sum3<G>(dq, dq_out);
+  host_group_sum3<G>(dts, dts_out);
+}
+
+// K8b's forward for ray (e, d) in chunks of G lanes (march_lanes_kernel):
+// every lane's density sample, the span from their in-box bits, tau before
+// each lane and after the chunk (lane_sum), the lit lanes' segments and
+// in-scatter (pointwise: each lit lane's own sun march), the radiance
+// folded in step order; counts as march_ray's.
+template <int G>
+float march_fwd_chunks(const float* dens, const float* baked, const ds::diff::MarchConsts& c,
+                       const float* ts, const float* e, const float* d, float ph, int* counts) {
+  float tau = 0.0f, R = 0.0f;
+  bool was_in = false;
+  int n_in = 0, n_lit = 0, n_sun = 0;
+  for (int i0 = 0; i0 < c.n_steps; i0 += G) {
+    ds::diff::Step st[G];
+    unsigned in = 0u;
+    for (int l = 0; l < G; ++l) {
+      if (i0 + l < c.n_steps && ds::diff::step_sigma(dens, c, e, d, i0 + l, st[l])) {
+        in |= 1u << l;
+      }
+    }
+    const ds::diff::LaneSpan sp = ds::diff::lane_span(in, was_in, G);
+    float xs[G], tau_l[G], term[G];
+    for (int l = 0; l < G; ++l) {
+      xs[l] = l >= sp.start && l < sp.end ? st[l].sigma * c.step : 0.0f;
+    }
+    auto xs_of = [&](int k) { return xs[k]; };
+    float tau_next = tau;
+    for (int l = 0; l < G; ++l) {
+      tau_next = ds::diff::lane_sum<G>(tau, l, xs_of, &tau_l[l]);
+    }
+    tau = tau_next;
+    for (int l = 0; l < G; ++l) {
+      term[l] = 0.0f;
+      if (l < sp.start || l >= sp.end || st[l].sigma == 0.0f) continue;
+      ++n_lit;
+      ds::diff::step_segment(c, e, d, st[l]);
+      int ns;
+      ds::diff::Taps tq;
+      const float S = ds::diff::t_sun_at<true>(dens, baked, c, ts, st[l].q, &tq, &ns);
+      n_sun += ns;
+      term[l] = (((expf(-tau_l[l]) * st[l].seg) * S) * ph) * c.sun_ratio;
+    }
+    R = ds::diff::lane_sum<G>(R, [&](int k) { return term[k]; });
+    n_in += sp.end - sp.start;
+    was_in = was_in || sp.start < sp.end;
+    if (sp.ended) break;
+  }
+  counts[0] = n_in;
+  counts[1] = n_lit;
+  counts[2] = n_sun;
+  return R;
+}
+
 // K8b's adjoint for ray r in chunks of G lanes: each chunk's lanes
 // computed one after the other into arrays (what the card's ballot and
 // shuffles deliver), the grid scatters summed over runs of lanes in one
@@ -406,8 +589,9 @@ float march_bwd_chunks(const float* dens, const float* baked, const ds::diff::Ma
       xs[l] = mine ? L[l].st.sigma * c.step : 0.0f;
     }
     auto sig_of = [&](int k) { return xs[k]; };
-    for (int l = 0; l < G; ++l) tau_l[l] = ds::diff::lane_fold<G>(tau, sp.start, l, sig_of);
-    tau = ds::diff::lane_fold<G>(tau, sp.start, sp.end, sig_of);
+    float tau_next = tau;
+    for (int l = 0; l < G; ++l) tau_next = ds::diff::lane_sum<G>(tau, l, sig_of, &tau_l[l]);
+    tau = tau_next;
     for (int l = 0; l < G; ++l) {
       term[l] = dterm[l] = 0.0f;
       if (l >= sp.start && l < sp.end) {
@@ -418,9 +602,13 @@ float march_bwd_chunks(const float* dens, const float* baked, const ds::diff::Ma
       }
     }
     auto term_of = [&](int k) { return term[k]; };
-    for (int l = 0; l < G; ++l) C_l[l] = ds::diff::lane_fold<G>(C, sp.start, l + 1, term_of);
-    C = ds::diff::lane_fold<G>(C, sp.start, sp.end, term_of);
-    dP = ds::diff::lane_fold<G>(dP, sp.start, sp.end, [&](int k) { return dterm[k]; });
+    float C_next = C;
+    for (int l = 0; l < G; ++l) {
+      C_next = ds::diff::lane_sum<G>(C, l, term_of, &C_l[l]);
+      C_l[l] = C_l[l] + term[l];
+    }
+    C = C_next;
+    dP = ds::diff::lane_sum<G>(dP, [&](int k) { return dterm[k]; });
     float vd[G][8] = {}, vb[G][8] = {};
     int key_d[G], key_b[G];
     bool lit_any = false;
@@ -435,34 +623,10 @@ float march_bwd_chunks(const float* dens, const float* baked, const ds::diff::Ma
       if (c.baked && lit) key_b[l] = L[l].tq.idx[0];
       lit_any = lit_any || lit;
     }
-    // group_deposit over arrays: runs numbered by their first lanes, then
-    // the segmented scan level by level.
-    auto deposit = [&](const int* key, float (*v)[8], bool baked_grid) {
-      int run[G];
-      bool head[G];
-      for (int l = 0, n_run = 0; l < G; ++l) {
-        head[l] = l == 0 || key[l - 1] != key[l];
-        n_run += head[l] ? 1 : 0;
-        run[l] = n_run;
-      }
-      for (int o = 1; o < G; o <<= 1) {
-        float prev[G][8];
-        for (int l = 0; l < G; ++l) {
-          for (int k = 0; k < 8; ++k) prev[l][k] = v[l][k];
-        }
-        for (int l = o; l < G; ++l) {
-          if (run[l - o] != run[l]) continue;
-          for (int k = 0; k < 8; ++k) v[l][k] = v[l][k] + prev[l - o][k];
-        }
-      }
-      for (int l = 0; l < G; ++l) {
-        if (key[l] < 0 || !(l == G - 1 || head[l + 1])) continue;
-        const ds::diff::Taps& t = baked_grid ? L[l].tq : L[l].st.tp;
-        for (int k = 0; k < 8; ++k) add((baked_grid ? d_baked : d_dens) + t.idx[k], v[l][k]);
-      }
-    };
-    if (c.baked && lit_any) deposit(key_b, vb, true);
-    deposit(key_d, vd, false);
+    if (c.baked && lit_any) {
+      host_deposit<G>(key_b, vb, [&](int l) { return L[l].tq.idx; }, d_baked);
+    }
+    host_deposit<G>(key_d, vd, [&](int l) { return L[l].st.tp.idx; }, d_dens);
     was_in = was_in || sp.start < sp.end;
     if (sp.ended) break;
   }
@@ -541,6 +705,17 @@ void host_set_diff(int adjoint, int march, int lanes) {
   adjoint_mode = adjoint;
   diff_mode = march;
   diff_lanes = lanes > 0 ? lanes : ds::diff::kDiffLanes;
+}
+
+// K8b's forward: march 0 march_ray a ray, 1 chunks of `lanes` lanes (1, 8
+// or 32; 0 for the kernel's kDiffLanes); the sun march and its adjoint:
+// sun 0 a point at a time (the first designs), 1 chunks of `sun_lanes` (1,
+// 8 or 32; 0 for 8), 2 a point at a time (the kernels').
+void host_set_diff_forward(int march, int lanes, int sun, int sun_lanes_) {
+  fwd_mode = march;
+  fwd_lanes = lanes > 0 ? lanes : ds::diff::kDiffLanes;
+  sun_mode = sun;
+  sun_lanes = sun_lanes_ > 0 ? sun_lanes_ : 8;
 }
 
 int ds_pathtrace(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
@@ -785,16 +960,28 @@ int ds_diff_march(const float* dens, const float* baked, const float* to_sun, in
   const ds::diff::MarchConsts c =
       ds::diff::march_consts(nx, ny, nz, consts, n_steps, sun_steps, baked != nullptr);
   for (int64_t r = 0; r < n; ++r) {
-    int counts[2] = {0, 0};
+    int counts[3] = {0, 0, 0};
     rad[r] = 0.0f;
     if (hit[r]) {
       const float ts0[3] = {0.0f, 0.0f, 0.0f};
-      rad[r] = ds::diff::march_ray(dens, baked, c, baked ? ts0 : to_sun, entry + 3 * r,
-                                   dirs + 3 * r, phase[r], counts);
+      const float* ts = baked ? ts0 : to_sun;
+      const float *e = entry + 3 * r, *d = dirs + 3 * r;
+#define DS_CHUNKS(G) march_fwd_chunks<G>(dens, baked, c, ts, e, d, phase[r], counts)
+      if (fwd_mode == 0) {
+        rad[r] = ds::diff::march_ray(dens, baked, c, ts, e, d, phase[r], counts);
+      } else if (fwd_lanes == 1) {
+        rad[r] = DS_CHUNKS(1);
+      } else if (fwd_lanes == 8) {
+        rad[r] = DS_CHUNKS(8);
+      } else if (fwd_lanes == 32) {
+        rad[r] = DS_CHUNKS(32);
+      } else {
+        return -1;
+      }
+#undef DS_CHUNKS
     }
     if (steps != nullptr) {
-      steps[2 * r] = counts[0];
-      steps[2 * r + 1] = counts[1];
+      for (int k = 0; k < 3; ++k) steps[3 * r + k] = counts[k];
     }
   }
   return 0;
@@ -815,7 +1002,7 @@ int ds_diff_march_bwd(const float* dens, const float* baked, const float* to_sun
       const float ts0[3] = {0.0f, 0.0f, 0.0f};
       const float* ts = baked ? ts0 : to_sun;
       const float *e = entry + 3 * r, *d = dirs + 3 * r;
-#define DS_CHUNKS(G)                                                                       \
+#define DS_CHUNKS(G)                                                                        \
   march_bwd_chunks<G>(dens, baked, c, ts, e, d, phase[r], rad[r], g_rad[r], d_dens, d_baked, de, \
                       dd, dts)
       if (diff_mode == 0) {
@@ -848,8 +1035,22 @@ int ds_sun_march(const float* dens, const float* to_sun, int nx, int ny, int nz,
   const ds::diff::Grid3 g = ds::diff::grid3(nx, ny, nz, consts);
   for (int64_t r = 0; r < n; ++r) {
     int n_in;
-    out[r] = ds::diff::sun_march(dens, g, consts[3], consts[4], n_steps, pos + 3 * r, to_sun,
-                                 &n_in);
+    const float* q = pos + 3 * r;
+#define DS_CHUNKS(G) sun_march_chunks<G>(dens, g, consts[3], consts[4], n_steps, q, to_sun, &n_in)
+    if (sun_mode == 0) {
+      out[r] = ds::diff::sun_march(dens, g, consts[3], consts[4], n_steps, q, to_sun, &n_in);
+    } else if (sun_mode == 2) {
+      out[r] = ds::diff::sun_march<true>(dens, g, consts[3], consts[4], n_steps, q, to_sun, &n_in);
+    } else if (sun_lanes == 1) {
+      out[r] = DS_CHUNKS(1);
+    } else if (sun_lanes == 8) {
+      out[r] = DS_CHUNKS(8);
+    } else if (sun_lanes == 32) {
+      out[r] = DS_CHUNKS(32);
+    } else {
+      return -1;
+    }
+#undef DS_CHUNKS
     if (steps != nullptr) steps[r] = n_in;
   }
   return 0;
@@ -862,8 +1063,29 @@ int ds_sun_march_bwd(const float* dens, const float* to_sun, int nx, int ny, int
   const ds::diff::Grid3 g = ds::diff::grid3(nx, ny, nz, consts);
   for (int64_t r = 0; r < n; ++r) {
     float dq[3] = {0.0f, 0.0f, 0.0f}, dts[3] = {0.0f, 0.0f, 0.0f};
-    ds::diff::sun_march_adjoint(dens, g, consts[3], consts[4], n_steps, pos + 3 * r, to_sun,
-                                trans[r], g_trans[r], d_dens, dq, dts, ds::diff::AddTo());
+    const float* q = pos + 3 * r;
+#define DS_CHUNKS(G)                                                                          \
+  sun_march_adjoint_chunks<G>(dens, g, consts[3], consts[4], n_steps, q, to_sun, trans[r], \
+                              g_trans[r], d_dens, dq, dts)
+    if (sun_mode == 0 || sun_mode == 2) {
+      const ds::diff::AddTo add;
+      if (sun_mode == 0) {
+        ds::diff::sun_march_adjoint<false>(dens, g, consts[3], consts[4], n_steps, q, to_sun,
+                                           trans[r], g_trans[r], d_dens, dq, dts, add);
+      } else {
+        ds::diff::sun_march_adjoint<true>(dens, g, consts[3], consts[4], n_steps, q, to_sun,
+                                          trans[r], g_trans[r], d_dens, dq, dts, add);
+      }
+    } else if (sun_lanes == 1) {
+      DS_CHUNKS(1);
+    } else if (sun_lanes == 8) {
+      DS_CHUNKS(8);
+    } else if (sun_lanes == 32) {
+      DS_CHUNKS(32);
+    } else {
+      return -1;
+    }
+#undef DS_CHUNKS
     for (int a = 0; a < 3; ++a) {
       d_pos[3 * r + a] = dq[a];
       d_ts[3 * r + a] = dts[a];
