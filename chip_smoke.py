@@ -226,6 +226,32 @@ Phases, one output line each:
     the sun march's samples at the lit steps, and for the adjoint at the
     dark steps too, those counted by the sun march kernel at their NEE
     points).
+17. ``ms diff``: the differentiable multi-scatter renderer
+    (``render.diff.multi_scatter_and_grads``) driven the way a user drives
+    it, counted (K3, K4, K8c and K8a must launch): at the small point
+    (tests/test_diff_cross_validation.py's gradient point: its 16^3 thin
+    cloud at 400 m, step 1/64, all-scatter, 12 x 8, ``max_depth`` 3, 2
+    subframes, seed 4) and at the frame point (the 256^3 cumulus of seed
+    11 at 2000 m, step 1/512, the config's sun and eye, 512 x 256,
+    ``max_depth`` 4, 2 subframes, seed 0: 262,144 paths).  Gates: the
+    frame's image and gradients finite, the density, sun and eye gradients
+    nonzero; at both points K8c's replayed records bitwise equal to K4's,
+    K4's within 1e-5 of the plain paths', and K8c against autograd of the
+    plain paths (``scatter_loop_plain`` on the card, float64 grid sums)
+    for every input (density within 1e-5 of its largest value; in-scatter,
+    light_dir, light_radiance, entries and directions within 1e-4): at the
+    small point on every path for a random upstream, at the frame point
+    on the 2,048 paths with the most steps under a random loss weighted to
+    them; on the 64 of those with the most steps each path's d/d entry and
+    d/d dirs within ``REPLAY_TOL`` = 1e-4 of its largest.  It prints
+    forward and forward + backward ms at both points, K8c's device time
+    (CUDA events with the host enqueueing ahead, ``ahead_ms``) and its
+    launches, its operation bound from the kernel's own
+    replayed steps, in-box scatters and re-marched steps, the plain paths'
+    time, K3, K4 and K8a at the frame point by CUDA events, the frame's
+    device time by kernel and peak memory.  K8c's row: its time and bound
+    at the frame point; its plain_ms the plain paths' forward + backward on
+    the 2,048 deepest paths (the full frame's plain paths take minutes).
 
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
@@ -236,6 +262,7 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -389,6 +416,36 @@ FRAME_CHECK_SLICES = 4
 #: The R - prefix replay's error on the deepest rays, relative to each
 #: ray's largest value: K8b's adjoint's tolerance for d/d entry and d/d dirs.
 REPLAY_TOL = 1e-4
+#: The differentiable multi-scatter renderer (render_multi_scatter_mc).
+#: Small point: tests/test_diff_cross_validation.py:38-110,156-161 (its 16^3
+#: thin cloud at 400 m, density multiplier 40, step 1/64, sun
+#: DIFF_SUN, eye DIFF_EYE, light DIFF_RADIANCE, all-scatter), 12 x 8,
+#: max_depth 3, 2 subframes, seed 4.  Frame point: DIFF_FRAME_CLOUD at
+#: 2000 m (density multiplier 200, step 1/512: a step cap of 1,805 at
+#: max_depth 4), SceneConfig()'s sun and eye, 512 x 256, max_depth 4, 2
+#: subframes, seed 0: 262,144 paths.
+MS_SMALL_RES, MS_SMALL_SIZE_M = 16, 400.0
+MS_SMALL = dict(width=12, height=8, max_depth=3, n_subframes=2, seed=4)
+MS_FRAME_SIZE_M = 2000.0
+MS_FRAME = dict(width=WIDTH, height=HEIGHT, max_depth=4, n_subframes=2, seed=0)
+#: K8c against the plain paths: the density gradient within 1e-5 of its
+#: largest value, its other inputs within 1e-4 of theirs.
+MS_TOL = {"density": 1e-5, "inscatter": 1e-4, "light_dir": 1e-4, "light_radiance": 1e-4,
+          "entry": 1e-4, "dirs": 1e-4}
+#: The frame point's check against the plain paths: the pixels whose two
+#: samples take the most steps, under a loss weighted to them.
+MS_CHECK_PATHS = 2048
+#: K8c's operations: its replay is K4's work (K4_OPS_PER_STEP a step,
+#: K4_OPS_PER_BOUNCE an in-box scatter, K4_OPS_PER_SAMPLE a sample); its
+#: sweep re-marches the steps of every flight that ended in an in-box
+#: scatter (the position twice, coordinates, the cell and its 8 weights,
+#: the slope from 8 taps, 8 weighted adds to the run, the chain into the
+#: start's adjoints) and takes each such scatter's adjoint (the phase lerp
+#: and its slope, the in-scatter's taps, value, slope and 8 weighted adds,
+#: the light's and direction's products, two hashes, the inverse CDF, sin
+#: and cos, the frame and normalisation Jacobian, the pull-back's chain).
+K8C_OPS_PER_REMARCH_STEP = 126
+K8C_OPS_PER_ADJOINT_BOUNCE = 400
 
 
 class Failed(Exception):
@@ -2067,8 +2124,10 @@ def phase_cli(config, tasks, exr, models_dir: Path, out: Path, dev) -> None:
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=2)
 def diff_density(res: int, seed: int) -> np.ndarray:
-    """The procedural cumulus, normalised and unpadded."""
+    """The procedural cumulus, normalised and unpadded (made once a run:
+    the ``diff`` and ``ms diff`` phases share the 256^3 one)."""
     from deepestscatter_tpu_torch.data import procedural
     from deepestscatter_tpu_torch.ops import grid as grid_ops
 
@@ -2818,6 +2877,246 @@ def diff_frame_kernels(diff, ins_ops, scene, kw) -> None:
                  {"density": 1e-4, "light_dir": 1e-3})
 
 
+# ---------------------------------------------------------------------------
+# The differentiable multi-scatter renderer
+# ---------------------------------------------------------------------------
+
+
+def ms_points(config, diff, dev):
+    """(scene, config) at the small point and at the frame point."""
+    from deepestscatter_tpu_torch.ops import grid as grid_ops
+
+    raw = np.zeros((MS_SMALL_RES,) * 3, np.float32)
+    raw[3:-3, 3:-3, 3:-3] = np.random.default_rng(0).random(
+        (MS_SMALL_RES - 6,) * 3).astype(np.float32)
+    small = diff_scene(diff, grid_ops.normalize_density(raw), DIFF_SUN, DIFF_EYE, dev)
+    cfg_small = config.SceneConfig(
+        cloud=config.CloudModel(size_m=MS_SMALL_SIZE_M),
+        light=config.DirectionalLight(direction=DIFF_SUN),
+        rendering=config.CloudRendering(sample_step=1.0 / 64.0))
+    base = config.SceneConfig()
+    frame = diff_scene(diff, diff_density(*DIFF_FRAME_CLOUD), base.light.direction,
+                       base.camera.eye, dev)
+    cfg_frame = config.SceneConfig(cloud=config.CloudModel(size_m=MS_FRAME_SIZE_M))
+    return (small, cfg_small), (frame, cfg_frame)
+
+
+def ms_paths(diff, scene, cfg, kw):
+    """The paths' inputs at ``kw`` (K3 bakes the in-scatter): params,
+    static, rays and K8c's differentiable inputs (density, in-scatter,
+    light_dir, light_radiance, entry, dirs), detached."""
+    with torch.no_grad():
+        params, static = diff.diff_scene(cfg, scene, kw["max_depth"])
+        rays = diff.path_rays(scene, cfg, kw["width"], kw["height"], params, static)
+    inputs = [t.detach().contiguous() for t in (
+        params.density_mips[0], params.inscatter, params.light_dir, params.light_radiance,
+        rays.entry, rays.dirs)]
+    return params, static, rays, inputs
+
+
+def ms_k8c(diff, params, static, rays, inputs, kw, g, remarch=None):
+    p = diff._sample_params(inputs[0], inputs[1], params.phase)
+    return diff.launch_path_adjoint(p, static, inputs[4], inputs[5], rays.hit, rays.ids,
+                                    kw["seed"], 1, kw["n_subframes"], g, remarch=remarch)
+
+
+def ms_plain(diff, params, static, rays, inputs, kw, g, idx):
+    """Autograd of the plain paths of pixels ``idx`` for the upstream
+    ``g[:, idx]`` → (records, gradients of the six inputs; entry and dirs
+    of ``idx`` only)."""
+    leaves = [t.clone().requires_grad_(True) for t in inputs[:4]] + [
+        t[idx].clone().requires_grad_(True) for t in inputs[4:]]
+    p = params._replace(density_mips=(leaves[0],), inscatter=leaves[1], light_dir=leaves[2],
+                        light_radiance=leaves[3])
+    rec = diff.path_records_plain(p, static, leaves[4], leaves[5], rays.hit[idx], rays.ids[idx],
+                                  kw["seed"], kw["n_subframes"])
+    return rec.detach(), torch.autograd.grad(rec, leaves, g[:, idx].contiguous())
+
+
+def ms_check(label, pt, diff, params, static, rays, inputs, kw, g, idx, deep_from=None):
+    """K8c for the upstream ``g`` against autograd of the plain paths of
+    ``idx`` (where ``g`` is 0 off ``idx``), its replay bitwise against K4's
+    records, and the replay gate on the 64 deepest of ``idx`` (by K4's
+    steps).  Returns (K8c's outputs, the errors, the plain ms, the
+    re-marched steps)."""
+    n_sub = kw["n_subframes"]
+    remarch = torch.zeros((n_sub, rays.hit.shape[0]), dtype=torch.int32, device=g.device)
+    got = ms_k8c(diff, params, static, rays, inputs, kw, g, remarch)
+    rec = pt.launch_samples(diff._sample_params(inputs[0], inputs[1], params.phase), static,
+                            inputs[4], inputs[5], rays.hit, rays.ids, kw["seed"], 1, n_sub)
+    hit = rays.hit
+    same = (torch.equal(got.records.radiance[:, hit], rec.radiance[:, hit])
+            and torch.equal(got.records.work[:, hit], rec.work[:, hit]))
+    print(f"{label}: K8c replay against K4's records: bitwise={same} samples="
+          f"{int(hit.sum()) * n_sub} steps={int(rec.work[:, hit, 0].to(torch.int64).sum())} "
+          f"in-box scatters={int(rec.work[:, hit, 1].to(torch.int64).sum())}", flush=True)
+    require(same, f"{label}: K8c's replay differs from K4's records")
+    (ref_rec, ref), plain_ms = host_call(
+        lambda: ms_plain(diff, params, static, rays, inputs, kw, g, idx))
+    check_errors(f"{label}: K4's records against the plain paths'", rel_errors(
+        [("records", rec.radiance[:, idx], ref_rec)]), {"records": 1e-5})
+    names = list(MS_TOL)
+    got_v = [got.density, got.inscatter, got.light_dir, got.light_radiance, got.entry[idx],
+             got.dirs[idx]]
+    require(all(float(r.abs().max()) > 0 for r in ref),
+            f"{label}: a reference gradient is zero on every checked path")
+    errs = rel_errors(list(zip(names, got_v, ref)))
+    check_errors(f"{label}: K8c against autograd of the plain paths", errs, MS_TOL)
+    steps = rec.work[..., 0].to(torch.int64).sum(dim=0)[idx]
+    order = torch.argsort(steps, descending=True)[:64]
+    per_path = max(
+        float(((a[idx][order] - b[order]).abs().amax(dim=1)
+               / b[order].abs().amax(dim=1).clamp_min(1e-30)).max())
+        for a, b in ((got.entry, ref[4]), (got.dirs, ref[5])))
+    print(f"{label}: K8c replay gate on the 64 paths with the most steps "
+          f"({int(steps[order].min())}-{int(steps[order].max())} steps over "
+          f"{n_sub} samples): max per-path relative err of d/d entry and d/d dirs="
+          f"{per_path:.3g} (tol {REPLAY_TOL:g})", flush=True)
+    require(per_path <= REPLAY_TOL, f"{label}: K8c's error {per_path:.3g} on the deepest paths "
+            f"is past {REPLAY_TOL:g}")
+    return got, errs, plain_ms, rec, remarch
+
+
+def k8c_work(rec, remarch, hit, n_voxels: int):
+    """(bytes, operations) K8c needs for this run's paths: the two float32
+    grids read and the two float64 gradients written once, a pixel's entry,
+    direction, hit and id, a sample's upstream, record and gradients; the
+    replay's steps, in-box scatters and samples, the sweep's re-marched
+    steps and the scatters' adjoints."""
+    n_sub, n = rec.work.shape[:2]
+    samples = int(hit.sum()) * n_sub
+    steps = int(rec.work[:, hit, 0].to(torch.int64).sum())
+    bounces = int(rec.work[:, hit, 1].to(torch.int64).sum())
+    remarched = int(remarch.to(torch.int64).sum())
+    n_bytes = n_voxels * (4 + 4 + 8 + 8) + n * (12 + 12 + 1 + 8) + n * n_sub * (12 + 20 + 24)
+    n_ops = (steps * K4_OPS_PER_STEP + bounces * (K4_OPS_PER_BOUNCE + K8C_OPS_PER_ADJOINT_BOUNCE)
+             + samples * K4_OPS_PER_SAMPLE + remarched * K8C_OPS_PER_REMARCH_STEP)
+    return n_bytes, n_ops, dict(samples=samples, steps=steps, bounces=bounces,
+                                remarched_steps=remarched)
+
+
+def phase_ms_diff(config, pt, ins_ops, dev) -> list:
+    """The differentiable multi-scatter renderer: its main path counted
+    (K3, K4, K8c and K8a must launch), K8c against the plain paths at both
+    points, the timings; returns K8c's kernel row (at the frame point)."""
+    from deepestscatter_tpu_torch.probes import march_variants as mv
+    from deepestscatter_tpu_torch.render import diff
+
+    t_phase = time.time()
+    (small, cfg_small), (frame, cfg_frame) = ms_points(config, diff, dev)
+    launchers = {"K3": ins_ops.sun_transmittance, "K4": pt.scatter_loop,
+                 "K8c": diff.launch_path_adjoint, "K8a": diff.launch_bake_adjoint}
+
+    # -- the main path, counted: the user's calls ------------------------------
+    for f in launchers.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    small_out = diff.multi_scatter_and_grads(small, cfg_small, device=dev, **MS_SMALL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frame_img, frame_g = diff.multi_scatter_and_grads(frame, cfg_frame, device=dev, **MS_FRAME)
+    torch.cuda.synchronize()
+    frame_peak = torch.cuda.max_memory_allocated()
+    launches = {k: f.launches for k, f in launchers.items()}
+    print(f"ms diff: main path (multi_scatter_and_grads at the small and the frame point) "
+          f"{time.time() - t0:.2f}s launches={json.dumps(launches)}", flush=True)
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the multi-scatter diff path never launched: {launches}")
+    finite = bool(torch.isfinite(frame_img).all()) and all(
+        bool(torch.isfinite(t).all()) for t in frame_g)
+    nonzero = {k: float(getattr(frame_g, k).abs().max()) for k in ("density", "sun_dir", "eye")}
+    print(f"ms diff frame: image_mean={frame_img.mean().item():.6g} finite={finite} "
+          f"grad_max={json.dumps(nonzero)} peak_mem_mb={frame_peak / 2**20:.1f}", flush=True)
+    require(finite, "ms diff frame: an image or gradient value is not finite")
+    require(all(v > 0 for v in nonzero.values()), "ms diff frame: a gradient is zero")
+
+    # -- the small point: K8c on every path ---------------------------------------
+    img, g_small = small_out
+    require(bool(torch.isfinite(img).all()) and all(bool(torch.isfinite(t).all())
+                                                    for t in g_small),
+            "ms diff small: an image or gradient value is not finite")
+    params, static, rays, inputs = ms_paths(diff, small, cfg_small, MS_SMALL)
+    n = rays.hit.shape[0]
+    g = torch.from_numpy(np.random.default_rng(5).random((MS_SMALL["n_subframes"], n, 3))
+                         .astype(np.float32)).to(dev)
+    g = torch.where(rays.hit[None, :, None], g, 0.0).contiguous()
+    all_hit = torch.nonzero(rays.hit).squeeze(1)
+    _, _, plain_paths_small, rec_s, remarch_s = ms_check(
+        "ms diff small", pt, diff, params, static, rays, inputs, MS_SMALL, g, all_hit)
+    k8c_small = mv.ahead_ms(lambda: ms_k8c(diff, params, static, rays, inputs, MS_SMALL, g), 10)
+    fwd_small = time_ms(lambda: diff.render_multi_scatter_mc(small, cfg_small, device=dev,
+                                                             **MS_SMALL), 5)
+    both_small = time_ms(lambda: diff.multi_scatter_and_grads(small, cfg_small, device=dev,
+                                                              **MS_SMALL), 5)
+    b_s, o_s, w_s = k8c_work(rec_s, remarch_s, rays.hit, inputs[0].numel())
+    print(f"ms diff small ({card_line()}): forward_ms={fwd_small:.3f} "
+          f"forward+backward_ms={both_small:.3f} plain_forward+backward_ms of the paths="
+          f"{plain_paths_small:.1f}; K8c ahead_ms={k8c_small:.4f} "
+          f"bound_ms={max(b_s / HBM_BYTES_PER_S, o_s / F32_OPS_PER_S) * 1e3:.6f} "
+          f"work={json.dumps(w_s)}", flush=True)
+    del params, static, rays, inputs, g
+
+    # -- the frame point: K8c on the 2,048 deepest paths, then its time -------
+    params, static, rays, inputs = ms_paths(diff, frame, cfg_frame, MS_FRAME)
+    n = rays.hit.shape[0]
+    n_sub = MS_FRAME["n_subframes"]
+    with torch.no_grad():
+        rec = pt.launch_samples(diff._sample_params(inputs[0], inputs[1], params.phase), static,
+                                inputs[4], inputs[5], rays.hit, rays.ids, MS_FRAME["seed"], 1,
+                                n_sub)
+    steps = torch.where(rays.hit, rec.work[..., 0].to(torch.int64).sum(dim=0), -1)
+    deep = torch.argsort(steps, descending=True)[:MS_CHECK_PATHS]
+    w = torch.zeros((n_sub, n, 3), dtype=torch.float32, device=dev)
+    w[:, deep] = torch.from_numpy(np.random.default_rng(9).random((n_sub, deep.shape[0], 3))
+                                  .astype(np.float32)).to(dev)
+    got, errs, plain_deep_ms, _, _ = ms_check("ms diff frame", pt, diff, params, static, rays,
+                                              inputs, MS_FRAME, w, deep)
+    # The image mean's upstream on every path, as multi_scatter_and_grads
+    # gives it: 1 / (3 N n_subframes) on each record of a pixel that hits.
+    g = torch.where(rays.hit[None, :, None], 1.0 / (3 * n * n_sub), 0.0).to(
+        torch.float32).expand(n_sub, n, 3).contiguous()
+    remarch = torch.zeros((n_sub, n), dtype=torch.int32, device=dev)
+    full = ms_k8c(diff, params, static, rays, inputs, MS_FRAME, g, remarch)
+    k8c_frame = mv.ahead_ms(lambda: ms_k8c(diff, params, static, rays, inputs, MS_FRAME, g), 3)
+    k8c_frame_events = time_ms(lambda: ms_k8c(diff, params, static, rays, inputs, MS_FRAME, g), 3)
+    b_f, o_f, w_f = k8c_work(rec, remarch, rays.hit, inputs[0].numel())
+    bound_f = max(b_f / HBM_BYTES_PER_S, o_f / F32_OPS_PER_S) * 1e3
+    fwd_frame = time_ms(lambda: diff.render_multi_scatter_mc(frame, cfg_frame, device=dev,
+                                                             **MS_FRAME), 3)
+    both_frame = time_ms(lambda: diff.multi_scatter_and_grads(frame, cfg_frame, device=dev,
+                                                              **MS_FRAME), 3)
+    k4_frame = time_ms(lambda: pt.launch_samples(
+        diff._sample_params(inputs[0], inputs[1], params.phase), static, inputs[4], inputs[5],
+        rays.hit, rays.ids, MS_FRAME["seed"], 1, n_sub), 3)
+    # The bake's forward (K3) and adjoint (K8a, on the in-scatter upstream
+    # K8c gives it) at this point, by CUDA events.
+    light = static.light_direction
+    bake = (inputs[0], static.bbox, light, static.sample_step, static.density_multiplier)
+    trans = ins_ops.launch_bake(*bake, early_out=False)
+    k3_frame = time_ms(lambda: ins_ops.launch_bake(*bake, early_out=False), 3)
+    g_insc = full.inscatter.to(torch.float32).reshape(-1).contiguous()
+    adj = (inputs[0], static.bbox, light, static.density_multiplier, static.sample_step, trans,
+           g_insc)
+    k8a_frame = time_ms(lambda: diff.launch_bake_adjoint(*adj), 3)
+    print(f"ms diff frame ({card_line()}): forward_ms={fwd_frame:.2f} "
+          f"forward+backward_ms={both_frame:.2f} K3_ms={k3_frame:.3f} K4_ms={k4_frame:.3f} "
+          f"K8a_ms={k8a_frame:.3f} (voxels with an upstream {int((g_insc != 0).sum())}) "
+          f"K8c ahead_ms={k8c_frame:.3f} (back to back {k8c_frame_events:.3f}) "
+          f"bound_ms={bound_f:.4f} "
+          f"({'bytes' if b_f / HBM_BYTES_PER_S >= o_f / F32_OPS_PER_S else 'operations'}) "
+          f"plain_forward+backward_ms on the {MS_CHECK_PATHS} deepest paths={plain_deep_ms:.1f} "
+          f"work={json.dumps(w_f)} peak_mem_mb={frame_peak / 2**20:.1f}", flush=True)
+    phase_profile("ms diff frame profile",
+                  lambda: diff.multi_scatter_and_grads(frame, cfg_frame, device=dev, **MS_FRAME),
+                  both_frame)
+    print(f"ms diff: phase {time.time() - t_phase:.1f}s", flush=True)
+    row = kernel_row("K8c path adjoint", "deepestscatter_tpu_torch/csrc/path_adjoint.cu",
+                     "deepestscatter_tpu/render/pathtracer.py:847", errs["density"][1],
+                     k8c_frame, plain_deep_ms, b_f, o_f)
+    return [dict(row, launches=launches["K8c"])]
+
+
 def run() -> dict:
     """All phases; returns the kernel rows with their launch counts."""
     import deepestscatter_tpu_torch as port
@@ -2954,6 +3253,9 @@ def run() -> dict:
 
     # -- the differentiable renderer's main path, counted ------------------------
     kernels += phase_diff(port, config, prog, ins_ops, dev)
+
+    # -- the differentiable multi-scatter renderer's main path, counted ---------
+    kernels += phase_ms_diff(config, pt, ins_ops, dev)
     return kernels
 
 

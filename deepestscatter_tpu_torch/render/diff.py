@@ -1,12 +1,17 @@
-"""Differentiable single-scatter rendering: images and their gradients with
-respect to the density voxels, the sun direction, the camera and the light,
-with the in-scatter bake's forward on K3 and two kernels of their own
-(``csrc/diff.cu``): K8a, the bake's adjoint, and K8b, the quadrature march
-and its adjoint (also the per-point sun march).
+"""Differentiable rendering: images and their gradients with respect to the
+density voxels, the sun direction, the camera and the light, with the
+in-scatter bake's forward on K3 and kernels of their own: K8a, the bake's
+adjoint, and K8b, the quadrature march and its adjoint (also the per-point
+sun march; ``csrc/diff.cu``); K8c, the path tracer's adjoint
+(``csrc/path_adjoint.cu``).
 
-The port of the single-scatter half of ``deepestscatter_tpu.render.diff``:
-a deterministic quadrature of the single-scattering integral along each
-camera ray,
+The port of ``deepestscatter_tpu.render.diff``.  Multiple scattering
+(``render_multi_scatter_mc``, ``multi_scatter_and_grads``) is the path
+tracer's estimator with its seeds, differentiated: K4 traces every
+subframe's paths in one launch and K8c replays them for their adjoint
+(the plain version: autograd through ``pathtracer.scatter_loop_plain``).
+Single scattering is a deterministic quadrature of the single-scattering
+integral along each camera ray,
 
     L(ray) = sum_k T_view(k) (1 - exp(-sigma_k step)) t_sun(x_k) p(theta) r,
 
@@ -16,19 +21,21 @@ from each point (``sun_transmittance``), each evaluated at the segment's
 free-flight mean point.
 
 On CUDA tensors the wrappers (``render_single_scatter``,
-``render_and_grads``, ``bake_inscatter_diff``, ``sun_transmittance``) run
-the kernels, each bound to autograd by a ``torch.autograd.Function`` whose
-backward is a kernel too; on CPU tensors they run the plain PyTorch
-versions on autograd (``*_plain``), which rematerialize each chunk of
-``remat_chunk`` march steps and each bake step under
-``torch.utils.checkpoint`` as the JAX package does under
-``jax.checkpoint``.  The kernels store no march state and ignore
-``remat_chunk``.
+``render_and_grads``, ``bake_inscatter_diff``, ``sun_transmittance``,
+``render_multi_scatter_mc``, ``multi_scatter_and_grads``) run the kernels,
+each bound to autograd by a ``torch.autograd.Function`` whose backward is
+a kernel too; on CPU tensors they run the plain PyTorch versions on
+autograd (``*_plain``, ``path_records_plain``), which rematerialize each
+chunk of ``remat_chunk`` march steps, each bake step and each chunk of the
+path tracer's lockstep iterations under ``torch.utils.checkpoint`` as the
+JAX package does under ``jax.checkpoint``.  The kernels store no march
+state and ignore ``remat_chunk``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import NamedTuple, Optional, Tuple
@@ -38,11 +45,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import cuda_build
-from ..config import fov_tan_halves
+from ..config import SceneConfig, fov_tan_halves
 from ..device import check_on, resolve_device
 from ..ops import grid as grid_ops
 from ..ops import phase as phase_ops
+from ..scene import SceneParams, SceneStatic, build_scene
+from . import camera as camera_ops
 from . import inscatter
+from . import pathtracer as pt_ops
 
 
 class DiffScene(NamedTuple):
@@ -75,8 +85,12 @@ def _bbox(density: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def _phase(device: str) -> phase_ops.PhaseTable:
+    return phase_ops.load_phase_table(device)
+
+
 def _mie(device: str) -> torch.Tensor:
-    return phase_ops.load_phase_table(device).mie
+    return _phase(device).mie
 
 
 def _remat(fn, *args):
@@ -707,13 +721,311 @@ def render_single_scatter_plain(
                    sun_cos_half_angle, remat_chunk, use_baked_inscatter, kernels=False)
 
 
+def _image_and_grads(render, scene: DiffScene, dev):
+    """(image, gradients of the image mean w.r.t. every scene leaf as a
+    ``DiffScene``) of ``render(scene)``."""
+    check_on(dev, *scene)
+    leaves = [t.detach().requires_grad_(True) for t in scene]
+    img = render(DiffScene(*leaves))
+    grads = torch.autograd.grad(img.mean(), leaves, allow_unused=True)
+    return img.detach(), DiffScene(*(
+        torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)))
+
+
 def render_and_grads(scene: DiffScene, device="cuda", **kw):
     """(image, gradients of the image mean w.r.t. every scene leaf as a
     ``DiffScene``)."""
     dev = resolve_device(device)
+    return _image_and_grads(lambda s: render_single_scatter(s, device=dev, **kw), scene, dev)
+
+
+# ---------------------------------------------------------------------------
+# Multiple scattering (diff.py:312-421): the path tracer's samples, their
+# forward on K4 and their adjoint K8c.
+# ---------------------------------------------------------------------------
+
+
+def diff_scene(cfg: SceneConfig, scene: DiffScene, max_depth: int = 4,
+               kernels: Optional[bool] = None) -> Tuple[SceneParams, SceneStatic]:
+    """The path tracer's scene as a differentiable function of the leaves
+    (diff.py:312-371): the density as the one mip level, the in-scatter
+    grid baked unquantized (K3 forward and K8a backward where ``kernels``,
+    default for tensors on the card; else the plain bake), the normalized
+    sun direction and the light radiance as the scene's light; the static
+    facts from ``cfg`` with ``max_depth``, the box as the cloud's AABB (a
+    tight box taken from the density would cut the gradient of its zero
+    voxels).  The light's host values (the kernels' launch constants) are
+    read back once."""
+    density = scene.density
+    _check_grid(density)
+    dev = density.device
+    kernels = density.is_cuda if kernels is None else kernels
+    nz, ny, nx = density.shape
+    bbox = _bbox(density)
+    light_dir = scene.sun_dir / torch.linalg.norm(scene.sun_dir)
+    cfg = dataclasses.replace(cfg, rendering=dataclasses.replace(cfg.rendering,
+                                                                 max_depth=max_depth))
+    _, static0 = build_scene(cfg, np.zeros((2, 2, 2), np.float32), device="cpu")
+    box = _bbox_host(density.shape)
+    max_dim = max(nx, ny, nz)
+    static = dataclasses.replace(
+        static0, grid_shape=(nz, ny, nx), n_mips=1, mip_shapes=((nz, ny, nx),),
+        mip_offsets=(0,), voxel_size_normalized=1.0 / max_dim,
+        voxel_size_in_mfp=cfg.cloud.size_m / max_dim / cfg.cloud.mean_free_path_m,
+        cloud_aabb=(0.0, 0.0, 0.0) + box, bbox=box,
+        light_direction=tuple(float(v) for v in light_dir.detach().tolist()),
+        light_rgb=tuple(float(v) for v in scene.light_radiance.detach().tolist()),
+    )
+    baked = _bake(density, bbox, light_dir, static.density_multiplier, static.sample_step,
+                  kernels)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    params = SceneParams(
+        density_mips=(density,), inscatter=baked, mip_flat=density.reshape(-1),
+        bbox_size=bbox, light_dir=light_dir, light_radiance=scene.light_radiance,
+        sky_intensity=f32(static.sky_rgb), ground_intensity=f32(static.ground_rgb),
+        phase=_phase(str(dev)),
+    )
+    return params, static
+
+
+def _sample_params(density, inscatter, phase) -> SceneParams:
+    """The fields of a ``SceneParams`` that K4 and K8c read (the textures
+    and the phase tables; the light is in the launch constants)."""
+    return SceneParams(density_mips=(density,), inscatter=inscatter, mip_flat=None,
+                       bbox_size=None, light_dir=None, light_radiance=None, sky_intensity=None,
+                       ground_intensity=None, phase=phase)
+
+
+def path_records_plain(params: SceneParams, static: SceneStatic, entry, dirs, hit, ray_ids,
+                       seed: int, n_samples: int) -> torch.Tensor:
+    """Plain version of the paths' forward (K4's records): sample k of each
+    pixel with the seed ``seed ^ ((k + 1) * 0x9E3779B1)``, a
+    ``scatter_loop_plain`` of one sample each → radiance [n_samples, N, 3]
+    (0 where ``hit`` is false), differentiable in the scene's tensors,
+    ``entry`` and ``dirs``: K8c's oracle.  The density and in-scatter
+    gradients are summed in float64, as K8c sums them: the textures enter
+    the loop as float64 (``scatter_loop_plain`` reads a float32 copy each
+    iteration), since the face texels take every clamped sample near the
+    box's faces."""
+    p64 = params._replace(density_mips=(params.density_mips[0].to(torch.float64),),
+                          inscatter=params.inscatter.to(torch.float64))
+    return torch.stack([
+        pt_ops.scatter_loop_plain(p64, static, entry, dirs, hit, ray_ids, seed, k + 1, 1).mean
+        for k in range(n_samples)])
+
+
+#: The scratch budget of one K8c launch: the pixels are split into launches
+#: whose flight records (n_samples x (max_depth + 1) a pixel) stay under it.
+PATH_SCRATCH_BYTES = 256 * 2**20
+
+_PATH_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+]
+
+
+class PathGrads(NamedTuple):
+    """K8c's outputs: the gradients of sum(g * records) and the replay."""
+
+    density: torch.Tensor  # [Z, Y, X] float64
+    inscatter: torch.Tensor  # [Z, Y, X] float64
+    light_dir: torch.Tensor  # [3] float64
+    light_radiance: torch.Tensor  # [3] float64
+    entry: torch.Tensor  # [N, 3], summed over the samples
+    dirs: torch.Tensor  # [N, 3], summed over the samples
+    records: pt_ops.SampleRecords  # the replayed records (zeros where not hit)
+
+
+def launch_path_adjoint(params: SceneParams, static: SceneStatic, entry, dirs, hit, ray_ids,
+                        seed_base: int, sub_first: int, n_samples: int, g_rec: torch.Tensor,
+                        scratch_bytes: int = PATH_SCRATCH_BYTES,
+                        remarch: Optional[torch.Tensor] = None, lib=None) -> PathGrads:
+    """K8c (``ds_path_adjoint``): K4's samples (``launch_samples``' with the
+    same arguments; float32 textures) replayed and differentiated for the
+    upstream ``g_rec`` [n_samples, N, 3] of their records, in launches of
+    as many pixels as fit ``scratch_bytes`` of flight records.
+    ``remarch``: None, or an int32 [n_samples, N] the kernel fills with the
+    steps each sample's adjoint re-marched (the flights that ended in an
+    in-box scatter)."""
+    n, dev, dens, insc, hit8, ray_ids = pt_ops.check_launch(params, entry, dirs, hit, ray_ids,
+                                                            n_samples)
+    if dens.dtype != torch.float32:
+        raise ValueError("K8c takes float32 textures")
+    if (g_rec.dtype != torch.float32 or g_rec.shape != (n_samples, n, 3)
+            or not g_rec.is_contiguous()):
+        raise ValueError(f"g_rec must be a contiguous float32 [{n_samples}, {n}, 3] tensor")
+    check_on(dev, g_rec)
+    if remarch is not None and (remarch.dtype != torch.int32
+                                or remarch.shape != (n_samples, n)):
+        raise ValueError(f"remarch must be an int32 [{n_samples}, {n}] tensor")
+    lib = lib or cuda_build.load("path_adjoint")
+    lib.ds_path_segment_bytes.argtypes = []
+    lib.ds_path_segment_bytes.restype = ctypes.c_int
+    lib.ds_path_adjoint_blocks.argtypes = [ctypes.c_int64, ctypes.c_int]
+    lib.ds_path_adjoint_blocks.restype = ctypes.c_int64
+    fn = lib.ds_path_adjoint
+    fn.argtypes = _PATH_ARGTYPES
+    fn.restype = ctypes.c_int
+    max_segments = static.max_depth + 1
+    per_pixel = n_samples * max_segments * lib.ds_path_segment_bytes()
+    m = max(1, min(n, scratch_bytes // per_pixel))
+    scratch = torch.empty(m * per_pixel, dtype=torch.uint8, device=dev)
+    rec_rad = torch.empty((n_samples, n, 3), dtype=torch.float32, device=dev)
+    rec_work = torch.empty((n_samples, n, 2), dtype=torch.int32, device=dev)
+    d_dens = torch.zeros(dens.shape, dtype=torch.float64, device=dev)
+    d_insc = torch.zeros(insc.shape, dtype=torch.float64, device=dev)
+    d_entry = torch.empty((n_samples, n, 3), dtype=torch.float32, device=dev)
+    d_dirs = torch.empty((n_samples, n, 3), dtype=torch.float32, device=dev)
+    light = torch.zeros(6, dtype=torch.float64, device=dev)
+    consts, ground, flags, cap = pt_ops.launch_consts(static)
+    nz, ny, nx = static.grid_shape
+    ph = params.phase
+    for r0 in range(0, n, m):
+        mm = min(m, n - r0)
+        partials = torch.empty((lib.ds_path_adjoint_blocks(mm, n_samples), 6),
+                               dtype=torch.float64, device=dev)
+        cuda_build.check(
+            fn(cuda_build.ptr(dens), cuda_build.ptr(insc), nx, ny, nz,
+               cuda_build.ptr(ph.eval_rows), ph.eval_rows.shape[0],
+               cuda_build.ptr(ph.inv_cdf_rows), ph.inv_cdf_rows.shape[0],
+               cuda_build.ptr(entry), cuda_build.ptr(dirs), cuda_build.ptr(hit8),
+               cuda_build.ptr(ray_ids), n, r0, mm, consts, ground, cap, static.max_depth,
+               static.rr_start_depth, flags, int(seed_base) & 0xFFFFFFFF,
+               int(sub_first) & 0xFFFFFFFF, int(n_samples), cuda_build.ptr(g_rec),
+               cuda_build.ptr(scratch), max_segments, cuda_build.ptr(rec_rad),
+               cuda_build.ptr(rec_work), cuda_build.ptr(d_dens), cuda_build.ptr(d_insc),
+               cuda_build.ptr(d_entry), cuda_build.ptr(d_dirs), cuda_build.ptr(remarch),
+               cuda_build.ptr(partials), cuda_build.stream_handle()),
+            "path adjoint kernel",
+        )
+        launch_path_adjoint.launches += 1
+        light += partials.sum(dim=0)
+    return PathGrads(d_dens, d_insc, light[:3], light[3:], d_entry.sum(dim=0),
+                     d_dirs.sum(dim=0), pt_ops.SampleRecords(rec_rad, rec_work))
+
+
+launch_path_adjoint.launches = 0
+
+
+class _PathTrace(torch.autograd.Function):
+    """The paths' records [n_samples, N, 3] (0 where a pixel misses the
+    box): K4 forward, K8c backward."""
+
+    @staticmethod
+    def forward(ctx, density, inscatter, light_dir, light_radiance, entry, dirs, hit, ray_ids,
+                static, phase, seed, n_samples):
+        rec = pt_ops.launch_samples(_sample_params(density, inscatter, phase), static, entry,
+                                    dirs, hit, ray_ids, seed, 1, n_samples)
+        ctx.save_for_backward(density, inscatter, entry, dirs, hit, ray_ids)
+        ctx.args = (static, phase, seed, n_samples)
+        return torch.where(hit[None, :, None], rec.radiance, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        density, inscatter, entry, dirs, hit, ray_ids = ctx.saved_tensors
+        static, phase, seed, n_samples = ctx.args
+        d = launch_path_adjoint(_sample_params(density, inscatter, phase), static, entry, dirs,
+                                hit, ray_ids, seed, 1, n_samples, g.contiguous())
+        f32 = torch.float32
+        return (d.density.to(f32), d.inscatter.to(f32), d.light_dir.to(f32),
+                d.light_radiance.to(f32), d.entry, d.dirs) + (None,) * 6
+
+
+class PathRays(NamedTuple):
+    """The paths' camera rays: directions (nudged off the axes), their ids
+    (the RNG streams), box hits and entry points (local coordinates)."""
+
+    dirs: torch.Tensor  # [N, 3]
+    ids: torch.Tensor  # [N] int64
+    hit: torch.Tensor  # [N] bool
+    entry: torch.Tensor  # [N, 3]
+
+
+def path_rays(scene: DiffScene, cfg: SceneConfig, width: int, height: int,
+              params: SceneParams, static: SceneStatic) -> PathRays:
+    """The render's rays (diff.py:395-403), differentiable in the camera:
+    the box hit and entry as ``pathtracer.render_subframe`` forms them."""
+    origins, dirs = camera_rays(scene.eye, scene.look_at, width, height, cfg.camera.hfov_deg)
+    # Axis-parallel guard: the box test divides by the direction (IEEE inf
+    # forward, but 0 * inf = NaN in reverse mode even for masked rays).
+    tiny = torch.full_like(dirs, 1e-9)
+    dirs = torch.where(dirs.abs() < 1e-9, torch.where(dirs >= 0.0, tiny, -tiny), dirs)
+    ids = torch.arange(origins.shape[0], dtype=torch.int64, device=dirs.device)
+    hit, t_hit = camera_ops.intersect_box(origins, dirs, static, params.bbox_size)
+    entry = camera_ops.entry_points(origins, dirs, t_hit, params.bbox_size)
+    return PathRays(dirs, ids, hit, entry)
+
+
+def _render_ms(scene: DiffScene, cfg: SceneConfig, width, height, max_depth, n_subframes, seed,
+               kernels: bool):
+    params, static = diff_scene(cfg, scene, max_depth, kernels)
+    dirs, ids, hit, entry = path_rays(scene, cfg, width, height, params, static)
+    if kernels:
+        rec = _PathTrace.apply(scene.density, params.inscatter, params.light_dir,
+                               params.light_radiance, entry.contiguous(), dirs.contiguous(), hit,
+                               ids, static, params.phase, seed, n_subframes)
+    else:
+        rec = path_records_plain(params, static, entry, dirs, hit, ids, seed, n_subframes)
+    miss = camera_ops.miss_radiance(params, static, dirs)
+    acc = torch.zeros_like(miss)
+    for s in range(n_subframes):
+        acc = acc + torch.where(hit[:, None], rec[s], miss)
+    return grid_ops.true_div(acc, float(n_subframes)).reshape(height, width, 3)
+
+
+def render_multi_scatter_mc(
+    scene: DiffScene,
+    cfg: SceneConfig,
+    width: int = 16,
+    height: int = 8,
+    max_depth: int = 4,
+    n_subframes: int = 2,
+    seed: int = 0,
+    device="cuda",
+) -> torch.Tensor:
+    """Differentiable multi-scatter Monte-Carlo render → [height, width, 3].
+
+    The estimator is the path tracer's (mode, sky and roulette from
+    ``cfg.rendering``) with its seeds: the image equals the mean of
+    ``pathtracer.render_subframe`` over subframes 1 .. ``n_subframes``
+    with the seed ``seed``, summed in subframe order.  Gradients reach the
+    density through every march step, scatter position and the in-scatter
+    bake, the sun direction, the light radiance and the camera.  On the
+    card: K3 and K8a (the bake), K4 (the paths, all subframes in one
+    launch) and K8c (their adjoint); on the CPU: the plain versions."""
+    dev = resolve_device(device)
     check_on(dev, *scene)
-    leaves = [t.detach().requires_grad_(True) for t in scene]
-    img = render_single_scatter(DiffScene(*leaves), device=dev, **kw)
-    grads = torch.autograd.grad(img.mean(), leaves, allow_unused=True)
-    return img.detach(), DiffScene(*(
-        torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)))
+    return _render_ms(scene, cfg, width, height, max_depth, n_subframes, seed,
+                      kernels=scene.density.is_cuda)
+
+
+def render_multi_scatter_mc_plain(
+    scene: DiffScene,
+    cfg: SceneConfig,
+    width: int = 16,
+    height: int = 8,
+    max_depth: int = 4,
+    n_subframes: int = 2,
+    seed: int = 0,
+) -> torch.Tensor:
+    """Plain version of ``render_multi_scatter_mc`` on the scene's device
+    (the plain bake and ``scatter_loop_plain`` on autograd): the kernels'
+    oracle."""
+    return _render_ms(scene, cfg, width, height, max_depth, n_subframes, seed, kernels=False)
+
+
+def multi_scatter_and_grads(scene: DiffScene, cfg: SceneConfig, device="cuda", **kw):
+    """(image, gradients of the image mean w.r.t. every scene leaf as a
+    ``DiffScene``) of ``render_multi_scatter_mc``."""
+    dev = resolve_device(device)
+    return _image_and_grads(lambda s: render_multi_scatter_mc(s, cfg, device=dev, **kw),
+                            scene, dev)

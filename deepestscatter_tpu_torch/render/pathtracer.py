@@ -38,6 +38,7 @@ import ctypes
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import cuda_build
 from ..config import RenderMode
@@ -53,7 +54,8 @@ from . import camera as camera_ops
 DRAWS_PER_BOUNCE = 4
 
 #: Lockstep iterations of the plain loop between its host-side "any lane
-#: still busy?" checks (extra iterations on finished lanes change nothing).
+#: still busy?" checks (extra iterations on finished lanes change nothing);
+#: under autograd, the iterations each checkpoint rematerializes.
 _CHECK_EVERY = 16
 
 
@@ -166,7 +168,11 @@ def scatter_loop_plain(
     (the kernel's per-thread loop over samples).  ``max_steps`` caps each
     sample's steps (default ``static.max_total_steps``).  ``sub_first`` is
     an int, or an int64 tensor [N] of per-pixel uint32 bases (K7b's); the
-    sums ``sub_first + k`` wrap modulo 2^32."""
+    sums ``sub_first + k`` wrap modulo 2^32.  Differentiable (the
+    multi-scatter renderer's plain version, ``render.diff``): under
+    autograd each chunk of ``_CHECK_EVERY`` iterations is rematerialized
+    in the backward pass; float64 textures are read as float32 (their
+    gradients summed in float64)."""
     mode = _mode(static)
     f32 = torch.float32
     dev = entry.device
@@ -200,7 +206,7 @@ def scatter_loop_plain(
     alive = torch.zeros((n,), dtype=torch.bool, device=dev)
     busy = hit & (k < n_samples)  # lane has a sample in flight
 
-    def spawn(mask, state):
+    def spawn(mask, state, k):
         seed, pos, dirn, rad, trans, od, weight, depth, steps_s, alive = state
         s = rng_ops.subframe_seed(seed_base, sub_first + k)
         seed = torch.where(mask, s, seed)
@@ -225,17 +231,22 @@ def scatter_loop_plain(
             torch.where(mask, entry_in, alive),
         )
 
-    state = spawn(busy, (seed, pos, dirn, rad, trans, od, weight, depth, steps_s, alive))
-    it = 0
-    while True:
-        if it % _CHECK_EVERY == 0 and not bool(busy.any()):
-            break
-        it += 1
-        seed, pos, dirn, rad, trans, od, weight, depth, steps_s, alive = state
+    state = spawn(busy, (seed, pos, dirn, rad, trans, od, weight, depth, steps_s, alive), k)
+
+    def iteration(carry):
+        w_mean, w_m2, w_cnt, steps_total, bounces, k, busy = carry[:7]
+        seed, pos, dirn, rad, trans, od, weight, depth, steps_s, alive = carry[7:]
+        # A float64 texture is read through a float32 copy made anew each
+        # iteration: the same values, and autograd sums its gradient in
+        # float64 (the differentiable renderer's plain version).
+        p32 = params
+        if dens.dtype == torch.float64 or params.inscatter.dtype == torch.float64:
+            p32 = params._replace(density_mips=(dens.to(torch.float32),),
+                                  inscatter=params.inscatter.to(torch.float32))
         act = alive & (steps_s < cap)
         capped = alive & ~act
         new = pos + dirn * step
-        density = grid_ops.sample_trilinear(dens, new / bbox) * dm
+        density = grid_ops.sample_trilinear(p32.density_mips[0], new / bbox) * dm
         tn = trans * torch.exp(-density * step)
         crossed = act & (od > tn)
         back = back_correct_distance(od, tn, density)
@@ -243,7 +254,7 @@ def scatter_loop_plain(
         inb_s = is_in_box(spos, bbox)
         scat = crossed & inb_s
         chopped = (depth != 1) | mode.chopped_at_depth1
-        nee = in_scattering(params, static, spos, dirn, chopped)
+        nee = in_scattering(p32, static, spos, dirn, chopped)
         rad = torch.where(scat[:, None], rad + nee * weight[:, None], rad)
         ctr = depth * DRAWS_PER_BOUNCE
         nd = new_direction(
@@ -298,7 +309,25 @@ def scatter_loop_plain(
         state = (seed, pos, dirn, rad, trans, od, weight, depth, steps_s, alive)
         respawn = fold & (k < n_samples)
         busy = busy & ~(fold & ~respawn)
-        state = spawn(respawn, state)
+        if n_samples > 1:  # with one sample a lane never respawns
+            state = spawn(respawn, state, k)
+        return (w_mean, w_m2, w_cnt, steps_total, bounces, k, busy) + state
+
+    def chunk(*carry):
+        for _ in range(_CHECK_EVERY):
+            carry = iteration(carry)
+        return carry
+
+    # Under autograd (the differentiable renderer's plain version) each
+    # chunk is rematerialized in the backward pass, as the JAX package's
+    # differentiable scan runs its body under jax.checkpoint.
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (dens, params.inscatter, params.light_dir,
+                                  params.light_radiance, entry, dirs))
+    carry = (w_mean, w_m2, w_cnt, steps_total, bounces, k, busy) + state
+    while bool(carry[6].any()):
+        carry = checkpoint(chunk, *carry, use_reentrant=False) if remat else chunk(*carry)
+    w_mean, w_m2, w_cnt, steps_total, bounces = carry[:5]
     return PixelMoments(w_mean, w_m2, w_cnt, steps_total, bounces)
 
 
@@ -323,19 +352,9 @@ class SampleRecords(NamedTuple):
     work: torch.Tensor  # [n_samples, N, 2] int32: steps, in-box scatters
 
 
-def launch_entry(lib, entry_point, argtypes, sub_arg, params, static, entry, dirs, hit,
-                 ray_ids, seed_base, n_samples, max_steps):
-    """Checks the inputs and runs ``entry_point`` of ``lib`` (default the
-    package's ``pathtrace`` build): ``ds_pathtrace``, or ``ds_radiance``
-    with ``sub_arg`` in the place of ``sub_first``, on the inputs' device
-    → (``PixelMoments``, ``SampleRecords``, the device counters [4] int64:
-    queue head, march slots; for ``ds_radiance`` also resolve steps and
-    crossings resolved).
-
-    Besides the outputs it allocates per-sample records of 20 bytes a
-    (pixel, sample), ``N x n_samples`` of them: 10.5 MB for a 512^2 tick of
-    2 subframes, 41 MB for the collector's default update (20,480 lanes x
-    100 experiments), growing linearly with ``n_samples``."""
+def check_launch(params, entry, dirs, hit, ray_ids, n_samples):
+    """The checks of a launch over K4's samples (K4, K7b, K8c) → (N, device,
+    density, in-scatter, hit as contiguous uint8, contiguous ray ids)."""
     cuda_build.require_vec3(entry=entry, dirs=dirs)
     n = entry.shape[0]
     dev = entry.device
@@ -352,21 +371,13 @@ def launch_entry(lib, entry_point, argtypes, sub_arg, params, static, entry, dir
         raise ValueError("n_samples must be >= 1")
     ph = params.phase
     check_on(dev, dirs, hit, ray_ids, dens, insc, ph.eval_rows, ph.inv_cdf_rows)
+    return n, dev, dens, insc, hit.to(torch.uint8).contiguous(), ray_ids.contiguous()
+
+
+def launch_consts(static: SceneStatic, max_steps: Optional[int] = None):
+    """K4's launch constants from the scene's host values → (consts [17]
+    and ground [3] as ctypes float arrays, the mode flags, the step cap)."""
     mode = _mode(static)
-    fn = getattr(lib or cuda_build.load("pathtrace"), entry_point)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    hit8 = hit.to(torch.uint8).contiguous()
-    ray_ids = ray_ids.contiguous()
-    mean = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    m2 = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    count = torch.empty((n,), dtype=torch.float32, device=dev)
-    work = torch.empty((n, 2), dtype=torch.int64, device=dev)
-    # Per-sample records (radiance; steps, in-box scatters), folded per
-    # pixel in sample order; the queue head and the warps' step slots.
-    rec_rad = torch.empty((n_samples, n, 3), dtype=torch.float32, device=dev)
-    rec_work = torch.empty((n_samples, n, 2), dtype=torch.int32, device=dev)
-    counters = torch.empty((4,), dtype=torch.int64, device=dev)
     consts = (ctypes.c_float * 17)(
         *static.bbox, static.sample_step, static.density_multiplier,
         *static.light_direction, *static.light_rgb, static.sun_solid_angle_ratio,
@@ -377,8 +388,39 @@ def launch_entry(lib, entry_point, argtypes, sub_arg, params, static, entry, dir
         int(mode.single) | int(mode.resample) << 1
         | int(mode.chopped_at_depth1) << 2 | int(mode.sky) << 3
     )
-    nz, ny, nx = static.grid_shape
     cap = static.max_total_steps if max_steps is None else int(max_steps)
+    return consts, ground, flags, cap
+
+
+def launch_entry(lib, entry_point, argtypes, sub_arg, params, static, entry, dirs, hit,
+                 ray_ids, seed_base, n_samples, max_steps):
+    """Checks the inputs and runs ``entry_point`` of ``lib`` (default the
+    package's ``pathtrace`` build): ``ds_pathtrace``, or ``ds_radiance``
+    with ``sub_arg`` in the place of ``sub_first``, on the inputs' device
+    → (``PixelMoments``, ``SampleRecords``, the device counters [4] int64:
+    queue head, march slots; for ``ds_radiance`` also resolve steps and
+    crossings resolved).
+
+    Besides the outputs it allocates per-sample records of 20 bytes a
+    (pixel, sample), ``N x n_samples`` of them: 10.5 MB for a 512^2 tick of
+    2 subframes, 41 MB for the collector's default update (20,480 lanes x
+    100 experiments), growing linearly with ``n_samples``."""
+    n, dev, dens, insc, hit8, ray_ids = check_launch(params, entry, dirs, hit, ray_ids, n_samples)
+    ph = params.phase
+    fn = getattr(lib or cuda_build.load("pathtrace"), entry_point)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    mean = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    m2 = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    count = torch.empty((n,), dtype=torch.float32, device=dev)
+    work = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    # Per-sample records (radiance; steps, in-box scatters), folded per
+    # pixel in sample order; the queue head and the warps' step slots.
+    rec_rad = torch.empty((n_samples, n, 3), dtype=torch.float32, device=dev)
+    rec_work = torch.empty((n_samples, n, 2), dtype=torch.int32, device=dev)
+    counters = torch.empty((4,), dtype=torch.int64, device=dev)
+    consts, ground, flags, cap = launch_consts(static, max_steps)
+    nz, ny, nx = static.grid_shape
     cuda_build.check(
         fn(
             cuda_build.ptr(dens), cuda_build.ptr(insc), int(dens.dtype == torch.uint8),
@@ -410,6 +452,19 @@ def _launch(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first,
     scatter_loop.launches += 1
     scatter_loop.last_counters = counters[:2]
     return pm
+
+
+def launch_samples(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first, n_samples,
+                   max_steps=None, lib=None) -> SampleRecords:
+    """K4 on the inputs' device for its per-sample records (item (sample
+    k, pixel r) at [k, r]; a pixel without a box hit has none: its rows are
+    left unwritten).  The differentiable renderer's forward."""
+    _, rec, counters = launch_entry(lib, "ds_pathtrace", _ARGTYPES, int(sub_first) & 0xFFFFFFFF,
+                                    params, static, entry, dirs, hit, ray_ids, seed_base,
+                                    n_samples, max_steps)
+    scatter_loop.launches += 1
+    scatter_loop.last_counters = counters[:2]
+    return rec
 
 
 def scatter_loop(

@@ -56,6 +56,16 @@ adjoint (runs of steps in one cell merged) within 1e-5 (the first designs
 build from
 ``csrc/diff_variants.cu``).
 
+The differentiable multi-scatter renderer (``render_multi_scatter_mc``)
+at ``test_diff_cross_validation.py``'s gradient point in all-scatter,
+multiple-scatter and single-scatter mode and all-scatter with
+``sample_sky`` and roulette: the image through the kernels (K3, K4, K8c,
+K8a) within 1e-5 of the plain render's on the card, the density gradient
+within 1e-5, the other leaves within 1e-4; K8c on the render's paths
+within 1e-5 (density) and 1e-4 of autograd of the plain paths, its replay
+bitwise equal to K4's records; the card against the CPU at the
+single-scatter tolerances; one launch of each kernel a call.
+
 The render task (``tasks.render_cloud``, NN and BNN, from ``.pt``
 exports) on the card against the CPU: frames within rtol 1e-3 on >= 99.5 %
 of pixels.
@@ -1128,3 +1138,115 @@ def test_diff_gradients_repeat_within_atomic_order(card):
     assert torch.equal(a[0], b[0])
     for x, y in zip(a[1:], b[1:]):
         assert float((x - y).abs().max()) <= 1e-5 * float(y.abs().max())
+
+
+# -- the differentiable multi-scatter renderer: K3, K4, K8c, K8a -----------------
+
+#: tests/test_diff_cross_validation.py's gradient point: its 16^3 thin cloud
+#: at 400 m, 12 x 8, max_depth 3, 2 subframes, seed 4; the mode cases K8c
+#: takes.
+MS_KW = dict(width=12, height=8, max_depth=3, n_subframes=2, seed=4)
+MS_CASES = {
+    "all_scatter": {},
+    "multiple": dict(mode=config.RenderMode.SUN_MULTIPLE_SCATTER),
+    "single": dict(mode=config.RenderMode.SUN_SINGLE_SCATTER),
+    "sky_roulette": dict(sample_sky=True, rr_start_depth=2, rr_survival=0.8),
+}
+#: Kernels against the plain versions on the card: image relative to its
+#: largest value, the density gradient to its largest, the other leaves
+#: each to theirs.
+MS_TOL = {"image": 1e-5, "density": 1e-5, "sun_dir": 1e-4, "eye": 1e-4, "look_at": 1e-4,
+          "light_radiance": 1e-4}
+
+
+def _ms_scene(dev):
+    from deepestscatter_tpu_torch.render import diff
+
+    d = np.zeros((16, 16, 16), np.float32)
+    d[3:-3, 3:-3, 3:-3] = np.random.default_rng(0).random((10,) * 3).astype(np.float32)
+    return diff.diff_scene_from_numpy(d / d.max(), np.asarray([-0.3, -0.9, 0.1], np.float32),
+                                      np.asarray([2.5, -0.4, 0.0], np.float32),
+                                      np.zeros(3, np.float32), np.full(3, 1e6, np.float32),
+                                      device=dev)
+
+
+def _ms_cfg(case):
+    return config.SceneConfig(
+        cloud=config.CloudModel(size_m=400.0),
+        light=config.DirectionalLight(direction=(-0.3, -0.9, 0.1)),
+        rendering=config.CloudRendering(sample_step=1.0 / 64.0, **MS_CASES[case]))
+
+
+def _ms_grads(scene, cfg, kernels):
+    from deepestscatter_tpu_torch.render import diff
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in scene]
+    render = diff.render_multi_scatter_mc if kernels else diff.render_multi_scatter_mc_plain
+    kw = dict(device=scene.density.device) if kernels else {}
+    img = render(diff.DiffScene(*leaves), cfg, **MS_KW, **kw)
+    return [img.detach()] + list(torch.autograd.grad(img.mean(), leaves))
+
+
+def _ms_close(got, want, tol):
+    for name, a, b in zip(tol, got, want):
+        a, b = a.double().cpu(), b.double().cpu()
+        assert bool(torch.isfinite(a).all()), name
+        assert float((a - b).abs().max()) <= tol[name] * float(b.abs().max()), name
+
+
+@pytest.mark.parametrize("case", list(MS_CASES))
+def test_ms_diff_kernels_match_plain(card, case):
+    """The multi-scatter render's image and gradients through the kernels
+    against the plain versions on the card; then K8c on the render's own
+    paths against autograd of the plain paths for a random upstream (the
+    density within 1e-5 of its largest value, the other inputs within 1e-4),
+    its replay bitwise equal to K4's records."""
+    from deepestscatter_tpu_torch.render import diff
+
+    scene, cfg = _ms_scene(card), _ms_cfg(case)
+    _ms_close(_ms_grads(scene, cfg, True), _ms_grads(scene, cfg, False), MS_TOL)
+    with torch.no_grad():
+        params, static = diff.diff_scene(cfg, scene, MS_KW["max_depth"])
+        rays = diff.path_rays(scene, cfg, MS_KW["width"], MS_KW["height"], params, static)
+    n, s = rays.hit.shape[0], MS_KW["n_subframes"]
+    g = torch.from_numpy(np.random.default_rng(5).random((s, n, 3)).astype(np.float32)).to(card)
+    g = torch.where(rays.hit[None, :, None], g, 0.0).contiguous()
+    inputs = [t.detach().clone().contiguous() for t in (
+        params.density_mips[0], params.inscatter, params.light_dir, params.light_radiance,
+        rays.entry, rays.dirs)]
+    p = diff._sample_params(inputs[0], inputs[1], params.phase)
+    got = diff.launch_path_adjoint(p, static, inputs[4], inputs[5], rays.hit, rays.ids,
+                                   MS_KW["seed"], 1, s, g)
+    rec = pathtracer.launch_samples(p, static, inputs[4], inputs[5], rays.hit, rays.ids,
+                                    MS_KW["seed"], 1, s)
+    hit = rays.hit
+    assert torch.equal(got.records.radiance[:, hit], rec.radiance[:, hit])
+    assert torch.equal(got.records.work[:, hit], rec.work[:, hit])
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    pl = params._replace(density_mips=(leaves[0],), inscatter=leaves[1], light_dir=leaves[2],
+                         light_radiance=leaves[3])
+    ref = diff.path_records_plain(pl, static, leaves[4], leaves[5], hit, rays.ids,
+                                  MS_KW["seed"], s)
+    want = torch.autograd.grad(ref, leaves, g)
+    for name, w in zip(("density", "inscatter", "light_dir", "light_radiance", "entry", "dirs"),
+                       want):
+        assert float(w.abs().max()) > 0, name
+        assert _rel(getattr(got, name), w) <= (1e-5 if name == "density" else 1e-4), name
+
+
+def test_ms_diff_card_matches_cpu(card):
+    """The kernels on the card against the plain versions on the CPU, at
+    the single-scatter card-against-CPU tolerances (DIFF_TOL)."""
+    cfg = _ms_cfg("all_scatter")
+    _ms_close(_ms_grads(_ms_scene(card), cfg, True), _ms_grads(_ms_scene("cpu"), cfg, False),
+              DIFF_TOL)
+
+
+def test_ms_diff_wrappers_count_launches(card):
+    from deepestscatter_tpu_torch.render import diff
+
+    fns = (inscatter.sun_transmittance, pathtracer.scatter_loop, diff.launch_path_adjoint,
+           diff.launch_bake_adjoint)
+    before = [f.launches for f in fns]
+    diff.multi_scatter_and_grads(_ms_scene(card), _ms_cfg("all_scatter"), device=card, **MS_KW)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]

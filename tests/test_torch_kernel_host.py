@@ -1,8 +1,9 @@
 """K4 (path-trace bounce loop), K3 (in-scatter bake), K1 (camera march),
 K2 (descriptor stencil), K5 (probe interpolation), K7a (first-scatter
 sampler), K7b (radiance experiments), K10 (batch assembly), K8a (the
-differentiable bake's adjoint) and K8b (the quadrature march and the sun
-march, forward and adjoint) on the host.
+differentiable bake's adjoint), K8b (the quadrature march and the sun
+march, forward and adjoint) and K8c (the path tracer's adjoint) on the
+host.
 
 ``tests/torch_kernel_host.cpp`` compiles the kernels' device functions
 (``csrc/pathtrace.cu``, ``csrc/inscatter.cu``, ``csrc/march.cu``,
@@ -106,6 +107,19 @@ arithmetic the kernels share with their host build.
   steps inside a chunk, and the main path's 128); their adjoints (the
   thread's merged runs; ``group_deposit``'s runs) within 1e-5 of
   ``sun_march_adjoint``'s largest value of each output, bitwise at G = 1.
+- K8c (``adjoint_item``: the replay with K4's functions, then the sweep
+  over the flights) against autograd of the plain paths
+  (``diff.path_records_plain``) for a random upstream, at
+  ``test_diff_cross_validation.py``'s gradient point in all-scatter,
+  multiple-scatter and single-scatter mode and all-scatter with
+  ``sample_sky`` and roulette (``rr_start_depth`` 2, ``rr_survival`` 0.8):
+  the density within 1e-5 of its largest value, the in-scatter, light
+  direction and radiance, entries and directions within 1e-4, and on the
+  16 paths with the most steps d/d entry and d/d dirs within 1e-4 of each
+  path's largest; its replayed records equal K4's bitwise; launches split
+  under a scratch budget change nothing but float64 rounding; and the
+  render's autograd Functions over the host build (K3, K4, K8c, K8a)
+  match the plain render within 1e-6 (image), 1e-5 (density) and 1e-4.
 - All match the plain PyTorch versions within the tolerances of
   ``test_torch_cuda_kernels.py``: glibc's ``expf``/``logf``/``sinf``/
   ``cosf``/``acosf`` are not torch's, so step counts agree on >= 99 % of
@@ -1153,4 +1167,148 @@ def test_render_and_grads_through_the_kernels(host_lib, monkeypatch, baked):
     ref_img, ref = diff.render_and_grads(scene, device="cpu", **kw)
     assert _rel(img.detach(), ref_img) <= 1e-6
     for name, a, b in zip(diff.DiffScene._fields, grads, ref):
+        assert _rel(a, b) <= (1e-5 if name == "density" else 1e-4), name
+
+
+# -- K8c: the path adjoint --------------------------------------------------------
+
+#: tests/test_diff_cross_validation.py's gradient point (its 16^3 thin cloud
+#: at 400 m, sun (-0.3, -0.9, 0.1), eye (2.5, -0.4, 0), 12 x 8, max_depth 3,
+#: 2 subframes, seed 4) in the four mode cases K8c takes.
+MS_CASES = {
+    "all_scatter": {},
+    "multiple": dict(mode=config.RenderMode.SUN_MULTIPLE_SCATTER),
+    "single": dict(mode=config.RenderMode.SUN_SINGLE_SCATTER),
+    "sky_roulette": dict(sample_sky=True, rr_start_depth=2, rr_survival=0.8),
+}
+MS_KW = dict(width=12, height=8, max_depth=3, n_subframes=2, seed=4)
+
+
+def _ms_scene():
+    d = np.zeros((16, 16, 16), np.float32)
+    d[3:-3, 3:-3, 3:-3] = np.random.default_rng(0).random((10,) * 3).astype(np.float32)
+    return diff.diff_scene_from_numpy(d / d.max(), np.asarray([-0.3, -0.9, 0.1], np.float32),
+                                      np.asarray([2.5, -0.4, 0.0], np.float32),
+                                      np.zeros(3, np.float32), np.full(3, 1e6, np.float32),
+                                      device="cpu")
+
+
+def _ms_cfg(case):
+    return config.SceneConfig(
+        cloud=config.CloudModel(size_m=400.0),
+        light=config.DirectionalLight(direction=(-0.3, -0.9, 0.1)),
+        rendering=config.CloudRendering(sample_step=1.0 / 64.0, **MS_CASES[case]))
+
+
+@pytest.fixture(scope="module", params=list(MS_CASES))
+def ms_rig(request):
+    """(case, cfg, the paths' scene with its leaves requiring grad, their
+    rays, a random upstream of every record: 0 where a pixel misses)."""
+    cfg = _ms_cfg(request.param)
+    leaves = [t.clone().requires_grad_(True) for t in _ms_scene()]
+    params, static = diff.diff_scene(cfg, diff.DiffScene(*leaves), MS_KW["max_depth"],
+                                     kernels=False)
+    rays = diff.path_rays(diff.DiffScene(*leaves), cfg, MS_KW["width"], MS_KW["height"], params,
+                          static)
+    n = rays.hit.shape[0]
+    g = torch.from_numpy(np.random.default_rng(5).random((2, n, 3)).astype(np.float32))
+    return request.param, cfg, params, static, rays, torch.where(rays.hit[None, :, None], g, 0.0)
+
+
+def _ms_inputs(params, rays):
+    """The paths' differentiable inputs, detached: density, in-scatter,
+    light_dir, light_radiance, entry, dirs."""
+    return [t.detach().clone() for t in (params.density_mips[0], params.inscatter,
+                                         params.light_dir, params.light_radiance, rays.entry,
+                                         rays.dirs)]
+
+
+def _ms_plain_grads(params, static, rays, inputs, g):
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    p = params._replace(density_mips=(leaves[0],), inscatter=leaves[1], light_dir=leaves[2],
+                        light_radiance=leaves[3])
+    rec = diff.path_records_plain(p, static, leaves[4], leaves[5], rays.hit, rays.ids,
+                                  MS_KW["seed"], MS_KW["n_subframes"])
+    return rec.detach(), torch.autograd.grad(rec, leaves, g)
+
+
+def _ms_k8c(host_lib, params, static, rays, inputs, g, **kw):
+    p = diff._sample_params(inputs[0], inputs[1], params.phase)
+    return diff.launch_path_adjoint(p, static, inputs[4], inputs[5], rays.hit, rays.ids,
+                                    MS_KW["seed"], 1, MS_KW["n_subframes"], g, lib=host_lib, **kw)
+
+
+def test_k8c_equals_autograd_of_the_plain_paths(host_lib, ms_rig):
+    """K8c's host build against autograd of the plain paths for a random
+    upstream: the density within 1e-5 of its largest value, the in-scatter,
+    light_dir, light_radiance, entries and directions within 1e-4; each
+    reference nonzero; the re-marched steps at most the sample's steps.  Its replay equals K4's records bitwise; on the 16
+    paths with the most steps d/d entry and d/d dirs within 1e-4 of each
+    path's largest."""
+    _, _, params, static, rays, g = ms_rig
+    inputs = _ms_inputs(params, rays)
+    remarch = torch.full(g.shape[:2], -1, dtype=torch.int32)
+    got = _ms_k8c(host_lib, params, static, rays, inputs, g, remarch=remarch)
+    rec_ref, want = _ms_plain_grads(params, static, rays, inputs, g)
+    # The re-marched steps: the flights that ended in an in-box scatter.
+    assert bool((remarch >= 0).all()) and bool((remarch <= got.records.work[..., 0]).all())
+    assert int(remarch.sum()) > 0
+    names = ("density", "inscatter", "light_dir", "light_radiance", "entry", "dirs")
+    for name, w in zip(names, want):
+        a = getattr(got, name)
+        assert bool(torch.isfinite(a).all()), name
+        assert float(w.abs().max()) > 0, name
+        assert _rel(a, w) <= (1e-5 if name == "density" else 1e-4), name
+    host_lib.host_set_pathtrace(1, 0, None)  # K4's items, at its lookahead
+    k4 = pathtracer.launch_samples(diff._sample_params(inputs[0], inputs[1], params.phase),
+                                   static, inputs[4], inputs[5], rays.hit, rays.ids,
+                                   MS_KW["seed"], 1, MS_KW["n_subframes"], lib=host_lib)
+    hit = rays.hit
+    assert torch.equal(got.records.radiance[:, hit], k4.radiance[:, hit])
+    assert torch.equal(got.records.work[:, hit], k4.work[:, hit])
+    assert _rel(got.records.radiance, rec_ref) <= 1e-6
+    steps = got.records.work[..., 0].sum(dim=0)
+    deep = torch.argsort(steps, descending=True)[:16]
+    for name, a, w in (("entry", got.entry, want[4]), ("dirs", got.dirs, want[5])):
+        per = (a[deep] - w[deep]).abs().amax(1) / w[deep].abs().amax(1).clamp_min(1e-30)
+        assert float(per.max()) <= 1e-4, name
+
+
+def test_k8c_launches_split_under_a_scratch_budget(host_lib, ms_rig):
+    """Launches of a few pixels each (a scratch budget of 7 pixels) give
+    the single launch's per-sample outputs bitwise and its sums within
+    float64 rounding."""
+    _, _, params, static, rays, g = ms_rig
+    inputs = _ms_inputs(params, rays)
+    whole = _ms_k8c(host_lib, params, static, rays, inputs, g)
+    before = diff.launch_path_adjoint.launches
+    per_pixel = MS_KW["n_subframes"] * (static.max_depth + 1) * host_lib.ds_path_segment_bytes()
+    split = _ms_k8c(host_lib, params, static, rays, inputs, g, scratch_bytes=7 * per_pixel)
+    assert diff.launch_path_adjoint.launches - before == -(-rays.hit.shape[0] // 7)
+    for a, b in ((split.entry, whole.entry), (split.dirs, whole.dirs),
+                 (split.records.radiance, whole.records.radiance),
+                 (split.records.work, whole.records.work)):
+        assert torch.equal(a, b)
+    for name in ("density", "inscatter", "light_dir", "light_radiance"):
+        assert _rel(getattr(split, name), getattr(whole, name)) <= 1e-12, name
+
+
+def test_multi_scatter_render_through_the_kernels(host_lib, monkeypatch, ms_rig):
+    """The render's autograd Functions over the host build (K3, K4, K8c,
+    K8a) against the plain render: the image within 1e-6, the density's
+    gradient within 1e-5 and every other leaf's within 1e-4 of its largest
+    value."""
+    _, cfg, *_ = ms_rig
+    monkeypatch.setattr(cuda_build, "load", lambda name: host_lib)
+    host_lib.host_set_pathtrace(1, 0, None)
+    scene = _ms_scene()
+    leaves = [t.clone().requires_grad_(True) for t in scene]
+    img = diff._render_ms(diff.DiffScene(*leaves), cfg, kernels=True, **MS_KW)
+    grads = torch.autograd.grad(img.mean(), leaves)
+    ref_img, ref = diff._image_and_grads(
+        lambda s: diff.render_multi_scatter_mc_plain(s, cfg, **MS_KW), scene,
+        torch.device("cpu"))
+    assert _rel(img.detach(), ref_img) <= 1e-6
+    for name, a, b in zip(diff.DiffScene._fields, grads, ref):
+        assert bool(torch.isfinite(a).all()), name
         assert _rel(a, b) <= (1e-5 if name == "density" else 1e-4), name

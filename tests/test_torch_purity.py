@@ -317,12 +317,16 @@ def test_diff_entry_points_default_to_the_card(no_card):
     kw = dict(width=4, height=2, n_steps=8, remat_chunk=8, sun_steps=4)
     pos = torch.full((2, 3), 0.5)
     bbox = torch.ones(3)
+    ms_cfg = tconfig.SceneConfig(rendering=tconfig.CloudRendering(sample_step=1.0 / 8.0))
+    ms_kw = dict(width=4, height=2, max_depth=2, n_subframes=1)
     for call in (lambda **d: diff.render_single_scatter(scene, **kw, **d),
                  lambda **d: diff.render_and_grads(scene, **kw, **d),
                  lambda **d: diff.bake_inscatter_diff(scene.density, bbox, -scene.sun_dir,
                                                       100.0, 1.0 / 8.0, **d),
                  lambda **d: diff.sun_transmittance(scene.density, scene.sun_dir, pos, 100.0, 4,
-                                                    **d)):
+                                                    **d),
+                 lambda **d: diff.render_multi_scatter_mc(scene, ms_cfg, **ms_kw, **d),
+                 lambda **d: diff.multi_scatter_and_grads(scene, ms_cfg, **ms_kw, **d)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         out = call(device="cpu")

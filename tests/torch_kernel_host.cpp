@@ -1,8 +1,9 @@
 // Host build of the path-trace (K4, and K7b: its per-pixel experiment
 // bases and deferred scatters), in-scatter bake (K3), camera march (K1),
 // descriptor (K2), probe interpolation (K5), scatter-sample (K7a, its
-// rounds of attempts), batch-assembly (K10), adjoint-bake (K8a) and
-// quadrature-march (K8b) kernels' device functions, for
+// rounds of attempts), batch-assembly (K10), adjoint-bake (K8a),
+// quadrature-march (K8b) and path-adjoint (K8c) kernels' device functions,
+// for
 // tests/test_torch_kernel_host.py:
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off -DDS_HOST_EMULATION
@@ -11,9 +12,10 @@
 //
 // It exports ds_pathtrace, ds_radiance, ds_bake, ds_march, ds_descriptor,
 // ds_probes, ds_samples, ds_assemble_disney, ds_assemble_baked,
-// ds_bake_adjoint(_blocks), ds_diff_march, ds_diff_march_bwd, ds_sun_march
-// and ds_sun_march_bwd with the signatures of the device entry points (the
-// atomics of K8a and K8b as plain adds),
+// ds_bake_adjoint(_blocks), ds_diff_march, ds_diff_march_bwd, ds_sun_march,
+// ds_sun_march_bwd and ds_path_adjoint(_blocks, ds_path_segment_bytes) with
+// the signatures of the device entry points (the atomics of K8a, K8b and
+// K8c as plain adds; K8c's light gradients summed in partial row 0),
 // so the wrappers' _launch drives it on CPU tensors; host_set_pathtrace,
 // host_set_radiance, host_set_bake, host_set_march, host_set_descriptor,
 // host_set_probes, host_set_samples, host_set_diff and
@@ -31,6 +33,7 @@
 #include "samples.cu"
 #include "assemble.cu"
 #include "diff.cu"
+#include "path_adjoint.cu"
 
 namespace {
 
@@ -1090,6 +1093,48 @@ int ds_sun_march_bwd(const float* dens, const float* to_sun, int nx, int ny, int
       d_pos[3 * r + a] = dq[a];
       d_ts[3 * r + a] = dts[a];
     }
+  }
+  return 0;
+}
+
+// K8c: adjoint_item over the items in order, its light gradients summed in
+// float64 into partial row 0 (the other rows zero).
+int ds_path_segment_bytes() { return (int)sizeof(ds::path::Segment); }
+
+int64_t ds_path_adjoint_blocks(int64_t m, int n_samples) {
+  return ds::path::adjoint_blocks(m * (int64_t)n_samples);
+}
+
+int ds_path_adjoint(const float* dens, const float* insc, int nx, int ny, int nz,
+                    const float* eval_rows, int n_phase, const float* inv_rows, int n_inv,
+                    const float* entry, const float* dirs, const uint8_t* hit,
+                    const int64_t* ray_ids, int64_t n, int64_t r0, int64_t m,
+                    const float* consts, const float* ground, int max_steps, int max_depth,
+                    int rr_start, int flags, uint32_t seed_base, uint32_t sub_first,
+                    int n_samples, const float* g_rec, void* scratch, int max_segments,
+                    float* rec_rad, int32_t* rec_work, double* d_dens, double* d_insc,
+                    float* d_entry, float* d_dirs, int32_t* remarch, double* partials,
+                    void* /*stream*/) {
+  const int64_t n_items = m * (int64_t)n_samples;
+  if (max_segments < 1 || r0 < 0 || r0 + m > n) return -1;
+  const ds::PtConsts c =
+      ds::pt_consts(consts, ground, max_steps, max_depth, rr_start, n_phase, n_inv, flags);
+  const ds::diff::Grid3 gr = ds::diff::grid3(nx, ny, nz, c.bbox);
+  double sums[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  for (int64_t i = 0; i < n_items; ++i) {
+    ds::path::LightGrads L = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+    ds::path::adjoint_item(i, n, r0, m, dens, insc, nx, ny, nz, gr, eval_rows, inv_rows, entry,
+                           dirs, hit, ray_ids, c, seed_base, sub_first, g_rec,
+                           (ds::path::Segment*)scratch, max_segments, rec_rad, rec_work, d_dens,
+                           d_insc, d_entry, d_dirs, remarch, L, ds::diff::AddTo());
+    for (int a = 0; a < 3; ++a) {
+      sums[a] += L.dir[a];
+      sums[3 + a] += L.rad[a];
+    }
+  }
+  const int64_t rows = ds::path::adjoint_blocks(n_items);
+  for (int64_t b = 0; b < rows; ++b) {
+    for (int a = 0; a < 6; ++a) partials[6 * b + a] = b == 0 ? sums[a] : 0.0;
   }
   return 0;
 }
