@@ -245,11 +245,18 @@ Phases, one output line each:
     them; on the 64 of those with the most steps each path's d/d entry and
     d/d dirs within ``REPLAY_TOL`` = 1e-4 of its largest.  It prints
     forward and forward + backward ms at both points, K8c's device time
-    (CUDA events with the host enqueueing ahead, ``ahead_ms``) and its
-    launches, its operation bound from the kernel's own
+    (CUDA events with the host enqueueing ahead, ``ahead_ms``) beside its
+    first design's (a thread a (sample, pixel), csrc/path_adjoint_variants.cu)
+    in four turns, each also with a zero upstream (the replay alone; the
+    difference is the sweep's share), the kernels' registers
+    (``cudaFuncGetAttributes``), the work list's length and the sweep's
+    lanes G at both points, the first design's records bitwise equal to
+    the package's and its gradients within the tolerances above, and
+    K8c's launches, its operation bound from the kernel's own
     replayed steps, in-box scatters and re-marched steps, the plain paths'
     time, K3, K4 and K8a at the frame point by CUDA events, the frame's
-    device time by kernel and peak memory.  K8c's row: its time and bound
+    forward + backward with the package's K8c and with its first design in
+    four turns, the frame's device time by kernel and peak memory.  K8c's row: its time and bound
     at the frame point; its plain_ms the plain paths' forward + backward on
     the 2,048 deepest paths (the full frame's plain paths take minutes).
 
@@ -554,9 +561,10 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
                 bound_by="bytes" if tb >= to else "operations", library_ms=library_ms)
 
 
-#: Sources built beside the package's: P1's designs (probes.gather.variants)
-#: and the first designs of K8a and K8b's adjoint (csrc/diff_variants.cu).
-EXTRA_SOURCES = ("gather_variants", "diff_variants")
+#: Sources built beside the package's: P1's designs (probes.gather.variants),
+#: the first designs of K8a and K8b's adjoint (csrc/diff_variants.cu) and
+#: K8c's (csrc/path_adjoint_variants.cu).
+EXTRA_SOURCES = ("gather_variants", "diff_variants", "path_adjoint_variants")
 
 
 def phase_build(cuda_build) -> None:
@@ -2914,10 +2922,59 @@ def ms_paths(diff, scene, cfg, kw):
     return params, static, rays, inputs
 
 
-def ms_k8c(diff, params, static, rays, inputs, kw, g, remarch=None):
+def ms_args(diff, params, static, rays, inputs, kw) -> tuple:
+    """``launch_path_adjoint``'s arguments but the upstream."""
     p = diff._sample_params(inputs[0], inputs[1], params.phase)
-    return diff.launch_path_adjoint(p, static, inputs[4], inputs[5], rays.hit, rays.ids,
-                                    kw["seed"], 1, kw["n_subframes"], g, remarch=remarch)
+    return (p, static, inputs[4], inputs[5], rays.hit, rays.ids, kw["seed"], 1,
+            kw["n_subframes"])
+
+
+def ms_k8c(diff, params, static, rays, inputs, kw, g, remarch=None):
+    return diff.launch_path_adjoint(*ms_args(diff, params, static, rays, inputs, kw), g,
+                                    remarch=remarch)
+
+
+def k8c_against_first(label, mv, diff, params, static, rays, inputs, kw, g, reps) -> dict:
+    """K8c's two kernels against its first design (csrc/path_adjoint_variants.cu)
+    in turns, each also with a zero upstream (the replay alone): printed
+    with the sweep's share, the kernels' registers, the work list's length
+    and the sweep's lanes; the first design's records bitwise equal to the
+    package's and its gradients within the plain paths' tolerances."""
+    r = mv.path_against_first(ms_args(diff, params, static, rays, inputs, kw), g, reps)
+    print(f"{label} K8c against its first design ({card_line()}): ahead_ms={r['ms']:.4f} "
+          f"(first design {r['ms_first']:.4f}); the replay alone (zero upstream) "
+          f"{r['ms_replay']:.4f} (first design {r['ms_first_replay']:.4f}); the sweep's share "
+          f"{r['ms'] - r['ms_replay']:.4f} (first design {r['ms_first'] - r['ms_first_replay']:.4f}) "
+          f"G={r['lanes']} work_list={r['work_list']} registers={json.dumps(r['registers'])} "
+          f"records bitwise={r['bitwise']} rel_err={json.dumps(r['rel_err'])}", flush=True)
+    require(r["equal"], f"{label}: K8c's first design differs from the package's kernels")
+    return r
+
+
+def frame_against_first(mv, diff, frame, cfg_frame, dev) -> tuple:
+    """``multi_scatter_and_grads`` at the frame point with the package's K8c
+    and with its first design in its place, in four turns by ``time_ms``:
+    their mean ms.  The first design runs where the wrapper's
+    ``cuda_build.load("path_adjoint")`` is answered by
+    csrc/path_adjoint_variants.cu's library set to it."""
+    from deepestscatter_tpu_torch import cuda_build
+
+    lib = mv.path_lib(cuda_build.load("path_adjoint_variants"))
+    load = cuda_build.load
+
+    def run():
+        return diff.multi_scatter_and_grads(frame, cfg_frame, device=dev, **MS_FRAME)
+
+    def run_first():
+        lib.ds_path_variant(*mv.PATH_DESIGNS["first design (a thread an item)"])
+        cuda_build.load = lambda name: lib if name == "path_adjoint" else load(name)
+        try:
+            return run()
+        finally:
+            cuda_build.load = load
+
+    t = mv.in_turns({"package": run, "first": run_first}, 3, time_ms)
+    return mv.mean(t["package"]), mv.mean(t["first"])
 
 
 def ms_plain(diff, params, static, rays, inputs, kw, g, idx):
@@ -3044,7 +3101,8 @@ def phase_ms_diff(config, pt, ins_ops, dev) -> list:
     all_hit = torch.nonzero(rays.hit).squeeze(1)
     _, _, plain_paths_small, rec_s, remarch_s = ms_check(
         "ms diff small", pt, diff, params, static, rays, inputs, MS_SMALL, g, all_hit)
-    k8c_small = mv.ahead_ms(lambda: ms_k8c(diff, params, static, rays, inputs, MS_SMALL, g), 10)
+    k8c_small = k8c_against_first("ms diff small", mv, diff, params, static, rays, inputs,
+                                  MS_SMALL, g, 10)["ms"]
     fwd_small = time_ms(lambda: diff.render_multi_scatter_mc(small, cfg_small, device=dev,
                                                              **MS_SMALL), 5)
     both_small = time_ms(lambda: diff.multi_scatter_and_grads(small, cfg_small, device=dev,
@@ -3078,7 +3136,8 @@ def phase_ms_diff(config, pt, ins_ops, dev) -> list:
         torch.float32).expand(n_sub, n, 3).contiguous()
     remarch = torch.zeros((n_sub, n), dtype=torch.int32, device=dev)
     full = ms_k8c(diff, params, static, rays, inputs, MS_FRAME, g, remarch)
-    k8c_frame = mv.ahead_ms(lambda: ms_k8c(diff, params, static, rays, inputs, MS_FRAME, g), 3)
+    k8c_frame = k8c_against_first("ms diff frame", mv, diff, params, static, rays, inputs,
+                                  MS_FRAME, g, 3)["ms"]
     k8c_frame_events = time_ms(lambda: ms_k8c(diff, params, static, rays, inputs, MS_FRAME, g), 3)
     b_f, o_f, w_f = k8c_work(rec, remarch, rays.hit, inputs[0].numel())
     bound_f = max(b_f / HBM_BYTES_PER_S, o_f / F32_OPS_PER_S) * 1e3
@@ -3086,6 +3145,7 @@ def phase_ms_diff(config, pt, ins_ops, dev) -> list:
                                                              **MS_FRAME), 3)
     both_frame = time_ms(lambda: diff.multi_scatter_and_grads(frame, cfg_frame, device=dev,
                                                               **MS_FRAME), 3)
+    both_pkg, both_first = frame_against_first(mv, diff, frame, cfg_frame, dev)
     k4_frame = time_ms(lambda: pt.launch_samples(
         diff._sample_params(inputs[0], inputs[1], params.phase), static, inputs[4], inputs[5],
         rays.hit, rays.ids, MS_FRAME["seed"], 1, n_sub), 3)
@@ -3100,7 +3160,8 @@ def phase_ms_diff(config, pt, ins_ops, dev) -> list:
            g_insc)
     k8a_frame = time_ms(lambda: diff.launch_bake_adjoint(*adj), 3)
     print(f"ms diff frame ({card_line()}): forward_ms={fwd_frame:.2f} "
-          f"forward+backward_ms={both_frame:.2f} K3_ms={k3_frame:.3f} K4_ms={k4_frame:.3f} "
+          f"forward+backward_ms={both_frame:.2f} (in turns: {both_pkg:.2f}, with K8c's first "
+          f"design {both_first:.2f}) K3_ms={k3_frame:.3f} K4_ms={k4_frame:.3f} "
           f"K8a_ms={k8a_frame:.3f} (voxels with an upstream {int((g_insc != 0).sum())}) "
           f"K8c ahead_ms={k8c_frame:.3f} (back to back {k8c_frame_events:.3f}) "
           f"bound_ms={bound_f:.4f} "

@@ -435,4 +435,14 @@ extern "C" int ds_radiance(const void* dens, const void* insc, int is_u8, int nx
 // The lanes parked before ds_radiance's warps resolve (kParkAt).
 extern "C" int ds_radiance_park_at() { return ds::kParkAt; }
 
+// The registers a thread of K4's item kernel on float32 textures (the
+// differentiable renderer's) takes, or -1.
+extern "C" int ds_pathtrace_registers() {
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, pathtrace_items_kernel<ds::kLookahead, float>) != cudaSuccess) {
+    return -1;
+  }
+  return a.numRegs;
+}
+
 #endif  // DS_HOST_EMULATION

@@ -48,6 +48,18 @@ one card.
   adjoint's atomics left out too, at each count of ``SUN_POINTS`` in each
   of ``SUN_ORDERS``.
 
+- K8c (``csrc/path_adjoint.cu``, built from ``csrc/path_adjoint_variants.cu``,
+  which includes only that source and the first design's header) in each
+  design of ``PATH_DESIGNS``: its first design (a thread a (sample,
+  pixel)), the replay and the sweep at other lanes a sample and launch
+  bounds, and the sweep's atomics aimed at a scratch slot or left out; at
+  chip_smoke.py's multi-scatter frame point (the 256^3 cumulus of seed 11
+  at 2000 m, 512 x 256, ``max_depth`` 4, 2 subframes, the image mean's
+  upstream), each also with a zero upstream (the replay alone), beside K4
+  on the same samples, in turns by ``ahead_ms``; each design's records
+  bitwise against the package's and its gradients within ``PATH_TOL``;
+  then the package's sweep timed entry by entry (``path_timeline``).
+
 The diff kernels run at chip_smoke.py's two points of ``render.diff``:
 the defaults point (64 x 32, 256 steps of 1/256, dm 100, the 64^3 cloud
 of seed 29, baked) and the frame point (the 256^3 cumulus of seed 11, 512
@@ -77,10 +89,12 @@ backward, twice.
 
 Run on the card::
 
-    python -m deepestscatter_tpu_torch.probes.march_variants [--collector-only | --diff-only]
+    python -m deepestscatter_tpu_torch.probes.march_variants [--collector-only | --diff-only |
+                                                              --path-only]
 
 ``--collector-only`` runs K7a's and K7b's alternatives alone,
-``--diff-only`` K8a's, K8b's and the sun march's.  Prints
+``--diff-only`` K8a's, K8b's, the sun march's and K8c's, ``--path-only``
+K8c's alone (the default run leaves K8c's out).  Prints
 one line an alternative, then one JSON object as the last line; exits 1
 without a card or if an alternative disagrees.
 """
@@ -155,6 +169,29 @@ SUN_POINTS = (2048, 8192, 32768, 131072, 262144)
 SUN_ORDERS = ("voxel", "random")
 #: The sun march's density multiplier, steps and step (chip_smoke.py's).
 SUN_ARGS = (100.0, 128, 1.0 / 256.0)
+#: chip_smoke.py's multi-scatter frame point: the 256^3 cumulus of seed 11
+#: at 2000 m, the scene configuration's sun and eye, light 1e6, 512 x 256,
+#: max_depth 4, 2 subframes, seed 0.
+MS_FRAME = dict(width=512, height=256, max_depth=4, n_subframes=2, seed=0)
+#: K8c's alternatives (``csrc/path_adjoint_variants.cu``, ``ds_path_variant``'s
+#: codes: the design (0 the first, 1 the two kernels), lanes a sample, the
+#: replay's launch bounds' resident blocks a SM (0 for the threads alone,
+#: -1 for the package's), the sweep (-1 the kernel of those; at the
+#: package's lanes: 6 resident blocks a SM in its launch bounds, 101 its
+#: scatters into a scratch slot a thread, 102 none)): its first design (a
+#: thread an item, both passes), the two kernels at each G and at other
+#: launch bounds, and the sweep's atomics' share.
+PATH_DESIGNS = {"first design (a thread an item)": (0, 8, -1, -1),
+                **{f"G={g}": (1, g, -1, -1) for g in (4, 8, 16, 32)},
+                "G=8 replay blocks=0": (1, 8, 0, -1),
+                "G=8 sweep blocks=6": (1, 8, -1, 6),
+                "G=8 sweep scatters into a scratch slot": (1, 8, -1, 101),
+                "G=8 sweep without scatters": (1, 8, -1, 102)}
+#: K8c's outputs and the tolerances an alternative keeps against the
+#: package's (of each one's largest value): the density 1e-5, the others
+#: 1e-4 (K8c's own against the plain paths).
+PATH_LEAVES = ("density", "inscatter", "light_dir", "light_radiance", "entry", "dirs")
+PATH_TOL = {f: 1e-5 if f == "density" else 1e-4 for f in PATH_LEAVES}
 #: chip_smoke.py's diff points: (cloud resolution, seed, sun, eye, render
 #: arguments); the sun and eye None for the scene configuration's.
 DIFF_POINTS = {
@@ -815,6 +852,186 @@ def diff_variants(lib, dev) -> dict:
     return out
 
 
+def ms_frame_inputs(diff, dev):
+    """``launch_path_adjoint``'s arguments at the multi-scatter frame point
+    but the upstream, and the image mean's upstream (1 / (3 N n_subframes)
+    on each record of a pixel that hits)."""
+    base = config.SceneConfig()
+    scene = diff.diff_scene_from_numpy(
+        cloud(256, 11), np.asarray(base.light.direction, np.float32),
+        np.asarray(base.camera.eye, np.float32), np.zeros(3, np.float32),
+        np.full(3, 1e6, np.float32), device=dev)
+    cfg = config.SceneConfig(cloud=config.CloudModel(size_m=2000.0))
+    kw = MS_FRAME
+    with torch.no_grad():
+        params, static = diff.diff_scene(cfg, scene, kw["max_depth"])
+        rays = diff.path_rays(scene, cfg, kw["width"], kw["height"], params, static)
+    p = diff._sample_params(params.density_mips[0].detach().contiguous(),
+                            params.inscatter.detach().contiguous(), params.phase)
+    n, s = rays.hit.shape[0], kw["n_subframes"]
+    args = (p, static, rays.entry.detach().contiguous(), rays.dirs.detach().contiguous(),
+            rays.hit, rays.ids, kw["seed"], 1, s)
+    g = torch.where(rays.hit[None, :, None], 1.0 / (3 * n * s), 0.0).to(torch.float32)
+    return args, g.expand(s, n, 3).contiguous()
+
+
+def registers(lib, name: str, *args) -> int:
+    """A kernel's registers a thread, by ``cudaFuncGetAttributes`` through
+    the library's export ``name``."""
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_int
+    return int(fn(*args))
+
+
+def path_lib(lib):
+    """Types ``csrc/path_adjoint_variants.cu``'s ``ds_path_variant``."""
+    lib.ds_path_variant.argtypes = [ctypes.c_int] * 4
+    lib.ds_path_variant.restype = None
+    return lib
+
+
+def path_design(lib, args, g, code):
+    """A call of K8c's alternative ``code`` (``ds_path_variant``'s
+    arguments) on ``launch_path_adjoint``'s arguments ``args`` and the
+    upstream ``g``."""
+    from ..render import diff
+
+    def run():
+        lib.ds_path_variant(*code)
+        return diff.launch_path_adjoint(*args, g, lib=lib)
+    return run
+
+
+def path_check(got, ref, rec, hit) -> dict:
+    """An alternative's outputs against the package's: the records bitwise
+    (and against K4's where the pixels hit), each gradient's largest
+    difference over its largest value."""
+    same = (torch.equal(got.records.radiance, ref.records.radiance)
+            and torch.equal(got.records.work, ref.records.work)
+            and torch.equal(got.records.radiance[:, hit], rec.radiance[:, hit])
+            and torch.equal(got.records.work[:, hit], rec.work[:, hit]))
+    errs = {f: rel_err(getattr(got, f), getattr(ref, f)) for f in PATH_LEAVES}
+    return dict(bitwise=same, rel_err=errs,
+                equal=same and all(e <= PATH_TOL[f] for f, e in errs.items()))
+
+
+def path_against_first(args, g, reps: int) -> dict:
+    """K8c, the package's two kernels against its first design (a thread an
+    item; ``csrc/path_adjoint_variants.cu``), each with the upstream ``g``
+    and with a zero upstream (the replay alone), in four turns by
+    ``ahead_ms``, in one call: their means, the kernels' registers, the
+    work list's length and the sweep's lanes; the first design's records
+    bitwise against the package's and its gradients within PATH_TOL.
+    ``args``: ``launch_path_adjoint``'s arguments but the upstream."""
+    from ..render import diff
+
+    lib, pkg = path_lib(cuda_build.load("path_adjoint_variants")), cuda_build.load("path_adjoint")
+    zero = torch.zeros_like(g)
+    first = PATH_DESIGNS["first design (a thread an item)"]
+    counters = torch.zeros(4, dtype=torch.int64, device=g.device)
+    fns = {"new": lambda: diff.launch_path_adjoint(*args, g),
+           "first": path_design(lib, args, g, first),
+           "new replay": lambda: diff.launch_path_adjoint(*args, zero),
+           "first replay": path_design(lib, args, zero, first)}
+    t = {k: mean(v) for k, v in in_turns(fns, reps, ahead_ms).items()}
+    ref = diff.launch_path_adjoint(*args, g, counters=counters)
+    length = int(counters[1]) + int(counters[3])
+    rec = pathtracer.launch_samples(*args)
+    check = path_check(fns["first"](), ref, rec, args[4])
+    return dict(ms=t["new"], ms_first=t["first"], ms_replay=t["new replay"],
+                ms_first_replay=t["first replay"], lanes=lib_const(pkg, "ds_path_lanes"),
+                work_list=length, registers=dict(
+                    replay=registers(pkg, "ds_path_registers", 0),
+                    sweep=registers(pkg, "ds_path_registers", 1),
+                    first=registers(lib, "ds_path_registers", 2)), **check)
+
+
+def path_timeline(lib, args, g) -> dict:
+    """The package's sweep timed entry by entry (``ds_path_variant``'s sweep
+    code 200, the card's global timer): when the entries end (quantiles of
+    the kernel's span), how long they take against the steps they
+    re-march, and the longest ones.  One launch (the frame's pixels fit
+    the scratch budget), so a list entry's item is its launch item."""
+    from ..render import diff
+
+    n_sub, n = g.shape[:2]
+    timeline = torch.zeros(4 * n_sub * n, dtype=torch.int64, device=g.device)
+    remarch = torch.zeros((n_sub, n), dtype=torch.int32, device=g.device)
+    lib.ds_path_timeline.argtypes = [ctypes.c_void_p]
+    lib.ds_path_timeline.restype = None
+    lib.ds_path_timeline(cuda_build.ptr(timeline))
+    counters = torch.zeros(4, dtype=torch.int64, device=g.device)
+    lib.ds_path_variant(1, lib_const(cuda_build.load("path_adjoint"), "ds_path_lanes"), -1, 200)
+    diff.launch_path_adjoint(*args, g, remarch=remarch, counters=counters, lib=lib)
+    counters = counters.cpu()
+    t = timeline.view(-1, 4)[:int(counters[1] + counters[3])].cpu()
+    start = t[:, 0] - t[:, 0].min()
+    end = t[:, 1] - t[:, 0].min()
+    dur = (end - start).double()
+    steps = remarch.view(-1).cpu()[t[:, 2] >> 32].double()
+    q = torch.tensor([0.5, 0.9, 0.99, 1.0], dtype=torch.float64)
+    longest = torch.argsort(dur, descending=True)[:8]
+    heavy = steps >= 256
+    return dict(
+        entries=int(t.shape[0]), span_us=float(end.max()) / 1e3,
+        end_us_at_quantiles=[round(float(v) / 1e3, 1) for v in torch.quantile(end.double(), q)],
+        duration_us_at_quantiles=[round(float(v) / 1e3, 2) for v in torch.quantile(dur, q)],
+        remarched_steps_at_quantiles=[float(v) for v in torch.quantile(steps, q)],
+        ns_per_step_long=(float(dur[heavy].sum() / steps[heavy].sum())
+                          if bool(heavy.any()) else None),
+        ns_per_sample_short=float(dur[steps < 64].mean()),
+        busy_us_total=float(dur.sum()) / 1e3,
+        longest=[dict(us=round(float(dur[k]) / 1e3, 1), steps=int(steps[k]),
+                      start_us=round(float(start[k]) / 1e3, 1)) for k in longest])
+
+
+def path_variants(dev) -> dict:
+    """K8c at the multi-scatter frame point in each design of
+    ``PATH_DESIGNS``, with the image mean's upstream and with a zero
+    upstream (the replay alone), beside the package's kernels and K4 on
+    the same samples, in turns by ``ahead_ms``; each design's registers and
+    its outputs against the package's."""
+    from ..render import diff
+
+    args, g = ms_frame_inputs(diff, dev)
+    zero = torch.zeros_like(g)
+    lib, pkg = path_lib(cuda_build.load("path_adjoint_variants")), cuda_build.load("path_adjoint")
+    counters = torch.zeros(4, dtype=torch.int64, device=dev)
+    ref = diff.launch_path_adjoint(*args, g, counters=counters)
+    rec = pathtracer.launch_samples(*args)
+    out: Dict[str, dict] = {"package": dict(
+        lanes=lib_const(pkg, "ds_path_lanes"),
+        work_list=int(counters[[1, 3]].sum()),
+        registers=dict(replay=registers(pkg, "ds_path_registers", 0),
+                       sweep=registers(pkg, "ds_path_registers", 1)))}
+    fns = {"package": lambda: diff.launch_path_adjoint(*args, g),
+           "package g=0": lambda: diff.launch_path_adjoint(*args, zero),
+           "K4": lambda: pathtracer.launch_samples(*args)}
+    for key, code in PATH_DESIGNS.items():
+        fns[key] = path_design(lib, args, g, code)
+        fns[f"{key} g=0"] = path_design(lib, args, zero, code)
+        row = path_check(fns[key](), ref, rec, args[4])
+        if code[3] > 100:  # the scatters aimed elsewhere: only the records compare
+            row["equal"] = row["bitwise"]
+        lib.ds_path_variant(*code)
+        row["registers"] = {k: registers(lib, "ds_path_registers", c)
+                            for k, c in (("replay", 0), ("sweep", 1), ("first", 2))}
+        out[key] = row
+    out["pathtrace_items_kernel registers"] = registers(cuda_build.load("pathtrace"),
+                                                        "ds_pathtrace_registers")
+    out["sweep timeline"] = path_timeline(lib, args, g)
+    for key, ms in in_turns(fns, 3, ahead_ms).items():
+        out.setdefault(key, {})["ms"] = ms
+    ok = True
+    for key, r in out.items():
+        print(f"path {key}: {json.dumps(r)}", flush=True)
+        if isinstance(r, dict):
+            ok = ok and r.get("equal", True)
+    out["ok"] = ok
+    return out
+
+
 def lib_const(lib, name: str) -> int:
     """An int a library's entry point ``name()`` returns."""
     fn = getattr(lib, name)
@@ -893,7 +1110,9 @@ def main(argv=None) -> int:
     only.add_argument("--collector-only", action="store_true",
                       help="time only K7a's and K7b's alternatives")
     only.add_argument("--diff-only", action="store_true",
-                      help="time only the diff kernels' alternatives")
+                      help="time only the diff kernels' alternatives (K8a, K8b, K8c)")
+    only.add_argument("--path-only", action="store_true",
+                      help="time only K8c's designs (the path adjoint)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("march_variants: needs a CUDA card", file=sys.stderr)
@@ -902,13 +1121,22 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     t0 = time.time()
     dev = torch.device("cuda")
+    if opts.path_only:
+        cuda_build.build(["inscatter", "diff", "pathtrace", "path_adjoint",
+                          "path_adjoint_variants"])
+        report = dict(card=card, path=path_variants(dev))
+        report["ok"] = report["path"]["ok"]
+        print(card, flush=True)
+        print(json.dumps(report), flush=True)
+        return 0 if report["ok"] else 1
     if opts.diff_only:
-        cuda_build.build(["inscatter", "diff", "diff_variants"])
+        cuda_build.build(["inscatter", "diff", "diff_variants", "pathtrace", "path_adjoint",
+                          "path_adjoint_variants"])
         regs = ptxas((cuda_build.BUILD_DIR / "diff_variants.log").read_text())
         print(f"build: {time.time() - t0:.1f}s ptxas={json.dumps(regs)}", flush=True)
         report = dict(card=card, diff=diff_variants(cuda_build.load("diff_variants"), dev),
-                      ptxas=regs)
-        report["ok"] = report["diff"]["ok"]
+                      path=path_variants(dev), ptxas=regs)
+        report["ok"] = report["diff"]["ok"] and report["path"]["ok"]
         print(card, flush=True)
         print(json.dumps(report), flush=True)
         return 0 if report["ok"] else 1

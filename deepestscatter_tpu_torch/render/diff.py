@@ -818,7 +818,8 @@ def path_records_plain(params: SceneParams, static: SceneStatic, entry, dirs, hi
 
 
 #: The scratch budget of one K8c launch: the pixels are split into launches
-#: whose flight records (n_samples x (max_depth + 1) a pixel) stay under it.
+#: whose flight records (n_samples x (max_depth + 1) a pixel) and work-list
+#: entries (n_samples a pixel) stay under it.
 PATH_SCRATCH_BYTES = 256 * 2**20
 
 _PATH_ARGTYPES = [
@@ -830,6 +831,7 @@ _PATH_ARGTYPES = [
     ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p,
 ]
 
 
@@ -848,14 +850,19 @@ class PathGrads(NamedTuple):
 def launch_path_adjoint(params: SceneParams, static: SceneStatic, entry, dirs, hit, ray_ids,
                         seed_base: int, sub_first: int, n_samples: int, g_rec: torch.Tensor,
                         scratch_bytes: int = PATH_SCRATCH_BYTES,
-                        remarch: Optional[torch.Tensor] = None, lib=None) -> PathGrads:
+                        remarch: Optional[torch.Tensor] = None,
+                        counters: Optional[torch.Tensor] = None, lib=None) -> PathGrads:
     """K8c (``ds_path_adjoint``): K4's samples (``launch_samples``' with the
     same arguments; float32 textures) replayed and differentiated for the
     upstream ``g_rec`` [n_samples, N, 3] of their records, in launches of
-    as many pixels as fit ``scratch_bytes`` of flight records.
+    as many pixels as fit ``scratch_bytes`` of flight records and work-list
+    entries; each launch runs the replay, then the sweep.
     ``remarch``: None, or an int32 [n_samples, N] the kernel fills with the
     steps each sample's adjoint re-marched (the flights that ended in an
-    in-box scatter)."""
+    in-box scatter).  ``counters``: None, or an int64 [4] the last launch
+    fills with its counters (the replay's queue head, the work list's front
+    length (the samples with the longest re-march), the sweep's queue head,
+    the list's back length)."""
     n, dev, dens, insc, hit8, ray_ids = pt_ops.check_launch(params, entry, dirs, hit, ray_ids,
                                                             n_samples)
     if dens.dtype != torch.float32:
@@ -867,16 +874,21 @@ def launch_path_adjoint(params: SceneParams, static: SceneStatic, entry, dirs, h
     if remarch is not None and (remarch.dtype != torch.int32
                                 or remarch.shape != (n_samples, n)):
         raise ValueError(f"remarch must be an int32 [{n_samples}, {n}] tensor")
+    if counters is None:
+        counters = torch.empty(4, dtype=torch.int64, device=dev)
+    elif counters.dtype != torch.int64 or counters.shape != (4,):
+        raise ValueError("counters must be an int64 [4] tensor")
+    check_on(dev, counters)
     lib = lib or cuda_build.load("path_adjoint")
-    lib.ds_path_segment_bytes.argtypes = []
-    lib.ds_path_segment_bytes.restype = ctypes.c_int
+    lib.ds_path_pixel_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ds_path_pixel_bytes.restype = ctypes.c_int64
     lib.ds_path_adjoint_blocks.argtypes = [ctypes.c_int64, ctypes.c_int]
     lib.ds_path_adjoint_blocks.restype = ctypes.c_int64
     fn = lib.ds_path_adjoint
     fn.argtypes = _PATH_ARGTYPES
     fn.restype = ctypes.c_int
     max_segments = static.max_depth + 1
-    per_pixel = n_samples * max_segments * lib.ds_path_segment_bytes()
+    per_pixel = lib.ds_path_pixel_bytes(n_samples, max_segments)
     m = max(1, min(n, scratch_bytes // per_pixel))
     scratch = torch.empty(m * per_pixel, dtype=torch.uint8, device=dev)
     rec_rad = torch.empty((n_samples, n, 3), dtype=torch.float32, device=dev)
@@ -891,8 +903,10 @@ def launch_path_adjoint(params: SceneParams, static: SceneStatic, entry, dirs, h
     ph = params.phase
     for r0 in range(0, n, m):
         mm = min(m, n - r0)
-        partials = torch.empty((lib.ds_path_adjoint_blocks(mm, n_samples), 6),
-                               dtype=torch.float64, device=dev)
+        rows = lib.ds_path_adjoint_blocks(mm, n_samples)
+        if rows < 0:
+            raise RuntimeError("path adjoint kernel: no launch configuration")
+        partials = torch.empty((rows, 6), dtype=torch.float64, device=dev)
         cuda_build.check(
             fn(cuda_build.ptr(dens), cuda_build.ptr(insc), nx, ny, nz,
                cuda_build.ptr(ph.eval_rows), ph.eval_rows.shape[0],
@@ -901,7 +915,8 @@ def launch_path_adjoint(params: SceneParams, static: SceneStatic, entry, dirs, h
                cuda_build.ptr(ray_ids), n, r0, mm, consts, ground, cap, static.max_depth,
                static.rr_start_depth, flags, int(seed_base) & 0xFFFFFFFF,
                int(sub_first) & 0xFFFFFFFF, int(n_samples), cuda_build.ptr(g_rec),
-               cuda_build.ptr(scratch), max_segments, cuda_build.ptr(rec_rad),
+               cuda_build.ptr(scratch), max_segments, cuda_build.ptr(counters),
+               cuda_build.ptr(rec_rad),
                cuda_build.ptr(rec_work), cuda_build.ptr(d_dens), cuda_build.ptr(d_insc),
                cuda_build.ptr(d_entry), cuda_build.ptr(d_dirs), cuda_build.ptr(remarch),
                cuda_build.ptr(partials), cuda_build.stream_handle()),

@@ -63,8 +63,14 @@ multiple-scatter and single-scatter mode and all-scatter with
 K8a) within 1e-5 of the plain render's on the card, the density gradient
 within 1e-5, the other leaves within 1e-4; K8c on the render's paths
 within 1e-5 (density) and 1e-4 of autograd of the plain paths, its replay
-bitwise equal to K4's records; the card against the CPU at the
-single-scatter tolerances; one launch of each kernel a call.
+bitwise equal to K4's records, its work list every hit sample that
+marched; K8c's two kernels (the replay on K4's queue, the sweep with G
+lanes a sample) against its first design (``csrc/path_adjoint_variants.cu``)
+at that point and at chip_smoke.py's multi-scatter frame point, the
+records bitwise and the gradients within those tolerances; the card
+against the CPU at the single-scatter tolerances, K8c's gradients too;
+one launch of each kernel a call, K8c's replay taking every item and its
+sweep every work-list entry.
 
 The render task (``tasks.render_cloud``, NN and BNN, from ``.pt``
 exports) on the card against the CPU: frames within rtol 1e-3 on >= 99.5 %
@@ -1215,13 +1221,19 @@ def test_ms_diff_kernels_match_plain(card, case):
         params.density_mips[0], params.inscatter, params.light_dir, params.light_radiance,
         rays.entry, rays.dirs)]
     p = diff._sample_params(inputs[0], inputs[1], params.phase)
+    counters = torch.zeros(4, dtype=torch.int64, device=card)
     got = diff.launch_path_adjoint(p, static, inputs[4], inputs[5], rays.hit, rays.ids,
-                                   MS_KW["seed"], 1, s, g)
+                                   MS_KW["seed"], 1, s, g, counters=counters)
     rec = pathtracer.launch_samples(p, static, inputs[4], inputs[5], rays.hit, rays.ids,
                                     MS_KW["seed"], 1, s)
     hit = rays.hit
     assert torch.equal(got.records.radiance[:, hit], rec.radiance[:, hit])
     assert torch.equal(got.records.work[:, hit], rec.work[:, hit])
+    # The sweep's work list: every hit sample that marched (g is nonzero on
+    # each), all taken by the sweep's groups.
+    head, front, taken, back = counters.tolist()
+    assert front + back == int((rec.work[:, hit, 0] > 0).sum()) > 0
+    assert taken >= front + back and head >= s * n
     leaves = [t.clone().requires_grad_(True) for t in inputs]
     pl = params._replace(density_mips=(leaves[0],), inscatter=leaves[1], light_dir=leaves[2],
                          light_radiance=leaves[3])
@@ -1236,17 +1248,95 @@ def test_ms_diff_kernels_match_plain(card, case):
 
 def test_ms_diff_card_matches_cpu(card):
     """The kernels on the card against the plain versions on the CPU, at
-    the single-scatter card-against-CPU tolerances (DIFF_TOL)."""
+    the single-scatter card-against-CPU tolerances (DIFF_TOL); K8c's two
+    kernels on the card against autograd of the plain paths on the CPU for
+    a random upstream, at the same tolerances (the density 1e-4, the other
+    inputs 1e-3 of their largest values)."""
+    from deepestscatter_tpu_torch.render import diff
+
     cfg = _ms_cfg("all_scatter")
     _ms_close(_ms_grads(_ms_scene(card), cfg, True), _ms_grads(_ms_scene("cpu"), cfg, False),
               DIFF_TOL)
+    scene = _ms_scene(card)
+    with torch.no_grad():
+        params, static = diff.diff_scene(cfg, scene, MS_KW["max_depth"])
+        rays = diff.path_rays(scene, cfg, MS_KW["width"], MS_KW["height"], params, static)
+    n, s = rays.hit.shape[0], MS_KW["n_subframes"]
+    g = torch.from_numpy(np.random.default_rng(6).random((s, n, 3)).astype(np.float32)).to(card)
+    g = torch.where(rays.hit[None, :, None], g, 0.0).contiguous()
+    inputs = [t.detach().clone().contiguous() for t in (
+        params.density_mips[0], params.inscatter, params.light_dir, params.light_radiance,
+        rays.entry, rays.dirs)]
+    got = diff.launch_path_adjoint(diff._sample_params(inputs[0], inputs[1], params.phase), static,
+                                   inputs[4], inputs[5], rays.hit, rays.ids, MS_KW["seed"], 1, s,
+                                   g)
+    leaves = [t.cpu().requires_grad_(True) for t in inputs]
+    pl = params_to(params, "cpu")._replace(density_mips=(leaves[0],), inscatter=leaves[1],
+                                           light_dir=leaves[2], light_radiance=leaves[3])
+    ref = diff.path_records_plain(pl, static, leaves[4], leaves[5], rays.hit.cpu(),
+                                  rays.ids.cpu(), MS_KW["seed"], s)
+    want = torch.autograd.grad(ref, leaves, g.cpu())
+    for name, w in zip(("density", "inscatter", "light_dir", "light_radiance", "entry", "dirs"),
+                       want):
+        assert float(w.abs().max()) > 0, name
+        assert _rel(getattr(got, name).cpu(), w) <= (1e-4 if name == "density" else 1e-3), name
 
 
-def test_ms_diff_wrappers_count_launches(card):
+@pytest.mark.parametrize("point", ["small", "frame"])
+def test_ms_diff_k8c_equals_its_first_design(card, point):
+    """K8c's two kernels (the replay on K4's queue, the sweep with G lanes a
+    sample) against its first design (a thread a (sample, pixel),
+    ``csrc/path_adjoint_variants.cu``) on the same inputs: the replayed
+    records bitwise equal (and equal to K4's where the pixels hit), the
+    density gradient within 1e-5 of its largest value, every other output
+    within 1e-4; at the small point for a random upstream, at the
+    multi-scatter frame point (chip_smoke.py's: 262,144 paths) for the
+    image mean's."""
+    from deepestscatter_tpu_torch.probes import march_variants as mv
     from deepestscatter_tpu_torch.render import diff
 
-    fns = (inscatter.sun_transmittance, pathtracer.scatter_loop, diff.launch_path_adjoint,
+    if point == "frame":
+        args, g = mv.ms_frame_inputs(diff, card)
+    else:
+        cfg, scene = _ms_cfg("sky_roulette"), _ms_scene(card)
+        with torch.no_grad():
+            params, static = diff.diff_scene(cfg, scene, MS_KW["max_depth"])
+            rays = diff.path_rays(scene, cfg, MS_KW["width"], MS_KW["height"], params, static)
+        n, s = rays.hit.shape[0], MS_KW["n_subframes"]
+        args = (diff._sample_params(params.density_mips[0].contiguous(),
+                                    params.inscatter.contiguous(), params.phase),
+                static, rays.entry.contiguous(), rays.dirs.contiguous(), rays.hit, rays.ids,
+                MS_KW["seed"], 1, s)
+        g = torch.from_numpy(np.random.default_rng(7).random((s, n, 3)).astype(np.float32))
+        g = torch.where(rays.hit[None, :, None], g.to(card), 0.0).contiguous()
+    lib = mv.path_lib(cuda_build.load("path_adjoint_variants"))
+    new = diff.launch_path_adjoint(*args, g)
+    first = mv.path_design(lib, args, g, mv.PATH_DESIGNS["first design (a thread an item)"])()
+    check = mv.path_check(first, new, pathtracer.launch_samples(*args), args[4])
+    assert check["bitwise"], check
+    assert check["equal"], check
+
+
+def test_ms_diff_wrappers_count_launches(card, monkeypatch):
+    from deepestscatter_tpu_torch.render import diff
+
+    # The main path's K8c keeps its counters here: the backward pass calls
+    # the module's launch_path_adjoint, whose launches count this wrapper.
+    k8c, counters = diff.launch_path_adjoint, torch.zeros(4, dtype=torch.int64, device=card)
+
+    def k8c_counted(*args, **kw):
+        return k8c(*args, counters=counters, **kw)
+
+    k8c_counted.launches = 0
+    monkeypatch.setattr(diff, "launch_path_adjoint", k8c_counted)
+    fns = (inscatter.sun_transmittance, pathtracer.scatter_loop, k8c_counted,
            diff.launch_bake_adjoint)
     before = [f.launches for f in fns]
     diff.multi_scatter_and_grads(_ms_scene(card), _ms_cfg("all_scatter"), device=card, **MS_KW)
     assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
+    # K8c's launch ran both kernels: the replay took every item, the sweep
+    # every work-list entry (the image mean's upstream reaches every hit
+    # sample).
+    head, front, taken, back = counters.tolist()
+    assert head >= MS_KW["n_subframes"] * MS_KW["width"] * MS_KW["height"]
+    assert 0 < front + back <= taken

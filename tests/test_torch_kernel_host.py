@@ -107,19 +107,30 @@ arithmetic the kernels share with their host build.
   steps inside a chunk, and the main path's 128); their adjoints (the
   thread's merged runs; ``group_deposit``'s runs) within 1e-5 of
   ``sun_march_adjoint``'s largest value of each output, bitwise at G = 1.
-- K8c (``adjoint_item``: the replay with K4's functions, then the sweep
-  over the flights) against autograd of the plain paths
-  (``diff.path_records_plain``) for a random upstream, at
-  ``test_diff_cross_validation.py``'s gradient point in all-scatter,
-  multiple-scatter and single-scatter mode and all-scatter with
-  ``sample_sky`` and roulette (``rr_start_depth`` 2, ``rr_survival`` 0.8):
-  the density within 1e-5 of its largest value, the in-scatter, light
-  direction and radiance, entries and directions within 1e-4, and on the
-  16 paths with the most steps d/d entry and d/d dirs within 1e-4 of each
-  path's largest; its replayed records equal K4's bitwise; launches split
-  under a scratch budget change nothing but float64 rounding; and the
-  render's autograd Functions over the host build (K3, K4, K8c, K8a)
-  match the plain render within 1e-6 (image), 1e-5 (density) and 1e-4.
+- K8c in each design: its kernels' (the replay over the items in order
+  and shuffled, each sample to its end with K4's ``march_steps`` and
+  ``resolve`` at ``kLookahead``, appending the work list, its front the
+  samples that may re-march the most; then the sweep over the list with
+  G = 1, 8 (the kernel's) and 32 lanes a sample, the lanes computed one
+  after the other: ``flight_head``, then each flight's re-march on chunks
+  of G steps (``remarch_lane``, the density scatters merged over runs of
+  lanes as ``group_deposit`` merges them, or each lane's added alone) or
+  on contiguous blocks of its steps (``remarch_block``), the slope sums in
+  the kernel's shuffle tree) and its first design (``adjoint_item``: a thread an item, the
+  replay at lookahead 1, then the sweep re-marching each flight) against
+  autograd of the plain paths (``diff.path_records_plain``) for a random
+  upstream, at ``test_diff_cross_validation.py``'s gradient point in
+  all-scatter, multiple-scatter and single-scatter mode and all-scatter
+  with ``sample_sky`` and roulette (``rr_start_depth`` 2, ``rr_survival``
+  0.8): the density within 1e-5 of its largest value, the in-scatter,
+  light direction and radiance, entries and directions within 1e-4, and
+  on the 16 paths with the most steps d/d entry and d/d dirs within 1e-4
+  of each path's largest; its replayed records equal K4's bitwise.  The
+  work list holds exactly the samples with a nonzero upstream and a
+  recorded flight, with their flights.  Launches split under a scratch
+  budget change nothing but float64 rounding; and the render's autograd
+  Functions over the host build (K3, K4, K8c, K8a) match the plain render
+  within 1e-6 (image), 1e-5 (density) and 1e-4.
 - All match the plain PyTorch versions within the tolerances of
   ``test_torch_cuda_kernels.py``: glibc's ``expf``/``logf``/``sinf``/
   ``cosf``/``acosf`` are not torch's, so step counts agree on >= 99 % of
@@ -184,6 +195,9 @@ def host_lib(tmp_path_factory):
     lib.host_set_radiance.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.host_set_diff.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.host_set_diff_forward.argtypes = [ctypes.c_int] * 4
+    lib.host_set_path.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    lib.host_path_list.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.host_path_list.restype = ctypes.c_int64
     return lib
 
 
@@ -1232,24 +1246,56 @@ def _ms_plain_grads(params, static, rays, inputs, g):
     return rec.detach(), torch.autograd.grad(rec, leaves, g)
 
 
-def _ms_k8c(host_lib, params, static, rays, inputs, g, **kw):
+@pytest.fixture(scope="module")
+def ms_plain(ms_rig):
+    """Autograd of the plain paths at the rig's upstream: (records,
+    gradients of the six inputs)."""
+    _, _, params, static, rays, g = ms_rig
+    return _ms_plain_grads(params, static, rays, _ms_inputs(params, rays), g)
+
+
+def _ms_k8c(host_lib, params, static, rays, inputs, g, design=(-1, 0, None, -1), **kw):
+    """K8c's host build in ``design`` (``host_set_path``'s arguments: the
+    first design, or the kernels' with G lanes, an item order and the work
+    list's front threshold)."""
+    host_lib.host_set_path(*design)
     p = diff._sample_params(inputs[0], inputs[1], params.phase)
     return diff.launch_path_adjoint(p, static, inputs[4], inputs[5], rays.hit, rays.ids,
                                     MS_KW["seed"], 1, MS_KW["n_subframes"], g, lib=host_lib, **kw)
 
 
-def test_k8c_equals_autograd_of_the_plain_paths(host_lib, ms_rig):
-    """K8c's host build against autograd of the plain paths for a random
-    upstream: the density within 1e-5 of its largest value, the in-scatter,
-    light_dir, light_radiance, entries and directions within 1e-4; each
-    reference nonzero; the re-marched steps at most the sample's steps.  Its replay equals K4's records bitwise; on the 16
-    paths with the most steps d/d entry and d/d dirs within 1e-4 of each
-    path's largest."""
+#: K8c's designs in the host build (``host_set_path``'s design, lanes, a
+#: shuffled item order, the work list's front threshold): its first design
+#: (a thread an item); the kernels' replay and sweep at G = 1, 8 (the
+#: kernel's) and 32 lanes a sample, in item order and with the replay's
+#: items in a shuffled order; and with every sample at the work list's
+#: front.
+K8C_DESIGNS = {"first design": (0, 0, False, -1),
+               **{f"chunks G={g}": (1, g, False, -1) for g in (1, 8, 32)},
+               "shuffled": (-1, 0, True, -1),
+               **{f"shuffled G={g}": (1, g, True, -1) for g in (1, 32)},
+               "one list": (-1, 0, False, 0)}
+
+
+@pytest.mark.parametrize("design", list(K8C_DESIGNS))
+def test_k8c_equals_autograd_of_the_plain_paths(host_lib, ms_rig, ms_plain, design):
+    """K8c's host build in each design against autograd of the plain paths
+    for a random upstream: the density within 1e-5 of its largest value,
+    the in-scatter, light_dir, light_radiance, entries and directions within
+    1e-4; each reference nonzero; the re-marched steps at most the sample's
+    steps.  Its replay equals K4's records bitwise; on the 16 paths with
+    the most steps d/d entry and d/d dirs within 1e-4 of each path's
+    largest."""
     _, _, params, static, rays, g = ms_rig
+    kind, lanes, shuffled, long_steps = K8C_DESIGNS[design]
+    order = (np.random.default_rng(3).permutation(g.shape[0] * g.shape[1]).astype(np.int64)
+             if shuffled else None)
     inputs = _ms_inputs(params, rays)
     remarch = torch.full(g.shape[:2], -1, dtype=torch.int32)
-    got = _ms_k8c(host_lib, params, static, rays, inputs, g, remarch=remarch)
-    rec_ref, want = _ms_plain_grads(params, static, rays, inputs, g)
+    got = _ms_k8c(host_lib, params, static, rays, inputs, g, remarch=remarch,
+                  design=(kind, lanes, None if order is None else order.ctypes.data, long_steps))
+    host_lib.host_set_path(-1, 0, None, -1)
+    rec_ref, want = ms_plain
     # The re-marched steps: the flights that ended in an in-box scatter.
     assert bool((remarch >= 0).all()) and bool((remarch <= got.records.work[..., 0]).all())
     assert int(remarch.sum()) > 0
@@ -1274,6 +1320,46 @@ def test_k8c_equals_autograd_of_the_plain_paths(host_lib, ms_rig):
         assert float(per.max()) <= 1e-4, name
 
 
+@pytest.mark.parametrize("long_steps", [8, 0, 1 << 30])
+def test_k8c_work_list_holds_the_samples_with_an_upstream(host_lib, ms_rig, long_steps):
+    """The replay's work list holds each sample with a nonzero upstream and
+    a recorded flight (a box hit and steps marched) exactly once, for an
+    upstream zero on a third of the samples and on single channels of
+    others, with its flights: its in-box scatters, or one more (the last
+    flight's cut, exit or escape).  The samples off the list re-march
+    nothing.  With the samples that re-march 8 steps or more at its front,
+    the front and the back are both filled; with 0 every sample is at the
+    front, with 2^30 none."""
+    _, _, params, static, rays, g = ms_rig
+    rng = np.random.default_rng(8)
+    g = g * torch.from_numpy(rng.random(g.shape[:2]) >= 1 / 3)[..., None]
+    g[torch.from_numpy(rng.random(g.shape[:2]) < 0.2)] *= torch.tensor([0.0, 1.0, 0.0])
+    inputs = _ms_inputs(params, rays)
+    remarch = torch.full(g.shape[:2], -1, dtype=torch.int32)
+    counters = torch.zeros(4, dtype=torch.int64)
+    got = _ms_k8c(host_lib, params, static, rays, inputs, g, remarch=remarch,
+                  counters=counters, design=(-1, 0, None, long_steps))
+    n_sub, n = g.shape[:2]
+    entries = np.zeros(n_sub * n, np.int64)
+    length = host_lib.host_path_list(entries.ctypes.data, entries.shape[0])
+    front = int(counters[1])
+    assert length == front + int(counters[3])
+    assert {8: 0 < front < length, 0: front == length, 1 << 30: front == 0}[long_steps]
+    entries = torch.from_numpy(entries[:length])
+    i, flights = entries >> 32, entries & 0xFFFFFFFF
+    assert torch.unique(i).shape[0] == length
+    # Launch item i is sample i // n of pixel i % n (one launch: r0 = 0, m = n).
+    listed = torch.zeros(n_sub * n, dtype=torch.bool)
+    listed[i] = True
+    listed = listed.view(n_sub, n)
+    want = (g != 0).any(dim=2) & rays.hit[None, :] & (got.records.work[..., 0] > 0)
+    assert torch.equal(listed, want) and 0 < length < int(rays.hit.sum()) * n_sub
+    bounces = got.records.work[..., 1].reshape(-1)[i].to(torch.int64)
+    assert bool((flights >= bounces).all()) and bool((flights <= bounces + 1).all())
+    assert int(remarch[listed].sum()) > 0 and not bool(remarch[~listed].any())
+    host_lib.host_set_path(-1, 0, None, -1)
+
+
 def test_k8c_launches_split_under_a_scratch_budget(host_lib, ms_rig):
     """Launches of a few pixels each (a scratch budget of 7 pixels) give
     the single launch's per-sample outputs bitwise and its sums within
@@ -1282,7 +1368,7 @@ def test_k8c_launches_split_under_a_scratch_budget(host_lib, ms_rig):
     inputs = _ms_inputs(params, rays)
     whole = _ms_k8c(host_lib, params, static, rays, inputs, g)
     before = diff.launch_path_adjoint.launches
-    per_pixel = MS_KW["n_subframes"] * (static.max_depth + 1) * host_lib.ds_path_segment_bytes()
+    per_pixel = host_lib.ds_path_pixel_bytes(MS_KW["n_subframes"], static.max_depth + 1)
     split = _ms_k8c(host_lib, params, static, rays, inputs, g, scratch_bytes=7 * per_pixel)
     assert diff.launch_path_adjoint.launches - before == -(-rays.hit.shape[0] // 7)
     for a, b in ((split.entry, whole.entry), (split.dirs, whole.dirs),

@@ -13,13 +13,14 @@
 // It exports ds_pathtrace, ds_radiance, ds_bake, ds_march, ds_descriptor,
 // ds_probes, ds_samples, ds_assemble_disney, ds_assemble_baked,
 // ds_bake_adjoint(_blocks), ds_diff_march, ds_diff_march_bwd, ds_sun_march,
-// ds_sun_march_bwd and ds_path_adjoint(_blocks, ds_path_segment_bytes) with
+// ds_sun_march_bwd and ds_path_adjoint(_blocks, ds_path_pixel_bytes) with
 // the signatures of the device entry points (the atomics of K8a, K8b and
 // K8c as plain adds; K8c's light gradients summed in partial row 0),
 // so the wrappers' _launch drives it on CPU tensors; host_set_pathtrace,
 // host_set_radiance, host_set_bake, host_set_march, host_set_descriptor,
-// host_set_probes, host_set_samples, host_set_diff and
-// host_set_diff_forward choose what they compute.
+// host_set_probes, host_set_samples, host_set_diff,
+// host_set_diff_forward and host_set_path choose what they compute
+// (host_path_list returns K8c's last work list).
 #include <math.h>
 #include <stdint.h>
 
@@ -34,6 +35,7 @@
 #include "assemble.cu"
 #include "diff.cu"
 #include "path_adjoint.cu"
+#include "path_adjoint_first.cuh"
 
 namespace {
 
@@ -72,6 +74,17 @@ int fwd_mode = 1;
 int fwd_lanes = ds::diff::kDiffLanes;  // 1, 8 or 32
 int sun_mode = 2;
 int sun_lanes = 8;  // 1, 8 or 32
+// K8c: 0 adjoint_item an item (its first design); 1 the replay over the
+// items in path_order (NULL: in order), each sample to its end, appending
+// the work list (path_list: its front the samples that re-march at least
+// path_long_steps steps, the kernel's kLongSteps), then the sweep over the
+// list with path_lanes lanes a sample.
+int path_design = 1;
+int path_lanes = ds::path::kSweepLanes;  // 1, 8 or 32
+const int64_t* path_order = nullptr;
+int path_long_steps = ds::path::kLongSteps;
+std::vector<int64_t> path_list;  // the last launch's: its front, then its back
+int64_t front_length = 0;
 
 template <int K, typename T>
 void trace_items(const T* dens, const T* insc, int nx, int ny, int nz,
@@ -393,9 +406,10 @@ int samples(const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
 // group_deposit over arrays of G lanes: runs of equal keys numbered by
 // their first lanes, the segmented scan level by level (the same additions
 // in the same tree order), the last lane of each run adding its sums to
-// the texels idx_of(lane) (a negative key adds nothing).
-template <int G, class I>
-void host_deposit(const int* key, float (*v)[8], I idx_of, float* grid) {
+// the texels idx_of(lane) of a float32 or float64 grid (a negative key
+// adds nothing).
+template <int G, class I, typename T>
+void host_deposit(const int* key, float (*v)[8], I idx_of, T* grid) {
   const ds::diff::AddTo add;
   int run[G];
   bool head[G];
@@ -648,6 +662,65 @@ float march_bwd_chunks(const float* dens, const float* baked, const ds::diff::Ma
     dts_out[a] = dts[0][a];
   }
   return dP * g;
+}
+
+// K8c's sweep of work-list entry e with G lanes, the lanes computed one
+// after the other into arrays: on a flight's chunks of G steps
+// (remarch_lane, the density scatters summed over runs of lanes in one cell
+// as group_deposit sums them); the slope sums in the kernel's shuffle tree;
+// the flights' scalar part (flight_head) once, with NEE's eight texels (the
+// card's lanes add them between them).  The light gradients are added to
+// sums.
+template <int G>
+void sweep_lanes(const ds::path::PathArgs& a, int64_t e, double* sums) {
+  const ds::diff::AddTo add;
+  const int64_t i = e >> 32;
+  const int flights = (int)(e & 0xffffffff);
+  const ds::path::SweepItem it = ds::path::sweep_item(a, i);
+  const ds::path::Segment* seg = a.seg + i * (int64_t)a.max_segments;
+  float xb[3] = {0.0f, 0.0f, 0.0f}, wb[3] = {0.0f, 0.0f, 0.0f};
+  ds::path::LightGrads L = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+  int remarched = 0;
+  for (int d = flights - 1; d >= 0; --d) {
+    const ds::path::Segment& g = seg[d];
+    float c0, cK;
+    if (!ds::path::flight_head(a, g, g.s, it, xb, wb, c0, cK, L, 0, 1, add)) continue;
+    remarched += g.steps;
+    double sx[G][3] = {}, sw[G][3] = {};
+    float q[3] = {g.x[0], g.x[1], g.x[2]};
+    for (int j0 = 0; j0 < g.steps; j0 += G) {
+      float p[G][3], v[G][8];
+      int idx[G][8], key[G];
+      for (int l = 0; l < G; ++l) {
+        const bool on = ds::path::remarch_lane<G>(a.dens, a.gr, a.c, g.w, g.steps, q, j0, l, c0,
+                                                  cK, p[l], idx[l], v[l], sx[l], sw[l]);
+        key[l] = on ? idx[l][0] : -1 - l;
+      }
+      host_deposit<G>(key, v, [&](int l) { return idx[l]; }, a.d_dens);
+      for (int t = 0; t < 3; ++t) q[t] = p[G - 1][t];
+    }
+    for (int o = G / 2; o > 0; o >>= 1) {
+      for (int l = 0; l < o; ++l) {
+        for (int t = 0; t < 3; ++t) {
+          sx[l][t] += sx[l + o][t];
+          sw[l][t] += sw[l + o][t];
+        }
+      }
+    }
+    for (int t = 0; t < 3; ++t) {
+      xb[t] += (float)sx[0][t];
+      wb[t] += (float)sw[0][t];
+    }
+  }
+  float de[3], dd[3];
+  ds::path::sweep_tail(a, it, xb, wb, de, dd);
+  for (int t = 0; t < 3; ++t) {
+    a.d_entry[3 * it.item + t] = de[t];
+    a.d_dirs[3 * it.item + t] = dd[t];
+    sums[t] += (double)L.dir[t];
+    sums[3 + t] += (double)L.rad[t];
+  }
+  if (a.remarch != nullptr) a.remarch[it.item] = remarched;
 }
 
 }  // namespace
@@ -1097,13 +1170,14 @@ int ds_sun_march_bwd(const float* dens, const float* to_sun, int nx, int ny, int
   return 0;
 }
 
-// K8c: adjoint_item over the items in order, its light gradients summed in
-// float64 into partial row 0 (the other rows zero).
-int ds_path_segment_bytes() { return (int)sizeof(ds::path::Segment); }
-
-int64_t ds_path_adjoint_blocks(int64_t m, int n_samples) {
-  return ds::path::adjoint_blocks(m * (int64_t)n_samples);
+// K8c (path_design and path_lanes as host_set_path chose): its light
+// gradients summed in float64 into partial row 0 (its only row); counters:
+// the items, the work list's front length, 0, its back length.
+int64_t ds_path_pixel_bytes(int n_samples, int max_segments) {
+  return ds::path::pixel_bytes(n_samples, max_segments);
 }
+
+int64_t ds_path_adjoint_blocks(int64_t /*m*/, int /*n_samples*/) { return 1; }
 
 int ds_path_adjoint(const float* dens, const float* insc, int nx, int ny, int nz,
                     const float* eval_rows, int n_phase, const float* inv_rows, int n_inv,
@@ -1112,31 +1186,84 @@ int ds_path_adjoint(const float* dens, const float* insc, int nx, int ny, int nz
                     const float* consts, const float* ground, int max_steps, int max_depth,
                     int rr_start, int flags, uint32_t seed_base, uint32_t sub_first,
                     int n_samples, const float* g_rec, void* scratch, int max_segments,
-                    float* rec_rad, int32_t* rec_work, double* d_dens, double* d_insc,
-                    float* d_entry, float* d_dirs, int32_t* remarch, double* partials,
-                    void* /*stream*/) {
-  const int64_t n_items = m * (int64_t)n_samples;
-  if (max_segments < 1 || r0 < 0 || r0 + m > n) return -1;
-  const ds::PtConsts c =
-      ds::pt_consts(consts, ground, max_steps, max_depth, rr_start, n_phase, n_inv, flags);
-  const ds::diff::Grid3 gr = ds::diff::grid3(nx, ny, nz, c.bbox);
+                    unsigned long long* counters, float* rec_rad, int32_t* rec_work,
+                    double* d_dens, double* d_insc, float* d_entry, float* d_dirs,
+                    int32_t* remarch, double* partials, void* /*stream*/) {
+  ds::path::PathArgs a;
+  if (!ds::path::path_args(&a, dens, insc, nx, ny, nz, eval_rows, n_phase, inv_rows, n_inv,
+                           entry, dirs, hit, ray_ids, n, r0, m, consts, ground, max_steps,
+                           max_depth, rr_start, flags, seed_base, sub_first, n_samples, g_rec,
+                           scratch, max_segments, counters, rec_rad, rec_work, d_dens, d_insc,
+                           d_entry, d_dirs, remarch, partials)) {
+    return -1;
+  }
   double sums[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int64_t i = 0; i < n_items; ++i) {
-    ds::path::LightGrads L = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
-    ds::path::adjoint_item(i, n, r0, m, dens, insc, nx, ny, nz, gr, eval_rows, inv_rows, entry,
-                           dirs, hit, ray_ids, c, seed_base, sub_first, g_rec,
-                           (ds::path::Segment*)scratch, max_segments, rec_rad, rec_work, d_dens,
-                           d_insc, d_entry, d_dirs, remarch, L, ds::diff::AddTo());
-    for (int a = 0; a < 3; ++a) {
-      sums[a] += L.dir[a];
-      sums[3 + a] += L.rad[a];
+  path_list.clear();
+  front_length = 0;
+  if (path_design == 0) {
+    for (int64_t i = 0; i < a.n_items; ++i) {
+      ds::path::LightGrads L = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+      ds::path::adjoint_item(a, i, L, ds::diff::AddTo());
+      for (int t = 0; t < 3; ++t) {
+        sums[t] += L.dir[t];
+        sums[3 + t] += L.rad[t];
+      }
+    }
+  } else {
+    std::vector<int64_t> back;
+    for (int64_t t = 0; t < a.n_items; ++t) {
+      const int64_t i = path_order ? path_order[t] : t;
+      ds::Sample S;
+      int64_t item;
+      if (!ds::path::replay_begin(a, i, S, item)) continue;
+      int flights = 0, steps0 = 0, rsteps = 0;
+      while (!ds::path::replay_chunk<ds::kLookahead>(a, i, S, flights, steps0, rsteps)) {
+      }
+      if (ds::path::replay_end(a, S, item)) {
+        (rsteps >= path_long_steps ? path_list : back).push_back(ds::path::list_entry(i, flights));
+      }
+    }
+    front_length = (int64_t)path_list.size();
+    path_list.insert(path_list.end(), back.begin(), back.end());
+    for (const int64_t e : path_list) {
+      if (path_lanes == 1) {
+        sweep_lanes<1>(a, e, sums);
+      } else if (path_lanes == 8) {
+        sweep_lanes<8>(a, e, sums);
+      } else if (path_lanes == 32) {
+        sweep_lanes<32>(a, e, sums);
+      } else {
+        return -1;
+      }
     }
   }
-  const int64_t rows = ds::path::adjoint_blocks(n_items);
-  for (int64_t b = 0; b < rows; ++b) {
-    for (int a = 0; a < 6; ++a) partials[6 * b + a] = b == 0 ? sums[a] : 0.0;
-  }
+  counters[0] = (unsigned long long)a.n_items;
+  counters[1] = (unsigned long long)front_length;
+  counters[2] = 0;
+  counters[3] = (unsigned long long)(path_list.size() - front_length);
+  for (int t = 0; t < 6; ++t) partials[t] = sums[t];
   return 0;
+}
+
+// K8c: design 0 adjoint_item an item (its first design), 1 (or -1) the
+// replay and the sweep with `lanes` lanes a sample (1, 8 or 32; 0 for the
+// kernel's kSweepLanes), the replay's items in `order` (NULL: in item
+// order), the list's front taking the samples that re-march at least
+// `long_steps` steps (-1 for the kernel's kLongSteps).
+void host_set_path(int design, int lanes, const int64_t* order, int long_steps) {
+  path_design = design == 0 ? 0 : 1;
+  path_lanes = lanes > 0 ? lanes : ds::path::kSweepLanes;
+  path_order = order;
+  path_long_steps = long_steps >= 0 ? long_steps : ds::path::kLongSteps;
+}
+
+// The last design-1 launch's work list in the sweep's order, its front then
+// its back (up to cap entries into out, item i << 32 | flights); returns
+// its length.
+int64_t host_path_list(int64_t* out, int64_t cap) {
+  const int64_t len = (int64_t)path_list.size();
+  for (int64_t t = 0; t < len && t < cap; ++t) out[t] = path_list[t];
+  return len;
 }
 
 }  // extern "C"
