@@ -260,6 +260,36 @@ Phases, one output line each:
     at the frame point; its plain_ms the plain paths' forward + backward on
     the 2,048 deepest paths (the full frame's plain paths take minutes).
 
+18. ``parallel``: multi-device rendering and training (``parallel``,
+    ``train.trainer``'s data axis), counted (K3, K4, K9 and K10 must
+    launch).  World 1 over NCCL in this process at the PT cell (the 256^3
+    cumulus of seed 11, 2000 m, 512^2, all-scatter, ``max_depth`` 2000,
+    uint8): ``ShardedProgressiveRenderer.tick()`` against
+    ``ProgressiveRenderer.tick()``, bitwise at 1 subframe a tick and
+    within tests/test_parallel.py:51-56's tolerances at 2 (the largest
+    difference printed); ``make_spatial_subframe`` (K9, one slab) against
+    ``render_subframe`` (K4) for the same seed, subframe and ids, bitwise
+    on every pixel whose K4 sample stayed under its step cap (the pixels
+    left out are counted; the two bounds differ there); K9 against
+    ``spatial_phase_plain`` phase by phase on the 2,048 pixels with the
+    most K4 steps (decisions equal, values within 1e-5 of each column's
+    largest); the sharded bake (K3 over a plane range) against ``bake``,
+    bitwise; a data-parallel training chunk (10 steps at batch 1,024
+    through K10, seeded tables) equal to the undistributed chunk, bitwise.
+    Times with the card's line (CUDA events): K9's ms for the subframe
+    (its phases' launches replayed back to back on the recorded inputs)
+    beside K4's, the phases, the merges' ms and the subframe's host ms, a
+    2-subframe tick sharded and unsharded; the subframe's profile.  Then gloo worlds of 2 and 4 ranks sharing the card
+    (``parallel.launch``) on the 64^3 cumulus at 128 x 64: the spatial
+    subframe on 2 and 4 slabs and a 2 x 2 data x space mesh bitwise equal
+    to world 1's, ``exchange_halos`` equal to ``HaloSlabGrid.scatter``,
+    the sharded bake and the ticks at 1 and 2 subframes bitwise, and (world
+    2) a training chunk within tests/test_torch_train_parity.py's
+    tolerances of world 1's; each world prints its ranks' backend and
+    device.  K9's row: its time for the subframe, its plain
+    version's ms on the 2,048 pixels, its bound from the steps K9 marched
+    and K4's in-box scatters of the same samples.
+
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
 check exits 1 before the last line; without a CUDA device the run exits 1
@@ -3178,6 +3208,267 @@ def phase_ms_diff(config, pt, ins_ops, dev) -> list:
     return [dict(row, launches=launches["K8c"])]
 
 
+#: The parallel phase: the operating point of PERF.md's PT cell at world 1;
+#: the gloo worlds 2 and 4 (ranks sharing the card) on the 64^3 cumulus of
+#: seed 11 at 128 x 64 pixels (PAR_SMALL); the training chunk's tables.
+PAR_SMALL = (64, 128, 64)
+PAR_CHECK_PIXELS = 2048
+PAR_TRAIN = dict(n_rows=8192, batch=1024, steps=10)
+PAR_TRAIN_SMALL = dict(n_rows=4096, batch=1024, steps=3)
+#: The sharded tick at 2 subframes a tick against the unsharded one: the
+#: JAX package's tolerances (tests/test_parallel.py:51-56).
+PAR_TICK_TOL = {"mean": (1e-5, 1e-6), "m2": (1e-4, 1e-5)}
+
+
+def records_close(out, ref, sr) -> float:
+    """K9's records against the plain version's on the same inputs: depth,
+    alive, touched and steps equal on every ray, the rest within 1e-5 of
+    each column's largest value (at least 1) → the largest absolute
+    difference of the radiance columns."""
+    require(torch.equal(out[:, sr.DEPTH:], ref[:, sr.DEPTH:]),
+            "K9 and its plain version took different decisions")
+    scale = ref.abs().amax(dim=0).clamp(min=1.0)
+    require(((out - ref).abs() / scale).max().item() <= 1e-5, "K9 disagrees with its plain version")
+    return (out[:, sr.RAD:sr.RAD + 3] - ref[:, sr.RAD:sr.RAD + 3]).abs().max().item()
+
+
+def k9_against_plain(sr, pt, params, static, entry, d, hit, ids, k4_steps):
+    """K9 against ``spatial_phase_plain`` phase by phase on the
+    PAR_CHECK_PIXELS pixels with the most K4 steps (one slab) → (max abs
+    err, the plain version's ms over the subframe, phases)."""
+    deep = torch.argsort(k4_steps, descending=True)[:PAR_CHECK_PIXELS]
+    st = sr.phase_static(static)
+    sc = sr.slab_scene(params, 0, 1, device=entry.device)
+    spp = sr.default_steps_per_phase(static, static.grid_shape[0])
+    seed = pt.rng_ops.subframe_seed(PT_SEED, 1)
+    dids = ids[deep].contiguous()
+    out = dict(err=0.0, plain_ms=0.0)
+
+    def phase(rec):
+        k = sr.spatial_phase(sc, st, seed, dids, spp, rec)
+        ref, ms = host_call(lambda: sr.spatial_phase_plain(sc, st, seed, dids, spp, rec))
+        out["plain_ms"] += ms
+        out["err"] = max(out["err"], records_close(k, ref, sr))
+        return sr.merge_slabs([k])
+
+    rec0 = sr.begin_records(entry[deep], d[deep], hit[deep], params.bbox_size)
+    _, phases, _ = sr.run_phases(rec0, phase, spp, static.max_total_steps)
+    return out["err"], out["plain_ms"], phases
+
+
+def k9_times(sr, scene_sl, static, seed, ids, entry, d, hit, group):
+    """K9's and the merges' ms for one subframe by CUDA events: the
+    subframe's phase inputs kept, then its K9 launches and its merges
+    replayed back to back (each launch ~1 ms, far longer than its host
+    time) → (K9 ms, merges' ms, phases)."""
+    st = sr.phase_static(static)
+    spp = sr.default_steps_per_phase(static, static.grid_shape[0])
+    recs, outs = [], []
+
+    def phase(rec):
+        recs.append(rec)
+        outs.append(sr.spatial_phase(scene_sl, st, seed, ids, spp, rec))
+        return sr.owner_merge(outs[-1], group)
+
+    sr.run_phases(sr.begin_records(entry, d, hit, scene_sl.bbox_size), phase, spp,
+                  static.max_total_steps)
+    k9 = time_ms(lambda: [sr.spatial_phase(scene_sl, st, seed, ids, spp, r) for r in recs], 3)
+    merge = time_ms(lambda: [sr.owner_merge(o, group) for o in outs], 3)
+    return k9, merge, len(recs)
+
+
+def par_calls(config, world: int, small_cfg, dens, grid):
+    """The jobs each rank of a gloo world runs (parallel.jobs.several)."""
+    tick = [("tick", dict(cfg=dataclasses.replace(small_cfg, progressive=config.ProgressiveConfig(
+        subframes_per_tick=s)), density=dens, seed=PT_SEED)) for s in (1, PT_SUBFRAMES)]
+    shapes = [(1, world)] + ([(2, 2)] if world == 4 else [])
+    calls = [("spatial", dict(cfg=small_cfg, density=dens, seed=PT_SEED, subframe=1,
+                              mesh_shape=sh)) for sh in shapes]
+    calls += [("halos", dict(grid=grid)), ("sharded_bake", dict(cfg=small_cfg, density=dens))]
+    calls += tick
+    if world == 2:
+        calls.append(("train_chunk", PAR_TRAIN_SMALL))
+    return calls, shapes
+
+
+def phase_parallel(port, config, procedural, pt, ins_ops, dev) -> list:
+    """Multi-device rendering and training (E2): world 1 over NCCL at the
+    PT cell, counted (K3, K4, K9 and K10 must launch); then gloo worlds 2
+    and 4 sharing the card at PAR_SMALL.  Returns K9's kernel row."""
+    import torch.distributed as dist
+
+    from deepestscatter_tpu_torch.parallel import jobs, launch, make_mesh
+    from deepestscatter_tpu_torch.parallel import spatial
+    from deepestscatter_tpu_torch.parallel import spatial_render as sr
+    from deepestscatter_tpu_torch.parallel.render import ShardedProgressiveRenderer
+    from deepestscatter_tpu_torch.render import camera as cam
+    from deepestscatter_tpu_torch.train import device_data as dd
+
+    t_phase = time.time()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{launch.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        # -- the main path at world 1, counted -------------------------------------
+        launchers = {"K3": ins_ops.sun_transmittance, "K4": pt.scatter_loop,
+                     "K9": sr.spatial_phase, "K10": dd.assemble_disney}
+        for f in launchers.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cfg, params, static = pt_scene(port, config, procedural, 256, dev)
+        mesh = make_mesh(device_type="cuda")
+        mesh_ds = make_mesh((1, 1), ("data", "space"), device_type="cuda")
+        cfg1 = dataclasses.replace(cfg, progressive=config.ProgressiveConfig(subframes_per_tick=1))
+        ticks = {s: ShardedProgressiveRenderer(c, params, static, mesh, seed=PT_SEED, device=dev)
+                 for s, c in ((1, cfg1), (PT_SUBFRAMES, cfg))}
+        for r in ticks.values():
+            r.tick()
+        scene_sl = sr.shard_scene(mesh_ds, params, device=dev)
+        fn = sr.make_spatial_subframe(mesh_ds, static)
+        o, d = cam.generate_rays(cam.camera_basis(cfg.camera), PT_SIZE, PT_SIZE, dev)
+        ids = torch.arange(o.shape[0], device=dev)
+        spatial_out = fn(scene_sl, o, d, PT_SEED, 1, ids)
+        phases, k9_steps = fn.last_phases, fn.last_steps
+        baked_sharded = spatial.sharded_inscatter_bake(mesh, params, static, device=dev)
+        train_dp = jobs.train_chunk(**PAR_TRAIN, device=dev)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in launchers.items()}
+        print(f"parallel: main path at world 1 over {dist.get_backend()} on "
+              f"{torch.cuda.get_device_name(0)} ({time.time() - t0:.2f}s: PT cell build and "
+              f"bake, sharded ticks at 1 and {PT_SUBFRAMES} subframes, a spatial subframe of "
+              f"{phases} phases, the sharded bake, a data-parallel chunk) "
+              f"launches={json.dumps(launches)}", flush=True)
+        require(all(n > 0 for n in launches.values()),
+                f"a kernel of the multi-device path never launched: {launches}")
+
+        # -- against the one-device paths --------------------------------------------
+        for s, c in ((1, cfg1), (PT_SUBFRAMES, cfg)):
+            one = port.ProgressiveRenderer(c, params, static, seed=PT_SEED, device=dev)
+            one.tick()
+            st = ticks[s].state
+            diffs = {f: (getattr(st, f) - getattr(one.state, f)).abs().max().item()
+                     for f in ("mean", "m2", "count")}
+            same = all(torch.equal(getattr(st, f), getattr(one.state, f))
+                       for f in ("mean", "m2", "count"))
+            print(f"parallel tick at {s} subframe(s), world 1 against ProgressiveRenderer: "
+                  f"bitwise={same} max_diff={json.dumps(diffs)}", flush=True)
+            if s == 1:
+                require(same, "the single-subframe sharded tick is not bitwise the unsharded")
+            for f, (rtol, atol) in PAR_TICK_TOL.items():
+                require(torch.allclose(getattr(st, f), getattr(one.state, f), rtol=rtol,
+                                       atol=atol), f"the sharded tick's {f} is off")
+        hit, t_hit = cam.intersect_box(o, d, static, params.bbox_size)
+        entry = cam.entry_points(o, d, t_hit, params.bbox_size)
+        seed = pt.rng_ops.subframe_seed(PT_SEED, 1)
+        k4 = pt.scatter_loop(params, static, entry, d, hit, ids, seed, 0, 1)
+        ref_sub = pt.render_subframe(params, static, o, d, PT_SEED, 1, ids, device=dev)
+        capped = hit & (k4.steps >= static.max_total_steps)
+        ok = ~capped
+        same = torch.equal(spatial_out[ok], ref_sub[ok])
+        print(f"parallel spatial subframe (K9, world 1, {PT_SIZE}^2) against render_subframe "
+              f"(K4): bitwise={same} on {int(ok.sum())} pixels; {int(capped.sum())} pixels "
+              f"whose K4 sample reached its step cap left out; max_diff="
+              f"{(spatial_out - ref_sub).abs().max().item():.3g} phases={phases} "
+              f"steps={k9_steps} (K4 {int(k4.steps.sum())})", flush=True)
+        require(same, "the spatial subframe is not bitwise K4's")
+        whole = port.bake(params, static, device=dev)
+        require(torch.equal(baked_sharded, whole), "the sharded bake is not bitwise the bake")
+        train_one = jobs.train_chunk(**PAR_TRAIN, distributed=False, device=dev)
+        same_train = (torch.equal(train_dp["losses"], train_one["losses"])
+                      and torch.equal(train_dp["params"], train_one["params"]))
+        print(f"parallel sharded bake bitwise=True; data-parallel chunk ({PAR_TRAIN}) against "
+              f"the undistributed chunk: bitwise={same_train} K10_launches="
+              f"{train_dp['k10_launches']}", flush=True)
+        require(same_train, "the data-parallel chunk at world 1 is not the undistributed chunk")
+        err, plain_ms, plain_phases = k9_against_plain(sr, pt, params, static, entry, d, hit, ids,
+                                                       torch.where(hit, k4.steps, -1))
+        print(f"parallel K9 against spatial_phase_plain on the {PAR_CHECK_PIXELS} pixels with "
+              f"the most steps: {plain_phases} phases, max_abs_err={err:.3g} (decisions equal, "
+              f"values within 1e-5 of each column's largest) plain_ms={plain_ms:.1f}", flush=True)
+
+        # -- times (CUDA events: the profiler saw nothing here late in a full run) --
+        sub = lambda: fn(scene_sl, o, d, PT_SEED, 1, ids)  # noqa: E731
+        k9_ms, merge_ms, _ = k9_times(sr, scene_sl, static, seed, ids, entry, d, hit,
+                                      mesh_ds.get_group("space"))
+        sub_host_ms = float(np.median([host_ms(sub) for _ in range(3)]))
+        k4_ms = time_ms(lambda: pt.scatter_loop(params, static, entry, d, hit, ids, seed, 0, 1),
+                        3)
+        tick_sh = float(np.median([host_ms(ticks[PT_SUBFRAMES].tick) for _ in range(3)]))
+        one = port.ProgressiveRenderer(cfg, params, static, seed=PT_SEED, device=dev)
+        tick_one = float(np.median([host_ms(one.tick) for _ in range(3)]))
+        print(f"parallel times ({card_line()}): one {PT_SIZE}^2 subframe at world 1: K9 "
+              f"ms={k9_ms:.3f} over its {phases} phases, the merges (owner_merge: the masked "
+              f"all_reduce and wheres) ms={merge_ms:.3f} (CUDA events, replayed back to back), "
+              f"host_ms={sub_host_ms:.3f}; K4 ms for the same subframe={k4_ms:.3f}; "
+              f"a {PT_SUBFRAMES}-subframe tick host_ms sharded={tick_sh:.3f} "
+              f"unsharded={tick_one:.3f}", flush=True)
+        phase_profile("parallel spatial subframe profile", sub, sub_host_ms)
+
+        # -- the world-1 references of the gloo worlds ------------------------------
+        res, w, h = PAR_SMALL
+        small_cfg = dataclasses.replace(cfg, camera=config.CameraConfig(width=w, height=h))
+        dens = procedural.cumulus(resolution=res, seed=11)
+        ref_spatial = jobs.spatial(small_cfg, dens, PT_SEED, 1, (1, 1), device=dev)
+        ref_bake = jobs.sharded_bake(small_cfg, dens, device=dev)["whole"]
+        ref_ticks = [jobs.tick(dataclasses.replace(small_cfg, progressive=config.ProgressiveConfig(
+            subframes_per_tick=s)), dens, PT_SEED, device=dev) for s in (1, PT_SUBFRAMES)]
+        ref_train = jobs.train_chunk(**PAR_TRAIN_SMALL, device=dev)
+    finally:
+        dist.destroy_process_group()
+
+    # -- gloo worlds 2 and 4, sharing the card ----------------------------------------
+    grid = np.random.default_rng(1).random((64, 8, 8)).astype(np.float32)
+    for world in (2, 4):
+        t0 = time.time()
+        calls, shapes = par_calls(config, world, small_cfg, dens, grid)
+        out = launch.run("deepestscatter_tpu_torch.parallel.jobs:several", world, device="cuda",
+                         backend="gloo", timeout=300, calls=calls)
+        where = sorted({(r[0]["backend"], r[0]["device"]) for r in out})
+        for k, shape in enumerate(shapes):
+            n_space = shape[1]
+            got = torch.cat([out[g * n_space][k]["radiance"] for g in range(shape[0])])
+            same = torch.equal(got, ref_spatial["radiance"])
+            slabs = sorted({r[k]["slab"] for r in out})
+            print(f"parallel world {world} ({shape[0]} data x {n_space} space): spatial "
+                  f"subframe bitwise to world 1={same} phases={[r[k]['phases'] for r in out]} "
+                  f"slabs={slabs}", flush=True)
+            require(same, f"the spatial render on a {shape} mesh differs from world 1")
+        k = len(shapes)
+        halos = all(torch.equal(r[k]["exchange"], r[k]["scatter"]) for r in out)
+        bake_ok = all(torch.equal(r[k + 1]["sharded"], ref_bake.cpu()) for r in out)
+        tick_ok = [all(torch.equal(out[0][k + 2 + j][f], ref_ticks[j][f])
+                       for f in ("mean", "m2", "count")) for j in range(2)]
+        print(f"parallel world {world} over {where}: exchange_halos==scatter {halos}, sharded "
+              f"bake bitwise {bake_ok}, ticks at 1 and {PT_SUBFRAMES} subframes bitwise to world "
+              f"1 {tick_ok} ({time.time() - t0:.1f}s)", flush=True)
+        require(halos and bake_ok and all(tick_ok), f"a world-{world} check failed")
+        if world == 2:
+            tr = out[0][k + 4]
+            rel = float(torch.linalg.norm(tr["params"] - ref_train["params"])
+                        / torch.linalg.norm(ref_train["params"]))
+            lmax = float((tr["losses"] - ref_train["losses"]).abs().max()
+                         / ref_train["losses"].abs().max())
+            pmax = float((tr["params"] - ref_train["params"]).abs().max())
+            print(f"parallel world 2 training chunk ({PAR_TRAIN_SMALL}) against world 1: "
+                  f"losses rel {lmax:.3g} (tol 1e-4), params norm-rel {rel:.3g} (tol 1e-3), "
+                  f"max {pmax:.3g} (tol 2 lr x steps)", flush=True)
+            require(lmax <= 1e-4 and rel <= 1e-3
+                    and pmax <= 2 * 1e-3 * PAR_TRAIN_SMALL["steps"],
+                    "the world-2 training chunk is off world 1's")
+    print(f"parallel: phase {time.time() - t_phase:.1f}s", flush=True)
+    n = entry.shape[0]
+    tex = 2 * params.density_mips[0].numel() * params.density_mips[0].element_size()
+    tables = (params.phase.eval_rows.numel() + params.phase.inv_cdf_rows.numel()) * 4
+    n_bytes = tex + tables + n * (12 + 12 + 1 + 8) + n * 12
+    n_hit = int(hit.sum().item())
+    n_ops = (k9_steps * K4_OPS_PER_STEP + int(k4.bounces.sum().item()) * K4_OPS_PER_BOUNCE
+             + n_hit * K4_OPS_PER_SAMPLE)
+    row = kernel_row("K9 slab march", "deepestscatter_tpu_torch/csrc/spatial.cu",
+                     "deepestscatter_tpu/parallel/spatial_render.py:351", err, k9_ms, plain_ms,
+                     n_bytes, n_ops)
+    return [dict(row, launches=launches["K9"])]
+
+
 def run() -> dict:
     """All phases; returns the kernel rows with their launch counts."""
     import deepestscatter_tpu_torch as port
@@ -3317,6 +3608,9 @@ def run() -> dict:
 
     # -- the differentiable multi-scatter renderer's main path, counted ---------
     kernels += phase_ms_diff(config, pt, ins_ops, dev)
+
+    # -- multi-device rendering and training, counted ---------------------------
+    kernels += phase_parallel(port, config, procedural, pt, ins_ops, dev)
     return kernels
 
 

@@ -16,7 +16,13 @@ kernels (``csrc/``):
 - differentiable single-scatter rendering (``render.diff``): images and
   their gradients with respect to the density voxels, the sun direction,
   the camera and the light, through K3 (the bake's forward), K8a (its
-  adjoint) and K8b (the quadrature march and its adjoint).
+  adjoint) and K8b (the quadrature march and its adjoint);
+- multi-device rendering and training over ``torch.distributed``
+  (``parallel``): the progressive tick with rays sharded (K4), the bake
+  sharded by z planes (K3), rendering through a z-slab-sharded grid (K9,
+  ``parallel.spatial_render``), data-parallel training
+  (``train.trainer.Trainer(mesh=)``); ``graft.entry`` and
+  ``graft.dryrun_multichip``.
 
 Each kernel's wrapper runs a plain PyTorch version on CPU tensors.
 
@@ -32,7 +38,9 @@ It imports torch, numpy and the standard library only; entry points
 ``render_baked``, ``BakedRenderer``, ``ProgressiveRenderer``,
 ``render_subframe``, ``trace_tick_moments``; ``render.diff``'s
 ``diff_scene_from_numpy``, ``render_single_scatter``, ``render_and_grads``,
-``bake_inscatter_diff``, ``sun_transmittance``)
+``bake_inscatter_diff``, ``sun_transmittance``; ``parallel``'s
+``initialize_distributed``, ``make_mesh``, ``ShardedProgressiveRenderer``,
+``sharded_inscatter_bake``, ``shard_scene``, ``render_spatial_frame``)
 run on ``device="cuda"`` unless the caller passes ``device="cpu"``.
 """
 

@@ -92,21 +92,31 @@ __device__ __forceinline__ float trilinear(const T* __restrict__ g, int nx, int 
   return acc;
 }
 
+// Where plane iz of a [nz, ny, nx] grid is stored: plane iz of the whole
+// grid.
+struct WholeZ {
+  __device__ __forceinline__ int operator()(int iz) const { return iz; }
+};
+
 // trilinear() with 32-bit index math: the cell's base offset once, the
 // eight taps at the constant strides 1, nx and nx * ny (0 where the +1
 // corner is clamped).  The same taps, weights and sum order, so the same
-// value; the caller guarantees nx * ny * nz < 2^31.
-template <typename T>
+// value; the caller guarantees nx * ny * nz < 2^31.  The cell is found in
+// the whole [nz, ny, nx] grid; zmap gives the stored plane of its z
+// corners (a slab of the grid, K9), so only the index moves.
+template <typename T, typename Z = WholeZ>
 __device__ __forceinline__ float trilinear_strided(const T* __restrict__ g, int nx, int ny,
-                                                   int nz, float ux, float uy, float uz) {
+                                                   int nz, float ux, float uy, float uz,
+                                                   Z zmap = Z()) {
   const AxisCell cx = axis_cell(ux * (float)nx - 0.5f, nx);
   const AxisCell cy = axis_cell(uy * (float)ny - 0.5f, ny);
   const AxisCell cz = axis_cell(uz * (float)nz - 0.5f, nz);
   const float wx[2] = {1.0f - cx.frac, cx.frac};
   const float wy[2] = {1.0f - cy.frac, cy.frac};
   const float wz[2] = {1.0f - cz.frac, cz.frac};
-  const int base = (cz.i0 * ny + cy.i0) * nx + cx.i0;
-  const int sx = cx.i1 - cx.i0, sy = (cy.i1 - cy.i0) * nx, sz = (cz.i1 - cz.i0) * (nx * ny);
+  const int z0 = zmap(cz.i0);
+  const int base = (z0 * ny + cy.i0) * nx + cx.i0;
+  const int sx = cx.i1 - cx.i0, sy = (cy.i1 - cy.i0) * nx, sz = (zmap(cz.i1) - z0) * (nx * ny);
   float acc = 0.0f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {

@@ -235,15 +235,17 @@ __device__ __forceinline__ void stage_rows_vec(const float* __restrict__ dens, i
   }
 }
 
-// Block (row = y + ny * z, segment): thread t carries the voxels
-// x = segment * blockDim.x * V + t + j * blockDim.x, j < V.
+// Block (row = y + ny * (z - z_begin), segment): thread t carries the
+// voxels x = segment * blockDim.x * V + t + j * blockDim.x, j < V.  The
+// launch covers the planes z_begin .. z_begin + gridDim.x / ny - 1 and
+// writes them from out[0] on.
 template <typename T, int V>
 __global__ void __launch_bounds__(kBakeThreads) bake_rows_kernel(
     const T* __restrict__ dens, int nx, int ny, int nz, ds::BakeConsts c, int n_steps,
-    int early_out, int vec, float* __restrict__ out) {
+    int early_out, int vec, int z_begin, float* __restrict__ out) {
   extern __shared__ __align__(16) float rows[];
   const int row = blockIdx.x;
-  const int y = row % ny, z = row / ny;
+  const int y = row % ny, z = z_begin + row / ny;
   const int x0 = blockIdx.y * blockDim.x * V + threadIdx.x;
   const float by = (float)y / c.max_dim, bz = (float)z / c.max_dim;
   float bx[V], trans[V];
@@ -287,11 +289,13 @@ __global__ void __launch_bounds__(kBakeThreads) bake_rows_kernel(
 
 template <int V, typename T>
 static int launch_rows(const T* dens, int nx, int ny, int nz, const ds::BakeConsts& c,
-                       int n_steps, int early_out, float* out, cudaStream_t s) {
+                       int n_steps, int early_out, int z_begin, int z_end, float* out,
+                       cudaStream_t s) {
   const int per_thread = (nx + V - 1) / V;
   int threads = (per_thread + 31) / 32 * 32;
   if (threads > kBakeThreads) threads = kBakeThreads;
-  const dim3 grid((unsigned)(ny * nz), (unsigned)((nx + threads * V - 1) / (threads * V)));
+  const dim3 grid((unsigned)(ny * (z_end - z_begin)),
+                  (unsigned)((nx + threads * V - 1) / (threads * V)));
   const size_t smem = 4 * (size_t)nx * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -301,24 +305,27 @@ static int launch_rows(const T* dens, int nx, int ny, int nz, const ds::BakeCons
   const int lanes = sizeof(T) == 1 ? 16 : 4;
   const int vec = nx % lanes == 0 && reinterpret_cast<uintptr_t>(dens) % 16 == 0;
   bake_rows_kernel<T, V><<<grid, threads, smem, s>>>(dens, nx, ny, nz, c, n_steps,
-                                                     early_out, vec, out);
+                                                     early_out, vec, z_begin, out);
   return (int)cudaGetLastError();
 }
 
-// The row kernel with V voxels a thread (ds_bake's arguments).
+// The row kernel with V voxels a thread (ds_bake's arguments) over the
+// planes [z_begin, z_end) (z_end -1: to the last plane).
 template <int V>
 static int bake_rows(const void* dens, int is_u8, int nx, int ny, int nz,
                      const float* consts, int n_steps, int early_out, float* out,
-                     void* stream) {
-  if ((int64_t)nx * ny * nz <= 0) return 0;
+                     void* stream, int z_begin = 0, int z_end = -1) {
+  if (z_end < 0) z_end = nz;
+  if (z_begin < 0 || z_end > nz || z_begin > z_end) return (int)cudaErrorInvalidValue;
+  if ((int64_t)nx * ny * (z_end - z_begin) <= 0) return 0;
   const ds::BakeConsts c = ds::bake_consts(consts);
   cudaStream_t s = (cudaStream_t)stream;
   if (is_u8) {
     return launch_rows<V, uint8_t>((const uint8_t*)dens, nx, ny, nz, c, n_steps, early_out,
-                                   out, s);
+                                   z_begin, z_end, out, s);
   }
-  return launch_rows<V, float>((const float*)dens, nx, ny, nz, c, n_steps, early_out, out,
-                               s);
+  return launch_rows<V, float>((const float*)dens, nx, ny, nz, c, n_steps, early_out,
+                               z_begin, z_end, out, s);
 }
 
 // Bakes every voxel into out[nz * ny * nx] (z-major).  consts: bbox[3],
@@ -329,6 +336,16 @@ extern "C" int ds_bake(const void* dens, int is_u8, int nx, int ny, int nz,
                        void* stream) {
   return bake_rows<ds::kBakeVoxels>(dens, is_u8, nx, ny, nz, consts, n_steps, early_out,
                                     out, stream);
+}
+
+// ds_bake over the planes [z_begin, z_end) of the grid only, into
+// out[(z_end - z_begin) * ny * nx] (a rank's share of the sharded bake,
+// parallel/spatial.py): the same values as those planes of ds_bake.
+extern "C" int ds_bake_planes(const void* dens, int is_u8, int nx, int ny, int nz,
+                              const float* consts, int n_steps, int early_out, int z_begin,
+                              int z_end, float* out, void* stream) {
+  return bake_rows<ds::kBakeVoxels>(dens, is_u8, nx, ny, nz, consts, n_steps, early_out,
+                                    out, stream, z_begin, z_end);
 }
 
 #endif  // DS_HOST_EMULATION

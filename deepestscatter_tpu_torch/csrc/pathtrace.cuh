@@ -159,12 +159,14 @@ __device__ __forceinline__ float back_distance(float od, float tn, float density
 // A march step to (ax, ay, az) of density `density` whose transmittance tn
 // fell below od: the free flight ends there.  Adds NEE at an in-box
 // scatter point and starts the next flight.  True where the sample ends.
-template <typename T>
+// zmap: where the in-scatter grid stores a plane (common.cuh::WholeZ; K9's
+// slab).
+template <typename T, typename Z = WholeZ>
 __device__ __forceinline__ bool scatter(Sample& S, const T* __restrict__ insc, int nx,
                                         int ny, int nz, const float* __restrict__ eval_rows,
                                         const float* __restrict__ inv, const PtConsts& c,
                                         float ax, float ay, float az, float density,
-                                        float tn) {
+                                        float tn, Z zmap = Z()) {
   const bool single = c.flags & kSingle;
   const float back = back_distance(S.od, tn, density);
   const float sx = ax - S.dx * back, sy = ay - S.dy * back, sz = az - S.dz * back;
@@ -182,7 +184,7 @@ __device__ __forceinline__ bool scatter(Sample& S, const T* __restrict__ insc, i
     const float sun_t = trilinear_strided(insc, nx, ny, nz,
                                           div_exact(sx, c.bbox[0], c.inv_bbox[0]),
                                           div_exact(sy, c.bbox[1], c.inv_bbox[1]),
-                                          div_exact(sz, c.bbox[2], c.inv_bbox[2]));
+                                          div_exact(sz, c.bbox[2], c.inv_bbox[2]), zmap);
     const float scale = (p * sun_t) * c.sun_ratio;
     for (int i = 0; i < 3; ++i) S.rad[i] = S.rad[i] + (c.radiance[i] * scale) * S.weight;
   }

@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("march", "descriptor", "inscatter", "pathtrace", "probes", "samples",
-           "assemble", "gather_probe", "diff", "path_adjoint")
+           "assemble", "gather_probe", "diff", "path_adjoint", "spatial")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",

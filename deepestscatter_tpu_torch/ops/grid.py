@@ -107,14 +107,24 @@ def _axis_cell(t: torch.Tensor, n: int):
     return i0, i1, frac
 
 
-def sample_trilinear(grid: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+def sample_trilinear(grid: torch.Tensor, u: torch.Tensor, nz: int = None,
+                     z_off: int = 0) -> torch.Tensor:
     """Trilinear sample of a ``[Z, Y, X]`` grid at normalized coordinates
     ``u`` [..., 3] (x, y, z order), with the packed path's clamp rule.
-    Returns float32 [...]."""
-    nz, ny, nx = grid.shape
+    Returns float32 [...].
+
+    ``nz``, ``z_off``: ``grid`` is a slab of a grid of ``nz`` planes whose
+    plane ``z`` it stores at ``z - z_off`` (K9's slabs): the cell is found
+    in the whole grid and its z corners clamped into the slab, so the
+    weights, and the values wherever the slab holds both corners, are the
+    whole grid's."""
+    gz, ny, nx = grid.shape
+    nz = gz if nz is None else nz
     x0, x1, fx = _axis_cell(u[..., 0] * float(nx) - 0.5, nx)
     y0, y1, fy = _axis_cell(u[..., 1] * float(ny) - 0.5, ny)
     z0, z1, fz = _axis_cell(u[..., 2] * float(nz) - 0.5, nz)
+    if (nz, z_off) != (gz, 0):
+        z0, z1 = (z0 - z_off).clamp(0, gz - 1), (z1 - z_off).clamp(0, gz - 1)
     flat = grid.reshape(-1)
 
     def tap(z, y, x):

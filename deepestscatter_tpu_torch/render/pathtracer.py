@@ -70,10 +70,13 @@ def in_scattering(
     scatter_pos: torch.Tensor,
     direction: torch.Tensor,
     chopped=False,
+    trans_sun: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Next-event estimation toward the sun disc (cloud.cuh:146-158): light
     radiance x baked sun transmittance x phase x sun solid-angle ratio →
-    [N, 3].  ``chopped`` (bool or [N] bool) selects the chopped phase."""
+    [N, 3].  ``chopped`` (bool or [N] bool) selects the chopped phase;
+    ``trans_sun``: the baked transmittance at ``scatter_pos`` where the
+    caller sampled it (a slab's, K9), else read from ``params``."""
     p_full, p_chop = phase_ops.eval_phase_pair(
         params.phase, camera_ops.cos_to_sun(params.light_dir, direction)
     )
@@ -81,7 +84,8 @@ def in_scattering(
         p = torch.where(chopped, p_chop, p_full)
     else:
         p = p_chop if chopped else p_full
-    trans_sun = sample_inscatter(params, scatter_pos)
+    if trans_sun is None:
+        trans_sun = sample_inscatter(params, scatter_pos)
     scale = p * trans_sun * static.sun_solid_angle_ratio
     return params.light_radiance * scale[..., None]
 

@@ -18,8 +18,9 @@ Every entry point runs on ``device="cuda"`` unless the caller passes
 ``render.baked.BakedRenderer`` loads; ``DisneyModel.pt`` loads into
 ``render.neural.DisneyRenderer``.
 
-Data parallelism over several devices (the JAX package's ``mesh``) is not
-ported.
+``mesh=`` (a ``DeviceMesh``, ``parallel.make_mesh``) trains data-parallel
+over its ``data`` axis, each rank on its shard of every batch (the JAX
+package's ``mesh``; ``train.trainer``).
 """
 
 from __future__ import annotations
@@ -73,7 +74,8 @@ def _train_batches_fn(dataset, batch_size: int, base_seed: int):
 
 
 def disney_trainer(dataset_root: str, config: TrainConfig = TrainConfig(),
-                   device_resident: bool = False, device="cuda") -> trainer_mod.Trainer:
+                   device_resident: bool = False, device="cuda",
+                   mesh=None) -> trainer_mod.Trainer:
     """The ``Trainer`` that ``train_disney`` runs, built and not yet run."""
     dev = resolve_device(device)
     triplet = DatasetTriplet(dataset_root)
@@ -92,15 +94,16 @@ def disney_trainer(dataset_root: str, config: TrainConfig = TrainConfig(),
         device_data=data,
         val_device_data=vdata,
         device=dev,
+        mesh=mesh,
     )
 
 
 def train_disney(dataset_root: str, config: TrainConfig = TrainConfig(),
                  epochs: Optional[int] = None, device_resident: bool = False,
-                 device="cuda") -> trainer_mod.Trainer:
+                 device="cuda", mesh=None) -> trainer_mod.Trainer:
     """DisneyTrainer().run() (TrainDisneyModel.py:35-39): resumes from a
     checkpoint where there is one (warm optimizer, the same trajectory)."""
-    t = disney_trainer(dataset_root, config, device_resident, device)
+    t = disney_trainer(dataset_root, config, device_resident, device, mesh)
     t.restore()
     t.run(epochs=epochs)
     return t
@@ -121,7 +124,8 @@ def export_baked(model: BakedModel, run_dir: str) -> None:
 
 
 def baked_trainer(dataset_root: str, config: TrainConfig = TrainConfig(),
-                  device_resident: bool = False, device="cuda") -> trainer_mod.Trainer:
+                  device_resident: bool = False, device="cuda",
+                  mesh=None) -> trainer_mod.Trainer:
     """The ``Trainer`` that ``train_baked`` runs, built and not yet run."""
     dev = resolve_device(device)
     triplet = DatasetTriplet(dataset_root)
@@ -141,22 +145,23 @@ def baked_trainer(dataset_root: str, config: TrainConfig = TrainConfig(),
         device_data=data,
         val_device_data=vdata,
         device=dev,
+        mesh=mesh,
     )
 
 
 def train_baked(dataset_root: str, config: TrainConfig = TrainConfig(),
                 epochs: Optional[int] = None, device_resident: bool = False,
-                device="cuda") -> trainer_mod.Trainer:
+                device="cuda", mesh=None) -> trainer_mod.Trainer:
     """BakedTrainer().run() (TrainBakedModel.py:47-51): end-to-end training
     of the two-stage model; exports the submodels apart."""
-    t = baked_trainer(dataset_root, config, device_resident, device)
+    t = baked_trainer(dataset_root, config, device_resident, device, mesh)
     t.restore()
     t.run(epochs=epochs)
     return t
 
 
 def train_mimic(dataset_root: str, config: TrainConfig = TrainConfig(),
-                epochs: Optional[int] = None, device="cuda") -> trainer_mod.Trainer:
+                epochs: Optional[int] = None, device="cuda", mesh=None) -> trainer_mod.Trainer:
     """Mimic-variant training: one probe descriptor (corner "a"), no
     tetrahedral interpolation (TR/Mimic/MimicModel.py:7-43)."""
     dev = resolve_device(device)
@@ -171,6 +176,7 @@ def train_mimic(dataset_root: str, config: TrainConfig = TrainConfig(),
         val_batch=_val_batch_fn(val_ds, config.val_batch_size),
         config=config,
         device=dev,
+        mesh=mesh,
     )
     t.restore()
     t.run(epochs=epochs)

@@ -24,8 +24,17 @@ The device path (``Trainer.device_data``) runs ``validate_every`` steps a
 chunk over batches that ``train.device_data`` assembles on the card from
 an uploaded ``[k, B]`` index schedule (K10); a Python loop over the chunk
 stands in for the JAX package's ``lax.scan``.  The networks' products run
-on cuBLAS in float32 with TF32 off.  Data parallelism (the JAX package's
-``mesh``) is not ported.
+on cuBLAS in float32 with TF32 off.
+
+Data parallelism (the JAX package's ``mesh``): with ``Trainer(mesh=...)``
+each rank of the mesh's ``data`` axis takes its contiguous shard of every
+batch (assembled on its card by K10 on the device path), and one
+``all_reduce`` a step averages the flat gradient (the shard losses ride
+along) before ``AmsGrad.step``.  With equal shards that is the global
+batch's mean gradient, as ``make_train_step(mesh=...)`` computes it (the
+sums in another order; at one rank bitwise the undistributed step).  Every
+rank holds the same weights and optimizer state; only the axis's first
+rank writes metrics and checkpoints.
 """
 
 from __future__ import annotations
@@ -39,11 +48,13 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..config import TrainConfig
 from ..device import resolve_device
 from ..models.blocks import LogTransform
+from ..ops.grid import true_div
 from ..render.neural import exact_float32_matmul
 from . import device_data as dd
 
@@ -125,13 +136,38 @@ def log_mse_loss(predictions: torch.Tensor, labels: torch.Tensor) -> torch.Tenso
     return torch.mean(diff * diff)
 
 
+def data_shard(n: int, group) -> slice:
+    """This rank's contiguous rows of a batch of ``n`` over ``group``
+    (all of them without one); raises unless the ranks divide ``n``."""
+    if group is None:
+        return slice(0, n)
+    ranks, rank = dist.get_world_size(group), dist.get_rank(group)
+    if n % ranks:
+        raise ValueError(f"a batch of {n} must divide evenly over {ranks} data ranks")
+    return slice(rank * (n // ranks), (rank + 1) * (n // ranks))
+
+
+def mean_over(group, loss: torch.Tensor, grads: Sequence[torch.Tensor]):
+    """The group's mean loss and gradient: one ``all_reduce`` of the flat
+    gradient with the loss appended, divided by the group's size → (loss,
+    [flat gradient])."""
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+    dist.all_reduce(flat, group=group)
+    flat = true_div(flat, float(dist.get_world_size(group)))
+    return flat[-1], [flat[:-1]]
+
+
 def train_step(model: nn.Module, opt: AmsGrad, apply_fn: ApplyFn,
-               batch: Dict[str, torch.Tensor], labels: torch.Tensor) -> torch.Tensor:
+               batch: Dict[str, torch.Tensor], labels: torch.Tensor,
+               group=None) -> torch.Tensor:
     """One optimizer step on a batch → its loss (a 0-dim tensor on the
-    model's device; nothing waits for the device)."""
+    model's device; nothing waits for the device).  With a ``group``, the
+    batch is this rank's shard and the step takes the group's mean."""
     preds = apply_fn(model, batch)[:, 0]
     loss = log_mse_loss(preds, labels)
     grads = torch.autograd.grad(loss, opt.params)
+    if group is not None:
+        loss, grads = mean_over(group, loss, grads)
     opt.step(grads)
     return loss.detach()
 
@@ -144,14 +180,16 @@ def eval_step(model: nn.Module, apply_fn: ApplyFn, batch: Dict[str, torch.Tensor
 
 def chunk_step(model: nn.Module, opt: AmsGrad, apply_fn: ApplyFn,
                assemble_fn: Callable[[torch.Tensor], Tuple[dict, torch.Tensor]],
-               idx_chunk: torch.Tensor) -> torch.Tensor:
+               idx_chunk: torch.Tensor, group=None) -> torch.Tensor:
     """``k`` sequential ``train_step``s over the rows of an on-device
     ``[k, B]`` index schedule, each batch assembled by ``assemble_fn`` →
-    the k losses [k].  The trajectory is that of k ``train_step`` calls."""
+    the k losses [k].  The trajectory is that of k ``train_step`` calls.
+    With a ``group`` each rank assembles its shard of every row."""
     losses = []
+    rows = data_shard(idx_chunk.shape[1], group)
     for idx in idx_chunk:
-        batch, labels = assemble_fn(idx)
-        losses.append(train_step(model, opt, apply_fn, batch, labels))
+        batch, labels = assemble_fn(idx[rows])
+        losses.append(train_step(model, opt, apply_fn, batch, labels, group))
     return torch.stack(losses)
 
 
@@ -202,7 +240,8 @@ class Trainer:
     (model, batch) -> [B, 1]``.  With ``device_data`` (``train.device_data.
     DeviceDisneyData`` / ``DeviceBakedData``) ``run`` trains in
     ``validate_every``-step chunks over batches assembled on the device,
-    validating on ``val_device_data``."""
+    validating on ``val_device_data``.  ``mesh``: a ``DeviceMesh`` whose
+    ``data_axis`` the batches shard over (module docstring)."""
 
     name: str
     model: nn.Module
@@ -214,9 +253,13 @@ class Trainer:
     device_data: Optional[Any] = None
     val_device_data: Optional[Any] = None
     device: Any = "cuda"
+    mesh: Optional[Any] = None
+    data_axis: str = "data"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        self.group = None if self.mesh is None else self.mesh.get_group(self.data_axis)
+        self.writer = self.group is None or dist.get_rank(self.group) == 0
         if self.device.type == "cuda":
             exact_float32_matmul()
         self.model = copy.deepcopy(self.model).to(self.device).train()
@@ -224,7 +267,8 @@ class Trainer:
         self.step = 0
         self.best_val = float("inf")
         self.run_dir = os.path.join(self.config.run_dir, self.name)
-        self.metrics = MetricsWriter(os.path.join(self.run_dir, "metrics.jsonl"))
+        self.metrics = (MetricsWriter(os.path.join(self.run_dir, "metrics.jsonl"))
+                        if self.writer else None)
         if self.device_data is not None:
             # The device path validates on a fixed batch of the validation
             # pool: 999 keys its choice, sorted.
@@ -242,7 +286,10 @@ class Trainer:
     def save_checkpoint(self, is_best: bool) -> None:
         """Checkpoint the full train state: parameters, optimizer state,
         step and the best validation loss, so that a preempted run resumes
-        with warm moments and exports no worse model over ``model_best``."""
+        with warm moments and exports no worse model over ``model_best``.
+        Only the writer (the data axis's first rank) writes."""
+        if not self.writer:
+            return
         save_state(self.checkpoint_path(), {
             "params": self.model.state_dict(),
             "opt_state": self.opt.state_dict(),
@@ -280,10 +327,15 @@ class Trainer:
         batch, labels = _on(self.device, *self.val_batch())
         return float(eval_step(self.model, self.apply_fn, batch, labels))
 
+    def scalar(self, tag: str, value: float) -> None:
+        if self.writer:
+            self.metrics.scalar(tag, value, self.step)
+
     def validate_and_save(self) -> float:
         val_loss = self.val_loss()
-        self.metrics.scalar("val_loss", val_loss, self.step)
-        print(f"[{self.name}] step {self.step}: val_loss {val_loss:.5f}", flush=True)
+        self.scalar("val_loss", val_loss)
+        if self.writer:
+            print(f"[{self.name}] step {self.step}: val_loss {val_loss:.5f}", flush=True)
         if not np.isfinite(val_loss):
             raise FloatingPointError(f"validation loss is {val_loss} at step {self.step}")
         is_best = val_loss < self.best_val
@@ -310,11 +362,14 @@ class Trainer:
                 consumed += 1
                 if consumed <= done:
                     continue
+                batch, labels = _on(self.device, batch, labels)
+                rows = data_shard(labels.shape[0], self.group)
                 loss = train_step(self.model, self.opt, self.apply_fn,
-                                  *_on(self.device, batch, labels))
+                                  {k: v[rows] for k, v in batch.items()}, labels[rows],
+                                  self.group)
                 self.step += 1
                 if self.step % cfg.validate_every == 0:
-                    self.metrics.scalar("train_loss", self._check(loss), self.step)
+                    self.scalar("train_loss", self._check(loss))
                     self.validate_and_save()
 
     def _run_device(self, epochs: Optional[int] = None) -> None:
@@ -344,13 +399,14 @@ class Trainer:
                     s += skip
                     continue
                 idx = torch.as_tensor(sched[s : s + k], dtype=torch.int64, device=self.device)
-                losses = chunk_step(self.model, self.opt, self.apply_fn, data.assemble, idx)
+                losses = chunk_step(self.model, self.opt, self.apply_fn, data.assemble, idx,
+                                    self.group)
                 consumed += k
                 s += k
                 self.step += k
                 train_loss = self._check(losses[-1])
                 if self.step % k_max == 0 or s >= len(sched):
-                    self.metrics.scalar("train_loss", train_loss, self.step)
+                    self.scalar("train_loss", train_loss)
                     self.validate_and_save()
 
 

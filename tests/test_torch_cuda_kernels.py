@@ -72,6 +72,15 @@ against the CPU at the single-scatter tolerances, K8c's gradients too;
 one launch of each kernel a call, K8c's replay taking every item and its
 sweep every work-list entry.
 
+The slab march (K9, ``parallel.spatial_render.spatial_phase``) on 2
+slabs of the 48^3 scene at ``max_depth`` 40 in the three modes: every
+phase's records equal its plain version's on the same inputs in depth,
+alive, touched and steps, the rest within 1e-5 of each column's largest
+value (at least 1); the subframe bitwise equal to K4's samples.  On 4
+slabs against the plain version on the CPU: >= 99 % of pixels within 1e-5
+of the image's largest value (K4's card-against-CPU rule).  K3 over a
+split of the planes (``planes=``) bitwise equal to the whole bake.
+
 The render task (``tasks.render_cloud``, NN and BNN, from ``.pt``
 exports) on the card against the CPU: frames within rtol 1e-3 on >= 99.5 %
 of pixels.
@@ -1340,3 +1349,103 @@ def test_ms_diff_wrappers_count_launches(card, monkeypatch):
     head, front, taken, back = counters.tolist()
     assert head >= MS_KW["n_subframes"] * MS_KW["width"] * MS_KW["height"]
     assert 0 < front + back <= taken
+
+
+# -- K9 (the slab march) and K3's plane range ---------------------------------
+
+
+def _k9_rig(scene, card, mode, device=None):
+    """The 48^3 scene at max_depth 40 in ``mode``, baked, on ``device``
+    (default the card), and its camera's rays."""
+    cfg, params, static = scene
+    params = with_baked_inscatter(params, static, device=card)
+    static = dataclasses.replace(static, mode=mode, max_depth=40)
+    if device is not None:
+        params = params_to(params, device)
+    dev = params.bbox_size.device
+    o, d = camera.generate_rays(camera.camera_basis(cfg.camera), cfg.camera.width,
+                                cfg.camera.height, dev)
+    hit, t_hit = camera.intersect_box(o, d, static, params.bbox_size)
+    entry = camera.entry_points(o, d, t_hit, params.bbox_size)
+    return params, static, (entry, d, hit, torch.arange(o.shape[0], device=dev))
+
+
+def _k9_subframe(params, static, rays, n_slabs, phase_fn, check=None):
+    """One subframe on ``n_slabs`` slabs in this process, ``phase_fn`` a
+    slab a phase (``check(scene, rec, out)`` after each) → radiance."""
+    from deepestscatter_tpu_torch.parallel import spatial_render as sr
+    from deepestscatter_tpu_torch.ops import rng as rng_ops
+
+    entry, d, hit, ids = rays
+    st = sr.phase_static(static)
+    dev = entry.device
+    scenes = [sr.slab_scene(params, i, n_slabs, device=dev) for i in range(n_slabs)]
+    spp = sr.default_steps_per_phase(static, static.grid_shape[0] // n_slabs)
+    seed = rng_ops.subframe_seed(5, 1)
+
+    def phase(rec):
+        outs = [phase_fn(s, st, seed, ids, spp, rec) for s in scenes]
+        for s, out in zip(scenes, outs if check else ()):
+            check(s, st, seed, ids, spp, rec, out)
+        return sr.merge_slabs(outs)
+
+    rec = sr.run_phases(sr.begin_records(entry, d, hit, params.bbox_size), phase, spp,
+                        static.max_total_steps)[0]
+    return torch.where(hit[:, None], rec[:, sr.RAD:sr.RAD + 3], 0.0)
+
+
+@pytest.mark.parametrize("mode", list(config.RenderMode))
+def test_spatial_phase_kernel_matches_plain_and_k4(scene, card, mode):
+    """K9 on 2 slabs: every phase's records equal the plain version's on
+    the same inputs in depth, alive, touched and steps, the rest within
+    1e-5 of each column's largest value (at least 1); the subframe equals
+    K4's (``render_subframe``'s samples) bitwise."""
+    from deepestscatter_tpu_torch.parallel import spatial_render as sr
+
+    params, static, rays = _k9_rig(scene, card, mode)
+    entry, d, hit, ids = rays
+
+    def check(s, st, seed, ids_, spp, rec, out):
+        ref = sr.spatial_phase_plain(s, st, seed, ids_, spp, rec)
+        assert torch.equal(out[:, sr.DEPTH:], ref[:, sr.DEPTH:])
+        scale = ref.abs().amax(dim=0).clamp(min=1.0)
+        assert ((out - ref).abs() / scale).max().item() <= 1e-5
+
+    before = sr.spatial_phase.launches
+    got = _k9_subframe(params, static, rays, 2, sr.spatial_phase, check)
+    assert sr.spatial_phase.launches > before
+    k4 = pathtracer.scatter_loop(params, static, entry, d, hit, ids,
+                                 pathtracer.rng_ops.subframe_seed(5, 1), 0, 1)
+    torch.cuda.synchronize()
+    assert bool(k4.steps.max() < static.max_total_steps)
+    assert torch.equal(got, torch.where(hit[:, None], k4.mean, 0.0))
+
+
+def test_spatial_phase_card_against_cpu(scene, card):
+    """K9 on the card against the plain version on the CPU over a whole
+    subframe on 4 slabs: K4's card-against-CPU rule (the devices' float
+    functions differ in the last bit), >= 99 % of pixels within 1e-5 of
+    the image's largest value."""
+    from deepestscatter_tpu_torch.parallel import spatial_render as sr
+
+    mode = config.RenderMode.SUN_AND_SKY_ALL_SCATTER
+    params, static, rays = _k9_rig(scene, card, mode)
+    got = _k9_subframe(params, static, rays, 4, sr.spatial_phase).cpu()
+    cp, cs, crays = _k9_rig(scene, card, mode, device="cpu")
+    ref = _k9_subframe(cp, cs, crays, 4, sr.spatial_phase_plain)
+    close = (got - ref).abs().max(dim=1).values <= 1e-5 * ref.abs().max()
+    assert close.float().mean().item() >= 0.99
+
+
+def test_bake_planes_kernel_equals_the_whole_bake(scene, card):
+    _, params, static = scene
+    k3 = (params.density_mips[0], static.bbox, static.light_direction, static.sample_step,
+          static.density_multiplier, True)
+    whole = inscatter.launch_bake(*k3)
+    before = inscatter.sun_transmittance.launches
+    parts = torch.cat([inscatter.launch_bake(*k3, planes=p) for p in ((0, 17), (17, 18),
+                                                                       (18, 48))])
+    torch.cuda.synchronize()
+    assert torch.equal(parts, whole) and inscatter.sun_transmittance.launches == before + 3
+    with pytest.raises(ValueError):
+        inscatter.launch_bake(*k3, planes=(5, 49))

@@ -1,4 +1,4 @@
-"""K4 (path-trace bounce loop), K3 (in-scatter bake), K1 (camera march),
+"""K4 (path-trace bounce loop), K3 (in-scatter bake), K9 (slab march), K1 (camera march),
 K2 (descriptor stencil), K5 (probe interpolation), K7a (first-scatter
 sampler), K7b (radiance experiments), K10 (batch assembly), K8a (the
 differentiable bake's adjoint), K8b (the quadrature march and the sun
@@ -131,6 +131,15 @@ arithmetic the kernels share with their host build.
   budget change nothing but float64 rounding; and the render's autograd
   Functions over the host build (K3, K4, K8c, K8a) match the plain render
   within 1e-6 (image), 1e-5 (density) and 1e-4.
+- K9 (``csrc/spatial.cu``, ``phase_ray`` a ray) on 1, 2 and 4 z-slabs of
+  the grid, each phase a launch a slab merged by the masked sum of
+  ``parallel.spatial_render.owner_merge`` (one owner a ray), equals K4's
+  per-pixel loop ``pathtrace_pixel`` bitwise in the three modes on both
+  texture types; on 2 slabs every phase's records equal the plain version
+  ``spatial_phase_plain``'s in depth, alive, touched and steps, the rest
+  within 1e-5 of each column's largest value (at least 1).  K3's plane
+  range (``ds_bake_planes``) over an uneven split equals ``ds_bake``
+  bitwise, and so do the plain version's planes.
 - All match the plain PyTorch versions within the tolerances of
   ``test_torch_cuda_kernels.py``: glibc's ``expf``/``logf``/``sinf``/
   ``cosf``/``acosf`` are not torch's, so step counts agree on >= 99 % of
@@ -1398,3 +1407,83 @@ def test_multi_scatter_render_through_the_kernels(host_lib, monkeypatch, ms_rig)
     for name, a, b in zip(diff.DiffScene._fields, grads, ref):
         assert bool(torch.isfinite(a).all()), name
         assert _rel(a, b) <= (1e-5 if name == "density" else 1e-4), name
+
+
+# -- K9 (the slab march) and K3's plane range ---------------------------------
+
+
+def test_k3_planes_equal_the_whole_bake(host_lib, bake_density):
+    """``ds_bake_planes`` over a split of the planes (uneven, a single
+    plane) equals ``ds_bake`` over the grid, in both host forms; the plain
+    version's planes equal its whole bake's."""
+    dtype, density = bake_density
+    cfg = config.SceneConfig(cloud=config.CloudModel(size_m=2000.0),
+                             rendering=config.CloudRendering(march_dtype=dtype,
+                                                             sample_step=1.0 / 128.0))
+    params, static = build_scene(cfg, density, device="cpu")
+    k3 = (params.density_mips[0], static.bbox, static.light_direction, static.sample_step,
+          static.density_multiplier, True)
+    split = ((0, 7), (7, 8), (8, 20))
+    for mode in (0, 1):
+        host_lib.host_set_bake(mode)
+        whole = inscatter.launch_bake(*k3, lib=host_lib)
+        parts = torch.cat([inscatter.launch_bake(*k3, lib=host_lib, planes=p) for p in split])
+        assert torch.equal(parts, whole)
+    host_lib.host_set_bake(1)
+    plain = inscatter.sun_transmittance_plain(params, static)
+    assert torch.equal(torch.cat([inscatter.sun_transmittance_plain(params, static, planes=p)
+                                  for p in split]), plain)
+
+
+def _k9_subframe(lib, params, static, rays, n_slabs, plain=False):
+    """One subframe through K9 on ``n_slabs`` slabs in this process (a
+    launch a slab a phase, ``spatial_render.merge_slabs``) → (radiance,
+    phases, the largest difference of the plain version's records relative
+    to each column's largest value (at least 1), decisions equal)."""
+    from deepestscatter_tpu_torch.parallel import spatial_render as sr
+
+    entry, d, hit, ids = rays
+    st = sr.phase_static(static)
+    scenes = [sr.slab_scene(params, i, n_slabs, device="cpu") for i in range(n_slabs)]
+    spp = sr.default_steps_per_phase(static, static.grid_shape[0] // n_slabs)
+    seed = rng_ops.subframe_seed(SEED, 1)
+    check = dict(diff=0.0, same=True)
+
+    def phase(rec):
+        outs = [sr._launch(s, st, seed, ids, spp, rec, lib=lib) for s in scenes]
+        assert bool((sum(k[:, sr.TOUCHED] for k in outs) <= 1).all())  # one owner a ray
+        for s, k in zip(scenes, outs if plain else ()):
+            p = sr.spatial_phase_plain(s, st, seed, ids, spp, rec)
+            check["same"] = check["same"] and torch.equal(p[:, sr.DEPTH:], k[:, sr.DEPTH:])
+            scale = k.abs().amax(dim=0).clamp(min=1.0)
+            check["diff"] = max(check["diff"], ((p - k).abs() / scale).max().item())
+        return sr.merge_slabs(outs)
+
+    rec, phases, _ = sr.run_phases(sr.begin_records(entry, d, hit, params.bbox_size), phase,
+                                   spp, static.max_total_steps)
+    return (torch.where(hit[:, None], rec[:, sr.RAD:sr.RAD + 3], 0.0), phases, check["diff"],
+            check["same"])
+
+
+@pytest.mark.parametrize("n_slabs", [1, 2, 4])
+@pytest.mark.parametrize("mode", list(config.RenderMode))
+def test_k9_slabs_equal_the_pixel_loop(host_lib, pt_rig, mode, n_slabs):
+    """K9's device code on 1, 2 and 4 slabs equals K4's per-pixel loop
+    ``pathtrace_pixel`` (one sample, the subframe's seed) bitwise; on 2
+    slabs each phase's records equal the plain version's in depth, alive,
+    touched and steps on every ray, and elsewhere within 1e-5 of each
+    column's largest value (at least 1): glibc's ``expf``/``logf``/
+    ``sinf``/``cosf`` are not torch's."""
+    params, static, rays = pt_rig
+    static = dataclasses.replace(static, mode=mode)
+    entry, d, hit, ids = rays
+    host_lib.host_set_pathtrace(0, 0, None)
+    ref = pathtracer._launch(params, static, entry, d, hit, ids,
+                             rng_ops.subframe_seed(SEED, 1), 0, 1, None, lib=host_lib)
+    got, phases, diff, same = _k9_subframe(host_lib, params, static, rays, n_slabs,
+                                           plain=n_slabs == 2)
+    assert bool(ref.steps.max() < static.max_total_steps) and phases >= n_slabs
+    assert torch.equal(got, torch.where(hit[:, None], ref.mean, 0.0))
+    assert float(got.max()) > 0.0
+    if n_slabs == 2:
+        assert same and diff <= 1e-5

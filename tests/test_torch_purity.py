@@ -55,7 +55,13 @@ def test_import_pulls_in_no_jax():
         "deepestscatter_tpu_torch.train.device_data, deepestscatter_tpu_torch.train.entries, "
         "deepestscatter_tpu_torch.utils.png, deepestscatter_tpu_torch.models.flax_msgpack, "
         "deepestscatter_tpu_torch.render.viewer, deepestscatter_tpu_torch.eval_e2e, "
-        "deepestscatter_tpu_torch.__main__, deepestscatter_tpu_torch.render.diff\n"
+        "deepestscatter_tpu_torch.__main__, deepestscatter_tpu_torch.render.diff, "
+        "deepestscatter_tpu_torch.parallel.mesh, deepestscatter_tpu_torch.parallel.render, "
+        "deepestscatter_tpu_torch.parallel.spatial, "
+        "deepestscatter_tpu_torch.parallel.spatial_render, "
+        "deepestscatter_tpu_torch.parallel.launch, deepestscatter_tpu_torch.parallel.jobs, "
+        "deepestscatter_tpu_torch.graft, deepestscatter_tpu_torch.utils.profiling, "
+        "deepestscatter_tpu_torch.utils.cache\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -90,7 +96,9 @@ def test_no_module_imports_jax_or_the_jax_package():
             "data/scenesetups.py", "data/vdb.py", "data/blosc1.py", "data/datasets.py",
             "train/trainer.py", "train/device_data.py", "train/entries.py", "utils/png.py",
             "models/flax_msgpack.py", "render/viewer.py", "eval_e2e.py", "__main__.py",
-            "render/diff.py"} <= names
+            "render/diff.py", "parallel/mesh.py", "parallel/render.py", "parallel/spatial.py",
+            "parallel/spatial_render.py", "parallel/launch.py", "parallel/jobs.py", "graft.py",
+            "utils/profiling.py", "utils/cache.py"} <= names
     bad = [
         (str(f.relative_to(PKG)), m)
         for f in files
@@ -157,6 +165,60 @@ def test_path_tracer_entry_points_default_to_the_card(no_card):
         progressive.init_state(32)
     with pytest.raises(RuntimeError, match="CUDA"):
         welford.Welford.zeros((4,))
+
+
+def test_multi_device_entry_points_default_to_the_card(no_card):
+    from deepestscatter_tpu_torch import graft
+    from deepestscatter_tpu_torch.parallel import launch, make_mesh, initialize_distributed
+    from deepestscatter_tpu_torch.parallel import spatial, spatial_render
+    from deepestscatter_tpu_torch.parallel.render import ShardedProgressiveRenderer
+
+    cfg, params, static = _cpu_scene()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedProgressiveRenderer(cfg, params, static, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize_distributed(init_method="tcp://localhost:1", world_size=1, rank=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spatial.sharded_inscatter_bake(None, params, static)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spatial.halo_slab(np.zeros((4, 2, 2), np.float32), 0, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spatial_render.shard_scene(None, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spatial_render.render_spatial_frame(None, params, static, 8, 4, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.run("deepestscatter_tpu_torch.parallel.jobs:where", 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft.dryrun_multichip(2)
+
+
+def test_persistent_cache_points_the_build_at_a_directory(monkeypatch, tmp_path):
+    from deepestscatter_tpu_torch.utils import cache
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    assert cache.enable_persistent_cache(str(tmp_path / "k")) == str(tmp_path / "k")
+    assert cuda_build.library_path("spatial").parent == tmp_path / "k"
+    assert not (tmp_path / "k").exists()  # made at the first build
+    monkeypatch.delenv(cache.ENV, raising=False)
+    assert cache.enable_persistent_cache() == str(PKG / "_build")
+
+
+def test_profiling_trace_writes_a_chrome_trace(tmp_path):
+    from deepestscatter_tpu_torch.utils import profiling
+
+    with profiling.trace(str(tmp_path)) as prof:
+        with profiling.annotate("region"):
+            torch.ones(64).sum()
+    assert (tmp_path / "trace.json").is_file()
+    assert any(e.key == "region" for e in prof.key_averages())
+    t = profiling.Throughput("rays")
+    with t.measure(n_items=1000):
+        pass
+    assert t.calls == 1 and t.total_items == 1000 and "Mrays/s" in t.report()
 
 
 def test_probe_entry_points_default_to_the_card(no_card):

@@ -2,15 +2,16 @@
 // bases and deferred scatters), in-scatter bake (K3), camera march (K1),
 // descriptor (K2), probe interpolation (K5), scatter-sample (K7a, its
 // rounds of attempts), batch-assembly (K10), adjoint-bake (K8a),
-// quadrature-march (K8b) and path-adjoint (K8c) kernels' device functions,
-// for
+// quadrature-march (K8b), path-adjoint (K8c) and slab-march (K9) kernels'
+// device functions, for
 // tests/test_torch_kernel_host.py:
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off -DDS_HOST_EMULATION
 //       -D__device__= -D__forceinline__=inline
 //       -I deepestscatter_tpu_torch/csrc tests/torch_kernel_host.cpp
 //
-// It exports ds_pathtrace, ds_radiance, ds_bake, ds_march, ds_descriptor,
+// It exports ds_pathtrace, ds_radiance, ds_bake, ds_bake_planes,
+// ds_spatial_phase, ds_march, ds_descriptor,
 // ds_probes, ds_samples, ds_assemble_disney, ds_assemble_baked,
 // ds_bake_adjoint(_blocks), ds_diff_march, ds_diff_march_bwd, ds_sun_march,
 // ds_sun_march_bwd and ds_path_adjoint(_blocks, ds_path_pixel_bytes) with
@@ -36,6 +37,7 @@
 #include "diff.cu"
 #include "path_adjoint.cu"
 #include "path_adjoint_first.cuh"
+#include "spatial.cu"
 
 namespace {
 
@@ -848,6 +850,58 @@ int ds_bake(const void* dens, int is_u8, int nx, int ny, int nz, const float* co
     bake((const uint8_t*)dens, nx, ny, nz, c, n_steps, early_out, out);
   } else {
     bake((const float*)dens, nx, ny, nz, c, n_steps, early_out, out);
+  }
+  return 0;
+}
+
+// ds_bake over the planes [z_begin, z_end) only (bake_voxel or bake_row as
+// host_set_bake chose).
+int ds_bake_planes(const void* dens, int is_u8, int nx, int ny, int nz, const float* consts,
+                   int n_steps, int early_out, int z_begin, int z_end, float* out,
+                   void* /*stream*/) {
+  if (z_begin < 0 || z_end > nz || z_begin > z_end) return 1;
+  const ds::BakeConsts c = ds::bake_consts(consts);
+  const int64_t plane = (int64_t)nx * ny;
+  std::vector<float> rows(4 * (size_t)nx);
+  for (int z = z_begin; z < z_end; ++z) {
+    for (int y = 0; y < ny; ++y) {
+      float* row = out + (int64_t)(z - z_begin) * plane + (int64_t)y * nx;
+      for (int x = 0; x < nx && bake_mode == 0; ++x) {
+        const int64_t v = z * plane + (int64_t)y * nx + x;
+        row[x] = is_u8 ? ds::bake_voxel(v, (const uint8_t*)dens, nx, ny, nz, c, n_steps, early_out)
+                       : ds::bake_voxel(v, (const float*)dens, nx, ny, nz, c, n_steps, early_out);
+      }
+      if (bake_mode == 0) continue;
+      if (is_u8) {
+        ds::bake_row(y, z, (const uint8_t*)dens, nx, ny, nz, c, n_steps, early_out, rows.data(),
+                     row);
+      } else {
+        ds::bake_row(y, z, (const float*)dens, nx, ny, nz, c, n_steps, early_out, rows.data(),
+                     row);
+      }
+    }
+  }
+  return 0;
+}
+
+// K9: phase_ray a ray, as the kernel's threads run it.
+int ds_spatial_phase(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
+                     int z0, int slab, int halo, const float* eval_rows, int n_phase,
+                     const float* inv_rows, int n_inv, const float* consts, const float* ground,
+                     int max_depth, int rr_start, int flags, uint32_t seed, const int64_t* ids,
+                     int64_t n, int steps, const float* rec_in, float* rec_out,
+                     void* /*stream*/) {
+  const ds::PtConsts c =
+      ds::pt_consts(consts, ground, 0, max_depth, rr_start, n_phase, n_inv, flags);
+  const ds::spatial::SlabZ zm{z0 - halo, slab + 2 * halo - 1};
+  for (int64_t r = 0; r < n; ++r) {
+    if (is_u8) {
+      ds::spatial::phase_ray(r, (const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz, z0, slab,
+                             zm, eval_rows, inv_rows, c, seed, ids, steps, rec_in, rec_out);
+    } else {
+      ds::spatial::phase_ray(r, (const float*)dens, (const float*)insc, nx, ny, nz, z0, slab, zm,
+                             eval_rows, inv_rows, c, seed, ids, steps, rec_in, rec_out);
+    }
   }
   return 0;
 }
