@@ -9,7 +9,8 @@ Phases, one output line each:
 
 1. ``env`` / ``build``: the card, torch and CUDA versions; the kernels
    built from ``deepestscatter_tpu_torch/csrc`` (one nvcc per source, in
-   parallel, P1's designs and the first designs of K8a and K8b included)
+   parallel, P1's designs and the first designs of K8a, K8b, K8c and K9
+   included)
    with their ptxas register reports.
 2. ``K3`` / ``K1`` / ``K2``: each kernel against its plain PyTorch version
    at the operating point's shapes, with the tolerance it must meet, its
@@ -276,19 +277,28 @@ Phases, one output line each:
     largest); the sharded bake (K3 over a plane range) against ``bake``,
     bitwise; a data-parallel training chunk (10 steps at batch 1,024
     through K10, seeded tables) equal to the undistributed chunk, bitwise.
+    ``parallel K9 phase i``: a line a phase of the subframe (the rays alive
+    at its start, the package's lanes a ray, the steps, the longest ray's,
+    the steps a lane and warp iteration, a thread a ray's SIMT efficiency,
+    the package's and the first design's ms) and ``parallel K9 against its
+    first design``: K9 and its first design (csrc/spatial_variants.cu) on
+    the subframe's replayed phases in four turns by ``ahead_ms``, the first
+    design's records bitwise the package's at every phase, the registers.
     Times with the card's line (CUDA events): K9's ms for the subframe
     (its phases' launches replayed back to back on the recorded inputs)
     beside K4's, the phases, the merges' ms and the subframe's host ms, a
-    2-subframe tick sharded and unsharded; the subframe's profile.  Then gloo worlds of 2 and 4 ranks sharing the card
+    2-subframe tick sharded and unsharded; the subframe's profile.  Then
+    gloo worlds of 2 and 4 ranks sharing the card
     (``parallel.launch``) on the 64^3 cumulus at 128 x 64: the spatial
     subframe on 2 and 4 slabs and a 2 x 2 data x space mesh bitwise equal
     to world 1's, ``exchange_halos`` equal to ``HaloSlabGrid.scatter``,
     the sharded bake and the ticks at 1 and 2 subframes bitwise, and (world
     2) a training chunk within tests/test_torch_train_parity.py's
     tolerances of world 1's; each world prints its ranks' backend and
-    device.  K9's row: its time for the subframe, its plain
-    version's ms on the 2,048 pixels, its bound from the steps K9 marched
-    and K4's in-box scatters of the same samples.
+    device.  K9's row: its time for the subframe, its first design's in
+    the same turns (``first_design_ms``), its plain version's ms on the
+    2,048 pixels, its bound from the steps K9 marched and K4's in-box
+    scatters of the same samples.
 
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
@@ -523,6 +533,9 @@ def time_ms(fn, reps: int) -> float:
 
 #: Bytes written between timed calls to evict the 50 MB L2 (``cold``).
 L2_FLUSH_BYTES = 64 * 2**20
+#: Profiles ``device_ms`` takes before it gives up on seeing a kernel: late
+#: in a full run the profiler can see none of a window's launches.
+PROFILE_TRIES = 3
 
 
 def device_ms(fn, reps: int, kernel: str = "", cold: bool = False) -> float:
@@ -534,7 +547,9 @@ def device_ms(fn, reps: int, kernel: str = "", cold: bool = False) -> float:
     come from HBM; back to back, a call whose bytes fit the L2 finds them
     there.  The profiler can miss launches (it saw 7 of 10 K7a launches in
     one run), so each kernel's time is the mean of the launches it saw,
-    times its launches a call; a line says where launches went unseen."""
+    times its launches a call; a line says where launches went unseen.
+    Where it saw none, the calls are profiled again, PROFILE_TRIES times
+    in all."""
     from torch.profiler import ProfilerActivity, profile
 
     def kernels(prof):
@@ -545,18 +560,23 @@ def device_ms(fn, reps: int, kernel: str = "", cold: bool = False) -> float:
     flush = torch.empty(L2_FLUSH_BYTES if cold else 0, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
     skip = set()
     if cold:
         with profile(activities=[ProfilerActivity.CUDA]) as fprof:
             flush.zero_()
             torch.cuda.synchronize()
         skip = {e.key for e in kernels(fprof)}
-    evs = [e for e in kernels(prof) if kernel in e.key and e.key not in skip]
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in kernels(prof) if kernel in e.key and e.key not in skip]
+        if evs:
+            break
+        print(f"device_ms: the profiler saw no device time of {kernel or 'any kernel'} "
+              f"(try {attempt} of {PROFILE_TRIES})", flush=True)
     require(bool(evs), f"the profiler saw no device time of {kernel or 'any kernel'}")
     total = 0.0
     for e in evs:
@@ -592,9 +612,9 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
 
 
 #: Sources built beside the package's: P1's designs (probes.gather.variants),
-#: the first designs of K8a and K8b's adjoint (csrc/diff_variants.cu) and
-#: K8c's (csrc/path_adjoint_variants.cu).
-EXTRA_SOURCES = ("gather_variants", "diff_variants", "path_adjoint_variants")
+#: the first designs of K8a and K8b's adjoint (csrc/diff_variants.cu), K8c's
+#: (csrc/path_adjoint_variants.cu) and K9's (csrc/spatial_variants.cu).
+EXTRA_SOURCES = ("gather_variants", "diff_variants", "path_adjoint_variants", "spatial_variants")
 
 
 def phase_build(cuda_build) -> None:
@@ -3244,8 +3264,8 @@ def k9_against_plain(sr, pt, params, static, entry, d, hit, ids, k4_steps):
     dids = ids[deep].contiguous()
     out = dict(err=0.0, plain_ms=0.0)
 
-    def phase(rec):
-        k = sr.spatial_phase(sc, st, seed, dids, spp, rec)
+    def phase(rec, n_alive):
+        k = sr.spatial_phase(sc, st, seed, dids, spp, rec, n_alive)
         ref, ms = host_call(lambda: sr.spatial_phase_plain(sc, st, seed, dids, spp, rec))
         out["plain_ms"] += ms
         out["err"] = max(out["err"], records_close(k, ref, sr))
@@ -3256,25 +3276,35 @@ def k9_against_plain(sr, pt, params, static, entry, d, hit, ids, k4_steps):
     return out["err"], out["plain_ms"], phases
 
 
-def k9_times(sr, scene_sl, static, seed, ids, entry, d, hit, group):
-    """K9's and the merges' ms for one subframe by CUDA events: the
-    subframe's phase inputs kept, then its K9 launches and its merges
-    replayed back to back (each launch ~1 ms, far longer than its host
-    time) → (K9 ms, merges' ms, phases)."""
-    st = sr.phase_static(static)
-    spp = sr.default_steps_per_phase(static, static.grid_shape[0])
-    recs, outs = [], []
+#: Calls a turn when K9 is timed against its first design (four turns).
+K9_REPS = 3
 
-    def phase(rec):
-        recs.append(rec)
-        outs.append(sr.spatial_phase(scene_sl, st, seed, ids, spp, rec))
-        return sr.owner_merge(outs[-1], group)
 
-    sr.run_phases(sr.begin_records(entry, d, hit, scene_sl.bbox_size), phase, spp,
-                  static.max_total_steps)
-    k9 = time_ms(lambda: [sr.spatial_phase(scene_sl, st, seed, ids, spp, r) for r in recs], 3)
-    merge = time_ms(lambda: [sr.owner_merge(o, group) for o in outs], 3)
-    return k9, merge, len(recs)
+def k9_against_first(mv, sr, cell) -> dict:
+    """K9 against its first design (csrc/spatial_variants.cu) on the PT
+    cell's replayed subframe (``march_variants.spatial_replay``), in four
+    turns by ``ahead_ms`` (``march_variants.spatial_against_first``): a line
+    a phase (the rays alive at its start, the package's lanes a ray, the
+    steps marched, the longest ray's steps, the package's steps a lane and
+    warp iteration (at most its chunks between refills times the lookahead
+    at one lane a ray, 32; at most those chunks, 4, with G lanes),
+    the SIMT efficiency a thread a ray has (rays by 32, each group as long
+    as its longest ray), both designs' ms), then the subframe's; the first
+    design's records bitwise the package's at every phase."""
+    r = mv.spatial_against_first(cell, K9_REPS)
+    for i, (out, n_alive, cnt) in enumerate(zip(cell["outs"], cell["alive"], cell["counters"])):
+        steps = out[:, sr.STEPS]
+        per_lane = float(steps.sum()) / (32.0 * max(cnt[1], 1))
+        print(f"parallel K9 phase {i}: alive={n_alive} G={r['lanes'][i]} steps={int(steps.sum())} "
+              f"longest={int(steps.max())} warp_iterations={cnt[1]} "
+              f"steps_per_lane_iteration={per_lane:.3f} "
+              f"simt_thread_a_ray={simt_per_pixel(steps):.3f} ms={r['phase_ms'][i]:.4f} "
+              f"first_design_ms={r['phase_ms_first'][i]:.4f}", flush=True)
+    print(f"parallel K9 against its first design ({card_line()}): the subframe's {len(cell['recs'])} "
+          f"phases back to back ahead_ms={r['ms']:.4f} (first design {r['ms_first']:.4f}) "
+          f"registers={json.dumps(r['registers'])} records bitwise={r['bitwise']}", flush=True)
+    require(r["bitwise"], "K9's first design differs from the package's kernel")
+    return r
 
 
 def par_calls(config, world: int, small_cfg, dens, grid):
@@ -3301,6 +3331,7 @@ def phase_parallel(port, config, procedural, pt, ins_ops, dev) -> list:
     from deepestscatter_tpu_torch.parallel import spatial
     from deepestscatter_tpu_torch.parallel import spatial_render as sr
     from deepestscatter_tpu_torch.parallel.render import ShardedProgressiveRenderer
+    from deepestscatter_tpu_torch.probes import march_variants as mv
     from deepestscatter_tpu_torch.render import camera as cam
     from deepestscatter_tpu_torch.train import device_data as dd
 
@@ -3388,8 +3419,11 @@ def phase_parallel(port, config, procedural, pt, ins_ops, dev) -> list:
 
         # -- times (CUDA events: the profiler saw nothing here late in a full run) --
         sub = lambda: fn(scene_sl, o, d, PT_SEED, 1, ids)  # noqa: E731
-        k9_ms, merge_ms, _ = k9_times(sr, scene_sl, static, seed, ids, entry, d, hit,
-                                      mesh_ds.get_group("space"))
+        cell = mv.spatial_replay(scene_sl, static, seed, ids, entry, d, hit)
+        k9 = k9_against_first(mv, sr, cell)
+        k9_ms = k9["ms"]
+        group = mesh_ds.get_group("space")
+        merge_ms = time_ms(lambda: [sr.owner_merge(out, group) for out in cell["outs"]], 3)
         sub_host_ms = float(np.median([host_ms(sub) for _ in range(3)]))
         k4_ms = time_ms(lambda: pt.scatter_loop(params, static, entry, d, hit, ids, seed, 0, 1),
                         3)
@@ -3397,7 +3431,7 @@ def phase_parallel(port, config, procedural, pt, ins_ops, dev) -> list:
         one = port.ProgressiveRenderer(cfg, params, static, seed=PT_SEED, device=dev)
         tick_one = float(np.median([host_ms(one.tick) for _ in range(3)]))
         print(f"parallel times ({card_line()}): one {PT_SIZE}^2 subframe at world 1: K9 "
-              f"ms={k9_ms:.3f} over its {phases} phases, the merges (owner_merge: the masked "
+              f"ms={k9_ms:.3f} (ahead_ms) over its {phases} phases, the merges (owner_merge: the masked "
               f"all_reduce and wheres) ms={merge_ms:.3f} (CUDA events, replayed back to back), "
               f"host_ms={sub_host_ms:.3f}; K4 ms for the same subframe={k4_ms:.3f}; "
               f"a {PT_SUBFRAMES}-subframe tick host_ms sharded={tick_sh:.3f} "
@@ -3466,7 +3500,7 @@ def phase_parallel(port, config, procedural, pt, ins_ops, dev) -> list:
     row = kernel_row("K9 slab march", "deepestscatter_tpu_torch/csrc/spatial.cu",
                      "deepestscatter_tpu/parallel/spatial_render.py:351", err, k9_ms, plain_ms,
                      n_bytes, n_ops)
-    return [dict(row, launches=launches["K9"])]
+    return [dict(row, launches=launches["K9"], first_design_ms=k9["ms_first"])]
 
 
 def run() -> dict:

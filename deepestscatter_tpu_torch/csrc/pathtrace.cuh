@@ -247,19 +247,35 @@ struct Crossing {
   float tn;
 };
 
-enum : int { kMarching = 0, kEnded = 1, kCrossed = 2 };
+// kParked: K9's stop before a step (another rank's cell, the phase's
+// budget); the sample goes on in a later phase.
+enum : int { kMarching = 0, kEnded = 1, kCrossed = 2, kParked = 3 };
+
+// The stop rule of a sample's march: K4's step cap, tested before each
+// step (`steps` taken so far, uz the step's normalized z coordinate); where
+// it stops, the march returns kState.
+struct StepCap {
+  static constexpr int kState = kEnded;
+  int max_steps;
+  __device__ __forceinline__ bool operator()(int steps, float /*uz*/) const {
+    return steps >= max_steps;
+  }
+};
 
 // Up to K march steps of the sample with the same values as K rounds of
 // trace_sample's loop without its scatter: the K steps' densities and
-// factors first, as independent chains, then the transmittance updates and
-// tests in order (a loop without early exits, so that it unrolls and the
-// arrays stay in registers).  Returns kEnded where the sample ended (box
-// exit, cap), kCrossed where a step crossed od (X holds it; the sample
-// stands at the step before), else kMarching.
-template <int K, typename T>
+// factors first, as independent chains, then the stop rule, transmittance
+// updates and tests in order (a loop without early exits, so that it
+// unrolls and the arrays stay in registers).  Returns the stop rule's
+// kState where it stopped the march before a step (K4: kEnded at the cap),
+// kEnded where the sample ended (box exit), kCrossed where a step crossed
+// od (X holds it; the sample stands at the step before), else kMarching.
+// zmap: where the density stores a plane (WholeZ; K9's slab).
+template <int K, typename T, typename Z, typename Stop>
 __device__ __forceinline__ int march_steps(Sample& S, Crossing& X, const T* __restrict__ dens,
-                                           int nx, int ny, int nz, const PtConsts& c) {
-  float dens_k[K], e_k[K];
+                                           int nx, int ny, int nz, const PtConsts& c, Z zmap,
+                                           Stop stop) {
+  float dens_k[K], e_k[K], uz_k[K];
   float qx = S.px, qy = S.py, qz = S.pz;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -268,16 +284,17 @@ __device__ __forceinline__ int march_steps(Sample& S, Crossing& X, const T* __re
     qz = qz + S.dz * c.step;
     dens_k[k] = trilinear_strided(dens, nx, ny, nz, div_exact(qx, c.bbox[0], c.inv_bbox[0]),
                                   div_exact(qy, c.bbox[1], c.inv_bbox[1]),
-                                  div_exact(qz, c.bbox[2], c.inv_bbox[2])) *
+                                  div_exact(qz, c.bbox[2], c.inv_bbox[2]), zmap) *
                 c.dm;
+    uz_k[k] = div_exact(qz, c.bbox[2], c.inv_bbox[2]);
     e_k[k] = expf(-dens_k[k] * c.step);
   }
   int state = kMarching;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     if (state == kMarching) {
-      if (S.steps >= c.max_steps) {
-        state = kEnded;
+      if (stop(S.steps, uz_k[k])) {
+        state = Stop::kState;
       } else {
         const float ax = S.px + S.dx * c.step, ay = S.py + S.dy * c.step,
                     az = S.pz + S.dz * c.step;
@@ -299,14 +316,23 @@ __device__ __forceinline__ int march_steps(Sample& S, Crossing& X, const T* __re
   return state;
 }
 
+// K4's march: the whole grid, the step cap.
+template <int K, typename T>
+__device__ __forceinline__ int march_steps(Sample& S, Crossing& X, const T* __restrict__ dens,
+                                           int nx, int ny, int nz, const PtConsts& c) {
+  return march_steps<K>(S, X, dens, nx, ny, nz, c, WholeZ(), StepCap{c.max_steps});
+}
+
 // The crossing X's scatter (NEE, the next flight): true where the sample
 // ends.
-template <typename T>
+template <typename T, typename Z = WholeZ>
 __device__ __forceinline__ bool resolve(Sample& S, const Crossing& X, const T* __restrict__ insc,
                                         int nx, int ny, int nz,
                                         const float* __restrict__ eval_rows,
-                                        const float* __restrict__ inv, const PtConsts& c) {
-  return scatter(S, insc, nx, ny, nz, eval_rows, inv, c, X.ax, X.ay, X.az, X.density, X.tn);
+                                        const float* __restrict__ inv, const PtConsts& c,
+                                        Z zmap = Z()) {
+  return scatter(S, insc, nx, ny, nz, eval_rows, inv, c, X.ax, X.ay, X.az, X.density, X.tn,
+                 zmap);
 }
 
 // Up to K march steps and, where one crossed od, its scatter: the same

@@ -250,19 +250,23 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
 
 
 def _launch(scene: SpatialScene, static: SceneStatic, seed: int, ray_ids: torch.Tensor,
-            steps: int, rec: torch.Tensor, lib=None) -> torch.Tensor:
+            steps: int, rec: torch.Tensor, n_alive: Optional[int] = None,
+            lib=None) -> torch.Tensor:
     """K9 on the inputs' device (``lib``: another library with the same
-    ``ds_spatial_phase`` entry point, the tests' host build)."""
+    ``ds_spatial_phase`` entry point, the tests' host build).  ``n_alive``:
+    the rays alive in ``rec``, from which the kernel chooses its lanes a ray
+    (None: taken as all; the values do not depend on it)."""
     dens, insc = scene.density, scene.inscatter
     n = rec.shape[0]
-    if rec.dtype != torch.float32 or rec.shape != (n, WIDTH) or not rec.is_contiguous():
-        raise ValueError(f"records must be a contiguous float32 [N, {WIDTH}]")
+    if (rec.dtype != torch.float32 or rec.shape != (n, WIDTH) or not rec.is_contiguous()
+            or rec.data_ptr() % 16):
+        raise ValueError(f"records must be a contiguous, 16-byte aligned float32 [N, {WIDTH}]")
     if ray_ids.shape != (n,) or ray_ids.dtype != torch.int64:
         raise ValueError("ray_ids must be int64 [N]")
     if dens.dtype != insc.dtype or dens.dtype not in (torch.uint8, torch.float32):
@@ -277,30 +281,39 @@ def _launch(scene: SpatialScene, static: SceneStatic, seed: int, ray_ids: torch.
     consts, ground, flags, _ = pathtracer.launch_consts(static)
     nz, ny, nx = scene.grid_shape
     out = torch.empty_like(rec)
+    counters = torch.empty((2,), dtype=torch.int64, device=rec.device)
     ids = ray_ids.contiguous()
     cuda_build.check(
         fn(cuda_build.ptr(dens), cuda_build.ptr(insc), int(dens.dtype == torch.uint8), nx, ny,
            nz, scene.z0, scene.slab, scene.halo, cuda_build.ptr(ph.eval_rows),
            ph.eval_rows.shape[0], cuda_build.ptr(ph.inv_cdf_rows), ph.inv_cdf_rows.shape[0],
            consts, ground, static.max_depth, static.rr_start_depth, flags,
-           int(seed) & 0xFFFFFFFF, cuda_build.ptr(ids), n, int(steps), cuda_build.ptr(rec),
-           cuda_build.ptr(out), cuda_build.stream_handle()),
+           int(seed) & 0xFFFFFFFF, cuda_build.ptr(ids), n, n if n_alive is None else int(n_alive),
+           int(steps), cuda_build.ptr(rec), cuda_build.ptr(out), cuda_build.ptr(counters),
+           cuda_build.stream_handle()),
         "spatial phase kernel")
     spatial_phase.launches += 1
+    spatial_phase.last_counters = counters
     return out
 
 
 def spatial_phase(scene: SpatialScene, static: SceneStatic, seed: int, ray_ids: torch.Tensor,
-                  steps: int, rec: torch.Tensor) -> torch.Tensor:
+                  steps: int, rec: torch.Tensor, n_alive: Optional[int] = None) -> torch.Tensor:
     """K9's wrapper: the kernel for CUDA tensors, ``spatial_phase_plain``
-    for CPU tensors (same signature and values)."""
+    for CPU tensors (the same values).  ``n_alive``: the rays alive in
+    ``rec`` where the caller knows it (``run_phases``' count), from which
+    the kernel chooses its lanes a ray."""
     if rec.is_cuda:
-        return _launch(scene, static, seed, ray_ids, steps, rec)
+        return _launch(scene, static, seed, ray_ids, steps, rec, n_alive)
     return spatial_phase_plain(scene, static, seed, ray_ids, steps, rec)
 
 
 #: Kernel launches so far (counted where K9 is launched, nowhere else).
 spatial_phase.launches = 0
+#: The last launch's device counters [2] int64: rays scanned (the scan's
+#: head, past n by the groups' last scans) and the warps' march iterations
+#: (a chunk of each group with a ray; 0 in the first design).
+spatial_phase.last_counters = None
 
 
 def _touched(rec: torch.Tensor) -> torch.Tensor:
@@ -337,13 +350,18 @@ def begin_records(entry: torch.Tensor, dirs: torch.Tensor, hit: torch.Tensor,
 
 def run_phases(rec: torch.Tensor, phase, steps_per_phase: int, max_iters: int):
     """The phase loop (``phase_body`` / ``cond``, ``:447-487``): ``phase
-    (rec)`` (a launch and the merge) while a ray is alive and fewer than
-    ``max_iters`` steps are counted, ``steps_per_phase`` a phase → (the
-    records, the phases, the steps marched as a 0-dim tensor)."""
+    (rec, n_alive)`` (a launch and the merge; ``n_alive`` the rays alive in
+    ``rec``) while a ray is alive and fewer than ``max_iters`` steps are
+    counted, ``steps_per_phase`` a phase → (the records, the phases, the
+    steps marched as a 0-dim tensor).  The alive count is the loop's one
+    sync a phase."""
     i = phases = 0
     steps = torch.zeros((), dtype=torch.float64, device=rec.device)
-    while i < max_iters and bool((rec[:, ALIVE] != 0.0).any()):
-        rec = phase(rec)
+    while i < max_iters:
+        n_alive = int((rec[:, ALIVE] != 0.0).sum())
+        if n_alive == 0:
+            break
+        rec = phase(rec, n_alive)
         steps = steps + rec[:, STEPS].sum(dtype=torch.float64)
         i += steps_per_phase
         phases += 1
@@ -410,8 +428,9 @@ class SpatialSubframe:
         miss = camera_ops.miss_radiance(scene, self.static, d)
         rec, self.last_phases, steps = run_phases(
             begin_records(entry, d, hit, scene.bbox_size),
-            lambda r: owner_merge(spatial_phase(scene, self.static, seed_s, ids,
-                                                self.steps_per_phase, r), self.group),
+            lambda r, n_alive: owner_merge(spatial_phase(scene, self.static, seed_s, ids,
+                                                         self.steps_per_phase, r, n_alive),
+                                           self.group),
             self.steps_per_phase, self.max_iters)
         self.last_steps = int(steps.item())
         return torch.where(hit[:, None], rec[:, RAD:RAD + 3], miss)

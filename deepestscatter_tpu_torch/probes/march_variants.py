@@ -60,6 +60,15 @@ one card.
   bitwise against the package's and its gradients within ``PATH_TOL``;
   then the package's sweep timed entry by entry (``path_timeline``).
 
+- K9 (``csrc/spatial.cu``, built from ``csrc/spatial_variants.cu``, which
+  includes only that source and the first design's header) in each design
+  of ``SPATIAL_DESIGNS``: its first design (a thread a ray), the package's
+  queue at each G lanes a ray, with other launch bounds and chunks between
+  refills, and scanning in order; phase by phase at chip_smoke.py's PT
+  cell (the 512^2 subframe at world 1, one slab, seed 5's first subframe)
+  and at 1024^2, each phase timed alone in turns by ``ahead_ms``, beside K4
+  on the same samples, every design bitwise against the package's.
+
 The diff kernels run at chip_smoke.py's two points of ``render.diff``:
 the defaults point (64 x 32, 256 steps of 1/256, dm 100, the 64^3 cloud
 of seed 29, baked) and the frame point (the 256^3 cumulus of seed 11, 512
@@ -90,11 +99,12 @@ backward, twice.
 Run on the card::
 
     python -m deepestscatter_tpu_torch.probes.march_variants [--collector-only | --diff-only |
-                                                              --path-only]
+                                                              --path-only | --spatial-only]
 
 ``--collector-only`` runs K7a's and K7b's alternatives alone,
 ``--diff-only`` K8a's, K8b's, the sun march's and K8c's, ``--path-only``
-K8c's alone (the default run leaves K8c's out).  Prints
+K8c's alone, ``--spatial-only`` K9's alone (the default run leaves K8c's
+and K9's out).  Prints
 one line an alternative, then one JSON object as the last line; exits 1
 without a card or if an alternative disagrees.
 """
@@ -1032,6 +1042,163 @@ def path_variants(dev) -> dict:
     return out
 
 
+#: K9's alternatives (``csrc/spatial_variants.cu``, ``ds_spatial_variant``'s
+#: codes: the design (0 the first; 1 the package's kernel; 2 it scanning
+#: the rays in order at every G), the lanes a ray (0 the package's choice
+#: from the alive count), the launch bounds' resident blocks a SM (0 the
+#: threads alone; 1 the package's; 12), the chunks a group marches between
+#: refills (0 the package's: 16 lookahead chunks at one lane a ray, else 4)).
+SPATIAL_DESIGNS = {"first design (a thread a ray)": (0, 0, 1, 0),
+                   "queue, the package's lanes": (1, 0, 1, 0),
+                   "queue, the package's lanes, scan in order": (2, 0, 1, 0),
+                   **{f"G={g}": (1, g, 1, 0) for g in (1, 4, 8, 16, 32)},
+                   **{f"G={g} blocks={b}": (1, g, b, 0) for g in (1, 8, 32) for b in (0, 12)},
+                   **{f"G=1 chunks={c}": (1, 1, 1, c) for c in (1, 4, 8, 32)},
+                   **{f"G={g} chunks=1": (1, g, 1, 1) for g in (8, 16, 32)}}
+#: K9's frames: the PT cell's 512^2 and four times its rays.
+SPATIAL_SIZES = (SIZE, 2 * SIZE)
+
+
+def spatial_lib(lib):
+    """Types ``csrc/spatial_variants.cu``'s ``ds_spatial_variant``."""
+    lib.ds_spatial_variant.argtypes = [ctypes.c_int] * 4
+    lib.ds_spatial_variant.restype = None
+    return lib
+
+
+def spatial_replay(scene, static, seed: int, ids, entry, dirs, hit) -> dict:
+    """A subframe's phases on one slab (``merge_slabs``), each phase's
+    inputs kept → the cell: the slab scene, the phase static, the seed,
+    ray ids, steps a phase, each phase's input records, alive count, the
+    package's output records and its counters (rays scanned, warp march
+    iterations)."""
+    from ..parallel import spatial_render as sr
+
+    st = sr.phase_static(static)
+    spp = sr.default_steps_per_phase(static, static.grid_shape[0])
+    cell = dict(scene=scene, static=st, seed=seed, ids=ids, spp=spp, recs=[], alive=[], outs=[],
+                counters=[])
+
+    def phase(rec, n_alive):
+        cell["recs"].append(rec)
+        cell["alive"].append(n_alive)
+        cell["outs"].append(sr.spatial_phase(scene, st, seed, ids, spp, rec, n_alive))
+        cell["counters"].append(sr.spatial_phase.last_counters.tolist() if rec.is_cuda
+                                else [0, 0])
+        return sr.merge_slabs([cell["outs"][-1]])
+
+    sr.run_phases(sr.begin_records(entry, dirs, hit, scene.bbox_size), phase, spp,
+                  static.max_total_steps)
+    return cell
+
+
+def spatial_cell(dev, size: int = SIZE) -> dict:
+    """chip_smoke.py's PT cell at world 1 (the 256^3 cumulus of seed 11 at
+    2000 m, uint8, ``size``^2 (512^2), all-scatter, ``max_depth`` 2000, one
+    slab of 512 steps a phase, seed 5's first subframe) replayed
+    (``spatial_replay``), with K4's arguments for the same samples."""
+    from ..ops import rng as rng_ops
+    from ..parallel import spatial_render as sr
+
+    cfg = config.SceneConfig(
+        cloud=config.CloudModel(size_m=2000.0),
+        camera=config.CameraConfig(width=size, height=size),
+        rendering=config.CloudRendering(march_dtype="uint8"),
+    )
+    params, static = build_scene(cfg, procedural.cumulus(resolution=256, seed=11), device=dev)
+    params = with_baked_inscatter(params, static, device=dev)
+    o, d = camera.generate_rays(camera.camera_basis(cfg.camera), size, size, dev)
+    hit, t_hit = camera.intersect_box(o, d, static, params.bbox_size)
+    entry = camera.entry_points(o, d, t_hit, params.bbox_size)
+    ids = torch.arange(o.shape[0], device=dev)
+    seed = rng_ops.subframe_seed(5, 1)
+    cell = spatial_replay(sr.slab_scene(params, 0, 1, device=dev), static, seed, ids, entry, d,
+                          hit)
+    cell["k4"] = (params, static, entry, d, hit, ids, seed, 0, 1)
+    return cell
+
+
+def spatial_design(lib, cell, code):
+    """Phase i of the cell through K9's alternative ``code``
+    (``ds_spatial_variant``'s arguments): fn(i) → records."""
+    from ..parallel import spatial_render as sr
+
+    def run(i):
+        lib.ds_spatial_variant(*code)
+        return sr._launch(cell["scene"], cell["static"], cell["seed"], cell["ids"], cell["spp"],
+                          cell["recs"][i], cell["alive"][i], lib=lib)
+    return run
+
+
+def spatial_against_first(cell, reps: int) -> dict:
+    """K9, the package's kernel against its first design on the cell's
+    replayed phases, in four turns by ``ahead_ms`` (a subframe's launches
+    back to back, then each phase alone): their means, the package's lanes
+    a ray each phase, the registers; the first design's records bitwise
+    against the package's at every phase."""
+    from ..parallel import spatial_render as sr
+
+    lib = spatial_lib(cuda_build.load("spatial_variants"))
+    pkg = cuda_build.load("spatial")
+    first = spatial_design(lib, cell, SPATIAL_DESIGNS["first design (a thread a ray)"])
+    new = [functools.partial(sr.spatial_phase, cell["scene"], cell["static"], cell["seed"],
+                             cell["ids"], cell["spp"], r, a)
+           for r, a in zip(cell["recs"], cell["alive"])]
+    phases = range(len(cell["recs"]))
+    fns = {"new": lambda: [f() for f in new], "first": lambda: [first(i) for i in phases]}
+    for i in phases:
+        fns[f"new {i}"] = new[i]
+        fns[f"first {i}"] = functools.partial(first, i)
+    t = {k: mean(v) for k, v in in_turns(fns, reps, ahead_ms).items()}
+    bitwise = all(torch.equal(first(i), cell["outs"][i]) for i in phases)
+    lanes = pkg.ds_spatial_lanes
+    lanes.argtypes = [ctypes.c_int64, ctypes.c_int64]
+    lanes.restype = ctypes.c_int
+    g = [int(lanes(cell["ids"].shape[0], a)) for a in cell["alive"]]
+    return dict(ms=t["new"], ms_first=t["first"], phase_ms=[t[f"new {i}"] for i in phases],
+                phase_ms_first=[t[f"first {i}"] for i in phases], lanes=g, bitwise=bitwise,
+                registers=dict(package={f"G={x}": registers(pkg, "ds_spatial_registers", x)
+                                        for x in sorted(set(g))},
+                               first=registers(lib, "ds_spatial_registers", 0, 0, 1)))
+
+
+def spatial_variants(dev) -> dict:
+    """K9 at the PT cell's subframe, and at 1024^2 (four times its rays),
+    in each design of ``SPATIAL_DESIGNS``, each phase timed alone in turns
+    by ``ahead_ms``, beside K4 on the same samples; each design's records
+    bitwise against the package's at every phase, and its registers."""
+    from ..parallel import spatial_render as sr
+
+    lib = spatial_lib(cuda_build.load("spatial_variants"))
+    report = {}
+    for size in SPATIAL_SIZES:
+        cell = spatial_cell(dev, size)
+        out: Dict[str, dict] = {}
+        for i, (a, ref) in enumerate(zip(cell["alive"], cell["outs"])):
+            steps = ref[:, sr.STEPS]
+            print(f"K9 {size}^2 phase {i}: alive={a} steps={int(steps.sum())} "
+                  f"longest={int(steps.max())}", flush=True)
+        fns = {}
+        for key, code in SPATIAL_DESIGNS.items():
+            run = spatial_design(lib, cell, code)
+            equal = all(torch.equal(run(i), ref) for i, ref in enumerate(cell["outs"]))
+            out[key] = dict(equal=equal,
+                            registers=registers(lib, "ds_spatial_registers", *code[:3]))
+            for i in range(len(cell["recs"])):
+                fns[(key, i)] = functools.partial(run, i)
+        times = in_turns(fns, 5, ahead_ms)
+        for key in SPATIAL_DESIGNS:
+            out[key]["phase_ms"] = [mean(times[(key, i)]) for i in range(len(cell["recs"]))]
+            out[key]["ms"] = sum(out[key]["phase_ms"])
+            print(f"K9 {size}^2 {key}: {json.dumps(out[key])}", flush=True)
+        k4 = mean(in_turns({"K4": lambda: pathtracer.scatter_loop(*cell["k4"])}, 5)["K4"])
+        print(f"K9 {size}^2 cell: K4 for the same samples ms={k4:.4f}", flush=True)
+        report[f"{size}^2"] = dict(designs=out, alive=cell["alive"], k4_ms=k4)
+        del cell
+    report["ok"] = all(r["equal"] for c in report.values() for r in c["designs"].values())
+    return report
+
+
 def lib_const(lib, name: str) -> int:
     """An int a library's entry point ``name()`` returns."""
     fn = getattr(lib, name)
@@ -1113,6 +1280,8 @@ def main(argv=None) -> int:
                       help="time only the diff kernels' alternatives (K8a, K8b, K8c)")
     only.add_argument("--path-only", action="store_true",
                       help="time only K8c's designs (the path adjoint)")
+    only.add_argument("--spatial-only", action="store_true",
+                      help="time only K9's designs (the slab march)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("march_variants: needs a CUDA card", file=sys.stderr)
@@ -1121,6 +1290,15 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     t0 = time.time()
     dev = torch.device("cuda")
+    if opts.spatial_only:
+        cuda_build.build(["inscatter", "pathtrace", "spatial", "spatial_variants"])
+        regs = ptxas((cuda_build.BUILD_DIR / "spatial_variants.log").read_text())
+        print(f"build: {time.time() - t0:.1f}s ptxas={json.dumps(regs)}", flush=True)
+        report = dict(card=card, spatial=spatial_variants(dev), ptxas=regs)
+        report["ok"] = report["spatial"]["ok"]
+        print(card, flush=True)
+        print(json.dumps(report), flush=True)
+        return 0 if report["ok"] else 1
     if opts.path_only:
         cuda_build.build(["inscatter", "diff", "pathtrace", "path_adjoint",
                           "path_adjoint_variants"])

@@ -76,9 +76,12 @@ The slab march (K9, ``parallel.spatial_render.spatial_phase``) on 2
 slabs of the 48^3 scene at ``max_depth`` 40 in the three modes: every
 phase's records equal its plain version's on the same inputs in depth,
 alive, touched and steps, the rest within 1e-5 of each column's largest
-value (at least 1); the subframe bitwise equal to K4's samples.  On 4
-slabs against the plain version on the CPU: >= 99 % of pixels within 1e-5
-of the image's largest value (K4's card-against-CPU rule).  K3 over a
+value (at least 1); the subframe bitwise equal to K4's samples.  Every
+design of ``csrc/spatial_variants.cu`` (the first, a thread a ray; G
+lanes a ray; other launch bounds) bitwise the package's at every phase
+and K4's over the subframe.  On 4 slabs against the plain version on the
+CPU: >= 99 % of pixels within 1e-5 of the image's largest value (K4's
+card-against-CPU rule).  K3 over a
 split of the planes (``planes=``) bitwise equal to the whole bake.
 
 The render task (``tasks.render_cloud``, NN and BNN, from ``.pt``
@@ -1383,7 +1386,7 @@ def _k9_subframe(params, static, rays, n_slabs, phase_fn, check=None):
     spp = sr.default_steps_per_phase(static, static.grid_shape[0] // n_slabs)
     seed = rng_ops.subframe_seed(5, 1)
 
-    def phase(rec):
+    def phase(rec, n_alive):
         outs = [phase_fn(s, st, seed, ids, spp, rec) for s in scenes]
         for s, out in zip(scenes, outs if check else ()):
             check(s, st, seed, ids, spp, rec, out)
@@ -1419,6 +1422,36 @@ def test_spatial_phase_kernel_matches_plain_and_k4(scene, card, mode):
     torch.cuda.synchronize()
     assert bool(k4.steps.max() < static.max_total_steps)
     assert torch.equal(got, torch.where(hit[:, None], k4.mean, 0.0))
+
+
+@pytest.mark.parametrize("mode", list(config.RenderMode))
+def test_spatial_phase_designs_match_the_package(scene, card, mode):
+    """Every design of ``csrc/spatial_variants.cu`` (``ds_spatial_variant``:
+    the first design, a thread a ray; the package's kernel at G = 1, 4, 8,
+    16 and 32 lanes a ray; launch bounds of 1 and 12 resident blocks) on 2
+    slabs: every phase's records bitwise the package's K9's on the same
+    inputs, and the subframe bitwise K4's (``render_subframe``'s
+    samples)."""
+    from deepestscatter_tpu_torch.parallel import spatial_render as sr
+    from deepestscatter_tpu_torch.probes import march_variants as mv
+
+    lib = mv.spatial_lib(cuda_build.load("spatial_variants"))
+    params, static, rays = _k9_rig(scene, card, mode)
+    entry, d, hit, ids = rays
+    k4 = pathtracer.scatter_loop(params, static, entry, d, hit, ids,
+                                 pathtracer.rng_ops.subframe_seed(5, 1), 0, 1)
+    ref = torch.where(hit[:, None], k4.mean, 0.0)
+
+    def check(s, st, seed, ids_, spp, rec, out):
+        assert torch.equal(out, sr.spatial_phase(s, st, seed, ids_, spp, rec))
+
+    for name, code in mv.SPATIAL_DESIGNS.items():
+        def variant(s, st, seed, ids_, spp, rec, code=code):
+            lib.ds_spatial_variant(*code)
+            return sr._launch(s, st, seed, ids_, spp, rec, lib=lib)
+
+        got = _k9_subframe(params, static, rays, 2, variant, check)
+        assert torch.equal(got, ref), name
 
 
 def test_spatial_phase_card_against_cpu(scene, card):

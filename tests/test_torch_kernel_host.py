@@ -131,8 +131,10 @@ arithmetic the kernels share with their host build.
   budget change nothing but float64 rounding; and the render's autograd
   Functions over the host build (K3, K4, K8c, K8a) match the plain render
   within 1e-6 (image), 1e-5 (density) and 1e-4.
-- K9 (``csrc/spatial.cu``, ``phase_ray`` a ray) on 1, 2 and 4 z-slabs of
-  the grid, each phase a launch a slab merged by the masked sum of
+- K9 (``csrc/spatial.cu``, ``ray_phase`` a ray at one lane a ray; its
+  groups of lanes and its first design in ``test_torch_k9_host.py``) on 1,
+  2 and 4 z-slabs of the grid, each phase a launch a slab merged by the
+  masked sum of
   ``parallel.spatial_render.owner_merge`` (one owner a ray), equals K4's
   per-pixel loop ``pathtrace_pixel`` bitwise in the three modes on both
   texture types; on 2 slabs every phase's records equal the plain version
@@ -1449,7 +1451,7 @@ def _k9_subframe(lib, params, static, rays, n_slabs, plain=False):
     seed = rng_ops.subframe_seed(SEED, 1)
     check = dict(diff=0.0, same=True)
 
-    def phase(rec):
+    def phase(rec, n_alive):
         outs = [sr._launch(s, st, seed, ids, spp, rec, lib=lib) for s in scenes]
         assert bool((sum(k[:, sr.TOUCHED] for k in outs) <= 1).all())  # one owner a ray
         for s, k in zip(scenes, outs if plain else ()):

@@ -20,10 +20,12 @@
 // so the wrappers' _launch drives it on CPU tensors; host_set_pathtrace,
 // host_set_radiance, host_set_bake, host_set_march, host_set_descriptor,
 // host_set_probes, host_set_samples, host_set_diff,
-// host_set_diff_forward and host_set_path choose what they compute
+// host_set_diff_forward, host_set_path and host_set_spatial choose what they
+// compute
 // (host_path_list returns K8c's last work list).
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <vector>
 
@@ -38,6 +40,7 @@
 #include "path_adjoint.cu"
 #include "path_adjoint_first.cuh"
 #include "spatial.cu"
+#include "spatial_first.cuh"
 
 namespace {
 
@@ -87,6 +90,11 @@ const int64_t* path_order = nullptr;
 int path_long_steps = ds::path::kLongSteps;
 std::vector<int64_t> path_list;  // the last launch's: its front, then its back
 int64_t front_length = 0;
+// K9: 0 phase_ray a ray (its first design); 1 ray_phase a ray with
+// spatial_lanes lanes a ray (the kernel's groups, a chunk's lanes emulated
+// one after the other; 1 a lane of one thread at K4's lookahead).
+int spatial_design = 1;
+int spatial_lanes = 1;  // 1, 4, 8, 16 or 32
 
 template <int K, typename T>
 void trace_items(const T* dens, const T* insc, int nx, int ny, int nz,
@@ -725,6 +733,55 @@ void sweep_lanes(const ds::path::PathArgs& a, int64_t e, double* sums) {
   if (a.remarch != nullptr) a.remarch[it.item] = remarched;
 }
 
+// K9 in the design host_set_spatial chose, a ray at a time in ray order
+// (the rays are independent; the kernel's scan order changes nothing).
+template <int G, typename T>
+void spatial_rays(const ds::spatial::SlabArgs<T>& a) {
+  for (int64_t r = 0; r < a.n; ++r) ds::spatial::ray_phase<G>(a, r);
+}
+
+template <typename T>
+void spatial_phase(const void* dens, const void* insc, int nx, int ny, int nz, int z0,
+                   int slab, int halo, const float* eval_rows, const float* inv_rows,
+                   const ds::PtConsts& c, uint32_t seed, const int64_t* ids, int64_t n,
+                   int steps, const float* rec_in, float* rec_out) {
+  if (spatial_design == 0) {
+    const ds::spatial::SlabZ zm{z0 - halo, slab + 2 * halo - 1};
+    for (int64_t r = 0; r < n; ++r) {
+      ds::spatial::phase_ray(r, (const T*)dens, (const T*)insc, nx, ny, nz, z0, slab, zm,
+                             eval_rows, inv_rows, c, seed, ids, steps, rec_in, rec_out);
+    }
+    return;
+  }
+  ds::spatial::SlabArgs<T> a;
+  a.dens = (const T*)dens;
+  a.insc = (const T*)insc;
+  a.nx = nx;
+  a.ny = ny;
+  a.nz = nz;
+  a.zm = ds::spatial::SlabZ{z0 - halo, slab + 2 * halo - 1};
+  a.stop = ds::spatial::SlabStop{steps, nz, z0, slab};
+  a.eval_rows = eval_rows;
+  a.inv = inv_rows;
+  a.c = c;
+  a.seed = seed;
+  a.ids = ids;
+  a.n = n;
+  a.scan = 1;
+  a.chunks = ds::spatial::kSpatialChunks;
+  a.rec_in = rec_in;
+  a.rec_out = rec_out;
+  a.counters = nullptr;
+  memcpy(rec_out, rec_in, (size_t)n * ds::spatial::kWidth * sizeof(float));
+  switch (spatial_lanes) {
+    case 4: spatial_rays<4>(a); break;
+    case 8: spatial_rays<8>(a); break;
+    case 16: spatial_rays<16>(a); break;
+    case 32: spatial_rays<32>(a); break;
+    default: spatial_rays<1>(a); break;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -884,24 +941,24 @@ int ds_bake_planes(const void* dens, int is_u8, int nx, int ny, int nz, const fl
   return 0;
 }
 
-// K9: phase_ray a ray, as the kernel's threads run it.
+// K9 (ds_spatial_phase's arguments; n_alive is the kernel's choice of lanes
+// and changes nothing here; no warp iterations are counted).
 int ds_spatial_phase(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
                      int z0, int slab, int halo, const float* eval_rows, int n_phase,
                      const float* inv_rows, int n_inv, const float* consts, const float* ground,
                      int max_depth, int rr_start, int flags, uint32_t seed, const int64_t* ids,
-                     int64_t n, int steps, const float* rec_in, float* rec_out,
-                     void* /*stream*/) {
+                     int64_t n, int64_t /*n_alive*/, int steps, const float* rec_in,
+                     float* rec_out, unsigned long long* counters, void* /*stream*/) {
+  counters[0] = (unsigned long long)n;  // every ray scanned
+  counters[1] = 0;
   const ds::PtConsts c =
       ds::pt_consts(consts, ground, 0, max_depth, rr_start, n_phase, n_inv, flags);
-  const ds::spatial::SlabZ zm{z0 - halo, slab + 2 * halo - 1};
-  for (int64_t r = 0; r < n; ++r) {
-    if (is_u8) {
-      ds::spatial::phase_ray(r, (const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz, z0, slab,
-                             zm, eval_rows, inv_rows, c, seed, ids, steps, rec_in, rec_out);
-    } else {
-      ds::spatial::phase_ray(r, (const float*)dens, (const float*)insc, nx, ny, nz, z0, slab, zm,
-                             eval_rows, inv_rows, c, seed, ids, steps, rec_in, rec_out);
-    }
+  if (is_u8) {
+    spatial_phase<uint8_t>(dens, insc, nx, ny, nz, z0, slab, halo, eval_rows, inv_rows, c, seed,
+                           ids, n, steps, rec_in, rec_out);
+  } else {
+    spatial_phase<float>(dens, insc, nx, ny, nz, z0, slab, halo, eval_rows, inv_rows, c, seed,
+                         ids, n, steps, rec_in, rec_out);
   }
   return 0;
 }
@@ -1318,6 +1375,13 @@ int64_t host_path_list(int64_t* out, int64_t cap) {
   const int64_t len = (int64_t)path_list.size();
   for (int64_t t = 0; t < len && t < cap; ++t) out[t] = path_list[t];
   return len;
+}
+
+// K9: design 0 phase_ray a ray (its first design), 1 the kernel's group of
+// `lanes` lanes a ray (1, 4, 8, 16 or 32).
+void host_set_spatial(int design, int lanes) {
+  spatial_design = design == 0 ? 0 : 1;
+  spatial_lanes = lanes;
 }
 
 }  // extern "C"
