@@ -300,6 +300,28 @@ Phases, one output line each:
     2,048 pixels, its bound from the steps K9 marched and K4's in-box
     scatters of the same samples.
 
+19. ``skip``: empty-space skipping on the main paths, counted (the
+    skipping instantiations of K4, K7b, K7a and K1 must launch).  The PT
+    cell at 256^3 and 64^3 with its occupancy built (a long step 16 and 64
+    lattice steps): per static (no skip, the cell jump alone, the block
+    skip alone) a ``ProgressiveRenderer`` of 17 ticks, its Mrays/s, K4's
+    tick by CUDA events beside the default's, the steps sampled and
+    jumped; each skip's K4 bitwise its plain version (steps, jumps and
+    scatters equal, values within K4's tolerances) on the tick's samples of
+    the 1,024 pixels with the most lattice steps (K4 a launch a subframe,
+    the plain loop a lane a sample), and its image against the default image
+    by ``render_agreement`` (independent seeds; a 1.02-scaled image must
+    fail).  The collector's scene with its 2,048 samples: one radiance
+    update (``estimate_point_radiance``) with the cell jump, K7b held to
+    its plain version by ``k7b_against_plain`` (base 0), its time beside
+    the default's; K7a with each skip bitwise its plain version (every
+    field), by the profiler beside the default's.  The RPNN frame with the
+    block skip (K1's two launches), K1's passes against
+    ``camera_march_plain`` (``phase_k1``'s gates).  A row each (K4 cell
+    jump and block skip, K7b cell jump, K7a cell jump and block skip, K1
+    block skip): time beside the default's, launches, the bound from the
+    steps sampled, the plain time on the checked work.
+
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
 check exits 1 before the last line; without a CUDA device the run exits 1
@@ -656,7 +678,7 @@ def phase_k3(ins_ops, params, static) -> dict:
                       n_steps * K3_OPS_PER_VOXEL_STEP + row_steps * K3_OPS_PER_ROW_STEP)
 
 
-def phase_k1(march_ops, cuda_build, params, static, entry, dirs, ids):
+def phase_k1(march_ops, cuda_build, params, static, entry, dirs, ids, label="K1"):
     """K1 against its plain version on the frame's box hits (pass 1) and
     its T < 1 rays (pass 2).  Tolerance: T bitwise equal (max abs err 0);
     ok flags equal on >= 99.5 % of rays; on rays both flag, positions
@@ -672,7 +694,8 @@ def phase_k1(march_ops, cuda_build, params, static, entry, dirs, ids):
     # are the work of both passes (liveness is geometric, so pass 2 takes
     # the same steps on the rays it marches).
     ev1 = march_ops.next_scattering_event(
-        params, static, torch.zeros_like(k1.transmittance), entry, dirs)
+        params, static, torch.zeros_like(k1.transmittance), entry, dirs,
+        skip=march_ops.skip_mode(static, cell=False))
     err = (k1.transmittance - ev1.transmittance).abs().max().item()
     sel = torch.nonzero(ev1.transmittance < 1.0).flatten()
     e2, d2 = entry[sel].contiguous(), dirs[sel].contiguous()
@@ -698,17 +721,18 @@ def phase_k1(march_ops, cuda_build, params, static, entry, dirs, ids):
     s1, s2 = int(ev1.steps.sum().item()), int(ev1.steps[sel].sum().item())
     g = cuda_build.load("march").ds_march_lanes()
     lanes = [steps / slots for slots, steps in util]
-    print(f"K1 march: pass1_rays={n1} pass2_rays={n2} steps={s1}+{s2} T_max_abs_err={err:.3g} (tol 0) "
+    print(f"{label} march: pass1_rays={n1} pass2_rays={n2} steps={s1}+{s2} T_max_abs_err={err:.3g} (tol 0) "
           f"ok_agree={agree:.6f} pos_within_1e-4={pos_ok:.6f} direct_within_1e-3max={direct_ok:.6f} "
           f"(tol 0.995) pass2_bitwise(ok,pos,direct)={bitwise:.6f} ms(pass1+pass2)={ms:.3f} "
           f"pass1_ms={ms1:.3f} pass2_ms={ms2:.3f} before_redesign_ms(PERF.md)={PREV_MS['K1']} "
           f"plain_ms={plain:.1f}", flush=True)
-    print(f"K1 lanes: G={g} lane_step_slots={util[0][0]}+{util[1][0]} kernel_steps={util[0][1]}+{util[1][1]} "
+    print(f"{label} lanes: G={g} lane_step_slots={util[0][0]}+{util[1][0]} kernel_steps={util[0][1]}+{util[1][1]} "
           f"lane_utilisation(steps / slots)=pass1 {lanes[0]:.4f} pass2 {lanes[1]:.4f} "
           f"both {(util[0][1] + util[1][1]) / (util[0][0] + util[1][0]):.4f}", flush=True)
     require(err == 0.0 and min(agree, pos_ok, direct_ok) >= 0.995,
-            "K1 disagrees with its plain version")
-    require((util[0][1], util[1][1]) == (s1, s2), "K1's step counter disagrees with the plain steps")
+            f"{label} disagrees with its plain version")
+    require((util[0][1], util[1][1]) == (s1, s2),
+            f"{label}'s step counter disagrees with the plain steps")
     tex = params.density_mips[0].numel() * params.density_mips[0].element_size()
     n_bytes = 2 * tex + params.phase.eval_rows.numel() * 4 + n1 * 28 + n2 * 65
     row = kernel_row("K1 camera march + NEE", "deepestscatter_tpu_torch/csrc/march.cu",
@@ -1066,8 +1090,9 @@ def pt_rays(cam, params, static, dev):
 def k4_compare(pt, params, static, args):
     """K4 and its plain version on the same inputs → (kernel result, plain
     result, plain host ms, max abs err, share of pixels with equal step
-    counts).  Tolerance: step and scatter counts equal on every pixel;
-    mean within 1e-5 and m2 within 1e-4 of their largest values."""
+    counts).  Tolerance: step, scatter and jumped-step counts equal on
+    every pixel; mean within 1e-5 and m2 within 1e-4 of their largest
+    values."""
     k = pt.scatter_loop(params, static, *args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1077,7 +1102,8 @@ def k4_compare(pt, params, static, args):
     same = k.steps == r.steps
     share = same.float().mean().item()
     err = max((k.mean - r.mean).abs().max().item(), (k.m2 - r.m2).abs().max().item())
-    ok = torch.equal(k.count, r.count) and share == 1.0 and torch.equal(k.bounces, r.bounces)
+    ok = (torch.equal(k.count, r.count) and share == 1.0 and torch.equal(k.bounces, r.bounces)
+          and torch.equal(k.jumped, r.jumped))
     for a, b, tol in ((k.mean, r.mean, 1e-5), (k.m2, r.m2, 1e-4)):
         ok = ok and (a - b)[same].abs().max().item() <= tol * (b.abs().max().item() + 1e-12)
     require(ok, f"K4 disagrees with its plain version (steps equal on {share:.6f})")
@@ -3503,6 +3529,315 @@ def phase_parallel(port, config, procedural, pt, ins_ops, dev) -> list:
     return [dict(row, launches=launches["K9"], first_design_ms=k9["ms_first"])]
 
 
+#: The skip phase: ticks of each timed progressive render, the deepest
+#: pixels (most lattice steps) K4 is held to its plain version on, and the
+#: seed of the skipping renders (independent of the default render's).
+SKIP_TICKS = 16
+SKIP_CHECK_PIXELS = 1024
+SKIP_SEED = PT_SEED + 10
+SKIP_RES = (256, 64)
+
+
+def skip_statics(static) -> dict:
+    """The scene's static without a skip, with the cell jump alone and with
+    the block skip alone (as the scene built it)."""
+    base = dataclasses.replace(static, occupancy_skip_steps=0, march_empty_skip=False)
+    return {"default": base, "cell": dataclasses.replace(base, march_empty_skip=True),
+            "block": static}
+
+
+def k4_subframes_compare(pt, params, static, entry, d, hit, ids):
+    """K4 against its plain version on the tick's samples of the given
+    pixels: K4 once a subframe (1 .. PT_SUBFRAMES, a sample each), the
+    plain loop once over every (pixel, subframe) lane side by side (the
+    same paths as the tick's, in the iterations of its longest sample, not
+    of its longest pixel) → (plain result, plain host ms, max abs err,
+    share of lanes with equal steps).  Tolerance: step, scatter and
+    jumped-step counts equal on every lane; mean within 1e-5 of its
+    largest value."""
+    ks = [pt.scatter_loop(params, static, entry, d, hit, ids, PT_SEED, s, 1)
+          for s in range(1, PT_SUBFRAMES + 1)]
+    k = pt.PixelMoments(*(torch.cat(f) for f in zip(*ks)))
+    lanes = [t.repeat(PT_SUBFRAMES, *([1] * (t.dim() - 1))) for t in (entry, d, hit, ids)]
+    sub = torch.arange(1, PT_SUBFRAMES + 1, device=ids.device).repeat_interleave(ids.shape[0])
+    r, plain = host_call(lambda: pt.scatter_loop_plain(params, static, *lanes, PT_SEED, sub, 1))
+    same = (k.steps == r.steps) & (k.jumped == r.jumped)
+    share = same.float().mean().item()
+    err = (k.mean - r.mean).abs().max().item()
+    ok = (torch.equal(k.count, r.count) and share == 1.0 and torch.equal(k.bounces, r.bounces)
+          and err <= 1e-5 * (r.mean.abs().max().item() + 1e-12))
+    require(ok, f"K4 disagrees with its plain version (steps and jumps equal on {share:.6f})")
+    return r, plain, err, share
+
+
+def skip_pt(port, config, procedural, pt, cam, compare, res, dev) -> dict:
+    """The PT cell at ``res``^3 with the occupancy built: per static of
+    ``skip_statics`` a progressive render of SKIP_TICKS ticks as a user
+    drives it (K4's launches counted), its Mrays/s, K4's tick by CUDA
+    events and its steps sampled and jumped; each skip's K4 bitwise its
+    plain version on the SKIP_CHECK_PIXELS deepest pixels' samples
+    (``k4_subframes_compare``), and its image against the default image by
+    ``render_agreement`` (independent seeds; a 1.02-scaled image must
+    fail).  Also returns the scene (``"scene"``)."""
+    cfg = config.SceneConfig(
+        cloud=config.CloudModel(size_m=2000.0),
+        camera=config.CameraConfig(width=PT_SIZE, height=PT_SIZE),
+        rendering=config.CloudRendering(march_dtype="uint8", occupancy_skipping=True),
+        progressive=config.ProgressiveConfig(subframes_per_tick=PT_SUBFRAMES),
+    )
+    params, static = port.build_scene(cfg, procedural.cumulus(resolution=res, seed=11), device=dev)
+    params = port.with_baked_inscatter(params, static, device=dev)
+    statics = skip_statics(static)
+    occ = params.occupancy
+    print(f"skip PT {res}^3: occupancy={tuple(occ.shape)} empty_blocks="
+          f"{float((occ < 0.5).float().mean()):.4f} long_step={static.occupancy_skip_steps} "
+          f"lattice steps", flush=True)
+    entry, d, hit, ids = pt_rays(cam, params, static, dev)
+    args = (entry, d, hit, ids, PT_SEED, 1, PT_SUBFRAMES)
+    out, images = {}, {}
+    for name, st in statics.items():
+        pt.scatter_loop.launches = 0
+        torch.cuda.synchronize()
+        r = port.ProgressiveRenderer(cfg, params, st, device=dev,
+                                     seed=PT_SEED if name == "default" else SKIP_SEED)
+        r.tick()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SKIP_TICKS):
+            r.tick()
+        torch.cuda.synchronize()
+        tick_s = (time.perf_counter() - t0) / SKIP_TICKS
+        launches = pt.scatter_loop.launches
+        stt = r.state
+        images[name] = (stt.mean.reshape(PT_SIZE, PT_SIZE, 3).cpu().numpy(),
+                        stt.m2.reshape(PT_SIZE, PT_SIZE, 3).cpu().numpy(),
+                        stt.count.reshape(PT_SIZE, PT_SIZE).cpu().numpy())
+        work = pt.scatter_loop(params, st, *args)
+        ms = time_ms(lambda: pt.scatter_loop(params, st, *args), 5)
+        out[name] = dict(tick_s=tick_s, ms=ms, launches=launches, work=work,
+                         steps=int(work.steps.sum()), jumped=int(work.jumped.sum()),
+                         bounces=int(work.bounces.sum()), image_mean=float(images[name][0].mean()))
+        require(bool(np.isfinite(images[name][0]).all()), f"skip PT {res}^3 {name}: non-finite")
+        require(launches == SKIP_TICKS + 1, f"skip PT {res}^3 {name}: K4 launched {launches} "
+                f"times in {SKIP_TICKS + 1} ticks")
+    rays = PT_SIZE * PT_SIZE * PT_SUBFRAMES
+    base = out["default"]
+    for name in ("default", "cell", "block"):
+        o = out[name]
+        line = (f"skip PT {res}^3 {name}: Mrays_per_s={rays / o['tick_s'] / 1e6:.3f} "
+                f"s_per_tick={o['tick_s']:.6f} K4_ms={o['ms']:.4f} (default {base['ms']:.4f}) "
+                f"steps_sampled={o['steps']} steps_jumped={o['jumped']} bounces={o['bounces']} "
+                f"lattice_steps={o['steps'] + o['jumped']} image_mean={o['image_mean']:.6f} "
+                f"K4_launches={o['launches']}")
+        if name != "default":
+            st = statics[name]
+            work = o["work"]
+            deep = torch.topk((work.steps + work.jumped).to(torch.float64),
+                              SKIP_CHECK_PIXELS).indices.sort().values
+            rs, plain, err, share = k4_subframes_compare(
+                pt, params, st, *(t[deep].contiguous() for t in (entry, d, hit, ids)))
+            o.update(plain_ms=plain, err=err)
+            a = compare.render_agreement(*images[name], images["default"][0], reference_noise=1.0)
+            sc = compare.render_agreement(EVAL_SCALE * images[name][0],
+                                          EVAL_SCALE**2 * images[name][1], images[name][2],
+                                          images["default"][0], reference_noise=1.0)
+            line += (f"; against its plain version on the {SKIP_CHECK_PIXELS} deepest pixels' "
+                     f"{PT_SUBFRAMES * SKIP_CHECK_PIXELS} samples (lattice steps "
+                     f"{int((rs.steps + rs.jumped).min())}..{int((rs.steps + rs.jumped).max())} "
+                     f"a sample): steps_jumps_scatters_equal="
+                     f"{share:.6f} max_abs_err={err:.3g} plain_ms={plain:.1f}; against the "
+                     f"default image (seeds {SKIP_SEED} and {PT_SEED}, {SKIP_TICKS + 1} ticks "
+                     f"each): mean_z={a.mean_z:.3f} (tol 4) tone_mapped_rms={a.rms:.6g} "
+                     f"noise_expected_rms={a.noise_rms:.6g} (tol 1.5x) "
+                     f"past_4_sigma_share={a.past_4_sigma:.6f} passes={a.passes()}; scaled by "
+                     f"{EVAL_SCALE}: mean_z={sc.mean_z:.1f} passes={sc.passes()} (must be False)")
+            require(a.passes(), f"skip PT {res}^3 {name}: the image disagrees with the default")
+            require(not sc.passes(), f"skip PT {res}^3 {name}: the gate passes a scaled image")
+            require(o["jumped"] > 0, f"skip PT {res}^3 {name}: no step was skipped")
+        print(line, flush=True)
+    tex = 2 * params.density_mips[0].numel() * params.density_mips[0].element_size()
+    tables = (params.phase.eval_rows.numel() + params.phase.inv_cdf_rows.numel()) * 4
+    n, n_hit = entry.shape[0], int(hit.sum().item())
+    for name in ("cell", "block"):
+        o = out[name]
+        o["bytes"] = (tex + tables + (occ.numel() * 4 if name == "block" else 0)
+                      + n * (12 + 12 + 1 + 8) + n * (12 + 12 + 4 + 16 + 8))
+        o["ops"] = (o["steps"] * K4_OPS_PER_STEP + o["bounces"] * K4_OPS_PER_BOUNCE
+                    + n_hit * PT_SUBFRAMES * K4_OPS_PER_SAMPLE)
+        o["default_ms"] = base["ms"]
+        del o["work"]
+    out["scene"] = (params, static)
+    return out
+
+
+def phase_skip(port, config, cuda_build, procedural, collectors, march_ops, pt, cam,
+               dev) -> list:
+    """Empty-space skipping on the main paths, counted (K4, K7b, K7a and K1
+    must launch their skipping instantiations): the PT cell at 256^3 and
+    64^3 (``skip_pt``); the collector's scene (COLLECT_CLOUD, its 2,048
+    stored samples' first radiance update) with the cell jump, K7b held to
+    its plain version by ``k7b_against_plain`` from base 0; K7a's 2,048
+    samples with each skip bitwise its plain version (attempts and steps
+    equal); the RPNN frame with the block skip, its two K1 passes against
+    ``camera_march_plain`` (``phase_k1``).  Each row: its time beside the
+    default's of the same call, launches, the bound from the steps it
+    sampled, the plain time."""
+    from deepestscatter_tpu_torch import tasks
+    from deepestscatter_tpu_torch.data import records
+    from deepestscatter_tpu_torch.models.rpnn import init_disney_model
+    from deepestscatter_tpu_torch.utils import compare
+
+    rows = []
+    pt_out = {res: skip_pt(port, config, procedural, pt, cam, compare, res, dev)
+              for res in SKIP_RES}
+    pt_out[SKIP_RES[1]].pop("scene")
+    for name, label in (("cell", "cell jump"), ("block", "block skip")):
+        o, lo = pt_out[SKIP_RES[0]][name], pt_out[SKIP_RES[1]][name]
+        row = kernel_row(f"K4 path-trace bounce loop, {label}",
+                         "deepestscatter_tpu_torch/csrc/pathtrace.cu",
+                         "deepestscatter_tpu/render/pathtracer.py:"
+                         + ("277" if name == "cell" else "772"),
+                         max(o["err"], lo["err"]), o["ms"], o["plain_ms"], o["bytes"], o["ops"])
+        row.update(launches=o["launches"] + lo["launches"], default_ms=o["default_ms"],
+                   steps_sampled=o["steps"], steps_jumped=o["jumped"],
+                   ms_64=lo["ms"], default_ms_64=lo["default_ms"], steps_sampled_64=lo["steps"],
+                   steps_jumped_64=lo["jumped"])
+        rows.append(row)
+
+    # -- the collector's scene: K7b with the cell jump, K7a with each skip ----
+    n = records.BATCH_SIZE
+    setup = np.zeros(1, records.SCENE_SETUP)
+    setup[0] = (COLLECT_CLOUD.encode(), COLLECT_SIZE_M, config.LIGHT_DIRECTIONS["Front"])
+    base_cfg = tasks.production_base()
+    base_cfg = dataclasses.replace(base_cfg, rendering=dataclasses.replace(
+        base_cfg.rendering, occupancy_skipping=True))
+    _, params, static = tasks.scene_from_setup(setup[0], base=base_cfg, device=dev)
+    statics = skip_statics(static)
+    ref_s = collectors.generate_scatter_samples(params, statics["default"], n, 0)
+    pos, dirs = ref_s.positions, ref_s.directions
+    rcfg = config.PointRadianceConfig()
+    cell = statics["cell"]
+    collectors.radiance_moments.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    est = collectors.estimate_point_radiance(params, cell, pos, dirs, rcfg, seed=0, max_updates=1)
+    torch.cuda.synchronize()
+    upd_s = time.time() - t0
+    k7b_launches = collectors.radiance_moments.launches
+    require(k7b_launches == 1 and bool(np.isfinite(est.radiance).all()),
+            f"skip K7b: {k7b_launches} launches, or a label not finite")
+    gen = torch.Generator().manual_seed(17)
+    kb = k7b_against_plain(collectors, pt, params, cell, pos, dirs, rcfg, (0,), gen)
+    rsd, rsc = (collectors.radiance_static(statics[k]) for k in ("default", "cell"))
+    entry = kb["entry"]
+    margs = (entry, dirs, torch.arange(n, dtype=torch.int64, device=dev),
+             torch.zeros(n, dtype=torch.int64, device=dev), 0, kb["replicas"], kb["launches"])
+    ms_b = time_ms(lambda: collectors.radiance_moments(params, rsc, *margs), 3)
+    ms_bd = time_ms(lambda: collectors.radiance_moments(params, rsd, *margs), 3)
+    o, d, ids, sub0 = collectors._lanes(entry, dirs, margs[2], margs[3], kb["replicas"],
+                                        kb["launches"])
+    pm, _ = collectors.launch_radiance(params, rsc, o, d, ids, sub0, 0, kb["launches"])
+    pmd, _ = collectors.launch_radiance(params, rsd, o, d, ids, sub0, 0, kb["launches"])
+    steps_b, jumped_b, bounces_b = (int(getattr(pm, f).sum()) for f in ("steps", "jumped",
+                                                                         "bounces"))
+    print(f"skip K7b cell jump: points={n} lanes={kb['lanes']} experiments="
+          f"{kb['lanes'] * kb['launches']} update_s(estimate_point_radiance, 1 update)="
+          f"{upd_s:.3f} launches={k7b_launches} ms={ms_b:.3f} default_ms={ms_bd:.3f} "
+          f"steps_sampled={steps_b} steps_jumped={jumped_b} bounces={bounces_b} "
+          f"default_steps={int(pmd.steps.sum())} default_bounces={int(pmd.bounces.sum())}; "
+          f"folds_equal_records={kb['fold_counts_ok']} fold_err={kb['fold_err']:.3g}; "
+          f"{K7B_CHECKED} records against one-experiment plain runs: steps_scatters_equal="
+          f"{kb['counts_eq']} max_abs_err={kb['err']:.3g} (tol 1e-5 of max) "
+          f"longest_steps={kb['longest_steps']} plain_ms={kb['plain_ms']:.1f}", flush=True)
+    require(kb["ok"], "skip K7b: the cell jump disagrees with its plain version")
+    require(jumped_b > 0, "skip K7b: no step was jumped")
+    tex = params.density_mips[0].numel() * params.density_mips[0].element_size()
+    tables = (params.phase.eval_rows.numel() + params.phase.inv_cdf_rows.numel()) * 4
+    n_lanes = kb["lanes"]
+    row = kernel_row("K7b radiance experiments, cell jump",
+                     "deepestscatter_tpu_torch/csrc/pathtrace.cu",
+                     "deepestscatter_tpu/render/pathtracer.py:277", kb["err"], ms_b,
+                     kb["plain_ms"],
+                     2 * tex + tables + n_lanes * (12 + 12 + 8 + 4) + n_lanes * (12 + 12 + 4 + 16 + 8),
+                     steps_b * K4_OPS_PER_STEP + bounces_b * K4_OPS_PER_BOUNCE
+                     + n_lanes * kb["launches"] * K4_OPS_PER_SAMPLE)
+    row.update(launches=k7b_launches, default_ms=ms_bd, steps_sampled=steps_b,
+               steps_jumped=jumped_b)
+    rows.append(row)
+    del pm, pmd, est, kb
+
+    ms_ad = device_ms(lambda: collectors.generate_scatter_samples(params, statics["default"], n,
+                                                                  0),
+                      10, "samples_rounds_kernel")
+    for name, label in (("cell", "cell jump"), ("block", "block skip")):
+        st = statics[name]
+        collectors.generate_scatter_samples.launches = 0
+        k = collectors.generate_scatter_samples(params, st, n, 0)
+        torch.cuda.synchronize()
+        k7a_launches = collectors.generate_scatter_samples.launches
+        r, plain_a = host_call(lambda: collectors.generate_scatter_samples_plain(params, st, n, 0))
+        unequal = [f for f, a, b in zip(r._fields, k, r) if not torch.equal(a, b)]
+        ms_a = device_ms(lambda: collectors.generate_scatter_samples(params, st, n, 0), 10,
+                         "samples_rounds_kernel")
+        steps_a, att_a = int(k.steps.sum()), int(k.attempts.sum())
+        found_same = bool(torch.equal(k.found, ref_s.found))
+        print(f"skip K7a {label}: samples={n} launches={k7a_launches} found={int(k.found.sum())} "
+              f"ms(device, profiler)={ms_a:.4f} default_ms={ms_ad:.4f} steps_sampled={steps_a} "
+              f"default_steps={int(ref_s.steps.sum())} attempts={att_a} "
+              f"default_attempts={int(ref_s.attempts.sum())} found_as_default={found_same} "
+              f"fields_not_bitwise_equal={unequal} (required: none) plain_ms={plain_a:.1f}",
+              flush=True)
+        require(k7a_launches == 1 and not unequal,
+                f"skip K7a {label}: differs from its plain version in {unequal}")
+        err_a = (k.positions - r.positions).abs().max().item()
+        row = kernel_row(f"K7a first-scatter sampler, {label}",
+                         "deepestscatter_tpu_torch/csrc/samples.cu",
+                         "deepestscatter_tpu/ops/march.py:" + ("244" if name == "cell" else "199"),
+                         err_a, ms_a, plain_a,
+                         tex + (params.occupancy.numel() * 4 if name == "block" else 0)
+                         + n * (12 + 12 + 1 + 8),
+                         steps_a * K7A_OPS_PER_STEP + att_a * K7A_OPS_PER_ATTEMPT)
+        row.update(launches=k7a_launches, default_ms=ms_ad, steps_sampled=steps_a)
+        rows.append(row)
+    del params, ref_s, pos, dirs
+
+    # -- the RPNN frame with the block skip: K1's two passes ------------------
+    # The PT cell's 256^3 scene is the RPNN frame's (the same cloud, size,
+    # textures and occupancy; the camera is the frame's).
+    basis = cam.camera_basis(config.CameraConfig(width=WIDTH, height=HEIGHT))
+    params, static = pt_out[SKIP_RES[0]].pop("scene")
+    block = skip_statics(static)["block"]
+    default = skip_statics(static)["default"]
+    renderer = port.DisneyRenderer(init_disney_model(SEED_WEIGHTS, device=dev), device=dev)
+    march_ops.camera_march.launches = 0
+    frame = renderer.render_frame(params, block, WIDTH, HEIGHT, basis, seed=2)
+    torch.cuda.synchronize()
+    k1_launches = march_ops.camera_march.launches
+    ref_frame = renderer.render_frame(params, default, WIDTH, HEIGHT, basis, seed=2)
+    diff = (frame - ref_frame).abs().max().item()
+    same = (frame == ref_frame).all(dim=-1).float().mean().item()
+    finite = bool(torch.isfinite(frame).all())
+    o, dd = cam.generate_rays(basis, WIDTH, HEIGHT, dev)
+    hit, t_hit = cam.intersect_box(o, dd, static, params.bbox_size)
+    idx = torch.nonzero(hit).flatten()
+    entry = cam.entry_points(o, dd, t_hit, params.bbox_size)[idx].contiguous()
+    dirs = dd[idx].contiguous()
+    row, _, _ = phase_k1(march_ops, cuda_build, params, block, entry, dirs, idx,
+                         label="skip K1 block skip")
+    ms_d = time_ms(lambda: march_ops.camera_march(params, default, entry, dirs), 5)
+    ms_b1 = time_ms(lambda: march_ops.camera_march(params, block, entry, dirs), 5)
+    print(f"skip K1 frame: launches={k1_launches} (2 a frame) frame_finite={finite} "
+          f"pixels_equal_default={same:.6f} "
+          f"max_abs_diff_default={diff:.3g}; pass 1 ms={ms_b1:.4f} default_ms={ms_d:.4f}",
+          flush=True)
+    require(k1_launches == 2 and finite, f"skip K1: {k1_launches} launches, or a frame not finite")
+    row.update(name="K1 camera march + NEE, block skip", launches=k1_launches,
+               replaces="deepestscatter_tpu/ops/march.py:199", pass1_ms=ms_b1,
+               default_pass1_ms=ms_d)
+    rows.append(row)
+    return rows
+
+
 def run() -> dict:
     """All phases; returns the kernel rows with their launch counts."""
     import deepestscatter_tpu_torch as port
@@ -3645,6 +3980,10 @@ def run() -> dict:
 
     # -- multi-device rendering and training, counted ---------------------------
     kernels += phase_parallel(port, config, procedural, pt, ins_ops, dev)
+
+    # -- empty-space skipping on the main paths, counted -------------------------
+    kernels += phase_skip(port, config, cuda_build, procedural, collectors, march_ops, pt, cam,
+                          dev)
     return kernels
 
 

@@ -65,13 +65,18 @@ class CloudRendering:
     the reference).  ``rr_start_depth`` > 0 turns on Russian roulette from
     that bounce on, survivors reweighted by ``1 / rr_survival``.
 
+    ``occupancy_skipping`` turns on the occupancy-block skip: a step taken
+    from a point whose dilated 8^3 block holds no density is
+    ``SceneStatic.occupancy_skip_steps`` steps long (the path tracer, the
+    first-scatter sampler and the neural camera march take it).
+
     The JAX package's TPU scheduling fields are left out, because the CUDA
-    bounce loop runs one thread per pixel and has no lockstep batch to
+    kernels schedule their own work and have no lockstep batch to
     schedule: ``march_deferred``, ``march_substeps``,
     ``march_resolve_frac``, ``march_check_every``, ``march_pipeline``,
-    ``march_resolve_every``, the brick-row layout ``march_brick`` (a
+    ``march_resolve_every`` and the brick-row layout ``march_brick`` (a
     gather-rate choice whose values equal the cell layout's; this package
-    keeps raw ``[Z, Y, X]`` grids) and ``occupancy_skipping``.
+    keeps raw ``[Z, Y, X]`` grids).
     """
 
     sample_step: float = 1.0 / 512.0
@@ -80,6 +85,7 @@ class CloudRendering:
     sample_sky: bool = False
     rr_start_depth: int = 0
     rr_survival: float = 0.98
+    occupancy_skipping: bool = False
     march_dtype: str = "float32"
 
 

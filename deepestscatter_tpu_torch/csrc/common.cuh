@@ -128,6 +128,34 @@ __device__ __forceinline__ float trilinear_strided(const T* __restrict__ g, int 
   return acc;
 }
 
+// trilinear_strided over the whole grid, and in cmax the largest of the
+// eight texels (0 where every corner of the cell is 0: the empty-cell test
+// of csrc/skip.cuh).  The same taps, weights and sum, so the same value.
+template <typename T>
+__device__ __forceinline__ float trilinear_strided_max(const T* __restrict__ g, int nx, int ny,
+                                                       int nz, float ux, float uy, float uz,
+                                                       float& cmax) {
+  const AxisCell cx = axis_cell(ux * (float)nx - 0.5f, nx);
+  const AxisCell cy = axis_cell(uy * (float)ny - 0.5f, ny);
+  const AxisCell cz = axis_cell(uz * (float)nz - 0.5f, nz);
+  const float wx[2] = {1.0f - cx.frac, cx.frac};
+  const float wy[2] = {1.0f - cy.frac, cy.frac};
+  const float wz[2] = {1.0f - cz.frac, cz.frac};
+  const int base = (cz.i0 * ny + cy.i0) * nx + cx.i0;
+  const int sx = cx.i1 - cx.i0, sy = (cy.i1 - cy.i0) * nx, sz = (cz.i1 - cz.i0) * (nx * ny);
+  float acc = 0.0f;
+  cmax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int ix = k & 1, iy = (k >> 1) & 1, iz = k >> 2;
+    const float v = texel(g, base + (ix ? sx : 0) + (iy ? sy : 0) + (iz ? sz : 0));
+    const float term = v * ((wz[iz] * wy[iy]) * wx[ix]);
+    acc = k == 0 ? term : acc + term;
+    cmax = k == 0 ? v : fmaxf(cmax, v);
+  }
+  return acc;
+}
+
 // A light-oriented frame (eX, eY, eZ): eZ = -light / |light| (given),
 // eX = norm(eZ x d) with the norm clamped to 1e-12, eY = eX x eZ, in the
 // expression order of ops/descriptor.py::light_frame.

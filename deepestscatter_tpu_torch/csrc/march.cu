@@ -77,9 +77,21 @@
 // K7a (csrc/samples.cu) reuses these device functions: a ray from values
 // (ray_start) and chunks that end at the first crossing (chunk_end's
 // stop_at_cross), which marches to the scatter and no further.
+//
+// The block skip (ds_march_skip, march_lanes_kernel<G, T, kSkipBlock>; the
+// JAX package's pipelined march takes it, ops/march.py:199-207, and drops
+// the cell jump): a step from a point whose dilated occupancy block is
+// empty is long_steps lattice steps long.  A chunk's steps are all of the
+// kind of its first (lane_step_skip): lane l adds the chunk's step l + 1
+// times, and the chunk ends before the first lane whose step would be of
+// the other kind (chunk_end_skip), so every lane walks the additions of
+// the step-by-step loop.  Both passes take the same long steps (the
+// positions are geometric).  The cell jump (K7a) ends a chunk after its
+// first lane in an empty cell; the group then jumps once (chunk_jump).
 #pragma once
 
 #include "common.cuh"
+#include "skip.cuh"
 
 namespace ds {
 
@@ -379,6 +391,98 @@ __device__ __forceinline__ bool lane_crosses(const Ray& R, const LaneStep& S) {
   return !R.scattered && R.od > S.tn;
 }
 
+// A lane's flags of a chunk with a skip (csrc/skip.cuh), the inputs of
+// chunk_end_skip's ballots: `cut` where the lane's step is not of the
+// chunk's kind (kSkipBlock: the chunk ends before it), `empty` where it
+// stepped into a cell whose 8 corners are 0 (kSkipCell: the chunk ends
+// after it, with a jump).
+struct LaneSkip {
+  bool cut;
+  bool empty;
+};
+
+// lane_step with a skip.  kSkipBlock: the chunk's steps are all of the kind
+// of its first, long where the occupancy block at R's position is empty
+// (dir * (step * long_steps) each) or plain (dir * step); lane `lane` adds
+// it lane + 1 times and is cut where the block at the point its step
+// leaves (after `lane` additions) is of the other kind, as the
+// step-by-step loop would then take the other step there.  kSkipCell: the
+// plain steps, and whether the lane's cell is empty.
+template <int G, int Skip, typename T>
+__device__ __forceinline__ LaneStep lane_step_skip(const Ray& R, int lane,
+                                                   const T* __restrict__ dens, int nx, int ny,
+                                                   int nz, const MarchConsts& c,
+                                                   const SkipArgs& sk, LaneSkip& F) {
+  bool lng = false;
+  float inc = c.step;
+  if (Skip == kSkipBlock) {
+    lng = block_empty(sk, nx, ny, nz, div_exact(R.cx, c.bbox[0], c.inv_bbox[0]),
+                      div_exact(R.cy, c.bbox[1], c.inv_bbox[1]),
+                      div_exact(R.cz, c.bbox[2], c.inv_bbox[2]));
+    if (lng) inc = c.step * (float)sk.long_steps;
+  }
+  LaneStep S;
+  S.ax = R.cx;
+  S.ay = R.cy;
+  S.az = R.cz;
+  float px = R.cx, py = R.cy, pz = R.cz;  // where the lane's step starts
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    if (k <= lane) {
+      px = S.ax;
+      py = S.ay;
+      pz = S.az;
+      S.ax = S.ax + R.dx * inc;
+      S.ay = S.ay + R.dy * inc;
+      S.az = S.az + R.dz * inc;
+    }
+  }
+  F.cut = Skip == kSkipBlock &&
+          block_empty(sk, nx, ny, nz, div_exact(px, c.bbox[0], c.inv_bbox[0]),
+                      div_exact(py, c.bbox[1], c.inv_bbox[1]),
+                      div_exact(pz, c.bbox[2], c.inv_bbox[2])) != lng;
+  float cmax;
+  S.density = trilinear_strided_max(dens, nx, ny, nz, div_exact(S.ax, c.bbox[0], c.inv_bbox[0]),
+                                    div_exact(S.ay, c.bbox[1], c.inv_bbox[1]),
+                                    div_exact(S.az, c.bbox[2], c.inv_bbox[2]), cmax) *
+              c.dm;
+  F.empty = Skip == kSkipCell && cmax <= 0.0f;
+  S.e = expf(-S.density * c.step);
+  S.tn = 0.0f;
+  return S;
+}
+
+// chunk_end with a skip: the chunk ends before its first cut lane and after
+// its first lane in an empty cell (bits of `cuts` and `empties`), then as
+// chunk_end.  `jump` is set where the march goes on from that empty cell's
+// lane, the last taken: chunk_jump then moves the ray.
+__device__ __forceinline__ ChunkEnd chunk_end_skip(unsigned leaves, unsigned crosses,
+                                                   unsigned cuts, unsigned empties, int room,
+                                                   int G, bool stop_at_cross, bool& jump) {
+  int m = cuts != 0u ? first_lane(cuts) : G;
+  const unsigned emp = empties & lanes_below(m);
+  if (emp != 0u) m = first_lane(emp) + 1;
+  const ChunkEnd E = chunk_end(leaves, crosses, room, m, stop_at_cross);
+  jump = emp != 0u && !E.ended && E.n == m;
+  return E;
+}
+
+// The empty-cell exit jump of a ray still marching after a step into an
+// empty cell (ops/march.py::next_scattering_event's SKIP_CELL).
+__device__ __forceinline__ void chunk_jump(Ray& R, int nx, int ny, int nz, const MarchConsts& c) {
+  const float e = cell_exit_steps(nx, ny, nz, c.bbox, c.step,
+                                  div_exact(R.cx, c.bbox[0], c.inv_bbox[0]),
+                                  div_exact(R.cy, c.bbox[1], c.inv_bbox[1]),
+                                  div_exact(R.cz, c.bbox[2], c.inv_bbox[2]), R.cx, R.cy, R.cz,
+                                  R.dx, R.dy, R.dz, 0x7fffffff);
+  if (e > 0.0f) {
+    const float d = e * c.step;
+    R.cx = R.cx + R.dx * d;
+    R.cy = R.cy + R.dy * d;
+    R.cz = R.cz + R.dz * d;
+  }
+}
+
 inline MarchConsts march_consts(const float* k, int max_steps, int n_phase) {
   MarchConsts c;
   for (int i = 0; i < 3; ++i) {
@@ -407,7 +511,7 @@ constexpr int kMarchThreads = 128;
 // + g.  counters[0] gains the lane-step slots of the block's warps (32 a
 // warp's loop iteration, which lasts as long as its longest group),
 // counters[1] the steps taken.
-template <int G, typename T>
+template <int G, typename T, int Skip = ds::kSkipNone>
 __global__ void __launch_bounds__(kMarchThreads) march_lanes_kernel(
     const T* __restrict__ dens, const T* __restrict__ insc, int nx, int ny, int nz,
     const float* __restrict__ eval_rows, const float* __restrict__ entry,
@@ -415,7 +519,7 @@ __global__ void __launch_bounds__(kMarchThreads) march_lanes_kernel(
     const float* __restrict__ trans_total, uint32_t seed, int64_t n, ds::MarchConsts c,
     float* __restrict__ t_out, float* __restrict__ pos_out,
     uint8_t* __restrict__ ok_out, float* __restrict__ direct_out,
-    unsigned long long* __restrict__ counters) {
+    unsigned long long* __restrict__ counters, ds::SkipArgs sk) {
   static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two up to 32");
   __shared__ unsigned long long block_work[2];
   if (threadIdx.x < 2) block_work[threadIdx.x] = 0ull;
@@ -435,13 +539,28 @@ __global__ void __launch_bounds__(kMarchThreads) march_lanes_kernel(
   int chunks = 0;
   while (R.active) {  // uniform over the group
     ++chunks;
-    ds::LaneStep S = ds::lane_step<G>(R, gl, dens, nx, ny, nz, c);
+    ds::LaneSkip F = {false, false};
+    ds::LaneStep S;
+    if constexpr (Skip == ds::kSkipNone) {
+      S = ds::lane_step<G>(R, gl, dens, nx, ny, nz, c);
+    } else {
+      S = ds::lane_step_skip<G, Skip>(R, gl, dens, nx, ny, nz, c, sk, F);
+    }
     S.tn = ds::lane_transmittance<G>(R.trans, gl, [&](int k) {
       return __shfl_sync(gmask, S.e, k, G);
     });
     const unsigned leaves = __ballot_sync(gmask, ds::lane_leaves(S, c)) >> shift;
     const unsigned crosses = __ballot_sync(gmask, ds::lane_crosses(R, S)) >> shift;
-    const ds::ChunkEnd E = ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G);
+    ds::ChunkEnd E;
+    bool jump = false;
+    if constexpr (Skip == ds::kSkipNone) {
+      E = ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G);
+    } else {
+      const unsigned cuts = __ballot_sync(gmask, F.cut) >> shift;
+      const unsigned empties = __ballot_sync(gmask, F.empty) >> shift;
+      E = ds::chunk_end_skip(leaves, crosses, cuts, empties, c.max_steps - R.steps, G, false,
+                             jump);
+    }
     ds::chunk_update(R, E, [&](int k) {
       ds::LaneStep X;
       X.ax = __shfl_sync(gmask, S.ax, k, G);
@@ -452,6 +571,7 @@ __global__ void __launch_bounds__(kMarchThreads) march_lanes_kernel(
       X.tn = __shfl_sync(gmask, S.tn, k, G);
       return X;
     });
+    if (jump) ds::chunk_jump(R, nx, ny, nz, c);
   }
   if (valid && gl == 0) {
     ds::ray_end(R, r, insc, nx, ny, nz, eval_rows, c, t_out, pos_out, ok_out, direct_out);
@@ -469,14 +589,15 @@ __global__ void __launch_bounds__(kMarchThreads) march_lanes_kernel(
 }
 
 // march_lanes_kernel<G> over n rays (ds_march's arguments).
-template <int G>
+template <int G, int Skip = ds::kSkipNone>
 static int march_lanes(const void* dens, const void* insc, int is_u8, int nx, int ny,
                        int nz, const float* eval_rows, int n_phase, const float* entry,
                        const float* dirs, const int64_t* ray_ids,
                        const float* trans_total, uint32_t seed, int64_t n,
                        const float* consts, int max_steps, float* t_out, float* pos_out,
                        uint8_t* ok_out, float* direct_out,
-                       unsigned long long* counters, void* stream) {
+                       unsigned long long* counters, void* stream,
+                       const ds::SkipArgs& sk = ds::SkipArgs()) {
   cudaStream_t s = (cudaStream_t)stream;
   int err = (int)cudaMemsetAsync(counters, 0, 2 * sizeof(unsigned long long), s);
   if (err != 0 || n <= 0) return err;
@@ -484,13 +605,13 @@ static int march_lanes(const void* dens, const void* insc, int is_u8, int nx, in
   const int64_t threads = n * G;
   const unsigned blocks = (unsigned)((threads + kMarchThreads - 1) / kMarchThreads);
   if (is_u8) {
-    march_lanes_kernel<G, uint8_t><<<blocks, kMarchThreads, 0, s>>>(
+    march_lanes_kernel<G, uint8_t, Skip><<<blocks, kMarchThreads, 0, s>>>(
         (const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz, eval_rows, entry, dirs,
-        ray_ids, trans_total, seed, n, c, t_out, pos_out, ok_out, direct_out, counters);
+        ray_ids, trans_total, seed, n, c, t_out, pos_out, ok_out, direct_out, counters, sk);
   } else {
-    march_lanes_kernel<G, float><<<blocks, kMarchThreads, 0, s>>>(
+    march_lanes_kernel<G, float, Skip><<<blocks, kMarchThreads, 0, s>>>(
         (const float*)dens, (const float*)insc, nx, ny, nz, eval_rows, entry, dirs,
-        ray_ids, trans_total, seed, n, c, t_out, pos_out, ok_out, direct_out, counters);
+        ray_ids, trans_total, seed, n, c, t_out, pos_out, ok_out, direct_out, counters, sk);
   }
   return (int)cudaGetLastError();
 }
@@ -511,6 +632,24 @@ extern "C" int ds_march(const void* dens, const void* insc, int is_u8, int nx, i
                                       entry, dirs, ray_ids, trans_total, seed, n, consts,
                                       max_steps, t_out, pos_out, ok_out, direct_out,
                                       counters, stream);
+}
+
+// ds_march with the occupancy-block skip (skip kSkipBlock, the neural
+// camera's only skip: the JAX package's pipelined march drops the cell
+// jump); both passes take the same long steps.  Returns
+// cudaErrorInvalidValue for another skip.
+extern "C" int ds_march_skip(const void* dens, const void* insc, int is_u8, int nx, int ny,
+                             int nz, const float* eval_rows, int n_phase, const float* entry,
+                             const float* dirs, const int64_t* ray_ids,
+                             const float* trans_total, uint32_t seed, int64_t n,
+                             const float* consts, int max_steps, float* t_out,
+                             float* pos_out, uint8_t* ok_out, float* direct_out,
+                             unsigned long long* counters, void* stream, DS_SKIP_PARAMS) {
+  if (skip != ds::kSkipBlock || occ == nullptr) return (int)cudaErrorInvalidValue;
+  return march_lanes<ds::kMarchLanes, ds::kSkipBlock>(
+      dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, entry, dirs, ray_ids, trans_total,
+      seed, n, consts, max_steps, t_out, pos_out, ok_out, direct_out, counters, stream,
+      DS_SKIP_ARGS);
 }
 
 // The lanes a ray of ds_march (G).

@@ -66,10 +66,16 @@
 // shared).  The warp's time follows neither its march slots nor its
 // scatter passes alone.
 //
-// The step lattice is the oracle's: no AABB jump and no empty-cell skip
-// (both move positions at the ulp).  Float expressions follow the plain
-// version (render/pathtracer.py::scatter_loop_plain) term by term; the
-// build uses -fmad=false.
+// The step lattice is the oracle's: no AABB jump.  The empty-space skips
+// (csrc/skip.cuh) are instantiations of their own, K4's
+// (pathtrace_items_kernel<K, T, Skip>, ds_pathtrace_skip) with the cell
+// jump of the JAX package's deferred loop (render/pathtracer.py:277-292)
+// or the block skip of its oracle loop (:772-787), K7b's with the cell
+// jump; they move positions at the ulp, so the default (no skip) keeps
+// every bitwise gate, and its instantiations compile to the SASS they had
+// before the skips.  Float expressions follow the plain version
+// (render/pathtracer.py::scatter_loop_plain) term by term; the build uses
+// -fmad=false.
 //
 // Bound on the card: the density and in-scatter textures (16.7 MB each at
 // 256^3 uint8) stay in the 50 MB L2; ~80 float operations a march step and
@@ -137,7 +143,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // counters[0]: the item queue's head (zeroed before the launch);
 // counters[1]: the warps' step slots (K a loop iteration), added once per
 // warp at exit.
-template <int K, typename T>
+template <int K, typename T, int Skip = ds::kSkipNone>
 __global__ void __launch_bounds__(kPtThreads) pathtrace_items_kernel(
     const T* __restrict__ dens, const T* __restrict__ insc, int nx, int ny, int nz,
     const float* __restrict__ eval_rows, const float* __restrict__ inv,
@@ -145,7 +151,8 @@ __global__ void __launch_bounds__(kPtThreads) pathtrace_items_kernel(
     const uint8_t* __restrict__ hit, const int64_t* __restrict__ ray_ids, int64_t n,
     int64_t n_items, ds::PtConsts c, uint32_t seed_base, uint32_t sub_first,
     const uint32_t* __restrict__ sub0, float* __restrict__ rec_rad,
-    int32_t* __restrict__ rec_work, unsigned long long* __restrict__ counters) {
+    int32_t* __restrict__ rec_work, unsigned long long* __restrict__ counters,
+    ds::SkipArgs sk) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   ds::Sample S;
@@ -169,13 +176,21 @@ __global__ void __launch_bounds__(kPtThreads) pathtrace_items_kernel(
         } else {
           have = ds::begin_item(S, item, n, entry, dirs, hit, ray_ids, inv, c, seed_base,
                                 sub_first, sub0, rec_rad, rec_work);
+          if constexpr (Skip != ds::kSkipNone) S.jumped = 0;
         }
       }
     }
     if (!__any_sync(kFullMask, have)) break;
     ++iters;
-    if (have && ds::march_chunk<K>(S, dens, insc, nx, ny, nz, eval_rows, inv, c)) {
+    if constexpr (Skip == ds::kSkipNone) {
+      if (have && ds::march_chunk<K>(S, dens, insc, nx, ny, nz, eval_rows, inv, c)) {
+        ds::write_record(S, item, rec_rad, rec_work);
+        have = false;
+      }
+    } else if (have &&
+               ds::march_chunk_skip<K, Skip>(S, dens, insc, nx, ny, nz, eval_rows, inv, c, sk)) {
       ds::write_record(S, item, rec_rad, rec_work);
+      ds::add_jumped<Skip>(sk, item, n, S);
       have = false;
     }
   }
@@ -189,7 +204,7 @@ __global__ void __launch_bounds__(kPtThreads) pathtrace_items_kernel(
 // (resolve_now).  Items are sample-major, as K4's.  counters[1]: march
 // slots (K a march step of the warp); counters[2]: the warps' resolve
 // steps; counters[3]: the crossings they resolved.
-template <int K, typename T>
+template <int K, typename T, int Skip = ds::kSkipNone>
 __global__ void __launch_bounds__(kPtThreads, ds::kRadianceBlocks) radiance_items_kernel(
     const T* __restrict__ dens, const T* __restrict__ insc, int nx, int ny, int nz,
     const float* __restrict__ eval_rows, const float* __restrict__ inv,
@@ -197,7 +212,7 @@ __global__ void __launch_bounds__(kPtThreads, ds::kRadianceBlocks) radiance_item
     const uint8_t* __restrict__ hit, const int64_t* __restrict__ ray_ids, int64_t n,
     int n_samples, ds::PtConsts c, uint32_t seed_base, const uint32_t* __restrict__ sub0,
     int park_at, float* __restrict__ rec_rad, int32_t* __restrict__ rec_work,
-    unsigned long long* __restrict__ counters) {
+    unsigned long long* __restrict__ counters, ds::SkipArgs sk) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   const int64_t n_items = n * (int64_t)n_samples;
@@ -222,6 +237,7 @@ __global__ void __launch_bounds__(kPtThreads, ds::kRadianceBlocks) radiance_item
         } else {
           have = ds::begin_item(S, item, n, entry, dirs, hit, ray_ids, inv, c, seed_base, 0u,
                                 sub0, rec_rad, rec_work);
+          if constexpr (Skip != ds::kSkipNone) S.jumped = 0;
         }
       }
     }
@@ -235,15 +251,17 @@ __global__ void __launch_bounds__(kPtThreads, ds::kRadianceBlocks) radiance_item
         parked = false;
         if (ds::resolve(S, X, insc, nx, ny, nz, eval_rows, inv, c)) {
           ds::write_record(S, item, rec_rad, rec_work);
+          ds::add_jumped<Skip>(sk, item, n, S);
           have = false;
         }
       }
     } else {
       ++iters;
       if (have && !parked) {
-        const int state = ds::march_steps<K>(S, X, dens, nx, ny, nz, c);
+        const int state = ds::march_steps_any<K, Skip>(S, X, dens, nx, ny, nz, c, sk);
         if (state == ds::kEnded) {
           ds::write_record(S, item, rec_rad, rec_work);
+          ds::add_jumped<Skip>(sk, item, n, S);
           have = false;
         } else if (state == ds::kCrossed) {
           parked = true;
@@ -269,19 +287,19 @@ __global__ void __launch_bounds__(256) fold_kernel(
                  work_out);
 }
 
-template <int K, typename T>
+template <int K, typename T, int Skip = ds::kSkipNone>
 static int launch_items(const T* dens, const T* insc, int nx, int ny, int nz,
                         const float* eval_rows, const float* inv, const float* entry,
                         const float* dirs, const uint8_t* hit, const int64_t* ray_ids,
                         int64_t n, int64_t n_items, const ds::PtConsts& c,
                         uint32_t seed_base, uint32_t sub_first, const uint32_t* sub0,
                         float* rec_rad, int32_t* rec_work, unsigned long long* counters,
-                        cudaStream_t s) {
+                        cudaStream_t s, const ds::SkipArgs& sk = ds::SkipArgs()) {
   static int per_sm = 0;  // resident blocks a SM, the same on every call
   if (per_sm == 0) {
     int b = 0;
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b, pathtrace_items_kernel<K, T>, kPtThreads, 0);
+        &b, pathtrace_items_kernel<K, T, Skip>, kPtThreads, 0);
     if (e != cudaSuccess) return (int)e;
     per_sm = b > 0 ? b : 1;
   }
@@ -292,14 +310,14 @@ static int launch_items(const T* dens, const T* insc, int nx, int ny, int nz,
   const int64_t needed = (n_items + kPtThreads - 1) / kPtThreads;
   const int64_t full = (int64_t)per_sm * sms;
   const unsigned blocks = (unsigned)(needed < full ? needed : full);
-  pathtrace_items_kernel<K, T><<<blocks, kPtThreads, 0, s>>>(
+  pathtrace_items_kernel<K, T, Skip><<<blocks, kPtThreads, 0, s>>>(
       dens, insc, nx, ny, nz, eval_rows, inv, entry, dirs, hit, ray_ids, n, n_items, c,
-      seed_base, sub_first, sub0, rec_rad, rec_work, counters);
+      seed_base, sub_first, sub0, rec_rad, rec_work, counters, sk);
   return (int)cudaGetLastError();
 }
 
 // The item kernel at lookahead K, then the fold (ds_pathtrace's arguments).
-template <int K>
+template <int K, int Skip = ds::kSkipNone>
 static int pathtrace_queue(const void* dens, const void* insc, int is_u8, int nx, int ny,
                            int nz, const float* eval_rows, int n_phase, const float* inv_rows,
                            int n_inv, const float* entry, const float* dirs,
@@ -309,7 +327,8 @@ static int pathtrace_queue(const void* dens, const void* insc, int is_u8, int nx
                            uint32_t sub_first, int n_samples, float* rec_rad,
                            int32_t* rec_work, unsigned long long* counters, float* mean_out,
                            float* m2_out, float* count_out, int64_t* work_out,
-                           void* stream, const uint32_t* sub0 = nullptr) {
+                           void* stream, const uint32_t* sub0 = nullptr,
+                           const ds::SkipArgs& sk = ds::SkipArgs()) {
   if (n <= 0) return 0;
   const ds::PtConsts c =
       ds::pt_consts(consts, ground, max_steps, max_depth, rr_start, n_phase, n_inv, flags);
@@ -317,14 +336,20 @@ static int pathtrace_queue(const void* dens, const void* insc, int is_u8, int nx
   cudaStream_t s = (cudaStream_t)stream;
   int err = (int)cudaMemsetAsync(counters, 0, 4 * sizeof(unsigned long long), s);
   if (err != 0) return err;
+  if (Skip != ds::kSkipNone) {
+    err = (int)cudaMemsetAsync(sk.jumped, 0, n * sizeof(unsigned long long), s);
+    if (err != 0) return err;
+  }
   if (is_u8) {
-    err = launch_items<K, uint8_t>((const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz,
-                                eval_rows, inv_rows, entry, dirs, hit, ray_ids, n, n_items,
-                                c, seed_base, sub_first, sub0, rec_rad, rec_work, counters, s);
+    err = launch_items<K, uint8_t, Skip>((const uint8_t*)dens, (const uint8_t*)insc, nx, ny,
+                                         nz, eval_rows, inv_rows, entry, dirs, hit, ray_ids, n,
+                                         n_items, c, seed_base, sub_first, sub0, rec_rad,
+                                         rec_work, counters, s, sk);
   } else {
-    err = launch_items<K, float>((const float*)dens, (const float*)insc, nx, ny, nz,
-                              eval_rows, inv_rows, entry, dirs, hit, ray_ids, n, n_items, c,
-                              seed_base, sub_first, sub0, rec_rad, rec_work, counters, s);
+    err = launch_items<K, float, Skip>((const float*)dens, (const float*)insc, nx, ny, nz,
+                                       eval_rows, inv_rows, entry, dirs, hit, ray_ids, n,
+                                       n_items, c, seed_base, sub_first, sub0, rec_rad,
+                                       rec_work, counters, s, sk);
   }
   if (err != 0) return err;
   fold_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
@@ -358,7 +383,7 @@ extern "C" int ds_pathtrace(const void* dens, const void* insc, int is_u8, int n
 }
 
 // K7b's items at lookahead K, then the fold (ds_radiance's arguments).
-template <int K>
+template <int K, int Skip = ds::kSkipNone>
 static int radiance_queue(const void* dens, const void* insc, int is_u8, int nx, int ny,
                           int nz, const float* eval_rows, int n_phase, const float* inv_rows,
                           int n_inv, const float* entry, const float* dirs,
@@ -367,7 +392,8 @@ static int radiance_queue(const void* dens, const void* insc, int is_u8, int nx,
                           int max_depth, int rr_start, int flags, uint32_t seed_base,
                           const uint32_t* sub0, int n_samples, int park_at, float* rec_rad,
                           int32_t* rec_work, unsigned long long* counters, float* mean_out,
-                          float* m2_out, float* count_out, int64_t* work_out, void* stream) {
+                          float* m2_out, float* count_out, int64_t* work_out, void* stream,
+                          const ds::SkipArgs& sk = ds::SkipArgs()) {
   if (n <= 0) return 0;
   if (sub0 == nullptr || park_at < 1 || park_at > 32) return (int)cudaErrorInvalidValue;
   const ds::PtConsts c =
@@ -375,6 +401,10 @@ static int radiance_queue(const void* dens, const void* insc, int is_u8, int nx,
   cudaStream_t s = (cudaStream_t)stream;
   int err = (int)cudaMemsetAsync(counters, 0, 4 * sizeof(unsigned long long), s);
   if (err != 0) return err;
+  if (Skip != ds::kSkipNone) {
+    err = (int)cudaMemsetAsync(sk.jumped, 0, n * sizeof(unsigned long long), s);
+    if (err != 0) return err;
+  }
   static int per_sm[2] = {0, 0};  // resident blocks a SM, by texel type
   int dev = 0, sms = 0;
   err = (int)cudaGetDevice(&dev);
@@ -383,9 +413,9 @@ static int radiance_queue(const void* dens, const void* insc, int is_u8, int nx,
   int& resident = per_sm[is_u8 ? 1 : 0];
   if (resident == 0) {
     err = is_u8 ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &resident, radiance_items_kernel<K, uint8_t>, kPtThreads, 0)
+                      &resident, radiance_items_kernel<K, uint8_t, Skip>, kPtThreads, 0)
                 : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &resident, radiance_items_kernel<K, float>, kPtThreads, 0);
+                      &resident, radiance_items_kernel<K, float, Skip>, kPtThreads, 0);
     if (err != 0) return err;
     if (resident < 1) resident = 1;
   }
@@ -393,14 +423,15 @@ static int radiance_queue(const void* dens, const void* insc, int is_u8, int nx,
   const int64_t full = (int64_t)resident * sms;
   const unsigned blocks = (unsigned)(needed < full ? needed : full);
   if (is_u8) {
-    radiance_items_kernel<K, uint8_t><<<blocks, kPtThreads, 0, s>>>(
+    radiance_items_kernel<K, uint8_t, Skip><<<blocks, kPtThreads, 0, s>>>(
         (const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz, eval_rows, inv_rows, entry,
         dirs, hit, ray_ids, n, n_samples, c, seed_base, sub0, park_at, rec_rad, rec_work,
-        counters);
+        counters, sk);
   } else {
-    radiance_items_kernel<K, float><<<blocks, kPtThreads, 0, s>>>(
+    radiance_items_kernel<K, float, Skip><<<blocks, kPtThreads, 0, s>>>(
         (const float*)dens, (const float*)insc, nx, ny, nz, eval_rows, inv_rows, entry, dirs,
-        hit, ray_ids, n, n_samples, c, seed_base, sub0, park_at, rec_rad, rec_work, counters);
+        hit, ray_ids, n, n_samples, c, seed_base, sub0, park_at, rec_rad, rec_work, counters,
+        sk);
   }
   err = (int)cudaGetLastError();
   if (err != 0) return err;
@@ -430,6 +461,57 @@ extern "C" int ds_radiance(const void* dens, const void* insc, int is_u8, int nx
       ray_ids, n, consts, ground, max_steps, max_depth, rr_start, flags, seed_base, sub0,
       n_samples, ds::kParkAt, rec_rad, rec_work, counters, mean_out, m2_out, count_out,
       work_out, stream);
+}
+
+// ds_pathtrace with an empty-space skip (csrc/skip.cuh): kSkipCell or
+// kSkipBlock; jumped is required.  Returns cudaErrorInvalidValue for
+// another skip.
+extern "C" int ds_pathtrace_skip(const void* dens, const void* insc, int is_u8, int nx,
+                                 int ny, int nz, const float* eval_rows, int n_phase,
+                                 const float* inv_rows, int n_inv, const float* entry,
+                                 const float* dirs, const uint8_t* hit,
+                                 const int64_t* ray_ids, int64_t n, const float* consts,
+                                 const float* ground, int max_steps, int max_depth,
+                                 int rr_start, int flags, uint32_t seed_base,
+                                 uint32_t sub_first, int n_samples, float* rec_rad,
+                                 int32_t* rec_work, unsigned long long* counters,
+                                 float* mean_out, float* m2_out, float* count_out,
+                                 int64_t* work_out, void* stream, DS_SKIP_PARAMS) {
+  if (jumped == nullptr || (skip == ds::kSkipBlock && occ == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define DS_PT_QUEUE(SKIP)                                                                      \
+  pathtrace_queue<ds::kLookahead, SKIP>(                                                       \
+      dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows, n_inv, entry, dirs, hit,    \
+      ray_ids, n, consts, ground, max_steps, max_depth, rr_start, flags, seed_base, sub_first, \
+      n_samples, rec_rad, rec_work, counters, mean_out, m2_out, count_out, work_out, stream,   \
+      nullptr, DS_SKIP_ARGS)
+  if (skip == ds::kSkipCell) return DS_PT_QUEUE(ds::kSkipCell);
+  if (skip == ds::kSkipBlock) return DS_PT_QUEUE(ds::kSkipBlock);
+#undef DS_PT_QUEUE
+  return (int)cudaErrorInvalidValue;
+}
+
+// ds_radiance with the empty-cell jump (skip kSkipCell, the collector's
+// only skip); jumped is required.  Returns cudaErrorInvalidValue for
+// another skip.
+extern "C" int ds_radiance_skip(const void* dens, const void* insc, int is_u8, int nx,
+                                int ny, int nz, const float* eval_rows, int n_phase,
+                                const float* inv_rows, int n_inv, const float* entry,
+                                const float* dirs, const uint8_t* hit,
+                                const int64_t* ray_ids, int64_t n, const float* consts,
+                                const float* ground, int max_steps, int max_depth,
+                                int rr_start, int flags, uint32_t seed_base,
+                                const uint32_t* sub0, int n_samples, float* rec_rad,
+                                int32_t* rec_work, unsigned long long* counters,
+                                float* mean_out, float* m2_out, float* count_out,
+                                int64_t* work_out, void* stream, DS_SKIP_PARAMS) {
+  if (skip != ds::kSkipCell || jumped == nullptr) return (int)cudaErrorInvalidValue;
+  return radiance_queue<ds::kLookahead, ds::kSkipCell>(
+      dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows, n_inv, entry, dirs, hit,
+      ray_ids, n, consts, ground, max_steps, max_depth, rr_start, flags, seed_base, sub0,
+      n_samples, ds::kParkAt, rec_rad, rec_work, counters, mean_out, m2_out, count_out,
+      work_out, stream, DS_SKIP_ARGS);
 }
 
 // The lanes parked before ds_radiance's warps resolve (kParkAt).

@@ -7,6 +7,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "skip.cuh"
 
 namespace ds {
 
@@ -106,6 +107,9 @@ struct Sample {
   int depth;
   int steps;  // march steps of this sample
   int bounces;  // its free flights that ended in the box
+  // Lattice steps it advanced without a sample (a skip's jumps, and a long
+  // step's steps but the one it samples): set only where a skip runs.
+  int jumped;
 };
 
 // A sample from the box entry (ex, ey, ez) along (dx, dy, dz).
@@ -323,6 +327,105 @@ __device__ __forceinline__ int march_steps(Sample& S, Crossing& X, const T* __re
   return march_steps<K>(S, X, dens, nx, ny, nz, c, WholeZ(), StepCap{c.max_steps});
 }
 
+// march_steps with a skip (csrc/skip.cuh), K4's stop rule on the lattice
+// steps advanced (S.steps + S.jumped, so that a capped sample stops at the
+// same lattice point with or without the skip): the same values as the
+// plain loop render/pathtracer.py::scatter_loop_plain with that skip.
+//   kSkipBlock: each step's length from the occupancy at the point it
+//     leaves (at most the lattice steps left); positions stay geometric,
+//     so the first pass still walks the K steps ahead.
+//   kSkipCell: the first pass also takes each step's corner maximum; a
+//     step into an empty cell that leaves the sample in flight jumps it to
+//     the cell's exit face and ends the chunk there (the steps after it
+//     start from the jump), as a crossing does.
+template <int K, int Skip, typename T>
+__device__ __forceinline__ int march_steps_skip(Sample& S, Crossing& X,
+                                                const T* __restrict__ dens, int nx, int ny,
+                                                int nz, const PtConsts& c, const SkipArgs& sk) {
+  float dens_k[K], e_k[K], len_k[K];
+  int m_k[K];
+  bool zero_k[K];
+  float qx = S.px, qy = S.py, qz = S.pz;
+  int adv = S.steps + S.jumped;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    int m = 1;
+    float len = c.step;
+    if (Skip == kSkipBlock) {
+      m = block_steps(sk, nx, ny, nz, div_exact(qx, c.bbox[0], c.inv_bbox[0]),
+                      div_exact(qy, c.bbox[1], c.inv_bbox[1]),
+                      div_exact(qz, c.bbox[2], c.inv_bbox[2]), c.max_steps - adv);
+      len = c.step * (float)m;
+    }
+    adv += m;
+    qx = qx + S.dx * len;
+    qy = qy + S.dy * len;
+    qz = qz + S.dz * len;
+    float cmax;
+    dens_k[k] = trilinear_strided_max(dens, nx, ny, nz, div_exact(qx, c.bbox[0], c.inv_bbox[0]),
+                                      div_exact(qy, c.bbox[1], c.inv_bbox[1]),
+                                      div_exact(qz, c.bbox[2], c.inv_bbox[2]), cmax) *
+                c.dm;
+    zero_k[k] = Skip == kSkipCell && cmax <= 0.0f;
+    e_k[k] = expf(-dens_k[k] * c.step);
+    len_k[k] = len;
+    m_k[k] = m;
+  }
+  int state = kMarching;
+  bool jumped = false;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (state == kMarching && !jumped) {
+      if (S.steps + S.jumped >= c.max_steps) {
+        state = kEnded;
+      } else {
+        const float ax = S.px + S.dx * len_k[k], ay = S.py + S.dy * len_k[k],
+                    az = S.pz + S.dz * len_k[k];
+        const float tn = S.trans * e_k[k];
+        ++S.steps;
+        S.jumped += m_k[k] - 1;
+        if (S.od > tn) {
+          X.ax = ax;
+          X.ay = ay;
+          X.az = az;
+          X.density = dens_k[k];
+          X.tn = tn;
+          state = kCrossed;
+        } else if (free_step(S, c, ax, ay, az, tn)) {
+          state = kEnded;
+        } else if (zero_k[k]) {
+          const float e = cell_exit_steps(
+              nx, ny, nz, c.bbox, c.step, div_exact(ax, c.bbox[0], c.inv_bbox[0]),
+              div_exact(ay, c.bbox[1], c.inv_bbox[1]), div_exact(az, c.bbox[2], c.inv_bbox[2]),
+              ax, ay, az, S.dx, S.dy, S.dz, c.max_steps - (S.steps + S.jumped));
+          if (e > 0.0f) {
+            const float d = e * c.step;
+            S.px = S.px + S.dx * d;
+            S.py = S.py + S.dy * d;
+            S.pz = S.pz + S.dz * d;
+            S.jumped += (int)e;
+            jumped = true;
+          }
+        }
+      }
+    }
+  }
+  return state;
+}
+
+// K4's march step at lookahead K with skip Skip: march_steps as it was
+// (kSkipNone) or march_steps_skip.
+template <int K, int Skip, typename T>
+__device__ __forceinline__ int march_steps_any(Sample& S, Crossing& X, const T* __restrict__ dens,
+                                               int nx, int ny, int nz, const PtConsts& c,
+                                               const SkipArgs& sk) {
+  if constexpr (Skip == kSkipNone) {
+    return march_steps<K>(S, X, dens, nx, ny, nz, c);
+  } else {
+    return march_steps_skip<K, Skip>(S, X, dens, nx, ny, nz, c, sk);
+  }
+}
+
 // The crossing X's scatter (NEE, the next flight): true where the sample
 // ends.
 template <typename T, typename Z = WholeZ>
@@ -347,6 +450,33 @@ __device__ __forceinline__ bool march_chunk(Sample& S, const T* __restrict__ den
   const int state = march_steps<K>(S, X, dens, nx, ny, nz, c);
   if (state == kCrossed) return resolve(S, X, insc, nx, ny, nz, eval_rows, inv, c);
   return state == kEnded;
+}
+
+// march_chunk with skip Skip (march_steps_skip).
+template <int K, int Skip, typename T>
+__device__ __forceinline__ bool march_chunk_skip(Sample& S, const T* __restrict__ dens,
+                                                 const T* __restrict__ insc, int nx, int ny,
+                                                 int nz, const float* __restrict__ eval_rows,
+                                                 const float* __restrict__ inv,
+                                                 const PtConsts& c, const SkipArgs& sk) {
+  Crossing X;
+  const int state = march_steps_skip<K, Skip>(S, X, dens, nx, ny, nz, c, sk);
+  if (state == kCrossed) return resolve(S, X, insc, nx, ny, nz, eval_rows, inv, c);
+  return state == kEnded;
+}
+
+// A skipping kernel's count of the lattice steps that item `item`'s sample
+// S jumped, added to its pixel's (nothing without a skip).
+template <int Skip>
+__device__ __forceinline__ void add_jumped(const SkipArgs& sk, int64_t item, int64_t n,
+                                           const Sample& S) {
+  if constexpr (Skip != kSkipNone) {
+#ifdef DS_HOST_EMULATION
+    sk.jumped[item % n] += (unsigned long long)S.jumped;
+#else
+    if (S.jumped != 0) atomicAdd(&sk.jumped[item % n], (unsigned long long)S.jumped);
+#endif
+  }
 }
 
 // K7b's warp step: resolve the parked crossings (every lane with one)

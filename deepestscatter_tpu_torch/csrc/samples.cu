@@ -13,7 +13,12 @@
 // centred box gives the entry (t clamped to minimal_ray_distance), and the
 // march from there (K1's: the jump to the cloud AABB on the step lattice,
 // then pos += dir * step, T *= exp(-sigma step)) stops at the first step
-// with od > T, the scatter pulled back by log(od / T) / sigma.  The first
+// with od > T, the scatter pulled back by log(od / T) / sigma.  With a
+// skip (ds_samples_skip; the JAX package's next_scattering_event,
+// ops/march.py:199-262) the march takes the block skip's long steps or the
+// cell jump (csrc/skip.cuh): a chunk of lanes ends before its first step of
+// the other kind, or after its first step into an empty cell, whose jump
+// the group then takes once.  The first
 // attempt whose ray hit the box and scattered inside it (+-0.01 margin)
 // gives the sample: the scatter point in world-centred coordinates (minus
 // bbox / 2) and the ray's direction.  A sample that does not scatter in 256
@@ -242,19 +247,35 @@ __device__ __forceinline__ RoundEnd round_end(int first, int W, unsigned accepte
 // Attempt R marched by a group of G lanes on consecutive steps (K1's chunk
 // functions); gl is this lane's place in the group, gmask the group's
 // lanes in the warp, shift its first lane.
-template <int G, typename T>
+template <int G, typename T, int Skip = ds::kSkipNone>
 __device__ __forceinline__ void attempt_march_lanes(ds::Ray& R, int gl, unsigned gmask,
                                                     int shift, const T* __restrict__ dens,
                                                     int nx, int ny, int nz,
-                                                    const ds::MarchConsts& c) {
+                                                    const ds::MarchConsts& c,
+                                                    const ds::SkipArgs& sk = ds::SkipArgs()) {
   while (R.active) {
-    ds::LaneStep S = ds::lane_step<G>(R, gl, dens, nx, ny, nz, c);
+    ds::LaneSkip F = {false, false};
+    ds::LaneStep S;
+    if constexpr (Skip == ds::kSkipNone) {
+      S = ds::lane_step<G>(R, gl, dens, nx, ny, nz, c);
+    } else {
+      S = ds::lane_step_skip<G, Skip>(R, gl, dens, nx, ny, nz, c, sk, F);
+    }
     S.tn = ds::lane_transmittance<G>(R.trans, gl, [&](int j) {
       return __shfl_sync(gmask, S.e, j, G);
     });
     const unsigned leaves = __ballot_sync(gmask, ds::lane_leaves(S, c)) >> shift;
     const unsigned crosses = __ballot_sync(gmask, ds::lane_crosses(R, S)) >> shift;
-    const ds::ChunkEnd E = ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G, true);
+    ds::ChunkEnd E;
+    bool jump = false;
+    if constexpr (Skip == ds::kSkipNone) {
+      E = ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G, true);
+    } else {
+      const unsigned cuts = __ballot_sync(gmask, F.cut) >> shift;
+      const unsigned empties = __ballot_sync(gmask, F.empty) >> shift;
+      E = ds::chunk_end_skip(leaves, crosses, cuts, empties, c.max_steps - R.steps, G, true,
+                             jump);
+    }
     ds::chunk_update(R, E, [&](int j) {
       ds::LaneStep X;
       X.ax = __shfl_sync(gmask, S.ax, j, G);
@@ -265,6 +286,7 @@ __device__ __forceinline__ void attempt_march_lanes(ds::Ray& R, int gl, unsigned
       X.tn = __shfl_sync(gmask, S.tn, j, G);
       return X;
     });
+    if (jump) ds::chunk_jump(R, nx, ny, nz, c);
   }
 }
 
@@ -272,11 +294,11 @@ __device__ __forceinline__ void attempt_march_lanes(ds::Ray& R, int gl, unsigned
 // attempts jW .. jW + W - 1, warp w making attempt jW + w with 32 lanes;
 // the round's flags and steps meet in shared memory, and the block stops
 // after the first round that accepts an attempt.
-template <int W, typename T>
+template <int W, typename T, int Skip = ds::kSkipNone>
 __global__ void __launch_bounds__(32 * W) samples_rounds_kernel(
     const T* __restrict__ dens, int nx, int ny, int nz, uint32_t seed, ds::MarchConsts c,
     float min_dist, float* __restrict__ pos_out, float* __restrict__ dir_out,
-    uint8_t* __restrict__ found_out, int32_t* __restrict__ work_out) {
+    uint8_t* __restrict__ found_out, int32_t* __restrict__ work_out, ds::SkipArgs sk) {
   __shared__ int s_steps[W];
   __shared__ unsigned s_accepted;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -289,7 +311,7 @@ __global__ void __launch_bounds__(32 * W) samples_rounds_kernel(
     const int k = first + w;
     if (k < ds::kMaxAttempts) {  // uniform over the warp
       ds::attempt_start(R, ds::attempt_ray(seed, (uint32_t)s, k, c, min_dist), c);
-      attempt_march_lanes<32>(R, lane, 0xffffffffu, 0, dens, nx, ny, nz, c);
+      attempt_march_lanes<32, T, Skip>(R, lane, 0xffffffffu, 0, dens, nx, ny, nz, c, sk);
       if (lane == 0) {
         s_steps[w] = R.steps;
         if (ds::accepted(R, c)) atomicOr(&s_accepted, 1u << w);
@@ -315,22 +337,22 @@ __global__ void __launch_bounds__(32 * W) samples_rounds_kernel(
   }
 }
 
-template <int W>
+template <int W, int Skip = ds::kSkipNone>
 static int samples_rounds(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed,
                           int64_t n, const ds::MarchConsts& c, float min_dist, float* pos_out,
                           float* dir_out, uint8_t* found_out, int32_t* work_out,
-                          cudaStream_t s) {
+                          cudaStream_t s, const ds::SkipArgs& sk = ds::SkipArgs()) {
   static_assert(W >= 1 && W <= 32, "W: 1 to 32 warps a sample");
   if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)n;
   if (is_u8) {
-    samples_rounds_kernel<W, uint8_t><<<blocks, 32 * W, 0, s>>>(
+    samples_rounds_kernel<W, uint8_t, Skip><<<blocks, 32 * W, 0, s>>>(
         (const uint8_t*)dens, nx, ny, nz, seed, c, min_dist, pos_out, dir_out, found_out,
-        work_out);
+        work_out, sk);
   } else {
-    samples_rounds_kernel<W, float><<<blocks, 32 * W, 0, s>>>(
+    samples_rounds_kernel<W, float, Skip><<<blocks, 32 * W, 0, s>>>(
         (const float*)dens, nx, ny, nz, seed, c, min_dist, pos_out, dir_out, found_out,
-        work_out);
+        work_out, sk);
   }
   return (int)cudaGetLastError();
 }
@@ -347,6 +369,31 @@ extern "C" int ds_samples(const void* dens, int is_u8, int nx, int ny, int nz, u
   const ds::MarchConsts c = ds::march_consts(consts, max_steps, 0);
   return samples_rounds<ds::kSampleWarps>(dens, is_u8, nx, ny, nz, seed, n, c, min_dist, pos_out,
                                       dir_out, found_out, work_out, (cudaStream_t)stream);
+}
+
+// ds_samples with an empty-space skip (kSkipCell or kSkipBlock, the JAX
+// package's sampler march takes either).  Returns cudaErrorInvalidValue for
+// another skip.
+extern "C" int ds_samples_skip(const void* dens, int is_u8, int nx, int ny, int nz,
+                               uint32_t seed, int64_t n, const float* consts, int max_steps,
+                               float min_dist, float* pos_out, float* dir_out,
+                               uint8_t* found_out, int32_t* work_out, void* stream,
+                               DS_SKIP_PARAMS) {
+  if (n <= 0) return 0;
+  const ds::MarchConsts c = ds::march_consts(consts, max_steps, 0);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (skip == ds::kSkipCell) {
+    return samples_rounds<ds::kSampleWarps, ds::kSkipCell>(dens, is_u8, nx, ny, nz, seed, n, c,
+                                                           min_dist, pos_out, dir_out,
+                                                           found_out, work_out, s, DS_SKIP_ARGS);
+  }
+  if (skip == ds::kSkipBlock && occ != nullptr) {
+    return samples_rounds<ds::kSampleWarps, ds::kSkipBlock>(dens, is_u8, nx, ny, nz, seed, n,
+                                                            c, min_dist, pos_out, dir_out,
+                                                            found_out, work_out, s,
+                                                            DS_SKIP_ARGS);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // The warps a sample of ds_samples (kSampleWarps).

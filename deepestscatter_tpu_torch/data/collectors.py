@@ -88,13 +88,23 @@ def attempt_rays(params: SceneParams, static: SceneStatic, ids: torch.Tensor, se
     return hit, entry, ray_dir, od
 
 
+#: Attempts the plain version marches side by side (its lanes are (attempt,
+#: sample) pairs; each attempt's march is independent of the others').
+PLAIN_ROUND = 8
+
+
 def generate_scatter_samples_plain(
     params: SceneParams, static: SceneStatic, n: int, seed: int
 ) -> ScatterSamples:
-    """Plain PyTorch version of K7a: attempt k of every sample not yet found,
-    for k = 0 .. 255 (the JAX loop, which also stops once all are found);
-    the march runs on the attempts whose ray hits the box, to the scatter
-    (``stop_at_scatter``)."""
+    """Plain PyTorch version of K7a: the attempts of every sample not yet
+    found, for k = 0 .. 255 (the JAX loop, which also stops once all are
+    found); the march runs on the attempts whose ray hits the box, to the
+    scatter (``stop_at_scatter``), with the scene's skip
+    (``march_ops.skip_mode``: the block skip, else the cell jump).  The
+    attempts are marched PLAIN_ROUND at a time, side by side: a sample
+    takes the first accepted one, and counts the steps of the attempts up
+    to it (all of them where none was accepted), as the loop over single
+    attempts does."""
     dev = params.bbox_size.device
     f32, i64 = torch.float32, torch.int64
     half = 0.5 * params.bbox_size
@@ -103,22 +113,38 @@ def generate_scatter_samples_plain(
     found = torch.zeros((n,), dtype=torch.bool, device=dev)
     attempts = torch.full((n,), MAX_ATTEMPTS, dtype=i64, device=dev)
     steps = torch.zeros((n,), dtype=i64, device=dev)
-    for k in range(MAX_ATTEMPTS):
+    skip = march_ops.skip_mode(static)
+    for k0 in range(0, MAX_ATTEMPTS, PLAIN_ROUND):
         todo = torch.nonzero(~found).flatten()
-        if todo.numel() == 0:
+        m = todo.numel()
+        if m == 0:
             break
-        hit, entry, ray_dir, od = attempt_rays(params, static, todo, seed, k)
+        r = min(PLAIN_ROUND, MAX_ATTEMPTS - k0)
+        rays = [attempt_rays(params, static, todo, seed, k0 + j) for j in range(r)]
+        hit, entry, ray_dir, od = (torch.cat(t) for t in zip(*rays))  # attempt-major lanes
         h = torch.nonzero(hit).flatten()
         ev = march_ops.next_scattering_event(params, static, od[h], entry[h].contiguous(),
-                                             ray_dir[h].contiguous(), stop_at_scatter=True)
-        ids = todo[h]
-        steps[ids] += ev.steps
-        ok = ev.has_scattered & is_in_box(ev.scatter_pos, params.bbox_size)
-        acc = ids[ok]
-        pos[acc] = ev.scatter_pos[ok] - half
-        dirs[acc] = ray_dir[h][ok]
-        found[acc] = True
-        attempts[acc] = k + 1
+                                             ray_dir[h].contiguous(), stop_at_scatter=True,
+                                             skip=skip)
+        lane_steps = torch.zeros((r * m,), dtype=i64, device=dev)
+        lane_steps[h] = ev.steps
+        ok = torch.zeros((r * m,), dtype=torch.bool, device=dev)
+        ok[h] = ev.has_scattered & is_in_box(ev.scatter_pos, params.bbox_size)
+        lane_pos = torch.zeros((r * m, 3), dtype=f32, device=dev)
+        lane_pos[h] = ev.scatter_pos
+        ok = ok.reshape(r, m)
+        won = ok.any(dim=0)
+        first = torch.where(won, torch.argmax(ok.to(torch.int32), dim=0),
+                            torch.full_like(todo, r - 1))
+        upto = torch.arange(r, device=dev)[:, None] <= first[None, :]
+        steps[todo] += (lane_steps.reshape(r, m) * upto).sum(dim=0)
+        lane = first * m + torch.arange(m, device=dev)
+        acc = won.nonzero().flatten()
+        ids = todo[acc]
+        pos[ids] = lane_pos[lane[acc]] - half
+        dirs[ids] = ray_dir[lane[acc]]
+        found[ids] = True
+        attempts[ids] = k0 + first[acc] + 1
     return ScatterSamples(pos, dirs, found, attempts, steps)
 
 
@@ -130,17 +156,20 @@ _SAMPLE_ARGTYPES = [
 
 
 def _launch_samples(params, static, n, seed, lib=None) -> ScatterSamples:
-    """K7a on the scene's device.  ``lib``: another library with the same
-    ``ds_samples`` entry point (the tests' host build of the kernel's
-    device functions, the alternatives ``probes/march_variants.py``
-    times)."""
+    """K7a on the scene's device: ``ds_samples``, or ``ds_samples_skip``
+    with the scene's skip.  ``lib``: another library with the same entry
+    points (the tests' host build of the kernel's device functions, the
+    alternatives ``probes/march_variants.py`` times)."""
     dens = params.density_mips[0]
     if dens.dtype not in (torch.uint8, torch.float32) or not dens.is_contiguous():
         raise ValueError("the density texture must be a contiguous uint8 or float32 grid")
     if dens.numel() >= 2**31:
         raise ValueError("K7a indexes textures in 32 bits: fewer than 2^31 texels")
-    fn = (lib or cuda_build.load("samples")).ds_samples
-    fn.argtypes = _SAMPLE_ARGTYPES
+    skip = march_ops.skip_mode(static)
+    march_ops.check_skip(params, static, skip)
+    lib = lib or cuda_build.load("samples")
+    fn = lib.ds_samples_skip if skip else lib.ds_samples
+    fn.argtypes = _SAMPLE_ARGTYPES + (march_ops.SKIP_ARGTYPES if skip else [])
     fn.restype = ctypes.c_int
     dev = dens.device
     pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -159,6 +188,7 @@ def _launch_samples(params, static, n, seed, lib=None) -> ScatterSamples:
             int(seed) & 0xFFFFFFFF, n, consts, static.max_march_steps,
             static.minimal_ray_distance, cuda_build.ptr(pos), cuda_build.ptr(dirs),
             cuda_build.ptr(found), cuda_build.ptr(work), cuda_build.stream_handle(),
+            *(march_ops.skip_args(params, static, skip) if skip else []),
         ),
         "scatter-sample kernel",
     )
@@ -192,8 +222,12 @@ class RadianceEstimate(NamedTuple):
 
 
 def radiance_static(static: SceneStatic) -> SceneStatic:
-    """Labels are multiple-scatter radiance only (the collect mode)."""
-    return dataclasses.replace(static, mode=RenderMode.SUN_MULTIPLE_SCATTER)
+    """Labels are multiple-scatter radiance only (the collect mode), marched
+    without the block skip: the JAX package's deferred loop, which the
+    collector runs, takes the empty-cell jump (``march_empty_skip``) and
+    ignores the occupancy."""
+    return dataclasses.replace(static, mode=RenderMode.SUN_MULTIPLE_SCATTER,
+                               occupancy_skip_steps=0)
 
 
 def bucket_size(n_active: int) -> int:
@@ -228,10 +262,12 @@ def _point_moments(pm: pathtracer.PixelMoments, replicas: int):
 def radiance_moments_plain(params, static, entry, dirs, rids, exp_base, seed: int,
                            replicas: int, launches: int):
     """Plain PyTorch version of K7b: K4's plain loop over the (point,
-    replica) lanes, ``launches`` experiments each, in the static's mode."""
+    replica) lanes, ``launches`` experiments each, in the static's mode,
+    with the cell jump where ``march_empty_skip``."""
     o, d, ids, sub0 = _lanes(entry, dirs, rids, exp_base, replicas, launches)
     hit = torch.ones((o.shape[0],), dtype=torch.bool, device=o.device)
-    pm = pathtracer.scatter_loop_plain(params, static, o, d, hit, ids, seed, sub0, launches)
+    pm = pathtracer.scatter_loop_plain(params, static, o, d, hit, ids, seed, sub0, launches,
+                                       skip=march_ops.skip_mode(static, block=False))
     return _point_moments(pm, replicas)
 
 
@@ -255,7 +291,8 @@ def launch_radiance(params, static, entry, dirs, ray_ids, sub0, seed: int, launc
     hit = torch.ones((n,), dtype=torch.bool, device=entry.device)
     pm, rec, counters = pathtracer.launch_entry(
         lib, "ds_radiance", pathtracer.RADIANCE_ARGTYPES, cuda_build.ptr(sub32), params, static,
-        entry, dirs, hit, ray_ids, seed, launches, None)
+        entry, dirs, hit, ray_ids, seed, launches, None,
+        march_ops.skip_mode(static, block=False))
     radiance_moments.launches += 1
     radiance_moments.last_counters = counters
     return pm, rec

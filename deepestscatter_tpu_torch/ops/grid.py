@@ -80,6 +80,41 @@ def bbox_size_from_shape(shape: Tuple[int, int, int]) -> np.ndarray:
     return np.asarray([nx / m, ny / m, nz / m], dtype=np.float32)
 
 
+def build_occupancy(density: np.ndarray, block: int = 8) -> np.ndarray:
+    """Coarse occupancy for empty-space skipping: ``occ[c] = 1`` where any
+    density lies in block ``c`` (``block``^3 cells, the grid zero-padded up
+    to a multiple) or in any of its 26 neighbours, else 0 (float32
+    ``[bz, by, bx]``).  A zero block certifies zero density, its trilinear
+    support included, within one block length of any point in it."""
+    density = np.asarray(density)
+    nz, ny, nx = density.shape
+    pz, py, px = (-nz) % block, (-ny) % block, (-nx) % block
+    padded = np.pad(density, ((0, pz), (0, py), (0, px)))
+    bz, by, bx = (s // block for s in padded.shape)
+    core = padded.reshape(bz, block, by, block, bx, block).max(axis=(1, 3, 5))
+    occupied = (core > 0.0).astype(np.float32)
+    d = np.pad(occupied, 1, mode="edge")
+    out = np.zeros_like(occupied)
+    for dz in range(3):
+        for dy in range(3):
+            for dx in range(3):
+                out = np.maximum(out, d[dz : dz + bz, dy : dy + by, dx : dx + bx])
+    return out
+
+
+def sample_occupancy(occ: torch.Tensor, u: torch.Tensor, grid_shape: Tuple[int, int, int],
+                     block: int) -> torch.Tensor:
+    """The occupancy at normalized density coordinates ``u`` [..., 3]:
+    block ``floor(u * dims / block)``, clipped into the occupancy grid."""
+    nz, ny, nx = grid_shape
+    bz, by, bx = occ.shape
+    dims = torch.tensor([nx, ny, nz], dtype=u.dtype, device=u.device)
+    t = torch.floor(true_div(u * dims, block))
+    idx = [torch.clamp(t[..., i], -1.0, float(b)).to(torch.int64).clamp(0, b - 1)
+           for i, b in enumerate((bx, by, bz))]
+    return occ.reshape(-1)[(idx[2] * by + idx[1]) * bx + idx[0]]
+
+
 def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
     """``a / b`` rounded as an IEEE division.  PyTorch on CUDA turns a
     division by a Python scalar into a multiplication by its reciprocal,
@@ -105,6 +140,28 @@ def _axis_cell(t: torch.Tensor, n: int):
     i0 = torch.clamp(t0, -1.0, float(n)).to(torch.int64).clamp(0, n - 1)
     i1 = torch.clamp(i0 + 1, max=n - 1)
     return i0, i1, frac
+
+
+def packed_cell(u: torch.Tensor, grid_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """The packed path's cell at normalized coordinates ``u`` [..., 3]:
+    its lower corner per axis, int64 [..., 3] in (x, y, z) order."""
+    nz, ny, nx = grid_shape
+    return torch.stack([_axis_cell(u[..., i] * float(n) - 0.5, n)[0]
+                        for i, n in enumerate((nx, ny, nz))], dim=-1)
+
+
+def cell_is_empty(grid: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Where all eight corners of the packed cell at ``u`` [..., 3] are 0
+    (the trilinear density is then 0 across the closed cell)."""
+    nz, ny, nx = grid.shape
+    c = [_axis_cell(u[..., i] * float(n) - 0.5, n) for i, n in enumerate((nx, ny, nz))]
+    flat = grid.reshape(-1)
+    empty = None
+    for k in range(8):
+        x, y, z = c[0][k & 1], c[1][(k >> 1) & 1], c[2][k >> 2]
+        zero = flat[(z * ny + y) * nx + x] <= 0
+        empty = zero if empty is None else empty & zero
+    return empty
 
 
 def sample_trilinear(grid: torch.Tensor, u: torch.Tensor, nz: int = None,

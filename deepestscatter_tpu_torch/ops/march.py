@@ -1,19 +1,34 @@
 """The neural camera march: Beer-Lambert free flight with conditional
-scatter, and its CUDA kernel (K1, ``csrc/march.cu``).
+scatter, and its CUDA kernel (K1, ``csrc/march.cu``); the empty-space
+skips every march of the port shares.
 
 The port of ``deepestscatter_tpu.ops.march.next_scattering_event`` in the
 configuration the neural camera runs it (``march_pipeline=True``,
-``stop_at_scatter=False``, the cloud-AABB clip, no empty-space skip), plus
-``back_correct_distance``.  ``camera_march`` is the kernel's wrapper: on a
-CUDA tensor it launches K1 (8 lanes a ray on its consecutive steps), which
-fuses the march with next-event estimation; on a CPU tensor it runs
-``camera_march_plain``, the same function in plain PyTorch, which is also
-the kernel's test oracle.
+``stop_at_scatter=False``, the cloud-AABB clip), plus
+``back_correct_distance`` and ``empty_cell_exit_steps``.  ``camera_march``
+is the kernel's wrapper: on a CUDA tensor it launches K1 (8 lanes a ray on
+its consecutive steps), which fuses the march with next-event estimation;
+on a CPU tensor it runs ``camera_march_plain``, the same function in plain
+PyTorch, which is also the kernel's test oracle.
+
+Empty-space skipping (``skip_mode``), with the JAX package's rule a path:
+
+- ``SKIP_BLOCK`` (``SceneStatic.occupancy_skip_steps`` >= 2): a step taken
+  from a point whose dilated occupancy block is empty is
+  ``occupancy_skip_steps`` lattice steps long;
+- ``SKIP_CELL`` (``SceneStatic.march_empty_skip``, where the block skip is
+  off): after a step into a cell whose 8 density corners are 0, the march
+  jumps ``empty_cell_exit_steps`` whole steps to the cell's exit face.
+
+The neural camera (K1) takes the block skip only, as the JAX package's
+pipelined march does; the path tracer (K4) and the first-scatter sampler
+(K7a) either; the radiance experiments (K7b) the cell jump only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -51,6 +66,90 @@ def back_correct_distance(
     ) / torch.clamp(density, min=1e-10)
 
 
+#: Empty-space skip of a march (the kernels' template flag of the same value).
+SKIP_NONE, SKIP_CELL, SKIP_BLOCK = 0, 1, 2
+
+
+def skip_mode(static: SceneStatic, cell: bool = True, block: bool = True) -> int:
+    """The skip a march of ``static`` takes where the path allows the cell
+    jump (``cell``) and the block skip (``block``): the block skip where
+    ``occupancy_skip_steps`` >= 2 (no cell jump beside it), else the cell
+    jump where ``march_empty_skip``."""
+    if block and static.occupancy_skip_steps >= 2:
+        return SKIP_BLOCK
+    if cell and static.march_empty_skip:
+        return SKIP_CELL
+    return SKIP_NONE
+
+
+def check_skip(params: SceneParams, static: SceneStatic, skip: int) -> None:
+    """Raises where the scene cannot take ``skip`` (a block skip needs the
+    occupancy grid)."""
+    if skip == SKIP_BLOCK:
+        occ = params.occupancy
+        if (occ is None or occ.dim() != 3 or occ.numel() == 0 or occ.dtype != torch.float32
+                or not occ.is_contiguous()):
+            raise ValueError("the block skip needs the scene's contiguous float32 occupancy grid")
+    elif skip not in (SKIP_NONE, SKIP_CELL):
+        raise ValueError(f"unknown skip {skip}")
+
+
+def empty_cell_exit_steps(cell: torch.Tensor, pos: torch.Tensor, direction: torch.Tensor,
+                          dims_f: torch.Tensor, bbox_size: torch.Tensor, step: float,
+                          max_jump: float = 64.0) -> torch.Tensor:
+    """Whole march steps from ``pos`` [N, 3] along ``direction`` before the
+    exit face of the closed cell ``cell`` [N, 3] (its lower corner, x, y,
+    z), at most ``max_jump``: float32 [N].  ``dims_f`` [3] is the grid's
+    (x, y, z) size as floats.  The cell spans ``(cell + 0.5) / dims *
+    bbox`` to ``(cell + 1.5) / dims * bbox``; an axis with ``|d| <= 1e-9``
+    never exits."""
+    cellf = cell.to(pos.dtype)
+    lo = (cellf + 0.5) / dims_f * bbox_size
+    hi = (cellf + 1.0 + 0.5) / dims_f * bbox_size
+    bound = torch.where(direction > 0.0, hi, lo)
+    moving = direction.abs() > 1e-9
+    t_ax = torch.where(moving, (bound - pos) / _safe_dir(direction),
+                       torch.full_like(pos, math.inf))
+    t_exit = torch.clamp(t_ax.amin(dim=-1), min=0.0)
+    return torch.clamp(torch.floor(grid_ops.true_div(t_exit, step)), max=max_jump)
+
+
+def cell_jump(params: SceneParams, static: SceneStatic, pos: torch.Tensor,
+              direction: torch.Tensor, room: Optional[torch.Tensor] = None):
+    """The empty-cell exit jump from lattice points ``pos`` [N, 3] → (the
+    whole steps to jump [N] float32, 0 where the cell at ``pos`` has a
+    nonzero corner; at most ``room`` where given)."""
+    u = pos / params.bbox_size
+    nz, ny, nx = static.grid_shape
+    dims = torch.tensor([nx, ny, nz], dtype=pos.dtype, device=pos.device)
+    e = empty_cell_exit_steps(grid_ops.packed_cell(u, static.grid_shape), pos, direction, dims,
+                              params.bbox_size, static.sample_step)
+    if room is not None:
+        e = torch.minimum(e, room.to(e.dtype))
+    empty = grid_ops.cell_is_empty(params.density_mips[0], u)
+    return torch.where(empty, e, torch.zeros_like(e))
+
+
+def block_step(params: SceneParams, static: SceneStatic, pos: torch.Tensor,
+               room: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The lattice steps [N] int64 of the next step from ``pos`` [N, 3]:
+    ``occupancy_skip_steps`` (at most ``room`` where given) where the
+    dilated block at ``pos`` is empty, else 1."""
+    occ = grid_ops.sample_occupancy(params.occupancy, pos / params.bbox_size,
+                                    static.grid_shape, static.occupancy_block)
+    k = torch.full(occ.shape, static.occupancy_skip_steps, dtype=torch.int64, device=pos.device)
+    if room is not None:
+        k = torch.clamp(torch.minimum(k, room), min=1)
+    return torch.where(occ < 0.5, k, torch.ones_like(k))
+
+
+def step_length(static: SceneStatic, m: torch.Tensor) -> torch.Tensor:
+    """float32 ``sample_step * m`` [N] for lattice steps ``m`` [N] (the
+    long step's length; ``sample_step`` itself where m is 1)."""
+    return m.to(torch.float32) * torch.tensor(static.sample_step, dtype=torch.float32,
+                                              device=m.device)
+
+
 def _safe_dir(direction: torch.Tensor) -> torch.Tensor:
     return torch.where(
         direction.abs() > 1e-9, direction, torch.full_like(direction, 1e-9)
@@ -64,6 +163,7 @@ def next_scattering_event(
     pos: torch.Tensor,
     direction: torch.Tensor,
     stop_at_scatter: bool = False,
+    skip: int = SKIP_NONE,
 ) -> ScatterEvent:
     """March every ray to its exit from the cloud AABB, recording the first
     step where ``optical_distance > T`` as the scatter event; with
@@ -73,9 +173,13 @@ def next_scattering_event(
     ``pos`` [N, 3] entry points in local coords, ``direction`` [N, 3] unit
     vectors, ``optical_distance`` [N].  Entry jumps to the AABB on the step
     lattice; each step samples after stepping; rays that do not scatter
-    report the analytic full-box exit.  Plain lockstep PyTorch over all
-    rays, masked per ray; the step cap is ``max_march_steps`` (see
+    report the analytic full-box exit.  ``skip``: ``SKIP_BLOCK`` makes a
+    step from an empty occupancy block ``occupancy_skip_steps`` long;
+    ``SKIP_CELL`` jumps a ray still marching from a step in an empty cell
+    to the cell's exit face.  Plain lockstep PyTorch over all rays, masked
+    per ray; the step cap is ``max_march_steps`` steps sampled (see
     ``csrc/march.cu`` on why the JAX iteration cap never binds either)."""
+    check_skip(params, static, skip)
     f32 = torch.float32
     dev = pos.device
     step = static.sample_step
@@ -104,7 +208,11 @@ def next_scattering_event(
     for _ in range(static.max_march_steps):
         if not bool(active.any()):
             break
-        new_pos = cur + direction * step
+        if skip == SKIP_BLOCK:
+            long = step_length(static, block_step(params, static, cur))
+            new_pos = cur + direction * long[:, None]
+        else:
+            new_pos = cur + direction * step
         density = grid_ops.sample_trilinear(dens, new_pos / bbox) * dm
         trans_new = torch.where(active, trans * torch.exp(-density * step), trans)
         crossed = active & ~scattered & (optical_distance > trans_new)
@@ -118,6 +226,10 @@ def next_scattering_event(
         active = active & torch.all((cur >= lo) & (cur <= hi), dim=-1)
         if stop_at_scatter:
             active = active & ~scattered
+        if skip == SKIP_CELL:
+            jump = cell_jump(params, static, cur, direction)
+            go = active & (jump > 0)
+            cur = torch.where(go[:, None], cur + direction * (jump * step)[:, None], cur)
 
     tb0 = (0.0 - pos) / safe
     tb1 = (bbox - pos) / safe
@@ -147,21 +259,45 @@ def camera_march_plain(
 ) -> CameraMarch:
     """Plain PyTorch version of K1.  ``trans_total is None`` is pass 1
     (``od = 0``: total transmittance); otherwise pass 2 (conditional
-    scatter keyed by ``ray_ids``, plus NEE at the scatter point)."""
+    scatter keyed by ``ray_ids``, plus NEE at the scatter point).  Both
+    passes take the block skip where the scene has it on (no cell jump:
+    the JAX package's pipelined camera march drops it)."""
+    skip = skip_mode(static, cell=False)
     if trans_total is None:
         od = torch.zeros(entry.shape[:1], dtype=torch.float32, device=entry.device)
         return CameraMarch(
-            next_scattering_event(params, static, od, entry, dirs).transmittance
+            next_scattering_event(params, static, od, entry, dirs, skip=skip).transmittance
         )
     # Late import: the path tracer imports this module.
     from ..render.pathtracer import in_scattering
 
     od = conditional_optical_distance(seed, ray_ids, trans_total)
-    ev = next_scattering_event(params, static, od, entry, dirs)
+    ev = next_scattering_event(params, static, od, entry, dirs, skip=skip)
     ok = ev.has_scattered & is_in_box(ev.scatter_pos, params.bbox_size)
     direct = in_scattering(params, static, ev.scatter_pos, dirs, False)
     direct = torch.where(ok[:, None], direct, torch.zeros_like(direct))
     return CameraMarch(ev.transmittance, ev.scatter_pos, ok, direct)
+
+
+#: The arguments the skipping entry points (``ds_march_skip``,
+#: ``ds_samples_skip``, ``ds_pathtrace_skip``, ``ds_radiance_skip``) take
+#: after those of the entry point they extend (``skip_args``).
+SKIP_ARGTYPES = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def skip_args(params: SceneParams, static: SceneStatic, skip: int,
+              jumped: Optional[torch.Tensor] = None) -> list:
+    """``SKIP_ARGTYPES``' values: the skip, the occupancy grid and its
+    (x, y, z) size (null and 0 but for the block skip), the block edge in
+    cells, the long step's lattice steps, and the int64 [N] counts of
+    lattice steps jumped a pixel that the kernel adds to (or null)."""
+    occ, dims = None, (0, 0, 0)
+    if skip == SKIP_BLOCK:
+        occ = params.occupancy
+        check_on(params.density_mips[0].device, occ)
+        dims = tuple(occ.shape[::-1])
+    return [skip, cuda_build.ptr(occ), *dims, static.occupancy_block,
+            static.occupancy_skip_steps, cuda_build.ptr(jumped)]
 
 
 _ARGTYPES = [
@@ -174,8 +310,9 @@ _ARGTYPES = [
 
 
 def _launch(params, static, entry, dirs, seed, ray_ids, trans_total, lib=None) -> CameraMarch:
-    """K1 on the inputs' device.  ``lib``: another library with the same
-    ``ds_march`` entry point (the tests' host build of the kernel's device
+    """K1 on the inputs' device: ``ds_march``, or ``ds_march_skip`` where
+    the scene has the block skip on.  ``lib``: another library with the
+    same entry points (the tests' host build of the kernel's device
     functions, the alternatives ``probes/march_variants.py`` times)."""
     cuda_build.require_vec3(entry=entry, dirs=dirs)
     dens = params.density_mips[0]
@@ -187,8 +324,11 @@ def _launch(params, static, entry, dirs, seed, ray_ids, trans_total, lib=None) -
     if dens.numel() >= 2**31:
         raise ValueError("K1 indexes textures in 32 bits: fewer than 2^31 texels")
     check_on(entry.device, dirs, dens, insc, params.phase.eval_rows)
-    fn = (lib or cuda_build.load("march")).ds_march
-    fn.argtypes = _ARGTYPES
+    skip = skip_mode(static, cell=False)
+    check_skip(params, static, skip)
+    lib = lib or cuda_build.load("march")
+    fn = lib.ds_march_skip if skip else lib.ds_march
+    fn.argtypes = _ARGTYPES + (SKIP_ARGTYPES if skip else [])
     fn.restype = ctypes.c_int
     n = entry.shape[0]
     dev = entry.device
@@ -222,7 +362,7 @@ def _launch(params, static, entry, dirs, seed, ray_ids, trans_total, lib=None) -
             cuda_build.ptr(trans_total), int(seed) & 0xFFFFFFFF, n, consts,
             static.max_march_steps, cuda_build.ptr(t_out), cuda_build.ptr(pos_out),
             cuda_build.ptr(ok_out), cuda_build.ptr(direct_out), cuda_build.ptr(counters),
-            cuda_build.stream_handle(),
+            cuda_build.stream_handle(), *(skip_args(params, static, skip) if skip else []),
         ),
         "march kernel",
     )

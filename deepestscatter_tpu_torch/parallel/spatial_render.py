@@ -370,11 +370,13 @@ def run_phases(rec: torch.Tensor, phase, steps_per_phase: int, max_iters: int):
 
 def phase_static(static: SceneStatic) -> SceneStatic:
     """The scene facts the slab march runs with: single scatter as the
-    bounce loop stopped at ``max_depth`` 2 (``:196-199``)."""
+    bounce loop stopped at ``max_depth`` 2 (``:196-199``), and no
+    empty-space skip (the JAX package's slab march takes none)."""
     if static.sample_sky:
         raise NotImplementedError(
             "sample_sky is not supported on the spatially sharded march (use the "
             "replicated renderer for that estimator variant)")
+    static = dataclasses.replace(static, march_empty_skip=False, occupancy_skip_steps=0)
     if static.mode is RenderMode.SUN_SINGLE_SCATTER:
         return dataclasses.replace(static, max_depth=2)
     if static.max_depth < 2:

@@ -48,6 +48,7 @@ from .. import cuda_build
 from ..config import SceneConfig, fov_tan_halves
 from ..device import check_on, resolve_device
 from ..ops import grid as grid_ops
+from ..ops import march as march_ops
 from ..ops import phase as phase_ops
 from ..scene import SceneParams, SceneStatic, build_scene
 from . import camera as camera_ops
@@ -775,6 +776,8 @@ def diff_scene(cfg: SceneConfig, scene: DiffScene, max_depth: int = 4,
         cloud_aabb=(0.0, 0.0, 0.0) + box, bbox=box,
         light_direction=tuple(float(v) for v in light_dir.detach().tolist()),
         light_rgb=tuple(float(v) for v in scene.light_radiance.detach().tolist()),
+        # The JAX package's differentiable loop takes no empty-space skip.
+        march_empty_skip=False, occupancy_skip_steps=0,
     )
     baked = _bake(density, bbox, light_dir, static.density_multiplier, static.sample_step,
                   kernels)
@@ -813,7 +816,8 @@ def path_records_plain(params: SceneParams, static: SceneStatic, entry, dirs, hi
     p64 = params._replace(density_mips=(params.density_mips[0].to(torch.float64),),
                           inscatter=params.inscatter.to(torch.float64))
     return torch.stack([
-        pt_ops.scatter_loop_plain(p64, static, entry, dirs, hit, ray_ids, seed, k + 1, 1).mean
+        pt_ops.scatter_loop_plain(p64, static, entry, dirs, hit, ray_ids, seed, k + 1, 1,
+                                  skip=march_ops.SKIP_NONE).mean
         for k in range(n_samples)])
 
 

@@ -23,13 +23,17 @@ and still counts as a sample.  Sample ``k`` of a pixel uses the seed
 ``seed_base ^ ((sub_first + k) * 0x9E3779B1)``; its Welford fold happens in
 sample order.
 
-The JAX package's TPU scheduling (deferred resolves, compaction cascade,
-empty-cell jumps) is not ported: the kernel's warps take (pixel, sample)
-items from a queue, march them a few steps at a time, write one record a
-sample and fold the records per pixel in sample order (notes in
-``csrc/pathtrace.cu``).  ``scatter_loop`` is the kernel's wrapper: K4 for
-CUDA tensors, ``scatter_loop_plain`` (the same function in lockstep
-PyTorch) for CPU tensors.
+The JAX package's TPU scheduling (deferred resolves, compaction cascade)
+is not ported: the kernel's warps take (pixel, sample) items from a queue,
+march them a few steps at a time, write one record a sample and fold the
+records per pixel in sample order (notes in ``csrc/pathtrace.cu``).  Its
+empty-space skips are (``ops.march.skip_mode``): the occupancy-block skip
+of its oracle loop and single-scatter march where
+``occupancy_skip_steps`` >= 2, else the empty-cell exit jump of its
+deferred loop where ``march_empty_skip``; both off by default.
+``scatter_loop`` is the kernel's wrapper: K4 for CUDA tensors,
+``scatter_loop_plain`` (the same function in lockstep PyTorch) for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from .. import cuda_build
 from ..config import RenderMode
 from ..device import check_on, resolve_device
 from ..ops import grid as grid_ops
+from ..ops import march as march_ops
 from ..ops import phase as phase_ops
 from ..ops import rng as rng_ops
 from ..ops.march import back_correct_distance
@@ -128,8 +133,11 @@ class PixelMoments(NamedTuple):
     mean: torch.Tensor  # [N, 3]
     m2: torch.Tensor  # [N, 3]
     count: torch.Tensor  # [N] float32: samples folded (0 where not hit)
-    steps: torch.Tensor  # [N] int64: march steps over all samples
+    steps: torch.Tensor  # [N] int64: march steps sampled over all samples
     bounces: torch.Tensor  # [N] int64: free flights that ended in the box
+    #: [N] int64: lattice steps advanced without a sample (the skips: the
+    #: cell jumps, and a long step's steps but its one sample).
+    jumped: torch.Tensor
 
 
 class _Mode(NamedTuple):
@@ -161,6 +169,7 @@ def scatter_loop_plain(
     sub_first: int,
     n_samples: int,
     max_steps: Optional[int] = None,
+    skip: Optional[int] = None,
 ) -> PixelMoments:
     """Plain PyTorch version of K4: ``n_samples`` samples per pixel, each
     from box entry ``entry`` [N, 3] (local coordinates) along ``dirs``
@@ -169,8 +178,15 @@ def scatter_loop_plain(
 
     Lockstep over all pixels, one march step per iteration; a lane whose
     sample ends folds it and starts its next sample in the same iteration
-    (the kernel's per-thread loop over samples).  ``max_steps`` caps each
-    sample's steps (default ``static.max_total_steps``).  ``sub_first`` is
+    (the kernel's per-thread loop over samples).  ``max_steps`` caps the
+    lattice steps each sample advances, sampled or skipped (default
+    ``static.max_total_steps``), so that a capped sample stops at the same
+    lattice point with or without a skip.  ``skip`` (default
+    ``march_ops.skip_mode(static)``): ``SKIP_BLOCK`` takes a step from a
+    point in an empty occupancy block ``occupancy_skip_steps`` long (at
+    most the steps left before the cap); ``SKIP_CELL`` jumps a sample still
+    in flight after a step into an empty cell to the last lattice step
+    before the cell's exit face (at most the steps left).  ``sub_first`` is
     an int, or an int64 tensor [N] of per-pixel uint32 bases (K7b's); the
     sums ``sub_first + k`` wrap modulo 2^32.  Differentiable (the
     multi-scatter renderer's plain version, ``render.diff``): under
@@ -178,6 +194,8 @@ def scatter_loop_plain(
     in the backward pass; float64 textures are read as float32 (their
     gradients summed in float64)."""
     mode = _mode(static)
+    skip = march_ops.skip_mode(static) if skip is None else skip
+    march_ops.check_skip(params, static, skip)
     f32 = torch.float32
     dev = entry.device
     n = entry.shape[0]
@@ -196,6 +214,7 @@ def scatter_loop_plain(
     w_mean, w_m2 = zeros3.clone(), zeros3.clone()
     w_cnt = torch.zeros((n,), dtype=f32, device=dev)
     steps_total = torch.zeros((n,), dtype=torch.int64, device=dev)
+    jumped = torch.zeros((n,), dtype=torch.int64, device=dev)
     bounces = torch.zeros((n,), dtype=torch.int64, device=dev)
     k = torch.zeros((n,), dtype=torch.int64, device=dev)
 
@@ -206,12 +225,12 @@ def scatter_loop_plain(
     od = torch.zeros((n,), dtype=f32, device=dev)
     weight = torch.ones((n,), dtype=f32, device=dev)
     depth = torch.ones((n,), dtype=torch.int64, device=dev)
-    steps_s = torch.zeros((n,), dtype=torch.int64, device=dev)
+    adv_s = torch.zeros((n,), dtype=torch.int64, device=dev)  # lattice steps advanced
     alive = torch.zeros((n,), dtype=torch.bool, device=dev)
     busy = hit & (k < n_samples)  # lane has a sample in flight
 
     def spawn(mask, state, k):
-        seed, pos, dirn, rad, trans, od, weight, depth, steps_s, alive = state
+        seed, pos, dirn, rad, trans, od, weight, depth, adv_s, alive = state
         s = rng_ops.subframe_seed(seed_base, sub_first + k)
         seed = torch.where(mask, s, seed)
         d0 = dirs
@@ -231,15 +250,15 @@ def scatter_loop_plain(
             torch.where(mask, od0, od),
             torch.where(mask, torch.ones_like(weight), weight),
             torch.where(mask, torch.ones_like(depth), depth),
-            torch.where(mask, torch.zeros_like(steps_s), steps_s),
+            torch.where(mask, torch.zeros_like(adv_s), adv_s),
             torch.where(mask, entry_in, alive),
         )
 
-    state = spawn(busy, (seed, pos, dirn, rad, trans, od, weight, depth, steps_s, alive), k)
+    state = spawn(busy, (seed, pos, dirn, rad, trans, od, weight, depth, adv_s, alive), k)
 
     def iteration(carry):
-        w_mean, w_m2, w_cnt, steps_total, bounces, k, busy = carry[:7]
-        seed, pos, dirn, rad, trans, od, weight, depth, steps_s, alive = carry[7:]
+        w_mean, w_m2, w_cnt, steps_total, jumped, bounces, k, busy = carry[:8]
+        seed, pos, dirn, rad, trans, od, weight, depth, adv_s, alive = carry[8:]
         # A float64 texture is read through a float32 copy made anew each
         # iteration: the same values, and autograd sums its gradient in
         # float64 (the differentiable renderer's plain version).
@@ -247,9 +266,14 @@ def scatter_loop_plain(
         if dens.dtype == torch.float64 or params.inscatter.dtype == torch.float64:
             p32 = params._replace(density_mips=(dens.to(torch.float32),),
                                   inscatter=params.inscatter.to(torch.float32))
-        act = alive & (steps_s < cap)
+        act = alive & (adv_s < cap)
         capped = alive & ~act
-        new = pos + dirn * step
+        m = None
+        if skip == march_ops.SKIP_BLOCK:
+            m = march_ops.block_step(params, static, pos, cap - adv_s)
+            new = pos + dirn * march_ops.step_length(static, m)[:, None]
+        else:
+            new = pos + dirn * step
         density = grid_ops.sample_trilinear(p32.density_mips[0], new / bbox) * dm
         tn = trans * torch.exp(-density * step)
         crossed = act & (od > tn)
@@ -295,9 +319,21 @@ def scatter_loop_plain(
             )
             end = end | killed
         depth = new_depth
-        steps_s = steps_s + act.to(torch.int64)
         steps_total = steps_total + act.to(torch.int64)
         bounces = bounces + scat.to(torch.int64)
+        if m is not None:
+            adv_s = adv_s + torch.where(act, m, torch.zeros_like(m))
+            jumped = jumped + torch.where(act, m - 1, torch.zeros_like(m))
+        else:
+            adv_s = adv_s + act.to(torch.int64)
+        if skip == march_ops.SKIP_CELL:
+            # A sample still in flight after a step into an empty cell.
+            e = march_ops.cell_jump(p32, static, pos, dirn, cap - adv_s)
+            go = act & ~crossed & ~end & (e > 0)
+            pos = torch.where(go[:, None], pos + dirn * (e * step)[:, None], pos)
+            e = torch.where(go, e.to(torch.int64), torch.zeros_like(adv_s))
+            adv_s = adv_s + e
+            jumped = jumped + e
 
         # Fold every sample that ended this iteration, in sample order.
         fold = busy & (end | capped | ~alive)
@@ -310,12 +346,12 @@ def scatter_loop_plain(
         w_cnt = torch.where(fold, cnt_new, w_cnt)
         k = k + fold.to(torch.int64)
         alive = alive & ~fold
-        state = (seed, pos, dirn, rad, trans, od, weight, depth, steps_s, alive)
+        state = (seed, pos, dirn, rad, trans, od, weight, depth, adv_s, alive)
         respawn = fold & (k < n_samples)
         busy = busy & ~(fold & ~respawn)
         if n_samples > 1:  # with one sample a lane never respawns
             state = spawn(respawn, state, k)
-        return (w_mean, w_m2, w_cnt, steps_total, bounces, k, busy) + state
+        return (w_mean, w_m2, w_cnt, steps_total, jumped, bounces, k, busy) + state
 
     def chunk(*carry):
         for _ in range(_CHECK_EVERY):
@@ -328,11 +364,11 @@ def scatter_loop_plain(
     remat = torch.is_grad_enabled() and any(
         t.requires_grad for t in (dens, params.inscatter, params.light_dir,
                                   params.light_radiance, entry, dirs))
-    carry = (w_mean, w_m2, w_cnt, steps_total, bounces, k, busy) + state
-    while bool(carry[6].any()):
+    carry = (w_mean, w_m2, w_cnt, steps_total, jumped, bounces, k, busy) + state
+    while bool(carry[7].any()):
         carry = checkpoint(chunk, *carry, use_reentrant=False) if remat else chunk(*carry)
-    w_mean, w_m2, w_cnt, steps_total, bounces = carry[:5]
-    return PixelMoments(w_mean, w_m2, w_cnt, steps_total, bounces)
+    w_mean, w_m2, w_cnt, steps_total, jumped, bounces = carry[:6]
+    return PixelMoments(w_mean, w_m2, w_cnt, steps_total, bounces, jumped)
 
 
 _ARGTYPES = [
@@ -397,23 +433,27 @@ def launch_consts(static: SceneStatic, max_steps: Optional[int] = None):
 
 
 def launch_entry(lib, entry_point, argtypes, sub_arg, params, static, entry, dirs, hit,
-                 ray_ids, seed_base, n_samples, max_steps):
+                 ray_ids, seed_base, n_samples, max_steps, skip=march_ops.SKIP_NONE):
     """Checks the inputs and runs ``entry_point`` of ``lib`` (default the
     package's ``pathtrace`` build): ``ds_pathtrace``, or ``ds_radiance``
     with ``sub_arg`` in the place of ``sub_first``, on the inputs' device
     → (``PixelMoments``, ``SampleRecords``, the device counters [4] int64:
     queue head, march slots; for ``ds_radiance`` also resolve steps and
-    crossings resolved).
+    crossings resolved).  With a ``skip`` it runs the entry point's
+    skipping instantiation, ``<entry_point>_skip``, which also counts the
+    lattice steps each pixel jumped.
 
     Besides the outputs it allocates per-sample records of 20 bytes a
     (pixel, sample), ``N x n_samples`` of them: 10.5 MB for a 512^2 tick of
     2 subframes, 41 MB for the collector's default update (20,480 lanes x
     100 experiments), growing linearly with ``n_samples``."""
     n, dev, dens, insc, hit8, ray_ids = check_launch(params, entry, dirs, hit, ray_ids, n_samples)
+    march_ops.check_skip(params, static, skip)
     ph = params.phase
-    fn = getattr(lib or cuda_build.load("pathtrace"), entry_point)
-    fn.argtypes = argtypes
+    fn = getattr(lib or cuda_build.load("pathtrace"), entry_point + ("_skip" if skip else ""))
+    fn.argtypes = argtypes + (march_ops.SKIP_ARGTYPES if skip else [])
     fn.restype = ctypes.c_int
+    jumped = torch.zeros((n,), dtype=torch.int64, device=dev)
     mean = torch.empty((n, 3), dtype=torch.float32, device=dev)
     m2 = torch.empty((n, 3), dtype=torch.float32, device=dev)
     count = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -437,22 +477,24 @@ def launch_entry(lib, entry_point, argtypes, sub_arg, params, static, entry, dir
             cuda_build.ptr(rec_work), cuda_build.ptr(counters), cuda_build.ptr(mean),
             cuda_build.ptr(m2), cuda_build.ptr(count), cuda_build.ptr(work),
             cuda_build.stream_handle(),
+            *(march_ops.skip_args(params, static, skip, jumped) if skip else []),
         ),
         f"{entry_point} kernel",
     )
-    return (PixelMoments(mean, m2, count, work[:, 0], work[:, 1]),
+    return (PixelMoments(mean, m2, count, work[:, 0], work[:, 1], jumped),
             SampleRecords(rec_rad, rec_work), counters)
 
 
 def _launch(params, static, entry, dirs, hit, ray_ids, seed_base, sub_first,
             n_samples, max_steps, lib=None) -> PixelMoments:
-    """K4 on the inputs' device (``launch_entry`` with ``ds_pathtrace``).
-    ``lib``: another library with the same ``ds_pathtrace`` entry point (the
-    tests' host build of the kernel's device functions, the alternatives
-    ``probes/march_variants.py`` times)."""
+    """K4 on the inputs' device (``launch_entry`` with ``ds_pathtrace``, the
+    scene's skip).  ``lib``: another library with the same entry points
+    (the tests' host build of the kernel's device functions, the
+    alternatives ``probes/march_variants.py`` times)."""
     pm, _, counters = launch_entry(lib, "ds_pathtrace", _ARGTYPES,
                                    int(sub_first) & 0xFFFFFFFF, params, static, entry, dirs,
-                                   hit, ray_ids, seed_base, n_samples, max_steps)
+                                   hit, ray_ids, seed_base, n_samples, max_steps,
+                                   march_ops.skip_mode(static))
     scatter_loop.launches += 1
     scatter_loop.last_counters = counters[:2]
     return pm
@@ -462,7 +504,9 @@ def launch_samples(params, static, entry, dirs, hit, ray_ids, seed_base, sub_fir
                    max_steps=None, lib=None) -> SampleRecords:
     """K4 on the inputs' device for its per-sample records (item (sample
     k, pixel r) at [k, r]; a pixel without a box hit has none: its rows are
-    left unwritten).  The differentiable renderer's forward."""
+    left unwritten).  The differentiable renderer's forward: no skip,
+    whatever the scene says (K8c replays these paths on the plain lattice,
+    as the JAX package's differentiable loop marches it)."""
     _, rec, counters = launch_entry(lib, "ds_pathtrace", _ARGTYPES, int(sub_first) & 0xFFFFFFFF,
                                     params, static, entry, dirs, hit, ray_ids, seed_base,
                                     n_samples, max_steps)
@@ -484,7 +528,8 @@ def scatter_loop(
     max_steps: Optional[int] = None,
 ) -> PixelMoments:
     """K4's wrapper: the kernel for CUDA tensors, ``scatter_loop_plain``
-    for CPU tensors (same signature and values)."""
+    for CPU tensors (same signature and values), with the scene's skip
+    (``march_ops.skip_mode``)."""
     if entry.is_cuda:
         return _launch(params, static, entry, dirs, hit, ray_ids, seed_base,
                        sub_first, n_samples, max_steps)

@@ -37,6 +37,9 @@ class SceneParams(NamedTuple):
     sky_intensity: torch.Tensor  # [3]
     ground_intensity: torch.Tensor  # [3]
     phase: PhaseTable
+    #: [bz, by, bx] float32 dilated block occupancy (``ops.grid.build_occupancy``)
+    #: where ``CloudRendering.occupancy_skipping`` is on, else empty.
+    occupancy: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +76,19 @@ class SceneStatic:
     rr_survival: float = 0.98
     #: Sky / sun light where a path leaves the box (all-scatter mode).
     sample_sky: bool = False
+    #: The occupancy-block skip: cells a block edge, and the lattice steps
+    #: of one step from a point whose dilated block is empty (0: off; the
+    #: JAX package's rule, ``int(block / max_dim / sample_step)``, 0 below 2).
+    occupancy_block: int = 8
+    occupancy_skip_steps: int = 0
+    #: The empty-cell exit jump: after a step into a cell whose 8 density
+    #: corners are all 0 the march jumps to the last lattice step before
+    #: the cell's exit face (at most 64 steps), transmittance unchanged.
+    #: The JAX package's default is True; here it is False, because every
+    #: bitwise gate of the port (K4 against the JAX oracle loop, K9 and
+    #: K8c's replay against K4) rests on the plain step lattice, and a jump
+    #: moves positions at the ulp.
+    march_empty_skip: bool = False
 
     @property
     def max_march_steps(self) -> int:
@@ -147,6 +163,12 @@ def build_scene(
     sun_area = 2.0 * math.pi * (1.0 - math.cos(half_angle))
     max_dim = max(nx, ny, nz)
     voxel_size_m = cfg.cloud.size_m / max_dim
+    occ_block = 8
+    skip_steps = 0
+    if cfg.rendering.occupancy_skipping:
+        skip_steps = int(occ_block / max_dim / cfg.rendering.sample_step)
+        if skip_steps < 2:
+            skip_steps = 0
 
     mip_shapes = tuple(tuple(int(s) for s in m.shape) for m in mips)
     offsets, off = [], 0
@@ -176,6 +198,8 @@ def build_scene(
         rr_start_depth=cfg.rendering.rr_start_depth,
         rr_survival=cfg.rendering.rr_survival,
         sample_sky=cfg.rendering.sample_sky,
+        occupancy_block=occ_block,
+        occupancy_skip_steps=skip_steps,
     )
 
     if inscatter is None:
@@ -198,6 +222,8 @@ def build_scene(
         sky_intensity=f32(cfg.sky.sky_intensity),
         ground_intensity=f32(cfg.sky.ground_intensity),
         phase=load_phase_table(dev),
+        occupancy=(f32(grid_ops.build_occupancy(density, occ_block)) if skip_steps
+                   else torch.zeros((0, 0, 0), dtype=torch.float32, device=dev)),
     )
     return params, static
 
@@ -221,5 +247,7 @@ def params_to(params: SceneParams, device) -> SceneParams:
     moved = {f: getattr(params, f).to(dev) for f in (
         "inscatter", "bbox_size", "light_dir", "light_radiance", "sky_intensity",
         "ground_intensity")}
+    if params.occupancy is not None:
+        moved["occupancy"] = params.occupancy.to(dev)
     phase = type(params.phase)(*(t.to(dev) for t in params.phase))
     return params._replace(density_mips=tuple(mips), mip_flat=flat, phase=phase, **moved)

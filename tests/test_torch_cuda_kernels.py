@@ -84,6 +84,14 @@ CPU: >= 99 % of pixels within 1e-5 of the image's largest value (K4's
 card-against-CPU rule).  K3 over a
 split of the planes (``planes=``) bitwise equal to the whole bake.
 
+Empty-space skipping on a 48^3 grid of two cumulus blobs in opposite
+corners (step 1/128; a long step is 21 lattice steps): K4 with the cell
+jump and with the block skip, K7b with the cell jump, K7a with each, K1
+with the block skip, each against its skipping plain version at the
+tolerances above (K7a bitwise; K4 and K7b also their lattice steps jumped)
+and on the card against the CPU; the cap counted in lattice steps; a block
+skip without the scene's occupancy raises.
+
 The render task (``tasks.render_cloud``, NN and BNN, from ``.pt``
 exports) on the card against the CPU: frames within rtol 1e-3 on >= 99.5 %
 of pixels.
@@ -1482,3 +1490,193 @@ def test_bake_planes_kernel_equals_the_whole_bake(scene, card):
     assert torch.equal(parts, whole) and inscatter.sun_transmittance.launches == before + 3
     with pytest.raises(ValueError):
         inscatter.launch_bake(*k3, planes=(5, 49))
+
+
+# -- empty-space skipping ----------------------------------------------------
+
+
+def _two_blobs() -> np.ndarray:
+    """A 48^3 grid holding two 16^3 cumulus blobs in opposite corners: the
+    cloud AABB spans the box, so the camera march and the sampler (which
+    clip to it) cross empty occupancy blocks as well as empty cells."""
+    c = procedural.cumulus(16, seed=11)
+    d = np.zeros((48, 48, 48), np.float32)
+    d[2:18, 4:20, 2:18] = c
+    d[30:46, 28:44, 30:46] = c
+    return d
+
+
+@pytest.fixture(scope="module", params=["float32", "uint8"])
+def skip_scene(card, request):
+    """The two-blob grid at 2000 m, step 1/128 (a long step 21 lattice
+    steps), its occupancy built, baked; 64 x 32 camera rays."""
+    cfg = config.SceneConfig(
+        cloud=config.CloudModel(size_m=2000.0),
+        camera=config.CameraConfig(width=64, height=32),
+        rendering=config.CloudRendering(march_dtype=request.param, sample_step=1.0 / 128.0,
+                                        occupancy_skipping=True))
+    params, static = build_scene(cfg, _two_blobs(), device=card)
+    assert static.occupancy_skip_steps == 21
+    return cfg, with_baked_inscatter(params, static, device=card), static
+
+
+def _skip_static(static, skip):
+    """The scene's static with the cell jump alone or the block skip alone."""
+    if skip == "cell":
+        return dataclasses.replace(static, occupancy_skip_steps=0, march_empty_skip=True)
+    return static
+
+
+SKIPS = ["cell", "block"]
+
+
+@pytest.mark.parametrize("skip", SKIPS)
+def test_skip_pathtrace_kernel_matches_plain(skip_scene, card, skip):
+    """K4's skipping instantiations against the skipping plain loop: counts
+    equal, steps and lattice steps jumped equal on >= 99 % of pixels, there
+    mean and m2 within K4's tolerances; the skip jumped steps."""
+    cfg, params, static = skip_scene
+    static = dataclasses.replace(_skip_static(static, skip), max_depth=40)
+    rays = _pt_rays(cfg, params, static, card)
+    got = pathtracer.scatter_loop(params, static, *rays, 5, 1, 3)
+    ref = pathtracer.scatter_loop_plain(params, static, *rays, 5, 1, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got.count, ref.count) and int(ref.jumped.sum()) > 0
+    same = (got.steps == ref.steps) & (got.jumped == ref.jumped)
+    assert same.float().mean().item() >= 0.99
+    for a, b, tol in ((got.mean, ref.mean, 1e-5), (got.m2, ref.m2, 1e-4)):
+        assert (a - b)[same].abs().max().item() <= tol * (b.abs().max().item() + 1e-12)
+
+
+@pytest.mark.parametrize("skip", SKIPS)
+def test_skip_pathtrace_kernel_cap_in_lattice_steps(skip_scene, card, skip):
+    """The cap counts lattice steps advanced: no sample passes 30 of them,
+    and kernel and plain loop agree on every pixel."""
+    cfg, params, static = skip_scene
+    static = _skip_static(static, skip)
+    rays = _pt_rays(cfg, params, static, card)
+    got = pathtracer.scatter_loop(params, static, *rays, 5, 1, 2, max_steps=30)
+    ref = pathtracer.scatter_loop_plain(params, static, *rays, 5, 1, 2, max_steps=30)
+    assert int((got.steps + got.jumped).max()) <= 60
+    assert torch.equal(got.steps, ref.steps) and torch.equal(got.jumped, ref.jumped)
+
+
+def test_skip_radiance_kernel_matches_plain(skip_scene, card):
+    """K7b with the cell jump: counts, steps, scatters and jumps equal per
+    lane; the moments within K4's tolerances; its collector static drops
+    the block skip."""
+    _, params, static = skip_scene
+    rs = dataclasses.replace(collectors.radiance_static(_skip_static(static, "cell")),
+                             max_depth=200)
+    assert collectors.radiance_static(static).occupancy_skip_steps == 0
+    entry, d, rids, base = _radiance_case(params, static, card)
+    o, dd, ids, sub0 = collectors._lanes(entry, d, rids, base, 3, 4)
+    hit = torch.ones(o.shape[0], dtype=torch.bool, device=card)
+    got, _ = collectors.launch_radiance(params, rs, o, dd, ids, sub0, 9, 4)
+    ref = pathtracer.scatter_loop_plain(params, rs, o, dd, hit, ids, 9, sub0, 4)
+    torch.cuda.synchronize()
+    assert int(ref.jumped.sum()) > 0
+    for name in ("count", "steps", "bounces", "jumped"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    for a, b, tol in ((got.mean, ref.mean, 1e-5), (got.m2, ref.m2, 1e-4)):
+        assert (a - b).abs().max().item() <= tol * (b.abs().max().item() + 1e-12)
+
+
+@pytest.mark.parametrize("skip", SKIPS)
+def test_skip_samples_kernel_matches_plain(skip_scene, card, skip):
+    """K7a with each skip bitwise its plain version, with fewer steps than
+    without it."""
+    _, params, static = skip_scene
+    st = _skip_static(static, skip)
+    got = collectors._launch_samples(params, st, 777, 3)
+    ref = collectors.generate_scatter_samples_plain(params, st, 777, 3)
+    plain = collectors._launch_samples(
+        params, dataclasses.replace(st, occupancy_skip_steps=0, march_empty_skip=False), 777, 3)
+    torch.cuda.synchronize()
+    for name, a, b in zip(ref._fields, got, ref):
+        assert torch.equal(a, b), name
+    assert int(got.steps.sum()) < int(plain.steps.sum())
+
+
+def test_skip_march_kernel_matches_plain(skip_scene, card):
+    """K1 with the block skip, both passes, at the plain version's
+    tolerances; the long steps cut the steps taken."""
+    cfg, params, static = skip_scene
+    entry, dirs, ids = _camera_rays(cfg, params, static, card)
+    _march_matches_plain(params, static, entry, dirs, ids)
+    no_skip = dataclasses.replace(static, occupancy_skip_steps=0)
+    march.camera_march(params, no_skip, entry, dirs)
+    plain_steps = int(march.camera_march.last_counters[1])
+    march.camera_march(params, static, entry, dirs)
+    assert int(march.camera_march.last_counters[1]) < plain_steps
+
+
+@pytest.mark.parametrize("skip", SKIPS)
+def test_skip_k4_card_matches_cpu(skip_scene, card, skip):
+    cfg, params, static = skip_scene
+    static = dataclasses.replace(_skip_static(static, skip), max_depth=10)
+    entry, d, hit, ids = _pt_rays(cfg, params, static, card)
+    got = pathtracer.scatter_loop(params, static, entry, d, hit, ids, 5, 1, 2)
+    ref = pathtracer.scatter_loop_plain(params_to(params, "cpu"), static,
+                                        *_cpu(entry, d, hit, ids), 5, 1, 2)
+    assert torch.equal(got.count.cpu(), ref.count)
+    same = (got.steps.cpu() == ref.steps) & (got.jumped.cpu() == ref.jumped)
+    assert same.float().mean().item() >= 0.99
+    for a, b, tol in ((got.mean.cpu(), ref.mean, 1e-5), (got.m2.cpu(), ref.m2, 1e-4)):
+        assert (a - b)[same].abs().max().item() <= tol * (b.abs().max().item() + 1e-12)
+
+
+@pytest.mark.parametrize("skip", SKIPS)
+def test_skip_k7a_card_matches_cpu(skip_scene, card, skip):
+    _, params, static = skip_scene
+    st = _skip_static(static, skip)
+    got = collectors.generate_scatter_samples(params, st, 512, 4)
+    ref = collectors.generate_scatter_samples_plain(params_to(params, "cpu"), st, 512, 4)
+    found = got.found.cpu()
+    assert (found == ref.found).float().mean().item() >= 0.995
+    same = (got.attempts.cpu() == ref.attempts) & found & ref.found
+    assert same.float().mean().item() >= 0.99 * found.float().mean().item()
+    assert (got.positions.cpu() - ref.positions)[same].abs().max().item() <= 1e-4
+
+
+def test_skip_k1_card_matches_cpu(skip_scene, card):
+    cfg, params, static = skip_scene
+    entry, dirs, ids = _camera_rays(cfg, params, static, card)
+    t1 = march.camera_march(params, static, entry, dirs).transmittance.cpu()
+    cpu = params_to(params, "cpu")
+    r1 = march.camera_march_plain(cpu, static, *_cpu(entry, dirs)).transmittance
+    assert (t1 - r1).abs().max().item() <= 1e-5
+    k2 = march.camera_march(params, static, entry, dirs, 7, ids, r1.to(card))
+    p2 = march.camera_march_plain(cpu, static, *_cpu(entry, dirs), 7, ids.cpu(), r1)
+    ok = k2.ok.cpu()
+    assert (ok == p2.ok).float().mean().item() >= 0.995
+    both = ok & p2.ok
+    close = (k2.scatter_pos.cpu() - p2.scatter_pos)[both].abs().max(dim=1).values <= 1e-4
+    assert close.float().mean().item() >= 0.995
+
+
+def test_skip_k7b_card_matches_cpu(skip_scene, card):
+    _, params, static = skip_scene
+    rs = dataclasses.replace(collectors.radiance_static(_skip_static(static, "cell")),
+                             max_depth=50)
+    entry, d, rids, base = _radiance_case(params, static, card, n=48)
+    got = collectors.radiance_moments(params, rs, entry, d, rids, base, 9, 2, 3)
+    ref = collectors.radiance_moments_plain(params_to(params, "cpu"), rs,
+                                            *_cpu(entry, d, rids, base), 9, 2, 3)
+    assert torch.equal(got[0].cpu(), ref[0])
+    for a, b, tol in ((got[1].cpu(), ref[1], 1e-5), (got[2].cpu(), ref[2], 1e-4)):
+        assert (a - b).abs().max().item() <= tol * (b.abs().max().item() + 1e-12)
+
+
+def test_skip_wrappers_raise_without_the_occupancy(skip_scene, card):
+    """A block skip requested on a scene without its occupancy grid raises:
+    no wrapper falls back to marching without it."""
+    cfg, params, static = skip_scene
+    bare = params._replace(occupancy=torch.zeros((0, 0, 0), device=card))
+    entry, dirs, ids = _camera_rays(cfg, params, static, card)
+    with pytest.raises(ValueError):
+        march.camera_march(bare, static, entry, dirs)
+    with pytest.raises(ValueError):
+        collectors.generate_scatter_samples(bare, static, 8, 1)
+    with pytest.raises(ValueError):
+        pathtracer.scatter_loop(bare, static, *_pt_rays(cfg, params, static, card), 5, 1, 1)

@@ -13,6 +13,7 @@
 // It exports ds_pathtrace, ds_radiance, ds_bake, ds_bake_planes,
 // ds_spatial_phase, ds_march, ds_descriptor,
 // ds_probes, ds_samples, ds_assemble_disney, ds_assemble_baked,
+// ds_pathtrace_skip, ds_radiance_skip, ds_march_skip, ds_samples_skip,
 // ds_bake_adjoint(_blocks), ds_diff_march, ds_diff_march_bwd, ds_sun_march,
 // ds_sun_march_bwd and ds_path_adjoint(_blocks, ds_path_pixel_bytes) with
 // the signatures of the device entry points (the atomics of K8a, K8b and
@@ -96,6 +97,54 @@ int64_t front_length = 0;
 int spatial_design = 1;
 int spatial_lanes = 1;  // 1, 4, 8, 16 or 32
 
+// The skip of the running *_skip entry point (ds::kSkipNone in the others)
+// and its arguments.
+int skip_mode = ds::kSkipNone;
+ds::SkipArgs skip_args = {};
+
+// march_chunk / march_steps with the running skip (march_chunk_skip,
+// march_steps_any), a sample's jump count reset where it starts and added
+// to its pixel where it ends.
+template <int K, typename T>
+bool chunk_skip(ds::Sample& S, const T* dens, const T* insc, int nx, int ny, int nz,
+                const float* eval_rows, const float* inv, const ds::PtConsts& c) {
+  switch (skip_mode) {
+    case ds::kSkipCell:
+      return ds::march_chunk_skip<K, ds::kSkipCell>(S, dens, insc, nx, ny, nz, eval_rows, inv, c,
+                                                   skip_args);
+    case ds::kSkipBlock:
+      return ds::march_chunk_skip<K, ds::kSkipBlock>(S, dens, insc, nx, ny, nz, eval_rows, inv,
+                                                    c, skip_args);
+    default:
+      return ds::march_chunk<K>(S, dens, insc, nx, ny, nz, eval_rows, inv, c);
+  }
+}
+
+template <int K, typename T>
+int steps_skip(ds::Sample& S, ds::Crossing& X, const T* dens, int nx, int ny, int nz,
+               const ds::PtConsts& c) {
+  switch (skip_mode) {
+    case ds::kSkipCell:
+      return ds::march_steps_any<K, ds::kSkipCell>(S, X, dens, nx, ny, nz, c, skip_args);
+    case ds::kSkipBlock:
+      return ds::march_steps_any<K, ds::kSkipBlock>(S, X, dens, nx, ny, nz, c, skip_args);
+    default:
+      return ds::march_steps<K>(S, X, dens, nx, ny, nz, c);
+  }
+}
+
+void start_jumps(ds::Sample& S) {
+  if (skip_mode != ds::kSkipNone) S.jumped = 0;
+}
+
+void end_jumps(const ds::Sample& S, int64_t item, int64_t n) {
+  switch (skip_mode) {
+    case ds::kSkipCell: ds::add_jumped<ds::kSkipCell>(skip_args, item, n, S); break;
+    case ds::kSkipBlock: ds::add_jumped<ds::kSkipBlock>(skip_args, item, n, S); break;
+    default: break;
+  }
+}
+
 template <int K, typename T>
 void trace_items(const T* dens, const T* insc, int nx, int ny, int nz,
                  const float* eval_rows, const float* inv, const float* entry,
@@ -109,9 +158,11 @@ void trace_items(const T* dens, const T* insc, int nx, int ny, int nz,
                         sub0, rec_rad, rec_work)) {
       continue;
     }
-    while (!ds::march_chunk<K>(S, dens, insc, nx, ny, nz, eval_rows, inv, c)) {
+    start_jumps(S);
+    while (!chunk_skip<K>(S, dens, insc, nx, ny, nz, eval_rows, inv, c)) {
     }
     ds::write_record(S, item, rec_rad, rec_work);
+    end_jumps(S, item, n);
   }
 }
 
@@ -138,6 +189,7 @@ void trace_items_deferred(const T* dens, const T* insc, int nx, int ny, int nz,
         ++next;
         have[l] = ds::begin_item(S[l], item[l], n, entry, dirs, hit, ray_ids, inv, c,
                                  seed_base, 0u, sub0, rec_rad, rec_work);
+        start_jumps(S[l]);
       }
     }
     int n_live = 0, n_parked = 0;
@@ -152,12 +204,14 @@ void trace_items_deferred(const T* dens, const T* insc, int nx, int ny, int nz,
         parked[l] = false;
         if (ds::resolve(S[l], X[l], insc, nx, ny, nz, eval_rows, inv, c)) {
           ds::write_record(S[l], item[l], rec_rad, rec_work);
+          end_jumps(S[l], item[l], n);
           have[l] = false;
         }
       } else if (!resolving && have[l] && !parked[l]) {
-        const int state = ds::march_steps<K>(S[l], X[l], dens, nx, ny, nz, c);
+        const int state = steps_skip<K>(S[l], X[l], dens, nx, ny, nz, c);
         if (state == ds::kEnded) {
           ds::write_record(S[l], item[l], rec_rad, rec_work);
+          end_jumps(S[l], item[l], n);
           have[l] = false;
         } else if (state == ds::kCrossed) {
           parked[l] = true;
@@ -175,6 +229,7 @@ int pathtrace(const T* dens, const T* insc, int nx, int ny, int nz, const float*
               int32_t* rec_work, float* mean_out, float* m2_out, float* count_out,
               int64_t* work_out) {
   if (pt_mode == 0) {
+    if (skip_mode != ds::kSkipNone) return -1;  // the per-pixel loop takes no skip
     for (int64_t r = 0; r < n; ++r) {
       ds::pathtrace_pixel(r, dens, insc, nx, ny, nz, eval_rows, inv, entry, dirs, hit,
                           ray_ids, c, seed_base, sub_first, n_samples, mean_out, m2_out,
@@ -226,6 +281,55 @@ void bake(const T* dens, int nx, int ny, int nz, const ds::BakeConsts& c, int n_
 
 // The rays in chunks of G lanes: each chunk's lanes computed one after the
 // other into arrays (what the card's shuffles and ballots deliver).
+// One chunk of ray R on G lanes with skip Skip, the lanes computed one
+// after the other into arrays (what the card's shuffles and ballots
+// deliver); stop_at_cross as chunk_end's.
+template <int G, int Skip, typename T>
+void lane_chunk(ds::Ray& R, const T* dens, int nx, int ny, int nz, const ds::MarchConsts& c,
+                bool stop_at_cross) {
+  ds::LaneStep S[G];
+  ds::LaneSkip F[G] = {};
+  for (int l = 0; l < G; ++l) {
+    S[l] = Skip == ds::kSkipNone
+               ? ds::lane_step<G>(R, l, dens, nx, ny, nz, c)
+               : ds::lane_step_skip<G, Skip>(R, l, dens, nx, ny, nz, c, skip_args, F[l]);
+  }
+  for (int l = 0; l < G; ++l) {
+    S[l].tn = ds::lane_transmittance<G>(R.trans, l, [&](int k) { return S[k].e; });
+  }
+  unsigned leaves = 0u, crosses = 0u, cuts = 0u, empties = 0u;
+  for (int l = 0; l < G; ++l) {
+    leaves |= (unsigned)ds::lane_leaves(S[l], c) << l;
+    crosses |= (unsigned)ds::lane_crosses(R, S[l]) << l;
+    cuts |= (unsigned)F[l].cut << l;
+    empties |= (unsigned)F[l].empty << l;
+  }
+  bool jump = false;
+  const ds::ChunkEnd E =
+      Skip == ds::kSkipNone
+          ? ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G, stop_at_cross)
+          : ds::chunk_end_skip(leaves, crosses, cuts, empties, c.max_steps - R.steps, G,
+                               stop_at_cross, jump);
+  ds::chunk_update(R, E, [&](int k) { return S[k]; });
+  if (jump) ds::chunk_jump(R, nx, ny, nz, c);
+}
+
+// lane_chunk with the running skip.
+template <int G, typename T>
+void lane_chunk_skip(ds::Ray& R, const T* dens, int nx, int ny, int nz,
+                     const ds::MarchConsts& c, bool stop_at_cross) {
+  switch (skip_mode) {
+    case ds::kSkipCell:
+      lane_chunk<G, ds::kSkipCell>(R, dens, nx, ny, nz, c, stop_at_cross);
+      break;
+    case ds::kSkipBlock:
+      lane_chunk<G, ds::kSkipBlock>(R, dens, nx, ny, nz, c, stop_at_cross);
+      break;
+    default:
+      lane_chunk<G, ds::kSkipNone>(R, dens, nx, ny, nz, c, stop_at_cross);
+  }
+}
+
 template <int G, typename T>
 void march_chunks(const T* dens, const T* insc, int nx, int ny, int nz, const float* eval_rows,
                   const float* entry, const float* dirs, const int64_t* ray_ids,
@@ -237,18 +341,7 @@ void march_chunks(const T* dens, const T* insc, int nx, int ny, int nz, const fl
     ds::ray_begin(R, r, entry, dirs, ray_ids, trans_total, seed, c);
     while (R.active) {
       counters[0] += G;  // lane-step slots
-      ds::LaneStep S[G];
-      for (int l = 0; l < G; ++l) S[l] = ds::lane_step<G>(R, l, dens, nx, ny, nz, c);
-      for (int l = 0; l < G; ++l) {
-        S[l].tn = ds::lane_transmittance<G>(R.trans, l, [&](int k) { return S[k].e; });
-      }
-      unsigned leaves = 0u, crosses = 0u;
-      for (int l = 0; l < G; ++l) {
-        leaves |= (unsigned)ds::lane_leaves(S[l], c) << l;
-        crosses |= (unsigned)ds::lane_crosses(R, S[l]) << l;
-      }
-      ds::chunk_update(R, ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G),
-                       [&](int k) { return S[k]; });
+      lane_chunk_skip<G>(R, dens, nx, ny, nz, c, false);
     }
     counters[1] += (unsigned long long)R.steps;
     ds::ray_end(R, r, insc, nx, ny, nz, eval_rows, c, t_out, pos_out, ok_out, direct_out);
@@ -262,6 +355,7 @@ int march(const T* dens, const T* insc, int nx, int ny, int nz, const float* eva
           float* t_out, float* pos_out, uint8_t* ok_out, float* direct_out,
           unsigned long long* counters) {
   if (march_mode == 0) {
+    if (skip_mode != ds::kSkipNone) return -1;  // the per-ray loop takes no skip
     for (int64_t r = 0; r < n; ++r) {
       ds::march_ray(r, dens, insc, nx, ny, nz, eval_rows, entry, dirs, ray_ids, trans_total,
                     seed, c, t_out, pos_out, ok_out, direct_out);
@@ -308,20 +402,7 @@ void descriptor(const T* mips, const float* pos, const float* dirs, const float*
 // other), with chunk_end's stop at the crossing.
 template <int G, typename T>
 void attempt_chunks(ds::Ray& R, const T* dens, int nx, int ny, int nz, const ds::MarchConsts& c) {
-  while (R.active) {
-    ds::LaneStep S[G];
-    for (int l = 0; l < G; ++l) S[l] = ds::lane_step<G>(R, l, dens, nx, ny, nz, c);
-    for (int l = 0; l < G; ++l) {
-      S[l].tn = ds::lane_transmittance<G>(R.trans, l, [&](int j) { return S[j].e; });
-    }
-    unsigned leaves = 0u, crosses = 0u;
-    for (int l = 0; l < G; ++l) {
-      leaves |= (unsigned)ds::lane_leaves(S[l], c) << l;
-      crosses |= (unsigned)ds::lane_crosses(R, S[l]) << l;
-    }
-    ds::chunk_update(R, ds::chunk_end(leaves, crosses, c.max_steps - R.steps, G, true),
-                     [&](int j) { return S[j]; });
-  }
+  while (R.active) lane_chunk_skip<G>(R, dens, nx, ny, nz, c, true);
 }
 
 // K7a's first design: each sample's attempts in order, each attempt in
@@ -386,6 +467,7 @@ int samples(const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
             const ds::MarchConsts& c, float min_dist, float* pos_out, float* dir_out,
             uint8_t* found_out, int32_t* work_out) {
   if (samples_mode == 0) {
+    if (skip_mode != ds::kSkipNone) return -1;  // the per-sample loop takes no skip
     for (int64_t s = 0; s < n; ++s) {
       ds::sample_attempts(s, dens, nx, ny, nz, seed, c, min_dist, pos_out, dir_out, found_out,
                           work_out);
@@ -900,6 +982,55 @@ int ds_radiance(const void* dens, const void* insc, int is_u8, int nx, int ny, i
                    rec_work, mean_out, m2_out, count_out, work_out);
 }
 
+// The *_skip entry points: their base's work with skip_mode and skip_args
+// set for the call (DS_SKIP_PARAMS; the kernels' checks of the skip).
+int ds_pathtrace_skip(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
+                      const float* eval_rows, int n_phase, const float* inv_rows, int n_inv,
+                      const float* entry, const float* dirs, const uint8_t* hit,
+                      const int64_t* ray_ids, int64_t n, const float* consts,
+                      const float* ground, int max_steps, int max_depth, int rr_start,
+                      int flags, uint32_t seed_base, uint32_t sub_first, int n_samples,
+                      float* rec_rad, int32_t* rec_work, unsigned long long* counters,
+                      float* mean_out, float* m2_out, float* count_out, int64_t* work_out,
+                      void* stream, DS_SKIP_PARAMS) {
+  if ((skip != ds::kSkipCell && skip != ds::kSkipBlock) || jumped == nullptr ||
+      (skip == ds::kSkipBlock && occ == nullptr)) {
+    return 1;
+  }
+  for (int64_t i = 0; i < n; ++i) jumped[i] = 0;
+  skip_mode = skip;
+  skip_args = DS_SKIP_ARGS;
+  const int err = ds_pathtrace(dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows,
+                               n_inv, entry, dirs, hit, ray_ids, n, consts, ground, max_steps,
+                               max_depth, rr_start, flags, seed_base, sub_first, n_samples,
+                               rec_rad, rec_work, counters, mean_out, m2_out, count_out,
+                               work_out, stream);
+  skip_mode = ds::kSkipNone;
+  return err;
+}
+
+int ds_radiance_skip(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
+                     const float* eval_rows, int n_phase, const float* inv_rows, int n_inv,
+                     const float* entry, const float* dirs, const uint8_t* hit,
+                     const int64_t* ray_ids, int64_t n, const float* consts,
+                     const float* ground, int max_steps, int max_depth, int rr_start,
+                     int flags, uint32_t seed_base, const uint32_t* sub0, int n_samples,
+                     float* rec_rad, int32_t* rec_work, unsigned long long* counters,
+                     float* mean_out, float* m2_out, float* count_out, int64_t* work_out,
+                     void* stream, DS_SKIP_PARAMS) {
+  if (skip != ds::kSkipCell || jumped == nullptr) return 1;
+  for (int64_t i = 0; i < n; ++i) jumped[i] = 0;
+  skip_mode = skip;
+  skip_args = DS_SKIP_ARGS;
+  const int err = ds_radiance(dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows,
+                              n_inv, entry, dirs, hit, ray_ids, n, consts, ground, max_steps,
+                              max_depth, rr_start, flags, seed_base, sub0, n_samples, rec_rad,
+                              rec_work, counters, mean_out, m2_out, count_out, work_out,
+                              stream);
+  skip_mode = ds::kSkipNone;
+  return err;
+}
+
 int ds_bake(const void* dens, int is_u8, int nx, int ny, int nz, const float* consts,
             int n_steps, int early_out, float* out, void* /*stream*/) {
   const ds::BakeConsts c = ds::bake_consts(consts);
@@ -983,6 +1114,22 @@ int ds_march(const void* dens, const void* insc, int is_u8, int nx, int ny, int 
                ray_ids, trans_total, seed, n, c, t_out, pos_out, ok_out, direct_out, counters);
 }
 
+int ds_march_skip(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
+                  const float* eval_rows, int n_phase, const float* entry, const float* dirs,
+                  const int64_t* ray_ids, const float* trans_total, uint32_t seed, int64_t n,
+                  const float* consts, int max_steps, float* t_out, float* pos_out,
+                  uint8_t* ok_out, float* direct_out, unsigned long long* counters,
+                  void* stream, DS_SKIP_PARAMS) {
+  if (skip != ds::kSkipBlock || occ == nullptr) return 1;
+  skip_mode = skip;
+  skip_args = DS_SKIP_ARGS;
+  const int err = ds_march(dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, entry, dirs,
+                           ray_ids, trans_total, seed, n, consts, max_steps, t_out, pos_out,
+                           ok_out, direct_out, counters, stream);
+  skip_mode = ds::kSkipNone;
+  return err;
+}
+
 int ds_descriptor(const void* mips, int is_u8, const float* pos, const float* dirs,
                   const float* frames, const float* ez, const float* light, int64_t m,
                   int n_layers, int n_levels, const float* fconsts, const int64_t* iconsts,
@@ -1043,6 +1190,19 @@ int ds_samples(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t see
   }
   return samples((const float*)dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out,
                  found_out, work_out);
+}
+
+int ds_samples_skip(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed,
+                    int64_t n, const float* consts, int max_steps, float min_dist,
+                    float* pos_out, float* dir_out, uint8_t* found_out, int32_t* work_out,
+                    void* stream, DS_SKIP_PARAMS) {
+  if (skip != ds::kSkipCell && (skip != ds::kSkipBlock || occ == nullptr)) return 1;
+  skip_mode = skip;
+  skip_args = DS_SKIP_ARGS;
+  const int err = ds_samples(dens, is_u8, nx, ny, nz, seed, n, consts, max_steps, min_dist,
+                             pos_out, dir_out, found_out, work_out, stream);
+  skip_mode = ds::kSkipNone;
+  return err;
 }
 
 // K10: every output element of a batch row through assemble_value; an
