@@ -315,12 +315,22 @@ Phases, one output line each:
     update (``estimate_point_radiance``) with the cell jump, K7b held to
     its plain version by ``k7b_against_plain`` (base 0), its time beside
     the default's; K7a with each skip bitwise its plain version (every
-    field), by the profiler beside the default's.  The RPNN frame with the
+    field), by the profiler beside the default's.  These plain versions
+    (K4's four, K7b's, K7a's two) run side by side in worker processes once
+    the card's timings are taken (``run_plain_jobs``: each is bound by its
+    host's launches).  The RPNN frame with the
     block skip (K1's two launches), K1's passes against
     ``camera_march_plain`` (``phase_k1``'s gates).  A row each (K4 cell
     jump and block skip, K7b cell jump, K7a cell jump and block skip, K1
     block skip): time beside the default's, launches, the bound from the
-    steps sampled, the plain time on the checked work.
+    steps sampled, the plain time on the checked work.  The cell jump of K4
+    (at both sizes) and of K7b (the update's lanes) against its first
+    design (``csrc/pathtrace_variants.cu``: a jump ends its lookahead
+    chunk), beside the kernel without a skip, in four turns by
+    ``ahead_ms`` (``jump_against_first``): times, warp march iterations,
+    SIMT efficiency, steps sampled and jumped, the jumps and lattice steps
+    a jump, registers and spills; the first design bitwise the package's
+    (rows' ``first_design_ms``, ``ms_in_turns``).
 
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
@@ -333,8 +343,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import multiprocessing
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -636,7 +650,8 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
 #: Sources built beside the package's: P1's designs (probes.gather.variants),
 #: the first designs of K8a and K8b's adjoint (csrc/diff_variants.cu), K8c's
 #: (csrc/path_adjoint_variants.cu) and K9's (csrc/spatial_variants.cu).
-EXTRA_SOURCES = ("gather_variants", "diff_variants", "path_adjoint_variants", "spatial_variants")
+EXTRA_SOURCES = ("gather_variants", "diff_variants", "path_adjoint_variants", "spatial_variants",
+                 "pathtrace_variants")
 
 
 def phase_build(cuda_build) -> None:
@@ -1303,7 +1318,7 @@ def welford_fold(rad: torch.Tensor):
 
 
 def k7b_against_plain(collectors, pt, params, static, pos, dirs, rcfg, bases, gen,
-                      deep_from: int = 0) -> dict:
+                      deep_from: int = 0, defer: bool = False) -> dict:
     """K7b at the radiance stage's first update (every point, its replicas)
     from each experiment base of ``bases`` against its plain version: each
     launch's lanes folded from its per-experiment records, and K7B_CHECKED
@@ -1314,7 +1329,9 @@ def k7b_against_plain(collectors, pt, params, static, pos, dirs, rcfg, bases, ge
     met Russian roulette.  Tolerance: counts, steps and scatters equal;
     folds within 1e-5 (sum x) and 1e-4 (sum x^2) of the largest; records
     within 1e-5 of the largest.  Returns the first launch's work, the
-    checks and the checked lanes."""
+    checks and the checked lanes; with ``defer`` the plain runs' job
+    (``"job"``, for ``run_plain_jobs``) in place of their checks, which
+    ``k7b_plain_finish`` then makes."""
     rs = collectors.radiance_static(static)
     n, dev = pos.shape[0], pos.device
     replicas = max(1, rcfg.max_threads // collectors.bucket_size(n))
@@ -1354,11 +1371,21 @@ def k7b_against_plain(collectors, pt, params, static, pos, dirs, rcfg, bases, ge
         del pm, rec
     po, pd, pids, psub, prad, pwork = (torch.cat(t).contiguous() for t in zip(*picks))
     phit = torch.ones(po.shape[0], dtype=torch.bool, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one = pt.scatter_loop_plain(params, rs, po, pd, phit, pids, 0, psub, 1)
-    torch.cuda.synchronize()
-    out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    out["checked"] = (po, pd, pids, psub)
+    out["records"] = (prad, pwork)
+    job = dict(fn=PLAIN_PT, args=(params, rs, po, pd, phit, pids, 0, psub, 1))
+    if defer:
+        out["job"] = job
+        return out
+    one, plain_ms = host_call(lambda: pt.scatter_loop_plain(*job["args"]))
+    return k7b_plain_finish(out, one, plain_ms)
+
+
+def k7b_plain_finish(out: dict, one, plain_ms: float) -> dict:
+    """``k7b_against_plain``'s checks of its checked records against the
+    plain runs' moments ``one`` (host ``plain_ms``)."""
+    prad, pwork = out.pop("records")
+    out["plain_ms"] = plain_ms
     out["err"] = (prad - one.mean).abs().max().item()
     out["counts_eq"] = (torch.equal(pwork[:, 0], one.steps)
                         and torch.equal(pwork[:, 1], one.bounces))
@@ -1366,7 +1393,6 @@ def k7b_against_plain(collectors, pt, params, static, pos, dirs, rcfg, bases, ge
     out["max_bounces"] = int(one.bounces.max())
     out["ok"] = (out["fold_counts_ok"] and out["fold_err"] <= 1.0 and out["counts_eq"]
                  and out["err"] <= 1e-5 * (one.mean.abs().max().item() + 1e-12))
-    out["checked"] = (po, pd, pids, psub)
     return out
 
 
@@ -3546,39 +3572,156 @@ def skip_statics(static) -> dict:
             "block": static}
 
 
-def k4_subframes_compare(pt, params, static, entry, d, hit, ids):
-    """K4 against its plain version on the tick's samples of the given
-    pixels: K4 once a subframe (1 .. PT_SUBFRAMES, a sample each), the
-    plain loop once over every (pixel, subframe) lane side by side (the
-    same paths as the tick's, in the iterations of its longest sample, not
-    of its longest pixel) → (plain result, plain host ms, max abs err,
-    share of lanes with equal steps).  Tolerance: step, scatter and
-    jumped-step counts equal on every lane; mean within 1e-5 of its
-    largest value."""
+def k4_subframes_job(pt, params, static, entry, d, hit, ids):
+    """K4 on the tick's samples of the given pixels, once a subframe (1 ..
+    PT_SUBFRAMES, a sample each) → (its moments, the job of its plain
+    version for ``run_plain_jobs``: the plain loop once over every (pixel,
+    subframe) lane side by side, the same paths as the tick's, in the
+    iterations of its longest sample)."""
     ks = [pt.scatter_loop(params, static, entry, d, hit, ids, PT_SEED, s, 1)
           for s in range(1, PT_SUBFRAMES + 1)]
     k = pt.PixelMoments(*(torch.cat(f) for f in zip(*ks)))
     lanes = [t.repeat(PT_SUBFRAMES, *([1] * (t.dim() - 1))) for t in (entry, d, hit, ids)]
     sub = torch.arange(1, PT_SUBFRAMES + 1, device=ids.device).repeat_interleave(ids.shape[0])
-    r, plain = host_call(lambda: pt.scatter_loop_plain(params, static, *lanes, PT_SEED, sub, 1))
+    return k, dict(fn=PLAIN_PT, args=(params, static, *lanes, PT_SEED, sub, 1))
+
+
+def k4_subframes_check(k, r) -> tuple:
+    """K4's moments ``k`` against its plain version's ``r`` → (max abs
+    err, share of lanes with equal steps).  Tolerance: step, scatter and
+    jumped-step counts equal on every lane; mean within 1e-5 of its
+    largest value."""
     same = (k.steps == r.steps) & (k.jumped == r.jumped)
     share = same.float().mean().item()
     err = (k.mean - r.mean).abs().max().item()
     ok = (torch.equal(k.count, r.count) and share == 1.0 and torch.equal(k.bounces, r.bounces)
           and err <= 1e-5 * (r.mean.abs().max().item() + 1e-12))
     require(ok, f"K4 disagrees with its plain version (steps and jumps equal on {share:.6f})")
-    return r, plain, err, share
+    return err, share
 
 
-def skip_pt(port, config, procedural, pt, cam, compare, res, dev) -> dict:
+#: Seconds a plain job's worker may take (each took 20-45 s on the card's
+#: host).
+PLAIN_JOB_SECONDS = 600
+#: The plain versions the skip phase runs in workers ("module:function").
+PLAIN_PT = "deepestscatter_tpu_torch.render.pathtracer:scatter_loop_plain"
+PLAIN_SAMPLES = "deepestscatter_tpu_torch.data.collectors:generate_scatter_samples_plain"
+
+
+def plain_job(path: str) -> None:
+    """A worker process: the plain version of the job ``torch.save``d at
+    ``path`` (``fn``: "module:function", ``args``) → its result and host ms
+    at ``path`` + ".out"."""
+    import importlib
+
+    job = torch.load(path, weights_only=False)
+    module, name = job["fn"].split(":")
+    fn = getattr(importlib.import_module(module), name)
+    r, ms = host_call(lambda: fn(*job["args"]))
+    torch.save(dict(result=r, ms=ms), path + ".out")
+
+
+def run_plain_jobs(jobs: dict) -> dict:
+    """Each plain job of ``jobs`` (key → a ``plain_job`` job) in a worker
+    process of its own, all at once (each is bound by its host's launches,
+    one an op, and the card serves them side by side) → key → (its result,
+    host ms).  Every worker is joined or terminated."""
+    ctx = multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plain_")
+    procs = {}
+    try:
+        for i, (key, job) in enumerate(jobs.items()):
+            path = os.path.join(tmp, f"job{i}.pt")
+            torch.save(job, path)
+            proc = ctx.Process(target=plain_job, args=(path,))
+            proc.start()
+            procs[key] = (proc, path)
+        out = {}
+        for key, (proc, path) in procs.items():
+            proc.join(PLAIN_JOB_SECONDS)
+            require(proc.exitcode == 0, f"the plain job {key} failed (exit {proc.exitcode})")
+            r = torch.load(path + ".out", weights_only=False)
+            out[key] = (r["result"], r["ms"])
+        return out
+    finally:
+        for proc, _ in procs.values():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: The cell jump's designs the skip phase times (march_variants.JUMP_DESIGNS'
+#: codes): the first (a jump ends its lookahead chunk) and the package's.
+SKIP_JUMP_DESIGNS = ("first design", "package")
+#: Kernels whose ptxas report the skip phase prints beside the jump's times.
+JUMP_PTXAS = {"pathtrace": ("pathtrace_items_kernel<2,u8,1>", "pathtrace_items_kernel<2,f32,1>",
+                            "radiance_items_kernel<2,u8,1>", "radiance_items_kernel<2,f32,1>"),
+              "pathtrace_variants": ("jump_items_kernel<0,2,u8>", "jump_items_kernel<0,2,f32>",
+                                     "jump_radiance_kernel<0,2,u8>",
+                                     "jump_radiance_kernel<0,2,f32>")}
+
+
+def jump_ptxas() -> dict:
+    """The ptxas registers and spills of the cell jump's kernels, the
+    package's and the first design's (``JUMP_PTXAS``), from the build logs."""
+    from deepestscatter_tpu_torch import cuda_build
+    from deepestscatter_tpu_torch.probes import march_variants as mv
+
+    out = {}
+    for src, names in JUMP_PTXAS.items():
+        log = cuda_build.BUILD_DIR / f"{src}.log"
+        found = mv.ptxas(log.read_text()) if log.is_file() else {}
+        out.update({k: found.get(k) for k in names})
+    return out
+
+
+def jump_against_first(label: str, cell: dict, reps: int, radiance: bool) -> dict:
+    """The cell jump's package kernel against its first design on a cell of
+    ``march_variants.k4_jump_cell`` / ``k7b_lanes_cell``, beside the kernel
+    without a skip, in four turns by ``ahead_ms``
+    (``march_variants.jump_compare``): a line with each one's ms, warp
+    march iterations, SIMT efficiency, steps sampled and jumped, the jumps
+    and lattice steps a jump, registers and spills; both designs bitwise."""
+    from deepestscatter_tpu_torch import cuda_build
+    from deepestscatter_tpu_torch.probes import march_variants as mv
+
+    lib = mv.jump_lib(cuda_build.load("pathtrace_variants"))
+    r = mv.jump_compare(lib, cell, {k: mv.JUMP_DESIGNS[k] for k in SKIP_JUMP_DESIGNS}, reps,
+                        radiance)
+    new, first, base = r["package"], r["first design"], r["default"]
+    print(f"{label}, against its first design (in turns, ahead_ms): ms={new['ms']:.4f} "
+          f"first_design_ms={first['ms']:.4f} default_ms={base['ms']:.4f} "
+          f"turns={json.dumps({k: r[k]['turns'] for k in ('package', 'first design', 'default')})} "
+          f"warp_iterations={new['warp_iterations']} "
+          f"first_design_warp_iterations={first['warp_iterations']} "
+          f"default_warp_iterations={base['march_slots'] // mv.lib_const(lib, 'ds_jump_lookahead')} "
+          f"simt_efficiency={new['simt_efficiency']:.4f} "
+          f"first_design_simt_efficiency={first['simt_efficiency']:.4f} "
+          f"default_simt_efficiency={base['simt_efficiency']:.4f} "
+          f"steps_sampled={new['steps']} steps_jumped={new['jumped']} "
+          f"default_steps={base['steps']} jumps={r['jumps']} "
+          f"lattice_steps_per_jump={r['lattice_steps_per_jump']:.4f} "
+          f"registers={new['registers']} local_bytes={new['local_bytes']} "
+          f"first_design_registers={first['registers']} "
+          f"first_design_local_bytes={first['local_bytes']} bitwise_equal={first['equal']} "
+          f"ptxas={json.dumps(jump_ptxas())}", flush=True)
+    require(first["equal"] and new["equal"],
+            f"{label}: the first design differs from the package's")
+    return r
+
+
+def skip_pt(port, config, procedural, pt, cam, res, dev) -> dict:
     """The PT cell at ``res``^3 with the occupancy built: per static of
     ``skip_statics`` a progressive render of SKIP_TICKS ticks as a user
     drives it (K4's launches counted), its Mrays/s, K4's tick by CUDA
-    events and its steps sampled and jumped; each skip's K4 bitwise its
-    plain version on the SKIP_CHECK_PIXELS deepest pixels' samples
-    (``k4_subframes_compare``), and its image against the default image by
-    ``render_agreement`` (independent seeds; a 1.02-scaled image must
-    fail).  Also returns the scene (``"scene"``)."""
+    events and its steps sampled and jumped; each skip's K4 on the
+    SKIP_CHECK_PIXELS deepest pixels' samples with the job of its plain
+    version (``k4_subframes_job``; ``skip_pt_check`` holds them and the
+    images); the cell jump's kernel against its first design
+    (``jump_against_first``).  Also returns the scene (``"scene"``)."""
+    from deepestscatter_tpu_torch.probes import march_variants as mv
+
     cfg = config.SceneConfig(
         cloud=config.CloudModel(size_m=2000.0),
         camera=config.CameraConfig(width=PT_SIZE, height=PT_SIZE),
@@ -3594,7 +3737,7 @@ def skip_pt(port, config, procedural, pt, cam, compare, res, dev) -> dict:
           f"lattice steps", flush=True)
     entry, d, hit, ids = pt_rays(cam, params, static, dev)
     args = (entry, d, hit, ids, PT_SEED, 1, PT_SUBFRAMES)
-    out, images = {}, {}
+    out = {}
     for name, st in statics.items():
         pt.scatter_loop.launches = 0
         torch.cuda.synchronize()
@@ -3609,17 +3752,46 @@ def skip_pt(port, config, procedural, pt, cam, compare, res, dev) -> dict:
         tick_s = (time.perf_counter() - t0) / SKIP_TICKS
         launches = pt.scatter_loop.launches
         stt = r.state
-        images[name] = (stt.mean.reshape(PT_SIZE, PT_SIZE, 3).cpu().numpy(),
-                        stt.m2.reshape(PT_SIZE, PT_SIZE, 3).cpu().numpy(),
-                        stt.count.reshape(PT_SIZE, PT_SIZE).cpu().numpy())
+        image = (stt.mean.reshape(PT_SIZE, PT_SIZE, 3).cpu().numpy(),
+                 stt.m2.reshape(PT_SIZE, PT_SIZE, 3).cpu().numpy(),
+                 stt.count.reshape(PT_SIZE, PT_SIZE).cpu().numpy())
         work = pt.scatter_loop(params, st, *args)
         ms = time_ms(lambda: pt.scatter_loop(params, st, *args), 5)
-        out[name] = dict(tick_s=tick_s, ms=ms, launches=launches, work=work,
+        out[name] = dict(tick_s=tick_s, ms=ms, launches=launches, image=image,
                          steps=int(work.steps.sum()), jumped=int(work.jumped.sum()),
-                         bounces=int(work.bounces.sum()), image_mean=float(images[name][0].mean()))
-        require(bool(np.isfinite(images[name][0]).all()), f"skip PT {res}^3 {name}: non-finite")
+                         bounces=int(work.bounces.sum()), image_mean=float(image[0].mean()))
+        require(bool(np.isfinite(image[0]).all()), f"skip PT {res}^3 {name}: non-finite")
         require(launches == SKIP_TICKS + 1, f"skip PT {res}^3 {name}: K4 launched {launches} "
                 f"times in {SKIP_TICKS + 1} ticks")
+        if name != "default":
+            deep = torch.topk((work.steps + work.jumped).to(torch.float64),
+                              SKIP_CHECK_PIXELS).indices.sort().values
+            out[name]["kernel"], out[name]["job"] = k4_subframes_job(
+                pt, params, st, *(t[deep].contiguous() for t in (entry, d, hit, ids)))
+        del work
+    out["cell"]["jump"] = jump_against_first(
+        f"skip PT {res}^3 cell jump", mv.k4_jump_cell(params, statics["default"], entry, d, hit,
+                                                       ids, PT_SEED, 1, PT_SUBFRAMES), 5, False)
+    tex = 2 * params.density_mips[0].numel() * params.density_mips[0].element_size()
+    tables = (params.phase.eval_rows.numel() + params.phase.inv_cdf_rows.numel()) * 4
+    n, n_hit = entry.shape[0], int(hit.sum().item())
+    for name in ("cell", "block"):
+        o = out[name]
+        o["bytes"] = (tex + tables + (occ.numel() * 4 if name == "block" else 0)
+                      + n * (12 + 12 + 1 + 8) + n * (12 + 12 + 4 + 16 + 8))
+        o["ops"] = (o["steps"] * K4_OPS_PER_STEP + o["bounces"] * K4_OPS_PER_BOUNCE
+                    + n_hit * PT_SUBFRAMES * K4_OPS_PER_SAMPLE)
+        o["default_ms"] = out["default"]["ms"]
+    out["scene"] = (params, static)
+    return out
+
+
+def skip_pt_check(compare, res, out, plain) -> None:
+    """``skip_pt``'s cell at ``res``^3 with its plain jobs' results
+    ``plain`` (skip → (moments, host ms)): a line a static; each skip's K4
+    bitwise its plain version (``k4_subframes_check``) and its image
+    against the default image by ``render_agreement`` (independent seeds;
+    a 1.02-scaled image must fail)."""
     rays = PT_SIZE * PT_SIZE * PT_SUBFRAMES
     base = out["default"]
     for name in ("default", "cell", "block"):
@@ -3630,22 +3802,19 @@ def skip_pt(port, config, procedural, pt, cam, compare, res, dev) -> dict:
                 f"lattice_steps={o['steps'] + o['jumped']} image_mean={o['image_mean']:.6f} "
                 f"K4_launches={o['launches']}")
         if name != "default":
-            st = statics[name]
-            work = o["work"]
-            deep = torch.topk((work.steps + work.jumped).to(torch.float64),
-                              SKIP_CHECK_PIXELS).indices.sort().values
-            rs, plain, err, share = k4_subframes_compare(
-                pt, params, st, *(t[deep].contiguous() for t in (entry, d, hit, ids)))
-            o.update(plain_ms=plain, err=err)
-            a = compare.render_agreement(*images[name], images["default"][0], reference_noise=1.0)
-            sc = compare.render_agreement(EVAL_SCALE * images[name][0],
-                                          EVAL_SCALE**2 * images[name][1], images[name][2],
-                                          images["default"][0], reference_noise=1.0)
+            rs, plain_ms = plain[name]
+            err, share = k4_subframes_check(o.pop("kernel"), rs)
+            o.update(plain_ms=plain_ms, err=err)
+            image = o["image"]
+            a = compare.render_agreement(*image, base["image"][0], reference_noise=1.0)
+            sc = compare.render_agreement(EVAL_SCALE * image[0], EVAL_SCALE**2 * image[1],
+                                          image[2], base["image"][0], reference_noise=1.0)
             line += (f"; against its plain version on the {SKIP_CHECK_PIXELS} deepest pixels' "
                      f"{PT_SUBFRAMES * SKIP_CHECK_PIXELS} samples (lattice steps "
                      f"{int((rs.steps + rs.jumped).min())}..{int((rs.steps + rs.jumped).max())} "
                      f"a sample): steps_jumps_scatters_equal="
-                     f"{share:.6f} max_abs_err={err:.3g} plain_ms={plain:.1f}; against the "
+                     f"{share:.6f} max_abs_err={err:.3g} plain_ms={plain_ms:.1f} (in a worker "
+                     f"beside the other plain jobs); against the "
                      f"default image (seeds {SKIP_SEED} and {PT_SEED}, {SKIP_TICKS + 1} ticks "
                      f"each): mean_z={a.mean_z:.3f} (tol 4) tone_mapped_rms={a.rms:.6g} "
                      f"noise_expected_rms={a.noise_rms:.6g} (tol 1.5x) "
@@ -3655,19 +3824,8 @@ def skip_pt(port, config, procedural, pt, cam, compare, res, dev) -> dict:
             require(not sc.passes(), f"skip PT {res}^3 {name}: the gate passes a scaled image")
             require(o["jumped"] > 0, f"skip PT {res}^3 {name}: no step was skipped")
         print(line, flush=True)
-    tex = 2 * params.density_mips[0].numel() * params.density_mips[0].element_size()
-    tables = (params.phase.eval_rows.numel() + params.phase.inv_cdf_rows.numel()) * 4
-    n, n_hit = entry.shape[0], int(hit.sum().item())
-    for name in ("cell", "block"):
-        o = out[name]
-        o["bytes"] = (tex + tables + (occ.numel() * 4 if name == "block" else 0)
-                      + n * (12 + 12 + 1 + 8) + n * (12 + 12 + 4 + 16 + 8))
-        o["ops"] = (o["steps"] * K4_OPS_PER_STEP + o["bounces"] * K4_OPS_PER_BOUNCE
-                    + n_hit * PT_SUBFRAMES * K4_OPS_PER_SAMPLE)
-        o["default_ms"] = base["ms"]
-        del o["work"]
-    out["scene"] = (params, static)
-    return out
+    for name in ("default", "cell", "block"):
+        out[name].pop("image")
 
 
 def phase_skip(port, config, cuda_build, procedural, collectors, march_ops, pt, cam,
@@ -3679,30 +3837,21 @@ def phase_skip(port, config, cuda_build, procedural, collectors, march_ops, pt, 
     its plain version by ``k7b_against_plain`` from base 0; K7a's 2,048
     samples with each skip bitwise its plain version (attempts and steps
     equal); the RPNN frame with the block skip, its two K1 passes against
-    ``camera_march_plain`` (``phase_k1``).  Each row: its time beside the
-    default's of the same call, launches, the bound from the steps it
-    sampled, the plain time."""
+    ``camera_march_plain`` (``phase_k1``).  The plain versions of K4's,
+    K7b's and K7a's checks run side by side in worker processes once the
+    card's timings are taken (``run_plain_jobs``).  Each row: its time
+    beside the default's of the same call, launches, the bound from the
+    steps it sampled, the plain time."""
     from deepestscatter_tpu_torch import tasks
     from deepestscatter_tpu_torch.data import records
     from deepestscatter_tpu_torch.models.rpnn import init_disney_model
+    from deepestscatter_tpu_torch.probes import march_variants as mv
     from deepestscatter_tpu_torch.utils import compare
 
     rows = []
-    pt_out = {res: skip_pt(port, config, procedural, pt, cam, compare, res, dev)
-              for res in SKIP_RES}
-    pt_out[SKIP_RES[1]].pop("scene")
-    for name, label in (("cell", "cell jump"), ("block", "block skip")):
-        o, lo = pt_out[SKIP_RES[0]][name], pt_out[SKIP_RES[1]][name]
-        row = kernel_row(f"K4 path-trace bounce loop, {label}",
-                         "deepestscatter_tpu_torch/csrc/pathtrace.cu",
-                         "deepestscatter_tpu/render/pathtracer.py:"
-                         + ("277" if name == "cell" else "772"),
-                         max(o["err"], lo["err"]), o["ms"], o["plain_ms"], o["bytes"], o["ops"])
-        row.update(launches=o["launches"] + lo["launches"], default_ms=o["default_ms"],
-                   steps_sampled=o["steps"], steps_jumped=o["jumped"],
-                   ms_64=lo["ms"], default_ms_64=lo["default_ms"], steps_sampled_64=lo["steps"],
-                   steps_jumped_64=lo["jumped"])
-        rows.append(row)
+    pt_out = {res: skip_pt(port, config, procedural, pt, cam, res, dev) for res in SKIP_RES}
+    jobs = {("K4", res, name): pt_out[res][name].pop("job")
+            for res in SKIP_RES for name in ("cell", "block")}
 
     # -- the collector's scene: K7b with the cell jump, K7a with each skip ----
     n = records.BATCH_SIZE
@@ -3727,7 +3876,8 @@ def phase_skip(port, config, cuda_build, procedural, collectors, march_ops, pt, 
     require(k7b_launches == 1 and bool(np.isfinite(est.radiance).all()),
             f"skip K7b: {k7b_launches} launches, or a label not finite")
     gen = torch.Generator().manual_seed(17)
-    kb = k7b_against_plain(collectors, pt, params, cell, pos, dirs, rcfg, (0,), gen)
+    kb = k7b_against_plain(collectors, pt, params, cell, pos, dirs, rcfg, (0,), gen, defer=True)
+    jobs["K7b"] = kb.pop("job")
     rsd, rsc = (collectors.radiance_static(statics[k]) for k in ("default", "cell"))
     entry = kb["entry"]
     margs = (entry, dirs, torch.arange(n, dtype=torch.int64, device=dev),
@@ -3740,15 +3890,65 @@ def phase_skip(port, config, cuda_build, procedural, collectors, march_ops, pt, 
     pmd, _ = collectors.launch_radiance(params, rsd, o, d, ids, sub0, 0, kb["launches"])
     steps_b, jumped_b, bounces_b = (int(getattr(pm, f).sum()) for f in ("steps", "jumped",
                                                                          "bounces"))
+    default_b = (int(pmd.steps.sum()), int(pmd.bounces.sum()))
+    jr = jump_against_first("skip K7b cell jump",
+                            mv.k7b_lanes_cell(params, rsd, (o, d, ids, sub0), 0, kb["launches"]),
+                            3, True)
+    del pm, pmd, est, o, d, ids, sub0
+
+    ms_ad = device_ms(lambda: collectors.generate_scatter_samples(params, statics["default"], n,
+                                                                  0),
+                      10, "samples_rounds_kernel")
+    k7a = {}
+    for name in ("cell", "block"):
+        st = statics[name]
+        collectors.generate_scatter_samples.launches = 0
+        k = collectors.generate_scatter_samples(params, st, n, 0)
+        torch.cuda.synchronize()
+        launches = collectors.generate_scatter_samples.launches
+        ms_a = device_ms(lambda: collectors.generate_scatter_samples(params, st, n, 0), 10,
+                         "samples_rounds_kernel")
+        k7a[name] = (k, launches, ms_a)
+        jobs["K7a", name] = dict(fn=PLAIN_SAMPLES, args=(params, st, n, 0))
+
+    # -- the plain versions, side by side in workers --------------------------
+    t0 = time.time()
+    plain = run_plain_jobs(jobs)
+    print(f"skip plain jobs: {len(plain)} in workers side by side, {time.time() - t0:.1f}s",
+          flush=True)
+    for res in SKIP_RES:
+        skip_pt_check(compare, res, pt_out[res], {name: plain["K4", res, name] for name in
+                                                   ("cell", "block")})
+    pt_out[SKIP_RES[1]].pop("scene")
+    for name, label in (("cell", "cell jump"), ("block", "block skip")):
+        o, lo = pt_out[SKIP_RES[0]][name], pt_out[SKIP_RES[1]][name]
+        row = kernel_row(f"K4 path-trace bounce loop, {label}",
+                         "deepestscatter_tpu_torch/csrc/pathtrace.cu",
+                         "deepestscatter_tpu/render/pathtracer.py:"
+                         + ("277" if name == "cell" else "772"),
+                         max(o["err"], lo["err"]), o["ms"], o["plain_ms"], o["bytes"], o["ops"])
+        row.update(launches=o["launches"] + lo["launches"], default_ms=o["default_ms"],
+                   steps_sampled=o["steps"], steps_jumped=o["jumped"],
+                   ms_64=lo["ms"], default_ms_64=lo["default_ms"], steps_sampled_64=lo["steps"],
+                   steps_jumped_64=lo["jumped"])
+        if name == "cell":
+            row.update(first_design_ms=o["jump"]["first design"]["ms"],
+                       first_design_ms_64=lo["jump"]["first design"]["ms"],
+                       ms_in_turns=o["jump"]["package"]["ms"],
+                       ms_in_turns_64=lo["jump"]["package"]["ms"])
+        rows.append(row)
+
+    kb = k7b_plain_finish(kb, *plain["K7b"])
     print(f"skip K7b cell jump: points={n} lanes={kb['lanes']} experiments="
           f"{kb['lanes'] * kb['launches']} update_s(estimate_point_radiance, 1 update)="
           f"{upd_s:.3f} launches={k7b_launches} ms={ms_b:.3f} default_ms={ms_bd:.3f} "
           f"steps_sampled={steps_b} steps_jumped={jumped_b} bounces={bounces_b} "
-          f"default_steps={int(pmd.steps.sum())} default_bounces={int(pmd.bounces.sum())}; "
+          f"default_steps={default_b[0]} default_bounces={default_b[1]}; "
           f"folds_equal_records={kb['fold_counts_ok']} fold_err={kb['fold_err']:.3g}; "
           f"{K7B_CHECKED} records against one-experiment plain runs: steps_scatters_equal="
           f"{kb['counts_eq']} max_abs_err={kb['err']:.3g} (tol 1e-5 of max) "
-          f"longest_steps={kb['longest_steps']} plain_ms={kb['plain_ms']:.1f}", flush=True)
+          f"longest_steps={kb['longest_steps']} plain_ms={kb['plain_ms']:.1f} (in a worker)",
+          flush=True)
     require(kb["ok"], "skip K7b: the cell jump disagrees with its plain version")
     require(jumped_b > 0, "skip K7b: no step was jumped")
     tex = params.density_mips[0].numel() * params.density_mips[0].element_size()
@@ -3762,31 +3962,23 @@ def phase_skip(port, config, cuda_build, procedural, collectors, march_ops, pt, 
                      steps_b * K4_OPS_PER_STEP + bounces_b * K4_OPS_PER_BOUNCE
                      + n_lanes * kb["launches"] * K4_OPS_PER_SAMPLE)
     row.update(launches=k7b_launches, default_ms=ms_bd, steps_sampled=steps_b,
-               steps_jumped=jumped_b)
+               steps_jumped=jumped_b, first_design_ms=jr["first design"]["ms"],
+               ms_in_turns=jr["package"]["ms"])
     rows.append(row)
-    del pm, pmd, est, kb
+    del kb
 
-    ms_ad = device_ms(lambda: collectors.generate_scatter_samples(params, statics["default"], n,
-                                                                  0),
-                      10, "samples_rounds_kernel")
     for name, label in (("cell", "cell jump"), ("block", "block skip")):
-        st = statics[name]
-        collectors.generate_scatter_samples.launches = 0
-        k = collectors.generate_scatter_samples(params, st, n, 0)
-        torch.cuda.synchronize()
-        k7a_launches = collectors.generate_scatter_samples.launches
-        r, plain_a = host_call(lambda: collectors.generate_scatter_samples_plain(params, st, n, 0))
+        k, k7a_launches, ms_a = k7a[name]
+        r, plain_a = plain["K7a", name]
         unequal = [f for f, a, b in zip(r._fields, k, r) if not torch.equal(a, b)]
-        ms_a = device_ms(lambda: collectors.generate_scatter_samples(params, st, n, 0), 10,
-                         "samples_rounds_kernel")
         steps_a, att_a = int(k.steps.sum()), int(k.attempts.sum())
         found_same = bool(torch.equal(k.found, ref_s.found))
         print(f"skip K7a {label}: samples={n} launches={k7a_launches} found={int(k.found.sum())} "
               f"ms(device, profiler)={ms_a:.4f} default_ms={ms_ad:.4f} steps_sampled={steps_a} "
               f"default_steps={int(ref_s.steps.sum())} attempts={att_a} "
               f"default_attempts={int(ref_s.attempts.sum())} found_as_default={found_same} "
-              f"fields_not_bitwise_equal={unequal} (required: none) plain_ms={plain_a:.1f}",
-              flush=True)
+              f"fields_not_bitwise_equal={unequal} (required: none) plain_ms={plain_a:.1f} "
+              f"(in a worker)", flush=True)
         require(k7a_launches == 1 and not unequal,
                 f"skip K7a {label}: differs from its plain version in {unequal}")
         err_a = (k.positions - r.positions).abs().max().item()
@@ -3799,7 +3991,7 @@ def phase_skip(port, config, cuda_build, procedural, collectors, march_ops, pt, 
                          steps_a * K7A_OPS_PER_STEP + att_a * K7A_OPS_PER_ATTEMPT)
         row.update(launches=k7a_launches, default_ms=ms_ad, steps_sampled=steps_a)
         rows.append(row)
-    del params, ref_s, pos, dirs
+    del params, ref_s, pos, dirs, k7a, plain
 
     # -- the RPNN frame with the block skip: K1's two passes ------------------
     # The PT cell's 256^3 scene is the RPNN frame's (the same cloud, size,

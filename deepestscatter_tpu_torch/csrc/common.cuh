@@ -29,6 +29,10 @@ __device__ __forceinline__ float texel(const float* __restrict__ g, int64_t i) {
   return g[i];
 }
 
+// A texel's value from its stored word (texel's dequantization).
+__device__ __forceinline__ float texel_value(uint8_t b) { return (float)b * kU8Scale; }
+__device__ __forceinline__ float texel_value(float v) { return v; }
+
 // 1 / b where b is a power of two, else 0 (host side, for div_exact).
 inline float pow2_recip(float b) {
   int e;
@@ -153,6 +157,44 @@ __device__ __forceinline__ float trilinear_strided_max(const T* __restrict__ g, 
     acc = k == 0 ? term : acc + term;
     cmax = k == 0 ? v : fmaxf(cmax, v);
   }
+  return acc;
+}
+
+// trilinear_strided over the whole grid, with the cell's lower corner (x0,
+// y0, z0) and whether its eight texels are all 0 (all at most 0 for
+// float32; the bytes or'ed for uint8): trilinear_strided_max's test.  The
+// same taps, weights and sum, so the same value.
+template <typename T>
+__device__ __forceinline__ float trilinear_cell(const T* __restrict__ g, int nx, int ny, int nz,
+                                                float ux, float uy, float uz, int& x0, int& y0,
+                                                int& z0, bool& empty) {
+  const AxisCell cx = axis_cell(ux * (float)nx - 0.5f, nx);
+  const AxisCell cy = axis_cell(uy * (float)ny - 0.5f, ny);
+  const AxisCell cz = axis_cell(uz * (float)nz - 0.5f, nz);
+  const float wx[2] = {1.0f - cx.frac, cx.frac};
+  const float wy[2] = {1.0f - cy.frac, cy.frac};
+  const float wz[2] = {1.0f - cz.frac, cz.frac};
+  const int base = (cz.i0 * ny + cy.i0) * nx + cx.i0;
+  const int sx = cx.i1 - cx.i0, sy = (cy.i1 - cy.i0) * nx, sz = (cz.i1 - cz.i0) * (nx * ny);
+  float acc = 0.0f;
+  T any = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int ix = k & 1, iy = (k >> 1) & 1, iz = k >> 2;
+    const T raw = g[base + (ix ? sx : 0) + (iy ? sy : 0) + (iz ? sz : 0)];
+    const float v = texel_value(raw);
+    const float term = v * ((wz[iz] * wy[iy]) * wx[ix]);
+    acc = k == 0 ? term : acc + term;
+    if constexpr (sizeof(T) == 1) {
+      any = k == 0 ? raw : (T)(any | raw);
+    } else {
+      any = k == 0 ? raw : fmaxf(any, raw);
+    }
+  }
+  x0 = cx.i0;
+  y0 = cy.i0;
+  z0 = cz.i0;
+  empty = any <= (T)0;
   return acc;
 }
 

@@ -77,6 +77,27 @@
 // (render/pathtracer.py::scatter_loop_plain) term by term; the build uses
 // -fmad=false.
 //
+// The cell jump (march_steps_jump, skip.cuh::FaceExit) is a redesign.
+// Its first design (march_steps_skip, kept in csrc/pathtrace_variants.cu)
+// ended the lookahead chunk at every jump and took the exit by ten IEEE
+// divisions: 6.44 ms a 256^3 tick against 4.99 without a skip, 36.3 ms a
+// collector update against 20.9 (H100 80GB HBM3 at 700 W).  A probe that
+// took its exits and discarded them cost as much (6.44 ms): at 256^3, where
+// a cell spans 2 steps, the exit's arithmetic, not the chunk end, was the
+// loss.  Here the jump stays inside the chunk (the first pass moves the
+// later steps past it; the second applies it after the same step), the
+// kernel takes two instantiations by the grid: kSkipCellPow2 where every
+// cell count is a power of two, the faces ((c + 0.5) * (1 / n)) * b, and
+// kSkipCell, the faces from a table in shared memory; the exit keeps the
+// three divisions (bound - p) / d and takes t / step as a product.
+// Records, folds, steps and jumps stay bitwise the first design's.
+// Measured in turns with the first design (probes/march_variants.py
+// --jump-only, same card): 4.58-4.61 ms at 256^3 (first 6.39-6.42, no skip
+// 4.99-5.05), 3.32-3.38 at 64^3 (4.31-4.34, 3.55-3.56), 25.1-25.2 an update
+// (36.2, 20.9-21.0); warp march iterations -22 % at 256^3.  One kernel that
+// chose each face's rule at run time measured 3.5 % faster at 256^3 and 4 %
+// slower on the collector's 258^3 grid than the two instantiations.
+//
 // Bound on the card: the density and in-scatter textures (16.7 MB each at
 // 256^3 uint8) stay in the 50 MB L2; ~80 float operations a march step and
 // ~300 an in-box scatter make the operation bound (0.198 ms for the 512^2,
@@ -140,6 +161,31 @@
 constexpr int kPtThreads = 128;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// The cell jump's exit (skip.cuh::FaceExit) of the instantiation Skip:
+// with kSkipCell the launch's face table (skip.cuh::face_table_entry) in the
+// block's dynamic shared memory, filled once by the block's threads.
+template <int Skip>
+__device__ __forceinline__ ds::CellExit<Skip> shared_face_exit(int nx, int ny, int nz,
+                                                               const ds::PtConsts& c,
+                                                               const ds::SkipArgs& sk) {
+  extern __shared__ float faces[];
+  if constexpr (Skip == ds::kSkipCell) {
+    const int size = ds::face_table_size(nx, ny, nz);
+    for (int i = threadIdx.x; i < size; i += blockDim.x) {
+      faces[i] = ds::face_table_entry(i, nx, ny, nz, c.bbox);
+    }
+    __syncthreads();
+  }
+  return ds::face_exit_of<Skip == ds::kSkipCellPow2>(faces, nx, ny, c.bbox, c.step, sk);
+}
+
+// The dynamic shared memory of a launch with skip Skip: the face table
+// with kSkipCell, else none.
+template <int Skip>
+static size_t skip_shared_bytes(int nx, int ny, int nz) {
+  return Skip == ds::kSkipCell ? (size_t)ds::face_table_size(nx, ny, nz) * sizeof(float) : 0;
+}
+
 // counters[0]: the item queue's head (zeroed before the launch);
 // counters[1]: the warps' step slots (K a loop iteration), added once per
 // warp at exit.
@@ -155,6 +201,8 @@ __global__ void __launch_bounds__(kPtThreads) pathtrace_items_kernel(
     ds::SkipArgs sk) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
+  ds::CellExit<Skip> jump{};
+  if constexpr (ds::kCellJump<Skip>) jump = shared_face_exit<Skip>(nx, ny, nz, c, sk);
   ds::Sample S;
   int64_t item = 0;
   bool have = false, drained = false;
@@ -187,6 +235,12 @@ __global__ void __launch_bounds__(kPtThreads) pathtrace_items_kernel(
         ds::write_record(S, item, rec_rad, rec_work);
         have = false;
       }
+    } else if constexpr (ds::kCellJump<Skip>) {
+      if (have && ds::march_chunk_jump<K>(S, dens, insc, nx, ny, nz, eval_rows, inv, c, jump)) {
+        ds::write_record(S, item, rec_rad, rec_work);
+        ds::add_jumped<Skip>(sk, item, n, S);
+        have = false;
+      }
     } else if (have &&
                ds::march_chunk_skip<K, Skip>(S, dens, insc, nx, ny, nz, eval_rows, inv, c, sk)) {
       ds::write_record(S, item, rec_rad, rec_work);
@@ -216,6 +270,8 @@ __global__ void __launch_bounds__(kPtThreads, ds::kRadianceBlocks) radiance_item
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   const int64_t n_items = n * (int64_t)n_samples;
+  ds::CellExit<Skip> jump{};
+  if constexpr (ds::kCellJump<Skip>) jump = shared_face_exit<Skip>(nx, ny, nz, c, sk);
   ds::Sample S;
   ds::Crossing X;
   int64_t item = 0;
@@ -258,7 +314,7 @@ __global__ void __launch_bounds__(kPtThreads, ds::kRadianceBlocks) radiance_item
     } else {
       ++iters;
       if (have && !parked) {
-        const int state = ds::march_steps_any<K, Skip>(S, X, dens, nx, ny, nz, c, sk);
+        const int state = ds::march_steps_any<K, Skip>(S, X, dens, nx, ny, nz, c, sk, jump);
         if (state == ds::kEnded) {
           ds::write_record(S, item, rec_rad, rec_work);
           ds::add_jumped<Skip>(sk, item, n, S);
@@ -295,13 +351,16 @@ static int launch_items(const T* dens, const T* insc, int nx, int ny, int nz,
                         uint32_t seed_base, uint32_t sub_first, const uint32_t* sub0,
                         float* rec_rad, int32_t* rec_work, unsigned long long* counters,
                         cudaStream_t s, const ds::SkipArgs& sk = ds::SkipArgs()) {
-  static int per_sm = 0;  // resident blocks a SM, the same on every call
-  if (per_sm == 0) {
+  const size_t smem = skip_shared_bytes<Skip>(nx, ny, nz);
+  static int per_sm = 0;  // resident blocks a SM at per_sm_smem bytes of shared memory
+  static size_t per_sm_smem = 0;
+  if (per_sm == 0 || per_sm_smem != smem) {
     int b = 0;
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b, pathtrace_items_kernel<K, T, Skip>, kPtThreads, 0);
+        &b, pathtrace_items_kernel<K, T, Skip>, kPtThreads, smem);
     if (e != cudaSuccess) return (int)e;
     per_sm = b > 0 ? b : 1;
+    per_sm_smem = smem;
   }
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -310,7 +369,7 @@ static int launch_items(const T* dens, const T* insc, int nx, int ny, int nz,
   const int64_t needed = (n_items + kPtThreads - 1) / kPtThreads;
   const int64_t full = (int64_t)per_sm * sms;
   const unsigned blocks = (unsigned)(needed < full ? needed : full);
-  pathtrace_items_kernel<K, T, Skip><<<blocks, kPtThreads, 0, s>>>(
+  pathtrace_items_kernel<K, T, Skip><<<blocks, kPtThreads, smem, s>>>(
       dens, insc, nx, ny, nz, eval_rows, inv, entry, dirs, hit, ray_ids, n, n_items, c,
       seed_base, sub_first, sub0, rec_rad, rec_work, counters, sk);
   return (int)cudaGetLastError();
@@ -405,30 +464,34 @@ static int radiance_queue(const void* dens, const void* insc, int is_u8, int nx,
     err = (int)cudaMemsetAsync(sk.jumped, 0, n * sizeof(unsigned long long), s);
     if (err != 0) return err;
   }
-  static int per_sm[2] = {0, 0};  // resident blocks a SM, by texel type
+  const size_t smem = skip_shared_bytes<Skip>(nx, ny, nz);
+  // Resident blocks a SM, by texel type, at per_sm_smem bytes of shared memory.
+  static int per_sm[2] = {0, 0};
+  static size_t per_sm_smem[2] = {0, 0};
   int dev = 0, sms = 0;
   err = (int)cudaGetDevice(&dev);
   if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != 0) return err;
   int& resident = per_sm[is_u8 ? 1 : 0];
-  if (resident == 0) {
+  if (resident == 0 || per_sm_smem[is_u8 ? 1 : 0] != smem) {
     err = is_u8 ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &resident, radiance_items_kernel<K, uint8_t, Skip>, kPtThreads, 0)
+                      &resident, radiance_items_kernel<K, uint8_t, Skip>, kPtThreads, smem)
                 : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &resident, radiance_items_kernel<K, float, Skip>, kPtThreads, 0);
+                      &resident, radiance_items_kernel<K, float, Skip>, kPtThreads, smem);
     if (err != 0) return err;
     if (resident < 1) resident = 1;
+    per_sm_smem[is_u8 ? 1 : 0] = smem;
   }
   const int64_t needed = (n * (int64_t)n_samples + kPtThreads - 1) / kPtThreads;
   const int64_t full = (int64_t)resident * sms;
   const unsigned blocks = (unsigned)(needed < full ? needed : full);
   if (is_u8) {
-    radiance_items_kernel<K, uint8_t, Skip><<<blocks, kPtThreads, 0, s>>>(
+    radiance_items_kernel<K, uint8_t, Skip><<<blocks, kPtThreads, smem, s>>>(
         (const uint8_t*)dens, (const uint8_t*)insc, nx, ny, nz, eval_rows, inv_rows, entry,
         dirs, hit, ray_ids, n, n_samples, c, seed_base, sub0, park_at, rec_rad, rec_work,
         counters, sk);
   } else {
-    radiance_items_kernel<K, float, Skip><<<blocks, kPtThreads, 0, s>>>(
+    radiance_items_kernel<K, float, Skip><<<blocks, kPtThreads, smem, s>>>(
         (const float*)dens, (const float*)insc, nx, ny, nz, eval_rows, inv_rows, entry, dirs,
         hit, ray_ids, n, n_samples, c, seed_base, sub0, park_at, rec_rad, rec_work, counters,
         sk);
@@ -477,7 +540,10 @@ extern "C" int ds_pathtrace_skip(const void* dens, const void* insc, int is_u8, 
                                  int32_t* rec_work, unsigned long long* counters,
                                  float* mean_out, float* m2_out, float* count_out,
                                  int64_t* work_out, void* stream, DS_SKIP_PARAMS) {
-  if (jumped == nullptr || (skip == ds::kSkipBlock && occ == nullptr)) {
+  const bool pow2 = ds::pow2_cells(nx, ny, nz);
+  if (jumped == nullptr || (skip == ds::kSkipBlock && occ == nullptr) ||
+      (skip == ds::kSkipCell && !pow2 &&
+       skip_shared_bytes<ds::kSkipCell>(nx, ny, nz) > (size_t)ds::kMaxFaceTableBytes)) {
     return (int)cudaErrorInvalidValue;
   }
 #define DS_PT_QUEUE(SKIP)                                                                      \
@@ -485,8 +551,10 @@ extern "C" int ds_pathtrace_skip(const void* dens, const void* insc, int is_u8, 
       dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows, n_inv, entry, dirs, hit,    \
       ray_ids, n, consts, ground, max_steps, max_depth, rr_start, flags, seed_base, sub_first, \
       n_samples, rec_rad, rec_work, counters, mean_out, m2_out, count_out, work_out, stream,   \
-      nullptr, DS_SKIP_ARGS)
-  if (skip == ds::kSkipCell) return DS_PT_QUEUE(ds::kSkipCell);
+      nullptr, ds::cell_recips(DS_SKIP_ARGS, nx, ny, nz, consts[3]))
+  if (skip == ds::kSkipCell) {
+    return pow2 ? DS_PT_QUEUE(ds::kSkipCellPow2) : DS_PT_QUEUE(ds::kSkipCell);
+  }
   if (skip == ds::kSkipBlock) return DS_PT_QUEUE(ds::kSkipBlock);
 #undef DS_PT_QUEUE
   return (int)cudaErrorInvalidValue;
@@ -506,12 +574,19 @@ extern "C" int ds_radiance_skip(const void* dens, const void* insc, int is_u8, i
                                 int32_t* rec_work, unsigned long long* counters,
                                 float* mean_out, float* m2_out, float* count_out,
                                 int64_t* work_out, void* stream, DS_SKIP_PARAMS) {
-  if (skip != ds::kSkipCell || jumped == nullptr) return (int)cudaErrorInvalidValue;
-  return radiance_queue<ds::kLookahead, ds::kSkipCell>(
-      dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows, n_inv, entry, dirs, hit,
-      ray_ids, n, consts, ground, max_steps, max_depth, rr_start, flags, seed_base, sub0,
-      n_samples, ds::kParkAt, rec_rad, rec_work, counters, mean_out, m2_out, count_out,
-      work_out, stream, DS_SKIP_ARGS);
+  const bool pow2 = ds::pow2_cells(nx, ny, nz);
+  if (skip != ds::kSkipCell || jumped == nullptr ||
+      (!pow2 && skip_shared_bytes<ds::kSkipCell>(nx, ny, nz) > (size_t)ds::kMaxFaceTableBytes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define DS_RADIANCE_QUEUE(SKIP)                                                                   \
+  radiance_queue<ds::kLookahead, SKIP>(                                                          \
+      dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows, n_inv, entry, dirs, hit,      \
+      ray_ids, n, consts, ground, max_steps, max_depth, rr_start, flags, seed_base, sub0,        \
+      n_samples, ds::kParkAt, rec_rad, rec_work, counters, mean_out, m2_out, count_out, work_out, \
+      stream, ds::cell_recips(DS_SKIP_ARGS, nx, ny, nz, consts[3]))
+  return pow2 ? DS_RADIANCE_QUEUE(ds::kSkipCellPow2) : DS_RADIANCE_QUEUE(ds::kSkipCell);
+#undef DS_RADIANCE_QUEUE
 }
 
 // The lanes parked before ds_radiance's warps resolve (kParkAt).

@@ -337,7 +337,9 @@ __device__ __forceinline__ int march_steps(Sample& S, Crossing& X, const T* __re
 //   kSkipCell: the first pass also takes each step's corner maximum; a
 //     step into an empty cell that leaves the sample in flight jumps it to
 //     the cell's exit face and ends the chunk there (the steps after it
-//     start from the jump), as a crossing does.
+//     start from the jump), as a crossing does.  This is the cell jump's
+//     first design; the kernels take march_steps_jump, which keeps its
+//     values, and csrc/pathtrace_variants.cu and the host tests this one.
 template <int K, int Skip, typename T>
 __device__ __forceinline__ int march_steps_skip(Sample& S, Crossing& X,
                                                 const T* __restrict__ dens, int nx, int ny,
@@ -413,14 +415,97 @@ __device__ __forceinline__ int march_steps_skip(Sample& S, Crossing& X,
   return state;
 }
 
+// The cell jump of K4 and K7b (kSkipCell, kSkipCellPow2): march_steps_skip's
+// values, with the jump inside the chunk.  The first pass takes each step's
+// taps, cell and empty test; after a step into an empty cell it takes the
+// jump's exit (`jump_exit`: FaceExit, or DividedExit as the first design
+// computes it) with the lattice steps left before the cap, and moves the
+// chunk's later steps past the jump, so that they start from the jumped
+// point.  The second pass applies the same jump after the same step where
+// the sample is still in flight.  Where a step instead crossed od, left the box or
+// met the cap, the chunk's later steps are dropped, as every march drops
+// them, so the values are those of the jump that ends its chunk
+// (march_steps_skip, the first design).  An empty cell's step has density
+// at most 0, so it never crosses od: only box exits and the cap end a
+// chunk there.
+template <int K, typename T, typename Exit>
+__device__ __forceinline__ int march_steps_jump(Sample& S, Crossing& X,
+                                                const T* __restrict__ dens, int nx, int ny,
+                                                int nz, const PtConsts& c,
+                                                const Exit& jump_exit) {
+  float dens_k[K], e_k[K], jump_k[K];
+  float qx = S.px, qy = S.py, qz = S.pz;
+  int adv = S.steps + S.jumped;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    qx = qx + S.dx * c.step;
+    qy = qy + S.dy * c.step;
+    qz = qz + S.dz * c.step;
+    const float ux = div_exact(qx, c.bbox[0], c.inv_bbox[0]);
+    const float uy = div_exact(qy, c.bbox[1], c.inv_bbox[1]);
+    const float uz = div_exact(qz, c.bbox[2], c.inv_bbox[2]);
+    int cx, cy, cz;
+    bool empty;
+    dens_k[k] = trilinear_cell(dens, nx, ny, nz, ux, uy, uz, cx, cy, cz, empty) * c.dm;
+    e_k[k] = expf(-dens_k[k] * c.step);
+    ++adv;
+    float e = 0.0f;
+    if (empty) {
+      e = jump_exit(cx, cy, cz, ux, uy, uz, qx, qy, qz, S.dx, S.dy, S.dz, c.max_steps - adv);
+      if (e > 0.0f) {
+        const float d = e * c.step;
+        qx = qx + S.dx * d;
+        qy = qy + S.dy * d;
+        qz = qz + S.dz * d;
+        adv += (int)e;
+      }
+    }
+    jump_k[k] = e;
+  }
+  int state = kMarching;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (state == kMarching) {
+      if (S.steps + S.jumped >= c.max_steps) {
+        state = kEnded;
+      } else {
+        const float ax = S.px + S.dx * c.step, ay = S.py + S.dy * c.step,
+                    az = S.pz + S.dz * c.step;
+        const float tn = S.trans * e_k[k];
+        ++S.steps;
+        if (S.od > tn) {
+          X.ax = ax;
+          X.ay = ay;
+          X.az = az;
+          X.density = dens_k[k];
+          X.tn = tn;
+          state = kCrossed;
+        } else if (free_step(S, c, ax, ay, az, tn)) {
+          state = kEnded;
+        } else if (jump_k[k] > 0.0f) {
+          const float d = jump_k[k] * c.step;
+          S.px = S.px + S.dx * d;
+          S.py = S.py + S.dy * d;
+          S.pz = S.pz + S.dz * d;
+          S.jumped += (int)jump_k[k];
+        }
+      }
+    }
+  }
+  return state;
+}
+
 // K4's march step at lookahead K with skip Skip: march_steps as it was
-// (kSkipNone) or march_steps_skip.
-template <int K, int Skip, typename T>
+// (kSkipNone), march_steps_jump with the exit `jump` (the cell jump) or
+// march_steps_skip.
+template <int K, int Skip, typename T, typename Exit>
 __device__ __forceinline__ int march_steps_any(Sample& S, Crossing& X, const T* __restrict__ dens,
                                                int nx, int ny, int nz, const PtConsts& c,
-                                               const SkipArgs& sk) {
+                                               const SkipArgs& sk, const Exit& jump) {
   if constexpr (Skip == kSkipNone) {
     return march_steps<K>(S, X, dens, nx, ny, nz, c);
+  } else if constexpr (kCellJump<Skip>) {
+    return march_steps_jump<K>(S, X, dens, nx, ny, nz, c, jump);
   } else {
     return march_steps_skip<K, Skip>(S, X, dens, nx, ny, nz, c, sk);
   }
@@ -461,6 +546,19 @@ __device__ __forceinline__ bool march_chunk_skip(Sample& S, const T* __restrict_
                                                  const PtConsts& c, const SkipArgs& sk) {
   Crossing X;
   const int state = march_steps_skip<K, Skip>(S, X, dens, nx, ny, nz, c, sk);
+  if (state == kCrossed) return resolve(S, X, insc, nx, ny, nz, eval_rows, inv, c);
+  return state == kEnded;
+}
+
+// march_chunk with the cell jump of march_steps_jump.
+template <int K, typename T, typename Exit>
+__device__ __forceinline__ bool march_chunk_jump(Sample& S, const T* __restrict__ dens,
+                                                 const T* __restrict__ insc, int nx, int ny,
+                                                 int nz, const float* __restrict__ eval_rows,
+                                                 const float* __restrict__ inv,
+                                                 const PtConsts& c, const Exit& jump_exit) {
+  Crossing X;
+  const int state = march_steps_jump<K>(S, X, dens, nx, ny, nz, c, jump_exit);
   if (state == kCrossed) return resolve(S, X, insc, nx, ny, nz, eval_rows, inv, c);
   return state == kEnded;
 }

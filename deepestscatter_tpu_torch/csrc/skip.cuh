@@ -9,7 +9,9 @@
 //     last lattice step before the cell's exit face; T is unchanged.  The
 //     JAX package jumps after an iteration of up to march_substeps steps in
 //     the fetched cell; a jump after every step lands on the same lattice
-//     index, up to the ulp of the jump's product.
+//     index, up to the ulp of the jump's product.  K4 and K7b compute the
+//     exit from a table of the cell faces (FaceExit), K7a and the first
+//     design by cell_exit_steps; both give the same value.
 //   kSkipBlock: a step taken from a point whose dilated occupancy block
 //     (ops/grid.py::build_occupancy) holds no density is sk.long_steps
 //     lattice steps long, pos + dir * (step * long_steps); it samples the
@@ -23,7 +25,14 @@
 
 namespace ds {
 
-enum : int { kSkipNone = 0, kSkipCell = 1, kSkipBlock = 2 };
+enum : int { kSkipNone = 0, kSkipCell = 1, kSkipBlock = 2, kSkipCellPow2 = 3 };
+
+// The cell jump's instantiations of K4 and K7b: kSkipCell reads the cell
+// faces from a face table, kSkipCellPow2 (a grid whose cell counts are all
+// powers of two) takes them by product (FaceExit); the *_skip entry points
+// choose one for the skip kSkipCell by the grid.
+template <int Skip>
+constexpr bool kCellJump = Skip == kSkipCell || Skip == kSkipCellPow2;
 
 // The jump's cap in whole steps (ops/march.py::empty_cell_exit_steps).
 constexpr float kMaxJump = 64.0f;
@@ -38,7 +47,21 @@ struct SkipArgs {
   int block;
   int long_steps;
   unsigned long long* jumped;
+  // The cell jump of K4 and K7b (FaceExit; set by cell_recips): the exact
+  // reciprocals of the grid's cells along x, y, z and of the step, 0 where
+  // one is not a power of two.
+  float inv_cells[3];
+  float inv_step;
 };
+
+// sk with the cell jump's reciprocals of an [nz, ny, nx] grid at `step`.
+inline SkipArgs cell_recips(SkipArgs sk, int nx, int ny, int nz, float step) {
+  sk.inv_cells[0] = pow2_recip((float)nx);
+  sk.inv_cells[1] = pow2_recip((float)ny);
+  sk.inv_cells[2] = pow2_recip((float)nz);
+  sk.inv_step = pow2_recip(step);
+  return sk;
+}
 
 // The arguments the *_skip entry points take after those of the entry point
 // they extend (ops/march.py::skip_args): the skip, the occupancy [bz, by,
@@ -106,5 +129,119 @@ __device__ __forceinline__ float cell_exit_steps(int nx, int ny, int nz, const f
   const float e = fminf(floorf(fmaxf(t, 0.0f) / step), kMaxJump);
   return fminf(e, (float)room);
 }
+
+// The cell jump of K4 and K7b (pathtrace.cuh::march_steps_jump) takes the
+// cell faces without dividing for them.  Face i of an axis of n cells at
+// box edge b is face_position(i): axis_exit's lo of cell i and its hi of
+// cell i - 1 ((float)(i - 1) + 1.0f is exact).  Where n is a power of two
+// the face is ((float)i + 0.5f) * (1 / n) * b, the same value (div_exact's
+// argument); else it is read from the launch's face table: the faces of x
+// (nx + 1 of them), y (ny + 1) and z (nz + 1), face_table_entry.
+__device__ __forceinline__ float face_position(int i, int n, float b) {
+  return ((float)i + 0.5f) / (float)n * b;
+}
+
+// Entry i of the face table.
+__device__ __forceinline__ float face_table_entry(int i, int nx, int ny, int nz,
+                                                  const float* bbox) {
+  if (i <= nx) return face_position(i, nx, bbox[0]);
+  i -= nx + 1;
+  if (i <= ny) return face_position(i, ny, bbox[1]);
+  return face_position(i - (ny + 1), nz, bbox[2]);
+}
+
+#ifdef DS_HOST_EMULATION
+inline
+#else
+__host__ __device__ __forceinline__
+#endif
+int face_table_size(int nx, int ny, int nz) {
+  return nx + ny + nz + 3;
+}
+
+// The table's bytes a launch may hold in shared memory (the default limit
+// of a block's dynamic shared memory).
+constexpr int kMaxFaceTableBytes = 48 * 1024;
+
+// Whether every cell count of an [nz, ny, nx] grid is a power of two (the
+// cell jump's kSkipCellPow2).
+inline bool pow2_cells(int nx, int ny, int nz) {
+  return pow2_recip((float)nx) != 0.0f && pow2_recip((float)ny) != 0.0f &&
+         pow2_recip((float)nz) != 0.0f;
+}
+
+// The cell jump's exit (cell_exit_steps' value): three divisions, where
+// cell_exit_steps takes ten, the faces by product (Product: every cell
+// count a power of two) or from the face table, and t / step as a product
+// where the step is a power of two (div_exact).  The cell's lower corner
+// (cx, cy, cz) is the one the step's taps found.
+template <bool Product>
+struct FaceExit {
+  const float* table;  // the face table (unread where Product)
+  int ty, tz;  // where y's and z's faces start in it
+  float inv[3];  // SkipArgs::inv_cells
+  float b[3];  // the box
+  float inv_step;
+  float step;
+
+  __device__ __forceinline__ float face(int a, int i) const {
+    if constexpr (Product) {
+      return ((float)i + 0.5f) * inv[a] * b[a];
+    } else {
+      return table[(a == 0 ? 0 : (a == 1 ? ty : tz)) + i];
+    }
+  }
+
+  // axis_exit's distance along axis a from cell c.
+  __device__ __forceinline__ float axis(int a, int c, float p, float d) const {
+    const float bound = face(a, d > 0.0f ? c + 1 : c);
+    return fabsf(d) > 1e-9f ? (bound - p) / d : INFINITY;
+  }
+
+  __device__ __forceinline__ float operator()(int cx, int cy, int cz, float /*ux*/,
+                                              float /*uy*/, float /*uz*/, float px, float py,
+                                              float pz, float dx, float dy, float dz,
+                                              int room) const {
+    const float t = fminf(fminf(axis(0, cx, px, dx), axis(1, cy, py, dy)), axis(2, cz, pz, dz));
+    const float e = fminf(floorf(div_exact(fmaxf(t, 0.0f), step, inv_step)), kMaxJump);
+    return fminf(e, (float)room);
+  }
+};
+
+// The exit of a launch on an [nz, ny, nx] grid with the box bbox and the
+// step (sk's reciprocals; `table` the face table where !Product).
+template <bool Product>
+__device__ __forceinline__ FaceExit<Product> face_exit_of(const float* table, int nx, int ny,
+                                                          const float* bbox, float step,
+                                                          const SkipArgs& sk) {
+  FaceExit<Product> F;
+  F.table = table;
+  F.ty = nx + 1;
+  F.tz = nx + ny + 2;
+  for (int a = 0; a < 3; ++a) {
+    F.inv[a] = sk.inv_cells[a];
+    F.b[a] = bbox[a];
+  }
+  F.inv_step = sk.inv_step;
+  F.step = step;
+  return F;
+}
+
+// The exit type of the cell jump's instantiation Skip.
+template <int Skip>
+using CellExit = FaceExit<Skip == kSkipCellPow2>;
+
+// The same exit by cell_exit_steps (the first design's arithmetic), for
+// csrc/pathtrace_variants.cu.
+struct DividedExit {
+  int nx, ny, nz;
+  const float* bbox;
+  float step;
+  __device__ __forceinline__ float operator()(int /*cx*/, int /*cy*/, int /*cz*/, float ux,
+                                              float uy, float uz, float px, float py, float pz,
+                                              float dx, float dy, float dz, int room) const {
+    return cell_exit_steps(nx, ny, nz, bbox, step, ux, uy, uz, px, py, pz, dx, dy, dz, room);
+  }
+};
 
 }  // namespace ds

@@ -60,6 +60,18 @@ one card.
   bitwise against the package's and its gradients within ``PATH_TOL``;
   then the package's sweep timed entry by entry (``path_timeline``).
 
+- The cell jump of K4 and K7b (``csrc/pathtrace.cu`` with ``kSkipCell``,
+  built from ``csrc/pathtrace_variants.cu``, which includes only that
+  source) in each design of ``JUMP_DESIGNS``: its first design (a jump ends
+  its lookahead chunk, the exit by ten divisions), the package's (the jump
+  inside the chunk, the exit from a face table), a probe that takes the
+  first design's exits and discards them, and the jump inside the chunk
+  with divided exits; at chip_smoke.py's PT cell at 256^3 and 64^3 and at
+  the collector's first radiance update, beside the kernel without a skip,
+  in turns by ``ahead_ms``, with steps sampled and jumped, the jumps and
+  lattice steps a jump, warp iterations, SIMT efficiency, registers and
+  spills; every design bitwise the package's (the probe the default's).
+
 - K9 (``csrc/spatial.cu``, built from ``csrc/spatial_variants.cu``, which
   includes only that source and the first design's header) in each design
   of ``SPATIAL_DESIGNS``: its first design (a thread a ray), the package's
@@ -99,12 +111,13 @@ backward, twice.
 Run on the card::
 
     python -m deepestscatter_tpu_torch.probes.march_variants [--collector-only | --diff-only |
-                                                              --path-only | --spatial-only]
+                                                              --path-only | --spatial-only |
+                                                              --jump-only]
 
 ``--collector-only`` runs K7a's and K7b's alternatives alone,
 ``--diff-only`` K8a's, K8b's, the sun march's and K8c's, ``--path-only``
-K8c's alone, ``--spatial-only`` K9's alone (the default run leaves K8c's
-and K9's out).  Prints
+K8c's alone, ``--spatial-only`` K9's alone, ``--jump-only`` the cell
+jump's alone (the default run leaves K8c's, K9's and the jump's out).  Prints
 one line an alternative, then one JSON object as the last line; exits 1
 without a card or if an alternative disagrees.
 """
@@ -113,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import functools
 import json
 import re
@@ -420,13 +434,12 @@ def k7a_variants(lib, params, static) -> Dict[str, dict]:
     return out
 
 
-def k7b_variants(lib, params, static) -> Dict[str, dict]:
-    """K7b in each design of K7B_DESIGNS against the package's, at the
-    radiance stage's first update on the collector's scene: records and
-    folds bitwise."""
+def collector_lanes(params, static):
+    """The radiance stage's first update on the collector's scene: its
+    2,048 samples' (point, replica) lanes (``collectors._lanes``, bases 0)
+    and the experiments a lane."""
     n = records.BATCH_SIZE
     cfg = config.PointRadianceConfig()
-    rs = collectors.radiance_static(static)
     s = collectors.generate_scatter_samples(params, static, n, 0)
     entry = (s.positions + 0.5 * params.bbox_size).contiguous()
     replicas = max(1, cfg.max_threads // collectors.bucket_size(n))
@@ -434,6 +447,15 @@ def k7b_variants(lib, params, static) -> Dict[str, dict]:
     base = torch.zeros(n, dtype=torch.int64, device=entry.device)
     lanes = collectors._lanes(entry, s.directions.contiguous(),
                               torch.arange(n, device=entry.device), base, replicas, launches)
+    return lanes, launches
+
+
+def k7b_variants(lib, params, static) -> Dict[str, dict]:
+    """K7b in each design of K7B_DESIGNS against the package's, at the
+    radiance stage's first update on the collector's scene: records and
+    folds bitwise."""
+    rs = collectors.radiance_static(static)
+    lanes, launches = collector_lanes(params, static)
     ref_pm, ref_rec = collectors.launch_radiance(params, rs, *lanes, 0, launches)
     steps = int(ref_pm.steps.sum())
     out: Dict[str, dict] = {}
@@ -1199,6 +1221,193 @@ def spatial_variants(dev) -> dict:
     return report
 
 
+#: The cell jump's designs of K4 and K7b (``csrc/pathtrace_variants.cu``,
+#: ``ds_jump_variant``'s codes) by name: the first (a jump ends its
+#: lookahead chunk; ``cell_exit_steps``' ten divisions), the package's (the
+#: jump inside the chunk; the faces by product where every cell count is a
+#: power of two, else from a face table in shared memory), the probe (the
+#: first design's exits taken and discarded: the kernel without a skip plus
+#: the exit arithmetic), the jump inside the chunk with the first design's
+#: divided exits, with the face table on every grid, and with each axis's
+#: faces chosen at run time in one kernel for every grid.  On a grid whose
+#: cell counts are not all powers of two code 1 runs code 5's kernel.
+JUMP_DESIGNS = {"first design": 0, "package": 1, "probe (exits discarded)": 2,
+                "in-chunk jump, divided exits": 3, "in-chunk jump, face table on every axis": 5,
+                "in-chunk jump, faces chosen a launch at run time": 6}
+#: The first design counting its jumps.
+JUMP_COUNTED = 4
+#: chip_smoke.py's PT cell sizes for the jump (its skip phase's).
+JUMP_RES = (256, 64)
+
+
+def jump_lib(lib):
+    """Types ``csrc/pathtrace_variants.cu``'s entry points."""
+    lib.ds_jump_variant.argtypes = [ctypes.c_int]
+    lib.ds_jump_variant.restype = None
+    lib.ds_jump_attributes.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ds_jump_attributes.restype = ctypes.c_int
+    lib.ds_jump_count.argtypes = []
+    lib.ds_jump_count.restype = ctypes.c_ulonglong
+    return lib
+
+
+def jump_attributes(lib, design: int, radiance: bool, is_u8: bool) -> dict:
+    """Registers, local bytes (spills) and resident blocks a SM of a
+    design's K4 (``radiance`` false) or K7b kernel."""
+    out = (ctypes.c_int * 3)()
+    cuda_build.check(lib.ds_jump_attributes(design, int(radiance), int(is_u8), out),
+                     "ds_jump_attributes")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2])
+
+
+def pt_jump_cell(dev, res: int) -> dict:
+    """chip_smoke.py's PT cell at ``res``^3 (the cumulus of seed 11 at 2000
+    m, uint8, 512^2, a tick's 2 subframes, seed 5) with K4's launch: the
+    scene, its static without a skip and with the cell jump alone, and
+    ``run(static, lib)`` → (PixelMoments, SampleRecords, counters)."""
+    cfg = config.SceneConfig(
+        cloud=config.CloudModel(size_m=2000.0),
+        camera=config.CameraConfig(width=SIZE, height=SIZE),
+        rendering=config.CloudRendering(march_dtype="uint8"),
+    )
+    params, static = build_scene(cfg, procedural.cumulus(resolution=res, seed=11), device=dev)
+    params = with_baked_inscatter(params, static, device=dev)
+    o, d = camera.generate_rays(camera.camera_basis(cfg.camera), SIZE, SIZE, dev)
+    hit, t_hit = camera.intersect_box(o, d, static, params.bbox_size)
+    entry = camera.entry_points(o, d, t_hit, params.bbox_size)
+    default = dataclasses.replace(static, occupancy_skip_steps=0, march_empty_skip=False)
+    return k4_jump_cell(params, default, entry, d, hit, torch.arange(o.shape[0], device=dev), 5,
+                        1, SUBFRAMES)
+
+
+def k4_jump_cell(params, default, entry, dirs, hit, ids, seed: int, sub_first: int,
+                 n_samples: int) -> dict:
+    """K4's launch on the given samples as ``jump_compare`` takes it: the
+    scene, its static without a skip (``default``) and with the cell jump
+    alone, ``run(static, lib)`` → (PixelMoments, SampleRecords, counters)
+    and the texel type."""
+    def run(st, lib=None):
+        return pathtracer.launch_entry(lib, "ds_pathtrace", pathtracer._ARGTYPES, sub_first,
+                                       params, st, entry, dirs, hit, ids, seed, n_samples, None,
+                                       march.skip_mode(st))
+    return dict(params=params, default=default,
+                cell=dataclasses.replace(default, march_empty_skip=True), run=run,
+                uint8=params.density_mips[0].dtype == torch.uint8, hit=hit.to(torch.bool))
+
+
+def k7b_jump_cell(dev) -> dict:
+    """The collector's first radiance update (``k7b_variants``' lanes: 2,048
+    points x 10 replicas, 100 experiments a lane, bases 0) with K7b's
+    launch, as ``pt_jump_cell`` gives K4's."""
+    params, static = collector_scene(dev, bake=True)
+    default = collectors.radiance_static(
+        dataclasses.replace(static, occupancy_skip_steps=0, march_empty_skip=False))
+    lanes, launches = collector_lanes(params, default)
+    return k7b_lanes_cell(params, default, lanes, 0, launches)
+
+
+def k7b_lanes_cell(params, default, lanes, seed: int, launches: int) -> dict:
+    """K7b's launch on the collector's lanes (``collectors._lanes``: entries,
+    directions, ids, experiment bases) as ``k4_jump_cell`` gives K4's;
+    ``default`` is the radiance static without a skip."""
+    def run(st, lib=None):
+        pm, rec = collectors.launch_radiance(params, st, *lanes, seed, launches, lib=lib)
+        return pm, rec, collectors.radiance_moments.last_counters
+    return dict(params=params, default=default,
+                cell=dataclasses.replace(default, march_empty_skip=True), run=run,
+                uint8=params.density_mips[0].dtype == torch.uint8,
+                hit=torch.ones(lanes[0].shape[0], dtype=torch.bool, device=lanes[0].device))
+
+
+def jump_kernel(code: int, params) -> int:
+    """The ``ds_jump_attributes`` design of ``code``'s kernel on the scene:
+    the package's on a grid whose cell counts are not all powers of two is
+    its kSkipCell instantiation (design 5's), else kSkipCellPow2."""
+    pow2 = all(n & (n - 1) == 0 for n in params.density_mips[0].shape)
+    table = JUMP_DESIGNS["in-chunk jump, face table on every axis"]
+    return table if code == 1 and not pow2 else code
+
+
+def _same(a, b, skip=(), rows=None) -> bool:
+    """Fields of two NamedTuples of tensors bitwise equal, but ``skip``'s;
+    of records ([samples, N, ...]) only the pixels ``rows`` (a box hit: the
+    others are left unwritten)."""
+    pick = (lambda t: t) if rows is None else (lambda t: t[:, rows])
+    return all(torch.equal(pick(x), pick(y)) for f, x, y in zip(a._fields, a, b)
+               if f not in skip)
+
+
+def jump_compare(lib, cell: dict, designs: Dict[str, int], reps: int, radiance: bool) -> dict:
+    """The cell jump's ``designs`` (``JUMP_DESIGNS``' codes) on a cell of
+    ``pt_jump_cell`` or ``k7b_jump_cell``, beside the kernel without a skip
+    ("default"), in four turns by ``ahead_ms``: each one's mean ms and turns,
+    steps sampled and jumped, warp march iterations (march slots over the
+    lookahead), SIMT efficiency of its march (steps sampled over 32 lanes x
+    slots; also lattice steps advanced a lane slot), registers, spills and
+    resident blocks; the jumps the first design takes (``JUMP_COUNTED``)
+    and the mean lattice steps a jump.  Designs 0, 1 and 3 bitwise each
+    other (records and folds, jumps included); the probe's records and
+    folds bitwise the default's (its jumped count is the exits it
+    discarded)."""
+    run, k = cell["run"], lib_const(lib, "ds_jump_lookahead")
+    ref = run(cell["default"])
+    fns = {"default": lambda: run(cell["default"])}
+    out: Dict[str, dict] = {"default": dict(steps=int(ref[0].steps.sum()))}
+    lib.ds_jump_variant(1)
+    pkg = run(cell["cell"], lib)
+    for name, code in designs.items():
+        def go(code=code):
+            lib.ds_jump_variant(code)
+            return run(cell["cell"], lib)
+        pm, rec, counters = go()
+        slots = int(counters[1])
+        steps, jumped = int(pm.steps.sum()), int(pm.jumped.sum())
+        if code == JUMP_DESIGNS["probe (exits discarded)"]:
+            equal = _same(pm, ref[0], ("jumped",)) and _same(rec, ref[1], rows=cell["hit"])
+        else:
+            equal = _same(pm, pkg[0]) and _same(rec, pkg[1], rows=cell["hit"])
+        out[name] = dict(code=code, equal=equal, steps=steps, jumped=jumped,
+                         warp_iterations=slots // k, march_slots=slots,
+                         simt_efficiency=steps / (32.0 * slots),
+                         lattice_steps_per_lane_slot=(steps + jumped) / (32.0 * slots),
+                         **jump_attributes(lib, jump_kernel(code, cell["params"]), radiance,
+                                           cell["uint8"]))
+        fns[name] = go
+        del pm, rec
+    out["default"].update(march_slots=int(ref[2][1]),
+                          simt_efficiency=out["default"]["steps"] / (32.0 * int(ref[2][1])))
+    lib.ds_jump_variant(JUMP_COUNTED)
+    pm, _, _ = run(cell["cell"], lib)
+    torch.cuda.synchronize()
+    jumps = int(lib.ds_jump_count())
+    lib.ds_jump_variant(1)
+    out["jumps"] = jumps
+    out["lattice_steps_per_jump"] = int(pm.jumped.sum()) / max(jumps, 1)
+    times = in_turns(fns, reps, ahead_ms)
+    for name, ms in times.items():
+        out[name].update(ms=mean(ms), turns=ms)
+    lib.ds_jump_variant(1)
+    return out
+
+
+def jump_variants(dev) -> dict:
+    """K4's cell jump in each design of ``JUMP_DESIGNS`` at the PT cell's
+    256^3 and 64^3 and K7b's at the collector's first update
+    (``jump_compare``, 5 and 3 calls a turn)."""
+    lib = jump_lib(cuda_build.load("pathtrace_variants"))
+    report = {}
+    for res in JUMP_RES:
+        r = jump_compare(lib, pt_jump_cell(dev, res), JUMP_DESIGNS, 5, radiance=False)
+        report[f"K4 {res}^3"] = r
+    report["K7b update"] = jump_compare(lib, k7b_jump_cell(dev), JUMP_DESIGNS, 3, radiance=True)
+    for key, r in report.items():
+        for name, row in r.items():
+            print(f"jump {key} {name}: {json.dumps(row)}", flush=True)
+    report["ok"] = all(row["equal"] for r in report.values() for k, row in r.items()
+                       if isinstance(row, dict) and "equal" in row)
+    return report
+
+
 def lib_const(lib, name: str) -> int:
     """An int a library's entry point ``name()`` returns."""
     fn = getattr(lib, name)
@@ -1282,6 +1491,8 @@ def main(argv=None) -> int:
                       help="time only K8c's designs (the path adjoint)")
     only.add_argument("--spatial-only", action="store_true",
                       help="time only K9's designs (the slab march)")
+    only.add_argument("--jump-only", action="store_true",
+                      help="time only the cell jump's designs (K4, K7b)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("march_variants: needs a CUDA card", file=sys.stderr)
@@ -1290,6 +1501,16 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     t0 = time.time()
     dev = torch.device("cuda")
+    if opts.jump_only:
+        cuda_build.build(["inscatter", "pathtrace", "samples", "pathtrace_variants"])
+        regs = {k: v for k, v in ptxas((cuda_build.BUILD_DIR / "pathtrace_variants.log")
+                                       .read_text()).items() if "<" in k}
+        print(f"build: {time.time() - t0:.1f}s ptxas={json.dumps(regs)}", flush=True)
+        report = dict(card=card, jump=jump_variants(dev), ptxas=regs)
+        report["ok"] = report["jump"]["ok"]
+        print(card, flush=True)
+        print(json.dumps(report), flush=True)
+        return 0 if report["ok"] else 1
     if opts.spatial_only:
         cuda_build.build(["inscatter", "pathtrace", "spatial", "spatial_variants"])
         regs = ptxas((cuda_build.BUILD_DIR / "spatial_variants.log").read_text())

@@ -90,7 +90,15 @@ jump and with the block skip, K7b with the cell jump, K7a with each, K1
 with the block skip, each against its skipping plain version at the
 tolerances above (K7a bitwise; K4 and K7b also their lattice steps jumped)
 and on the card against the CPU; the cap counted in lattice steps; a block
-skip without the scene's occupancy raises.
+skip without the scene's occupancy raises.  The cell jump's designs of
+``csrc/pathtrace_variants.cu`` (the first, where a jump ends its chunk;
+the jump inside the chunk with divided exits; the first counting its
+jumps; the face table on every grid) equal the package's K4 and K7b
+bitwise (records, folds, jumps), also under a cap of 30 lattice steps;
+the probe of the first design's exits marches as the kernel without a
+skip; at a step of 1/512 on 48^3 (face table) and 64^3 (faces by product)
+the package equals the first design bitwise and the plain twin at K4's
+tolerances.
 
 The render task (``tasks.render_cloud``, NN and BNN, from ``.pt``
 exports) on the card against the CPU: frames within rtol 1e-3 on >= 99.5 %
@@ -1680,3 +1688,135 @@ def test_skip_wrappers_raise_without_the_occupancy(skip_scene, card):
         collectors.generate_scatter_samples(bare, static, 8, 1)
     with pytest.raises(ValueError):
         pathtracer.scatter_loop(bare, static, *_pt_rays(cfg, params, static, card), 5, 1, 1)
+
+
+# -- the cell jump's designs (csrc/pathtrace_variants.cu) ----------------------
+
+#: ``ds_jump_variant``'s designs that take the package's jumps: the first (a
+#: jump ends its chunk), the jump inside the chunk with divided exits, the
+#: first counting its jumps, the package's with every axis reading the
+#: face table.
+JUMP_SAME = {"first": 0, "in-chunk divided": 3, "first counted": 4, "face table": 5}
+
+
+def _jump_lib():
+    from deepestscatter_tpu_torch.probes import march_variants
+    return march_variants.jump_lib(cuda_build.load("pathtrace_variants"))
+
+
+def _k4_jump(lib, design, params, st, rays, cap=None, skip=march.SKIP_CELL):
+    lib.ds_jump_variant(design)
+    try:
+        return pathtracer.launch_entry(lib, "ds_pathtrace", pathtracer._ARGTYPES, 1, params, st,
+                                       *rays, 5, 3, cap, skip)
+    finally:
+        lib.ds_jump_variant(1)
+
+
+def _all_equal(a, b, skip=(), rows=None):
+    """Bitwise, but the fields in ``skip``; records ([samples, N, ...]) only
+    on the pixels ``rows`` (a box hit: the others are left unwritten)."""
+    for name, x, y in zip(a._fields, a, b):
+        if name not in skip:
+            if rows is not None:
+                x, y = x[:, rows], y[:, rows]
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("design", list(JUMP_SAME))
+def test_jump_pathtrace_designs_equal_package(skip_scene, card, design):
+    """K4's cell jump in the designs of JUMP_SAME against the package's
+    kernel (the jump inside the chunk, the exit from the face table):
+    records and folds bitwise, jumps included, also with a cap of 30
+    lattice steps a sample; the counted design counts jumps."""
+    cfg, params, static = skip_scene
+    st = _skip_static(static, "cell")
+    rays = _pt_rays(cfg, params, st, card)
+    lib = _jump_lib()
+    for cap in (None, 30):
+        ref_pm, ref_rec, _ = _k4_jump(lib, 1, params, st, rays, cap)
+        pm, rec, _ = _k4_jump(lib, JUMP_SAME[design], params, st, rays, cap)
+        torch.cuda.synchronize()
+        assert int(ref_pm.jumped.sum()) > 0
+        _all_equal(pm, ref_pm)
+        _all_equal(rec, ref_rec, rows=rays[2])
+    if design == "first counted":
+        assert 0 < int(lib.ds_jump_count()) <= int(pm.jumped.sum())
+
+
+def test_jump_probe_equals_the_kernel_without_a_skip(skip_scene, card):
+    """The probe (the first design's exits taken and discarded) marches as
+    the kernel without a skip: records and folds bitwise, jumped aside."""
+    cfg, params, static = skip_scene
+    st = _skip_static(static, "cell")
+    rays = _pt_rays(cfg, params, st, card)
+    lib = _jump_lib()
+    pm, rec, _ = _k4_jump(lib, 2, params, st, rays)
+    default = dataclasses.replace(st, march_empty_skip=False)
+    ref_pm, ref_rec, _ = pathtracer.launch_entry(None, "ds_pathtrace", pathtracer._ARGTYPES, 1,
+                                                 params, default, *rays, 5, 3, None)
+    torch.cuda.synchronize()
+    assert int(pm.jumped.sum()) > 0
+    _all_equal(pm, ref_pm, ("jumped",))
+    _all_equal(rec, ref_rec, rows=rays[2])
+
+
+@pytest.fixture(scope="module")
+def jump_scene_64(card):
+    """The two blobs in a 64^3 grid (a power of two on every axis: the
+    package's faces by product), uint8, at 2000 m, baked; 64 x 32 rays."""
+    d = np.zeros((64, 64, 64), np.float32)
+    d[8:56, 8:56, 8:56] = _two_blobs()
+    cfg = config.SceneConfig(
+        cloud=config.CloudModel(size_m=2000.0),
+        camera=config.CameraConfig(width=64, height=32),
+        rendering=config.CloudRendering(march_dtype="uint8"))
+    params, static = build_scene(cfg, d, device=card)
+    return cfg, with_baked_inscatter(params, static, device=card), static
+
+
+@pytest.mark.parametrize("grid", ["48^3", "64^3"])
+def test_jump_pathtrace_fine_step_matches_first_design_and_plain(skip_scene, jump_scene_64, card,
+                                                                 grid):
+    """At a step of 1/512 (a cell of 48^3 spans 10.7 steps and one of 64^3
+    8, so a chunk takes several jumps; 64^3 takes the faces by product,
+    48^3 from the table) the package's K4 equals the first design bitwise
+    and the plain twin at K4's tolerances (steps and jumps on >= 99 % of
+    pixels, there mean within 1e-5 and m2 within 1e-4 of their largest)."""
+    cfg, params, static = skip_scene if grid == "48^3" else jump_scene_64
+    st = dataclasses.replace(_skip_static(static, "cell"), sample_step=1.0 / 512.0, max_depth=40)
+    rays = _pt_rays(cfg, params, st, card)
+    lib = _jump_lib()
+    got, rec, _ = _k4_jump(lib, 1, params, st, rays)
+    first, first_rec, _ = _k4_jump(lib, 0, params, st, rays)
+    ref = pathtracer.scatter_loop_plain(params, st, *rays, 5, 1, 3)
+    torch.cuda.synchronize()
+    _all_equal(first, got)
+    _all_equal(first_rec, rec, rows=rays[2])
+    assert torch.equal(got.count, ref.count) and int(ref.jumped.sum()) > 0
+    same = (got.steps == ref.steps) & (got.jumped == ref.jumped)
+    assert same.float().mean().item() >= 0.99
+    for a, b, tol in ((got.mean, ref.mean, 1e-5), (got.m2, ref.m2, 1e-4)):
+        assert (a - b)[same].abs().max().item() <= tol * (b.abs().max().item() + 1e-12)
+
+
+@pytest.mark.parametrize("design", list(JUMP_SAME))
+def test_jump_radiance_designs_equal_package(skip_scene, card, design):
+    """K7b's cell jump in the designs of JUMP_SAME against the package's
+    warp of deferred scatters: records and folds bitwise, jumps included."""
+    _, params, static = skip_scene
+    rs = dataclasses.replace(collectors.radiance_static(_skip_static(static, "cell")),
+                             max_depth=200)
+    entry, d, rids, base = _radiance_case(params, static, card)
+    lanes = collectors._lanes(entry, d, rids, base, 3, 4)
+    lib = _jump_lib()
+    ref = collectors.launch_radiance(params, rs, *lanes, 9, 4, lib=lib)
+    lib.ds_jump_variant(JUMP_SAME[design])
+    try:
+        got = collectors.launch_radiance(params, rs, *lanes, 9, 4, lib=lib)
+    finally:
+        lib.ds_jump_variant(1)
+    torch.cuda.synchronize()
+    assert int(ref[0].jumped.sum()) > 0
+    _all_equal(got[0], ref[0])
+    _all_equal(got[1], ref[1])

@@ -21,9 +21,10 @@
 // so the wrappers' _launch drives it on CPU tensors; host_set_pathtrace,
 // host_set_radiance, host_set_bake, host_set_march, host_set_descriptor,
 // host_set_probes, host_set_samples, host_set_diff,
-// host_set_diff_forward, host_set_path and host_set_spatial choose what they
-// compute
-// (host_path_list returns K8c's last work list).
+// host_set_diff_forward, host_set_path, host_set_spatial and host_set_jump
+// choose what they compute (host_path_list returns K8c's last work list;
+// host_face_table and host_exit_steps give the cell jump's face table and
+// exits).
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
@@ -101,6 +102,34 @@ int spatial_lanes = 1;  // 1, 4, 8, 16 or 32
 // and its arguments.
 int skip_mode = ds::kSkipNone;
 ds::SkipArgs skip_args = {};
+// The cell jump's design: 0 the first (march_steps_skip: a jump ends its
+// chunk); 1 the kernels' (march_steps_jump with FaceExit: the faces by
+// product where every cell count is a power of two, kSkipCellPow2, else
+// from the running launch's face table, face_table, kSkipCell); 2
+// march_steps_jump with the first design's divided exit
+// (csrc/pathtrace_variants.cu's); 3 kSkipCell's exit on every grid.
+int jump_design = 1;
+std::vector<float> face_table;
+bool pow2_grid = false;  // the running launch's grid: every cell count a power of two
+
+// The running launch's exit of the kernels' design: by product
+// (kSkipCellPow2) or from the table (kSkipCell).
+template <bool Product>
+ds::FaceExit<Product> table_exit(int nx, int ny, const ds::PtConsts& c) {
+  return ds::face_exit_of<Product>(face_table.data(), nx, ny, c.bbox, c.step, skip_args);
+}
+
+ds::DividedExit divided_exit(int nx, int ny, int nz, const ds::PtConsts& c) {
+  return ds::DividedExit{nx, ny, nz, c.bbox, c.step};
+}
+
+void fill_face_table(int nx, int ny, int nz, const float* bbox) {
+  pow2_grid = ds::pow2_cells(nx, ny, nz);
+  face_table.resize(ds::face_table_size(nx, ny, nz));
+  for (size_t i = 0; i < face_table.size(); ++i) {
+    face_table[i] = ds::face_table_entry((int)i, nx, ny, nz, bbox);
+  }
+}
 
 // march_chunk / march_steps with the running skip (march_chunk_skip,
 // march_steps_any), a sample's jump count reset where it starts and added
@@ -110,6 +139,18 @@ bool chunk_skip(ds::Sample& S, const T* dens, const T* insc, int nx, int ny, int
                 const float* eval_rows, const float* inv, const ds::PtConsts& c) {
   switch (skip_mode) {
     case ds::kSkipCell:
+      if (jump_design == 1 && pow2_grid) {
+        return ds::march_chunk_jump<K>(S, dens, insc, nx, ny, nz, eval_rows, inv, c,
+                                       table_exit<true>(nx, ny, c));
+      }
+      if (jump_design == 1 || jump_design == 3) {
+        return ds::march_chunk_jump<K>(S, dens, insc, nx, ny, nz, eval_rows, inv, c,
+                                       table_exit<false>(nx, ny, c));
+      }
+      if (jump_design == 2) {
+        return ds::march_chunk_jump<K>(S, dens, insc, nx, ny, nz, eval_rows, inv, c,
+                                       divided_exit(nx, ny, nz, c));
+      }
       return ds::march_chunk_skip<K, ds::kSkipCell>(S, dens, insc, nx, ny, nz, eval_rows, inv, c,
                                                    skip_args);
     case ds::kSkipBlock:
@@ -125,9 +166,20 @@ int steps_skip(ds::Sample& S, ds::Crossing& X, const T* dens, int nx, int ny, in
                const ds::PtConsts& c) {
   switch (skip_mode) {
     case ds::kSkipCell:
-      return ds::march_steps_any<K, ds::kSkipCell>(S, X, dens, nx, ny, nz, c, skip_args);
+      if (jump_design == 1 && pow2_grid) {
+        return ds::march_steps_any<K, ds::kSkipCellPow2>(S, X, dens, nx, ny, nz, c, skip_args,
+                                                         table_exit<true>(nx, ny, c));
+      }
+      if (jump_design == 1 || jump_design == 3) {
+        return ds::march_steps_any<K, ds::kSkipCell>(S, X, dens, nx, ny, nz, c, skip_args,
+                                                     table_exit<false>(nx, ny, c));
+      }
+      if (jump_design == 2) {
+        return ds::march_steps_jump<K>(S, X, dens, nx, ny, nz, c, divided_exit(nx, ny, nz, c));
+      }
+      return ds::march_steps_skip<K, ds::kSkipCell>(S, X, dens, nx, ny, nz, c, skip_args);
     case ds::kSkipBlock:
-      return ds::march_steps_any<K, ds::kSkipBlock>(S, X, dens, nx, ny, nz, c, skip_args);
+      return ds::march_steps_skip<K, ds::kSkipBlock>(S, X, dens, nx, ny, nz, c, skip_args);
     default:
       return ds::march_steps<K>(S, X, dens, nx, ny, nz, c);
   }
@@ -915,6 +967,55 @@ void host_set_radiance(int mode, int park_at) {
   radiance_park_at = park_at > 0 ? park_at : ds::kParkAt;
 }
 
+// The cell jump of K4 and K7b: design 0 the first (a jump ends its
+// chunk), 1 the kernels' (the jump inside the chunk, the faces by product
+// or from the face table by the grid), 2 the jump inside the chunk with
+// the first design's exit, 3 the faces from the table on every grid.
+void host_set_jump(int design) { jump_design = design; }
+
+// The face table of an [nz, ny, nx] grid of box edges bbox[3]
+// (skip.cuh::face_table_entry) into out [face_table_size].
+void host_face_table(int nx, int ny, int nz, const float* bbox, float* out) {
+  for (int i = 0; i < ds::face_table_size(nx, ny, nz); ++i) {
+    out[i] = ds::face_table_entry(i, nx, ny, nz, bbox);
+  }
+}
+
+// The cell jump's whole steps from n points p [n, 3] (local coordinates)
+// along d [n, 3] with room[n] lattice steps left, in the cell the taps
+// find there: design 0 by cell_exit_steps (the first design's), 1 by the
+// kernels' FaceExit (by product where every cell count is a power of two,
+// else from the table), 3 by FaceExit from the table.
+void host_exit_steps(int design, int64_t n, int nx, int ny, int nz, const float* bbox,
+                     float step, const float* p, const float* d, const int32_t* room,
+                     float* out) {
+  fill_face_table(nx, ny, nz, bbox);
+  const ds::SkipArgs sk = ds::cell_recips(ds::SkipArgs{}, nx, ny, nz, step);
+  const auto table = ds::face_exit_of<false>(face_table.data(), nx, ny, bbox, step, sk);
+  const auto product = ds::face_exit_of<true>(face_table.data(), nx, ny, bbox, step, sk);
+  const bool by_product = design == 1 && pow2_grid;
+  float inv[3];
+  for (int a = 0; a < 3; ++a) inv[a] = ds::pow2_recip(bbox[a]);
+  for (int64_t i = 0; i < n; ++i) {
+    const float* q = p + 3 * i;
+    const float* v = d + 3 * i;
+    const float ux = ds::div_exact(q[0], bbox[0], inv[0]);
+    const float uy = ds::div_exact(q[1], bbox[1], inv[1]);
+    const float uz = ds::div_exact(q[2], bbox[2], inv[2]);
+    if (design == 0) {
+      out[i] = ds::cell_exit_steps(nx, ny, nz, bbox, step, ux, uy, uz, q[0], q[1], q[2], v[0],
+                                   v[1], v[2], room[i]);
+    } else {
+      const int cx = ds::axis_cell(ux * (float)nx - 0.5f, nx).i0;
+      const int cy = ds::axis_cell(uy * (float)ny - 0.5f, ny).i0;
+      const int cz = ds::axis_cell(uz * (float)nz - 0.5f, nz).i0;
+      out[i] = by_product
+                   ? product(cx, cy, cz, ux, uy, uz, q[0], q[1], q[2], v[0], v[1], v[2], room[i])
+                   : table(cx, cy, cz, ux, uy, uz, q[0], q[1], q[2], v[0], v[1], v[2], room[i]);
+    }
+  }
+}
+
 // K8a: adjoint 0 bake_adjoint_voxel a voxel, 1 bake_adjoint_row a row.
 // K8b's adjoint: march 0 march_ray_adjoint a ray, 1 chunks of `lanes`
 // lanes (1, 8 or 32; 0 for the kernel's kDiffLanes).
@@ -999,7 +1100,8 @@ int ds_pathtrace_skip(const void* dens, const void* insc, int is_u8, int nx, int
   }
   for (int64_t i = 0; i < n; ++i) jumped[i] = 0;
   skip_mode = skip;
-  skip_args = DS_SKIP_ARGS;
+  skip_args = ds::cell_recips(DS_SKIP_ARGS, nx, ny, nz, consts[3]);
+  fill_face_table(nx, ny, nz, consts);
   const int err = ds_pathtrace(dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows,
                                n_inv, entry, dirs, hit, ray_ids, n, consts, ground, max_steps,
                                max_depth, rr_start, flags, seed_base, sub_first, n_samples,
@@ -1021,7 +1123,8 @@ int ds_radiance_skip(const void* dens, const void* insc, int is_u8, int nx, int 
   if (skip != ds::kSkipCell || jumped == nullptr) return 1;
   for (int64_t i = 0; i < n; ++i) jumped[i] = 0;
   skip_mode = skip;
-  skip_args = DS_SKIP_ARGS;
+  skip_args = ds::cell_recips(DS_SKIP_ARGS, nx, ny, nz, consts[3]);
+  fill_face_table(nx, ny, nz, consts);
   const int err = ds_radiance(dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows,
                               n_inv, entry, dirs, hit, ray_ids, n, consts, ground, max_steps,
                               max_depth, rr_start, flags, seed_base, sub0, n_samples, rec_rad,
