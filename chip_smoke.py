@@ -315,7 +315,11 @@ Phases, one output line each:
     update (``estimate_point_radiance``) with the cell jump, K7b held to
     its plain version by ``k7b_against_plain`` (base 0), its time beside
     the default's; K7a with each skip bitwise its plain version (every
-    field), by the profiler beside the default's.  These plain versions
+    field), the block skip by the profiler beside the default's, the cell
+    jump against its first design (``csrc/march_variants.cu``: rounds of 8
+    warps, a jump ending a chunk of 32 lanes) and the kernel without a skip
+    in four turns by ``ahead_ms`` (``samples_against_first``).  These plain
+    versions
     (K4's four, K7b's, K7a's two) run side by side in worker processes once
     the card's timings are taken (``run_plain_jobs``: each is bound by its
     host's launches).  The RPNN frame with the
@@ -330,7 +334,12 @@ Phases, one output line each:
     ``ahead_ms`` (``jump_against_first``): times, warp march iterations,
     SIMT efficiency, steps sampled and jumped, the jumps and lattice steps
     a jump, registers and spills; the first design bitwise the package's
-    (rows' ``first_design_ms``, ``ms_in_turns``).
+    (rows' ``first_design_ms``, ``ms_in_turns``).  K4's block skip at both
+    sizes likewise against its first design (``csrc/pathtrace_variants.cu``:
+    the float32 occupancy read at every step; ``block_against_first``):
+    times, warp march iterations, SIMT efficiency, registers; the row's
+    ``first_design_ms``, ``ms_in_turns``, iterations and registers at both
+    sizes, and its bound at 64^3 (``bound_ms_64``).
 
 Then the card's ``name, power.limit`` line, the ``{"kernels": [...]}``
 line, and as the last line ``{"ok": true, "device": {...}}``.  A failed
@@ -649,9 +658,11 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
 
 #: Sources built beside the package's: P1's designs (probes.gather.variants),
 #: the first designs of K8a and K8b's adjoint (csrc/diff_variants.cu), K8c's
-#: (csrc/path_adjoint_variants.cu) and K9's (csrc/spatial_variants.cu).
+#: (csrc/path_adjoint_variants.cu), K9's (csrc/spatial_variants.cu), the
+#: cell jump's and K4's block skip's (csrc/pathtrace_variants.cu) and K7a's
+#: cell jump's (csrc/march_variants.cu).
 EXTRA_SOURCES = ("gather_variants", "diff_variants", "path_adjoint_variants", "spatial_variants",
-                 "pathtrace_variants")
+                 "pathtrace_variants", "march_variants")
 
 
 def phase_build(cuda_build) -> None:
@@ -3711,6 +3722,68 @@ def jump_against_first(label: str, cell: dict, reps: int, radiance: bool) -> dic
     return r
 
 
+#: K4's block-skip designs the skip phase times (march_variants.BLOCK_DESIGNS'
+#: codes): the first (the float32 occupancy read at every step) and the
+#: package's.
+SKIP_BLOCK_DESIGNS = ("first design", "package")
+
+
+def block_against_first(label: str, cell: dict, reps: int) -> dict:
+    """K4's block skip, the package's kernel against its first design on a
+    cell of ``march_variants.k4_block_cell``, beside the kernel without a
+    skip, in four turns by ``ahead_ms`` (``march_variants.block_compare``):
+    a line with each one's ms, warp march iterations, SIMT efficiency,
+    steps sampled and jumped, registers and spills; both designs
+    bitwise."""
+    from deepestscatter_tpu_torch import cuda_build
+    from deepestscatter_tpu_torch.probes import march_variants as mv
+
+    lib = mv.block_lib(cuda_build.load("pathtrace_variants"))
+    r = mv.block_compare(lib, cell, {k: mv.BLOCK_DESIGNS[k] for k in SKIP_BLOCK_DESIGNS}, reps)
+    new, first, base = r["package"], r["first design"], r["default"]
+    print(f"{label}, against its first design (in turns, ahead_ms): ms={new['ms']:.4f} "
+          f"first_design_ms={first['ms']:.4f} default_ms={base['ms']:.4f} "
+          f"turns={json.dumps({k: r[k]['turns'] for k in ('package', 'first design', 'default')})} "
+          f"warp_iterations={new['warp_iterations']} "
+          f"first_design_warp_iterations={first['warp_iterations']} "
+          f"default_warp_iterations={base['warp_iterations']} "
+          f"simt_efficiency={new['simt_efficiency']:.4f} "
+          f"first_design_simt_efficiency={first['simt_efficiency']:.4f} "
+          f"default_simt_efficiency={base['simt_efficiency']:.4f} "
+          f"steps_sampled={new['steps']} steps_jumped={new['jumped']} "
+          f"default_steps={base['steps']} registers={new['registers']} "
+          f"local_bytes={new['local_bytes']} blocks_per_sm={new['blocks_per_sm']} "
+          f"first_design_registers={first['registers']} "
+          f"first_design_local_bytes={first['local_bytes']} bitwise_equal={first['equal']}",
+          flush=True)
+    require(first["equal"] and new["equal"],
+            f"{label}: the first design differs from the package's")
+    return r
+
+
+def samples_against_first(label: str, params, default, cell, n: int, reps: int) -> dict:
+    """K7a's cell jump, the package's kernel against its first design
+    (csrc/march_variants.cu: rounds of 8 warps, each attempt in chunks of
+    32 lanes), beside the kernel without a skip, on ``n`` samples in four
+    turns by ``ahead_ms`` (``march_variants.samples_compare``): a line with
+    each one's ms, steps and attempts; the first design bitwise the
+    package's."""
+    from deepestscatter_tpu_torch import cuda_build
+    from deepestscatter_tpu_torch.probes import march_variants as mv
+
+    lib = mv.cell_samples_lib(cuda_build.load("march_variants"))
+    r = mv.samples_compare(lib, params, default, cell, n, 0,
+                           {"first design": mv.CELL_SAMPLE_DESIGNS["first design"]}, reps)
+    new, first, base = r["package library"], r["first design"], r["default"]
+    print(f"{label}, against its first design (in turns, ahead_ms): ms={new['ms']:.4f} "
+          f"first_design_ms={first['ms']:.4f} default_ms={base['ms']:.4f} "
+          f"turns={json.dumps({k: r[k]['turns'] for k in ('package library', 'first design', 'default')})} "
+          f"steps={new['steps']} attempts={new['attempts']} attempts_max={new['attempts_max']} "
+          f"default_steps={base['steps']} bitwise_equal={first['equal']}", flush=True)
+    require(first["equal"], f"{label}: the first design differs from the package's")
+    return r
+
+
 def skip_pt(port, config, procedural, pt, cam, res, dev) -> dict:
     """The PT cell at ``res``^3 with the occupancy built: per static of
     ``skip_statics`` a progressive render of SKIP_TICKS ticks as a user
@@ -3772,12 +3845,16 @@ def skip_pt(port, config, procedural, pt, cam, res, dev) -> dict:
     out["cell"]["jump"] = jump_against_first(
         f"skip PT {res}^3 cell jump", mv.k4_jump_cell(params, statics["default"], entry, d, hit,
                                                        ids, PT_SEED, 1, PT_SUBFRAMES), 5, False)
+    out["block"]["against"] = block_against_first(
+        f"skip PT {res}^3 block skip",
+        mv.k4_block_cell(params, statics["default"], statics["block"], entry, d, hit, ids,
+                         PT_SEED, 1, PT_SUBFRAMES), 5)
     tex = 2 * params.density_mips[0].numel() * params.density_mips[0].element_size()
     tables = (params.phase.eval_rows.numel() + params.phase.inv_cdf_rows.numel()) * 4
     n, n_hit = entry.shape[0], int(hit.sum().item())
     for name in ("cell", "block"):
         o = out[name]
-        o["bytes"] = (tex + tables + (occ.numel() * 4 if name == "block" else 0)
+        o["bytes"] = (tex + tables + ((occ.numel() + 31) // 32 * 4 if name == "block" else 0)
                       + n * (12 + 12 + 1 + 8) + n * (12 + 12 + 4 + 16 + 8))
         o["ops"] = (o["steps"] * K4_OPS_PER_STEP + o["bounces"] * K4_OPS_PER_BOUNCE
                     + n_hit * PT_SUBFRAMES * K4_OPS_PER_SAMPLE)
@@ -3906,9 +3983,15 @@ def phase_skip(port, config, cuda_build, procedural, collectors, march_ops, pt, 
         k = collectors.generate_scatter_samples(params, st, n, 0)
         torch.cuda.synchronize()
         launches = collectors.generate_scatter_samples.launches
-        ms_a = device_ms(lambda: collectors.generate_scatter_samples(params, st, n, 0), 10,
-                         "samples_rounds_kernel")
-        k7a[name] = (k, launches, ms_a)
+        if name == "cell":
+            turns = samples_against_first("skip K7a cell jump", params, statics["default"], st,
+                                          n, 20)
+            ms_a = turns["package library"]["ms"]
+        else:
+            turns = None
+            ms_a = device_ms(lambda: collectors.generate_scatter_samples(params, st, n, 0), 10,
+                             "samples_rounds_kernel")
+        k7a[name] = (k, launches, ms_a, turns)
         jobs["K7a", name] = dict(fn=PLAIN_SAMPLES, args=(params, st, n, 0))
 
     # -- the plain versions, side by side in workers --------------------------
@@ -3930,12 +4013,26 @@ def phase_skip(port, config, cuda_build, procedural, collectors, march_ops, pt, 
         row.update(launches=o["launches"] + lo["launches"], default_ms=o["default_ms"],
                    steps_sampled=o["steps"], steps_jumped=o["jumped"],
                    ms_64=lo["ms"], default_ms_64=lo["default_ms"], steps_sampled_64=lo["steps"],
-                   steps_jumped_64=lo["jumped"])
-        if name == "cell":
-            row.update(first_design_ms=o["jump"]["first design"]["ms"],
-                       first_design_ms_64=lo["jump"]["first design"]["ms"],
-                       ms_in_turns=o["jump"]["package"]["ms"],
-                       ms_in_turns_64=lo["jump"]["package"]["ms"])
+                   steps_jumped_64=lo["jumped"],
+                   bound_ms_64=kernel_row("", "", "", 0, 0, 0, lo["bytes"], lo["ops"])["bound_ms"])
+        key = "jump" if name == "cell" else "against"
+        row.update(first_design_ms=o[key]["first design"]["ms"],
+                   first_design_ms_64=lo[key]["first design"]["ms"],
+                   ms_in_turns=o[key]["package"]["ms"],
+                   ms_in_turns_64=lo[key]["package"]["ms"],
+                   default_ms_in_turns=o[key]["default"]["ms"],
+                   default_ms_in_turns_64=lo[key]["default"]["ms"])
+        if name == "block":
+            for sfx, r in (("", o[key]), ("_64", lo[key])):
+                row.update({f"warp_iterations{sfx}": r["package"]["warp_iterations"],
+                            f"first_design_warp_iterations{sfx}":
+                                r["first design"]["warp_iterations"],
+                            f"default_warp_iterations{sfx}": r["default"]["warp_iterations"],
+                            f"simt_efficiency{sfx}": r["package"]["simt_efficiency"],
+                            f"first_design_simt_efficiency{sfx}":
+                                r["first design"]["simt_efficiency"],
+                            f"registers{sfx}": r["package"]["registers"],
+                            f"first_design_registers{sfx}": r["first design"]["registers"]})
         rows.append(row)
 
     kb = k7b_plain_finish(kb, *plain["K7b"])
@@ -3968,13 +4065,15 @@ def phase_skip(port, config, cuda_build, procedural, collectors, march_ops, pt, 
     del kb
 
     for name, label in (("cell", "cell jump"), ("block", "block skip")):
-        k, k7a_launches, ms_a = k7a[name]
+        k, k7a_launches, ms_a, turns = k7a[name]
         r, plain_a = plain["K7a", name]
         unequal = [f for f, a, b in zip(r._fields, k, r) if not torch.equal(a, b)]
         steps_a, att_a = int(k.steps.sum()), int(k.attempts.sum())
         found_same = bool(torch.equal(k.found, ref_s.found))
+        timing = "in turns, ahead_ms" if turns else "device, profiler"
+        default_a = turns["default"]["ms"] if turns else ms_ad
         print(f"skip K7a {label}: samples={n} launches={k7a_launches} found={int(k.found.sum())} "
-              f"ms(device, profiler)={ms_a:.4f} default_ms={ms_ad:.4f} steps_sampled={steps_a} "
+              f"ms({timing})={ms_a:.4f} default_ms={default_a:.4f} steps_sampled={steps_a} "
               f"default_steps={int(ref_s.steps.sum())} attempts={att_a} "
               f"default_attempts={int(ref_s.attempts.sum())} found_as_default={found_same} "
               f"fields_not_bitwise_equal={unequal} (required: none) plain_ms={plain_a:.1f} "
@@ -3989,7 +4088,10 @@ def phase_skip(port, config, cuda_build, procedural, collectors, march_ops, pt, 
                          tex + (params.occupancy.numel() * 4 if name == "block" else 0)
                          + n * (12 + 12 + 1 + 8),
                          steps_a * K7A_OPS_PER_STEP + att_a * K7A_OPS_PER_ATTEMPT)
-        row.update(launches=k7a_launches, default_ms=ms_ad, steps_sampled=steps_a)
+        row.update(launches=k7a_launches, default_ms=default_a, steps_sampled=steps_a)
+        if turns:
+            row.update(first_design_ms=turns["first design"]["ms"], ms_in_turns=ms_a,
+                       default_profiler_ms=ms_ad)
         rows.append(row)
     del params, ref_s, pos, dirs, k7a, plain
 

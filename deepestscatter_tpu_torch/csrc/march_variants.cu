@@ -8,7 +8,10 @@
 // design) and with K1's 8 lanes a sample, and with other numbers of warps a
 // sample; K7b as K4's item queue with a per-lane base (its first design),
 // and with its scatters deferred at other numbers of parked lanes and other
-// lookaheads.  Every alternative computes the
+// lookaheads; K7a's cell jump (ds_samples_skip with kSkipCell) as its first
+// design (the package's rounds of 8 warps, each attempt in chunks of 32
+// lanes ended after the first lane in an empty cell;
+// ds_cell_samples_variant).  Every alternative computes the
 // same values as the kernels the package runs.
 //
 // The package's entry points are renamed where they are included; the
@@ -21,6 +24,7 @@
 #define ds_march ds_march_package
 #define ds_descriptor ds_descriptor_package
 #define ds_samples ds_samples_package
+#define ds_samples_skip ds_samples_skip_package
 #define ds_radiance ds_radiance_package
 #include "pathtrace.cu"
 #include "inscatter.cu"
@@ -32,6 +36,7 @@
 #undef ds_march
 #undef ds_descriptor
 #undef ds_samples
+#undef ds_samples_skip
 #undef ds_radiance
 
 namespace {
@@ -98,6 +103,10 @@ static int samples_lanes(const void* dens, int is_u8, int nx, int ny, int nz, ui
   }
   return (int)cudaGetLastError();
 }
+
+// K7a's cell jump (ds_cell_samples_variant): 0 the first design, 1 the
+// package's (a thread an attempt).
+int g_cell_samples = 1;
 
 }  // namespace
 
@@ -412,6 +421,27 @@ int ds_samples(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t see
   return -1;
 #undef DS_ROUNDS
 #undef DS_LANES
+}
+
+// K7a's cell jump that ds_samples_skip runs (g_cell_samples' designs).
+void ds_cell_samples_variant(int design) { g_cell_samples = design; }
+
+int ds_samples_skip(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed,
+                    int64_t n, const float* consts, int max_steps, float min_dist,
+                    float* pos_out, float* dir_out, uint8_t* found_out, int32_t* work_out,
+                    void* stream, DS_SKIP_PARAMS) {
+  if (skip != ds::kSkipCell || g_cell_samples != 0) {
+    return ds_samples_skip_package(dens, is_u8, nx, ny, nz, seed, n, consts, max_steps,
+                                   min_dist, pos_out, dir_out, found_out, work_out, stream, skip,
+                                   occ, occ_x, occ_y, occ_z, block, long_steps, jumped, occ_bits,
+                                   sure_steps);
+  }
+  if (n <= 0) return 0;
+  const ds::MarchConsts c = ds::march_consts(consts, max_steps, 0);
+  return samples_rounds<ds::kSampleWarps, ds::kSkipCell>(dens, is_u8, nx, ny, nz, seed, n, c,
+                                                         min_dist, pos_out, dir_out, found_out,
+                                                         work_out, (cudaStream_t)stream,
+                                                         DS_SKIP_ARGS);
 }
 
 // K7b: design 0 K4's item queue with the per-lane base (its first design,

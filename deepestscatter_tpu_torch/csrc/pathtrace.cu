@@ -98,6 +98,25 @@
 // chose each face's rule at run time measured 3.5 % faster at 256^3 and 4 %
 // slower on the collector's 258^3 grid than the two instantiations.
 //
+// The block skip (march_steps_block, instantiation kSkipBlock) is a
+// redesign.  Its first design (march_steps_skip, kept in
+// csrc/pathtrace_variants.cu) read the float32 occupancy at every step's
+// start, a dependent load in the chain of every step, also in the deep
+// walks inside the cloud where the dilated occupancy is always 1 (4.02 ms
+// a 256^3 tick against 5.07 without a skip, 4.76 at 64^3 against 3.74;
+// H100 80GB HBM3 at 700 W).  Here (a) a step that lands in a cell with a
+// nonzero corner (the taps' empty test) certifies the next sure_steps
+// plain steps (ops/march.py::block_sure_steps: 12 at 256^3, 48 at 64^3),
+// for which the occupancy is not read, and (b) the occupancy is read as
+// one bit a block (skip.cuh::BitBlocks: 4 KB at 256^3) from global
+// memory; a copy of the bits in shared memory measured no faster (3.63 ms
+// at 256^3 and 4.46-4.55 at 64^3 against 3.56 and 4.37 from global
+// memory, H100 80GB HBM3 at 700 W).  Records, folds, steps and jumps stay
+// bitwise the first design's.  Where the skip loses at 64^3 the reads are
+// not the cause: a read's cube of occupied blocks cut the reads twelvefold
+// and block indices as products spared their divisions, and neither moved
+// the time (PERF.md section 6).
+//
 // Bound on the card: the density and in-scatter textures (16.7 MB each at
 // 256^3 uint8) stay in the 50 MB L2; ~80 float operations a march step and
 // ~300 an in-box scatter make the operation bound (0.198 ms for the 512^2,
@@ -205,6 +224,7 @@ __global__ void __launch_bounds__(kPtThreads) pathtrace_items_kernel(
   if constexpr (ds::kCellJump<Skip>) jump = shared_face_exit<Skip>(nx, ny, nz, c, sk);
   ds::Sample S;
   int64_t item = 0;
+  int sure = 0;  // the block skip's certain plain steps (march_steps_block)
   bool have = false, drained = false;
   unsigned long long iters = 0;
   for (;;) {
@@ -225,6 +245,7 @@ __global__ void __launch_bounds__(kPtThreads) pathtrace_items_kernel(
           have = ds::begin_item(S, item, n, entry, dirs, hit, ray_ids, inv, c, seed_base,
                                 sub_first, sub0, rec_rad, rec_work);
           if constexpr (Skip != ds::kSkipNone) S.jumped = 0;
+          if constexpr (Skip == ds::kSkipBlock) sure = 0;
         }
       }
     }
@@ -241,8 +262,8 @@ __global__ void __launch_bounds__(kPtThreads) pathtrace_items_kernel(
         ds::add_jumped<Skip>(sk, item, n, S);
         have = false;
       }
-    } else if (have &&
-               ds::march_chunk_skip<K, Skip>(S, dens, insc, nx, ny, nz, eval_rows, inv, c, sk)) {
+    } else if (have && ds::march_chunk_block<K>(S, dens, insc, nx, ny, nz, eval_rows, inv, c,
+                                                 ds::bit_blocks(sk), sk.sure_steps, sure)) {
       ds::write_record(S, item, rec_rad, rec_work);
       ds::add_jumped<Skip>(sk, item, n, S);
       have = false;
@@ -527,8 +548,8 @@ extern "C" int ds_radiance(const void* dens, const void* insc, int is_u8, int nx
 }
 
 // ds_pathtrace with an empty-space skip (csrc/skip.cuh): kSkipCell or
-// kSkipBlock; jumped is required.  Returns cudaErrorInvalidValue for
-// another skip.
+// kSkipBlock; jumped is required, and with kSkipBlock the occupancy's bits.
+// Returns cudaErrorInvalidValue for another skip.
 extern "C" int ds_pathtrace_skip(const void* dens, const void* insc, int is_u8, int nx,
                                  int ny, int nz, const float* eval_rows, int n_phase,
                                  const float* inv_rows, int n_inv, const float* entry,
@@ -541,7 +562,7 @@ extern "C" int ds_pathtrace_skip(const void* dens, const void* insc, int is_u8, 
                                  float* mean_out, float* m2_out, float* count_out,
                                  int64_t* work_out, void* stream, DS_SKIP_PARAMS) {
   const bool pow2 = ds::pow2_cells(nx, ny, nz);
-  if (jumped == nullptr || (skip == ds::kSkipBlock && occ == nullptr) ||
+  if (jumped == nullptr || (skip == ds::kSkipBlock && occ_bits == nullptr) ||
       (skip == ds::kSkipCell && !pow2 &&
        skip_shared_bytes<ds::kSkipCell>(nx, ny, nz) > (size_t)ds::kMaxFaceTableBytes)) {
     return (int)cudaErrorInvalidValue;

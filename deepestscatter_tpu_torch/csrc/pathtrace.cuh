@@ -495,6 +495,82 @@ __device__ __forceinline__ int march_steps_jump(Sample& S, Crossing& X,
   return state;
 }
 
+// The block skip of K4 (kSkipBlock): march_steps_skip's values, with the
+// occupancy read only where it can be empty.  `sure` (the sample's, 0
+// where it starts and after a crossing) counts the plain steps certain
+// from its position, where block_steps would give 1: build_occupancy
+// dilates by a block, so a step that lands at p in a cell with a nonzero
+// corner (the taps' empty test) leaves p and every lattice point up to
+// `sure_steps` plain steps past it in an occupied block
+// (ops/march.py::block_sure_steps, proved by
+// tests/test_torch_block_host.py).  The first pass takes a step's length
+// from `blocks` (skip.cuh::BitBlocks, or a reader with its steps()) only
+// where the count at the chunk's start does not cover it, so the taps of a
+// covered chunk's steps stay independent; the second pass sets the count
+// after each step taken: sure_steps after a step into a cell with a
+// nonzero corner, else one less than before.
+template <int K, typename T, typename Blocks>
+__device__ __forceinline__ int march_steps_block(Sample& S, Crossing& X,
+                                                 const T* __restrict__ dens, int nx, int ny,
+                                                 int nz, const PtConsts& c, const Blocks& blocks,
+                                                 int sure_steps, int& sure) {
+  float dens_k[K], e_k[K], len_k[K];
+  int m_k[K];
+  bool held_k[K];
+  float qx = S.px, qy = S.py, qz = S.pz;
+  int adv = S.steps + S.jumped;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int m =
+        sure <= k ? blocks.steps(nx, ny, nz, c.bbox, c.inv_bbox, qx, qy, qz, c.max_steps - adv)
+                  : 1;
+    const float len = c.step * (float)m;
+    adv += m;
+    qx = qx + S.dx * len;
+    qy = qy + S.dy * len;
+    qz = qz + S.dz * len;
+    int cx, cy, cz;
+    bool empty;
+    dens_k[k] = trilinear_cell(dens, nx, ny, nz, div_exact(qx, c.bbox[0], c.inv_bbox[0]),
+                               div_exact(qy, c.bbox[1], c.inv_bbox[1]),
+                               div_exact(qz, c.bbox[2], c.inv_bbox[2]), cx, cy, cz, empty) *
+                c.dm;
+    held_k[k] = !empty;
+    e_k[k] = expf(-dens_k[k] * c.step);
+    len_k[k] = len;
+    m_k[k] = m;
+  }
+  int state = kMarching;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (state == kMarching) {
+      if (S.steps + S.jumped >= c.max_steps) {
+        state = kEnded;
+      } else {
+        const float ax = S.px + S.dx * len_k[k], ay = S.py + S.dy * len_k[k],
+                    az = S.pz + S.dz * len_k[k];
+        const float tn = S.trans * e_k[k];
+        ++S.steps;
+        S.jumped += m_k[k] - 1;
+        const int next = sure > 0 ? sure - 1 : 0;
+        sure = held_k[k] && sure_steps > next ? sure_steps : next;
+        if (S.od > tn) {
+          X.ax = ax;
+          X.ay = ay;
+          X.az = az;
+          X.density = dens_k[k];
+          X.tn = tn;
+          sure = 0;
+          state = kCrossed;
+        } else if (free_step(S, c, ax, ay, az, tn)) {
+          state = kEnded;
+        }
+      }
+    }
+  }
+  return state;
+}
+
 // K4's march step at lookahead K with skip Skip: march_steps as it was
 // (kSkipNone), march_steps_jump with the exit `jump` (the cell jump) or
 // march_steps_skip.
@@ -559,6 +635,20 @@ __device__ __forceinline__ bool march_chunk_jump(Sample& S, const T* __restrict_
                                                  const PtConsts& c, const Exit& jump_exit) {
   Crossing X;
   const int state = march_steps_jump<K>(S, X, dens, nx, ny, nz, c, jump_exit);
+  if (state == kCrossed) return resolve(S, X, insc, nx, ny, nz, eval_rows, inv, c);
+  return state == kEnded;
+}
+
+// march_chunk with the block skip of march_steps_block.
+template <int K, typename T, typename Blocks>
+__device__ __forceinline__ bool march_chunk_block(Sample& S, const T* __restrict__ dens,
+                                                  const T* __restrict__ insc, int nx, int ny,
+                                                  int nz, const float* __restrict__ eval_rows,
+                                                  const float* __restrict__ inv,
+                                                  const PtConsts& c, const Blocks& blocks,
+                                                  int sure_steps, int& sure) {
+  Crossing X;
+  const int state = march_steps_block<K>(S, X, dens, nx, ny, nz, c, blocks, sure_steps, sure);
   if (state == kCrossed) return resolve(S, X, insc, nx, ny, nz, eval_rows, inv, c);
   return state == kEnded;
 }

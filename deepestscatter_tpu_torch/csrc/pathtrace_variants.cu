@@ -1,6 +1,7 @@
 // Alternatives of the cell jump of K4 and K7b (csrc/pathtrace.cu with
-// kSkipCell), for probes/march_variants.py --jump-only and chip_smoke.py's
-// skip phase:
+// kSkipCell) and of K4's block skip (kSkipBlock), for
+// probes/march_variants.py --jump-only and --skip-only and chip_smoke.py's
+// skip phase.  The cell jump (ds_jump_variant):
 //   design 0, the first design: march_steps_skip, where a jump ends its
 //     lookahead chunk and its exit takes cell_exit_steps' ten divisions;
 //   design 1, the package's kernels (march_steps_jump with FaceExit: the
@@ -23,6 +24,11 @@
 // Designs 0, 1, 3, 4, 5 and 6 compute the same values.  Designs 0, 2, 3 and 4
 // run in copies of the package's two queues (pathtrace_items_kernel,
 // radiance_items_kernel) with the march a template argument.
+// K4's block skip (ds_block_variant): design 0, the first design
+// (march_steps_skip, the float32 occupancy read at every step, in the copy
+// of K4's queue); design 1, the package's kernel (march_steps_block: the
+// density certificate, the occupancy's bits).  Both compute the same
+// values.
 //
 // A source of its own: it includes only csrc/pathtrace.cu, so chip_smoke.py
 // builds it beside the package's sources.  The package's entry points are
@@ -52,7 +58,8 @@ enum : int {
   kDivided = 3,
   kFirstCounted = 4,
   kTable = 5,
-  kMixed = 6
+  kMixed = 6,
+  kBlockFirst = 7  // the block skip's first design in the queue's copy
 };
 
 // The first design's march (design 4 is design 0 counting its jumps).
@@ -60,6 +67,8 @@ template <int D>
 constexpr bool kFirstMarch = D == kFirst || D == kFirstCounted;
 
 int g_design = kPackage;
+// ds_block_variant's design: 0 the first, 1 the package's.
+int g_block = 1;
 // The jumps the last launch of design 4 took (a device word, allocated at
 // its first launch): a jump ends its chunk there, so a chunk after which
 // S.jumped grew took one.  Designs 0, 1 and 3 take the same jumps.
@@ -181,8 +190,8 @@ __device__ __forceinline__ int variant_steps(ds::Sample& S, ds::Crossing& X,
   }
 }
 
-// Design D's march and scatter: march_chunk_skip for the first design, as
-// its kernel ran it.
+// Design D's march and scatter: march_chunk_skip for the first designs, as
+// their kernels ran it.
 template <int D, int K, typename T>
 __device__ __forceinline__ bool variant_chunk(ds::Sample& S, const T* __restrict__ dens,
                                               const T* __restrict__ insc, int nx, int ny, int nz,
@@ -193,6 +202,9 @@ __device__ __forceinline__ bool variant_chunk(ds::Sample& S, const T* __restrict
   if constexpr (kFirstMarch<D>) {
     return ds::march_chunk_skip<K, ds::kSkipCell>(S, dens, insc, nx, ny, nz, eval_rows, inv, c,
                                                   sk);
+  } else if constexpr (D == kBlockFirst) {
+    return ds::march_chunk_skip<K, ds::kSkipBlock>(S, dens, insc, nx, ny, nz, eval_rows, inv, c,
+                                                   sk);
   } else {
     ds::Crossing X;
     const int state = variant_steps<D, K>(S, X, dens, nx, ny, nz, c, sk, jump);
@@ -361,21 +373,32 @@ int variant_launch(bool radiance, const T* dens, const T* insc, int nx, int ny, 
   if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const size_t smem =
       D == kMixed && !ds::pow2_cells(nx, ny, nz) ? skip_shared_bytes<ds::kSkipCell>(nx, ny, nz) : 0;
+  // The block skip runs in K4's queue alone (K7b takes only the cell jump).
+  constexpr bool kItemsOnly = D == kBlockFirst;
+  if (kItemsOnly && radiance && err == 0) err = (int)cudaErrorInvalidValue;
   if (err == 0) {
-    err = radiance ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &per_sm, jump_radiance_kernel<D, K, T>, kPtThreads, smem)
-                   : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &per_sm, jump_items_kernel<D, K, T>, kPtThreads, smem);
+    if constexpr (kItemsOnly) {
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, jump_items_kernel<D, K, T>, kPtThreads, smem);
+    } else {
+      err = radiance ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           &per_sm, jump_radiance_kernel<D, K, T>, kPtThreads, smem)
+                     : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           &per_sm, jump_items_kernel<D, K, T>, kPtThreads, smem);
+    }
   }
   if (err != 0) return err;
   const int64_t needed = (n_items + kPtThreads - 1) / kPtThreads;
   const int64_t full = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
   const unsigned blocks = (unsigned)(needed < full ? needed : full);
-  if (radiance) {
-    jump_radiance_kernel<D, K, T><<<blocks, kPtThreads, smem, s>>>(
-        dens, insc, nx, ny, nz, eval_rows, inv_rows, entry, dirs, hit, ray_ids, n, n_samples, c,
-        seed_base, sub0, ds::kParkAt, rec_rad, rec_work, counters, sk, g_jumps);
-  } else {
+  if constexpr (!kItemsOnly) {
+    if (radiance) {
+      jump_radiance_kernel<D, K, T><<<blocks, kPtThreads, smem, s>>>(
+          dens, insc, nx, ny, nz, eval_rows, inv_rows, entry, dirs, hit, ray_ids, n, n_samples,
+          c, seed_base, sub0, ds::kParkAt, rec_rad, rec_work, counters, sk, g_jumps);
+    }
+  }
+  if (!radiance) {
     jump_items_kernel<D, K, T><<<blocks, kPtThreads, smem, s>>>(
         dens, insc, nx, ny, nz, eval_rows, inv_rows, entry, dirs, hit, ray_ids, n, n_items, c,
         seed_base, sub_first, sub0, rec_rad, rec_work, counters, sk, g_jumps);
@@ -444,6 +467,16 @@ int jump_attributes(int design, int radiance, int* out) {
   }
 }
 
+template <typename T>
+int block_attributes(int design, int* out) {
+  constexpr int K = ds::kLookahead;
+  switch (design) {
+    case 0: return attributes(jump_items_kernel<kBlockFirst, K, T>, 0, out);
+    case 1: return attributes(pathtrace_items_kernel<K, T, ds::kSkipBlock>, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -473,6 +506,15 @@ unsigned long long ds_jump_count() {
 int ds_jump_attributes(int design, int radiance, int is_u8, int* out) {
   return is_u8 ? jump_attributes<uint8_t>(design, radiance, out)
                : jump_attributes<float>(design, radiance, out);
+}
+
+// The block skip's design ds_pathtrace_skip runs (0 the first, 1 the
+// package's).
+void ds_block_variant(int design) { g_block = design; }
+
+// ds_jump_attributes of the block skip's design `design`.
+int ds_block_attributes(int design, int is_u8, int* out) {
+  return is_u8 ? block_attributes<uint8_t>(design, out) : block_attributes<float>(design, out);
 }
 
 int ds_pathtrace(const void* dens, const void* insc, int is_u8, int nx, int ny, int nz,
@@ -520,13 +562,19 @@ int ds_pathtrace_skip(const void* dens, const void* insc, int is_u8, int nx, int
                       float* rec_rad, int32_t* rec_work, unsigned long long* counters,
                       float* mean_out, float* m2_out, float* count_out, int64_t* work_out,
                       void* stream, DS_SKIP_PARAMS) {
+  if (skip == ds::kSkipBlock && g_block == 0) {
+    if (n <= 0) return 0;
+    if (jumped == nullptr || occ == nullptr) return (int)cudaErrorInvalidValue;
+    return DS_VARIANT(kBlockFirst, false, sub_first, nullptr);
+  }
   if (g_design == kPackage || skip != ds::kSkipCell) {
     return ds_pathtrace_skip_package(dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase,
                                      inv_rows, n_inv, entry, dirs, hit, ray_ids, n, consts,
                                      ground, max_steps, max_depth, rr_start, flags, seed_base,
                                      sub_first, n_samples, rec_rad, rec_work, counters, mean_out,
                                      m2_out, count_out, work_out, stream, skip, occ, occ_x,
-                                     occ_y, occ_z, block, long_steps, jumped);
+                                     occ_y, occ_z, block, long_steps, jumped, occ_bits,
+                                     sure_steps);
   }
   if (n <= 0) return 0;
   if (jumped == nullptr) return (int)cudaErrorInvalidValue;
@@ -564,7 +612,7 @@ int ds_radiance_skip(const void* dens, const void* insc, int is_u8, int nx, int 
                                     max_steps, max_depth, rr_start, flags, seed_base, sub0,
                                     n_samples, rec_rad, rec_work, counters, mean_out, m2_out,
                                     count_out, work_out, stream, skip, occ, occ_x, occ_y, occ_z,
-                                    block, long_steps, jumped);
+                                    block, long_steps, jumped, occ_bits, sure_steps);
   }
   if (n <= 0) return 0;
   if (sub0 == nullptr || jumped == nullptr) return (int)cudaErrorInvalidValue;

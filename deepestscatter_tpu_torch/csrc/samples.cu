@@ -62,6 +62,22 @@
 // march_variants.cu and timed beside this one by probes/march_variants.py.
 // Values equal sample_attempts' bitwise.  Each sample's attempts and steps
 // are written out beside it.
+//
+// The cell jump (ds_samples_skip with kSkipCell, samples_threads_kernel) is
+// a redesign.  Its first design was this kernel with the jump in its lane
+// chunks (kept in march_variants.cu): a chunk ended after its first lane
+// in an empty cell and the group jumped once by cell_exit_steps' ten
+// divisions.  In the collector's 258^3 grid at step 1/512 a cell spans
+// about 2 steps, so in empty space a chunk of 32 lanes advanced about 2
+// lattice steps a warp iteration where the chunk without the skip advances
+// 32: 1.68-1.73 ms against 0.098 without the skip (H100 80GB HBM3 at 700
+// W).  Here a thread makes an attempt (attempt_chunk_jump: K4's lookahead
+// march with the jump inside the chunk, the exit from the face table,
+// skip.cuh::FaceExit), so a jump costs no warp iteration; a group of
+// kAttemptGroup lanes makes a sample's attempts in rounds of that many
+// (the collector's samples need 6.53 attempts on the mean and 56 at most),
+// and a round ends once its smallest accepted attempt and every attempt
+// below it have ended.
 #include "march.cu"
 
 namespace ds {
@@ -69,6 +85,12 @@ namespace ds {
 constexpr int kMaxAttempts = 256;
 // W: the warps a sample, each making one attempt a round.
 constexpr int kSampleWarps = 8;
+// The cell jump (samples_threads_kernel): the attempts a group of lanes
+// makes at once (a thread an attempt), the lookahead of each thread's
+// march, the threads a block.
+constexpr int kAttemptGroup = 32;
+constexpr int kAttemptLookahead = 4;
+constexpr int kAttemptThreads = 128;
 constexpr uint32_t kDrawsPerAttempt = 8u;
 // float32(sqrt(3) / 2) and float32(2 pi), as torch rounds the Python
 // constants.
@@ -240,6 +262,81 @@ __device__ __forceinline__ RoundEnd round_end(int first, int W, unsigned accepte
   return E;
 }
 
+// The cell jump of K7a (samples_threads_kernel): up to K march steps of
+// attempt R on one thread with the same values as K rounds of
+// attempt_march with the jump (the lane chunks of attempt_march_lanes with
+// kSkipCell, a chunk ended after its first step into an empty cell and the
+// group's chunk_jump).  The first pass takes each step's position (the
+// serial sum cur + dir * step), taps, cell and empty test and, after a
+// step into an empty cell, the jump's exit (jump_exit: skip.cuh::FaceExit,
+// no room) and moves the chunk's later steps past it by cur + dir * (e *
+// step); the second pass applies T, the crossing (its scatter point), the
+// AABB exit and the cap in step order, and the same jump after the same
+// step where the attempt still marches.  An empty cell's step has density
+// 0, so it never crosses od.
+template <int K, typename T, typename Exit>
+__device__ __forceinline__ void attempt_chunk_jump(Ray& R, const T* __restrict__ dens, int nx,
+                                                   int ny, int nz, const MarchConsts& c,
+                                                   const Exit& jump_exit) {
+  float dens_k[K], e_k[K], jump_k[K], ax_k[K], ay_k[K], az_k[K];
+  float qx = R.cx, qy = R.cy, qz = R.cz;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    qx = qx + R.dx * c.step;
+    qy = qy + R.dy * c.step;
+    qz = qz + R.dz * c.step;
+    ax_k[k] = qx;
+    ay_k[k] = qy;
+    az_k[k] = qz;
+    const float ux = div_exact(qx, c.bbox[0], c.inv_bbox[0]);
+    const float uy = div_exact(qy, c.bbox[1], c.inv_bbox[1]);
+    const float uz = div_exact(qz, c.bbox[2], c.inv_bbox[2]);
+    int cx, cy, cz;
+    bool empty;
+    dens_k[k] = trilinear_cell(dens, nx, ny, nz, ux, uy, uz, cx, cy, cz, empty) * c.dm;
+    e_k[k] = expf(-dens_k[k] * c.step);
+    float e = 0.0f;
+    if (empty) {
+      e = jump_exit(cx, cy, cz, ux, uy, uz, qx, qy, qz, R.dx, R.dy, R.dz, 0x7fffffff);
+      if (e > 0.0f) {
+        const float d = e * c.step;
+        qx = qx + R.dx * d;
+        qy = qy + R.dy * d;
+        qz = qz + R.dz * d;
+      }
+    }
+    jump_k[k] = e;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (R.active) {
+      const float tn = R.trans * e_k[k];
+      R.trans = tn;
+      R.cx = ax_k[k];
+      R.cy = ay_k[k];
+      R.cz = az_k[k];
+      ++R.steps;
+      if (R.od > tn) {
+        const float back =
+            logf(fmaxf(R.od, 1e-20f) / fmaxf(tn, 1e-20f)) / fmaxf(dens_k[k], 1e-10f);
+        R.qx = ax_k[k] - R.dx * back;
+        R.qy = ay_k[k] - R.dy * back;
+        R.qz = az_k[k] - R.dz * back;
+        R.scattered = true;
+        R.active = false;
+      } else {
+        R.active = in_aabb(R.cx, R.cy, R.cz, c) && R.steps < c.max_steps;
+        if (R.active && jump_k[k] > 0.0f) {
+          const float d = jump_k[k] * c.step;
+          R.cx = R.cx + R.dx * d;
+          R.cy = R.cy + R.dy * d;
+          R.cz = R.cz + R.dz * d;
+        }
+      }
+    }
+  }
+}
+
 }  // namespace ds
 
 #ifndef DS_HOST_EMULATION
@@ -357,6 +454,116 @@ static int samples_rounds(const void* dens, int is_u8, int nx, int ny, int nz, u
   return (int)cudaGetLastError();
 }
 
+// The face table of the cell jump's exit (kSkipCell) in the block's dynamic
+// shared memory, filled once by the block's threads; with kSkipCellPow2 the
+// faces by product.
+template <int Skip>
+__device__ __forceinline__ ds::CellExit<Skip> attempt_face_exit(int nx, int ny, int nz,
+                                                                const ds::MarchConsts& c,
+                                                                const ds::SkipArgs& sk) {
+  extern __shared__ float attempt_faces[];
+  if constexpr (Skip == ds::kSkipCell) {
+    const int size = ds::face_table_size(nx, ny, nz);
+    for (int i = threadIdx.x; i < size; i += blockDim.x) {
+      attempt_faces[i] = ds::face_table_entry(i, nx, ny, nz, c.bbox);
+    }
+    __syncthreads();
+  }
+  return ds::face_exit_of<Skip == ds::kSkipCellPow2>(attempt_faces, nx, ny, c.bbox, c.step, sk);
+}
+
+// K7a with the cell jump (kSkipCell: the exit's faces from the face table;
+// kSkipCellPow2: by product): a thread an attempt.  A group of A lanes takes
+// sample (block * blockDim + thread) / A and makes its attempts in rounds
+// of A, lane l making attempt first + l with attempt_chunk_jump, K steps a
+// chunk, so that a jump costs no warp iteration.  The warp's lanes march
+// chunk by chunk until every group's round is decided: its smallest
+// accepted attempt found and every attempt below it ended (or every
+// attempt ended); work past the winner is dropped.  The group sums the
+// steps the serial loop counts (round_end's) by shuffles, and the winner's
+// lane writes the sample (attempts = winner + 1).  Every lane runs the
+// warp's ballots and shuffles with the full mask, at points where the
+// whole warp is converged.
+template <int A, int K, typename T, int Skip>
+__global__ void __launch_bounds__(ds::kAttemptThreads) samples_threads_kernel(
+    const T* __restrict__ dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
+    ds::MarchConsts c, float min_dist, float* __restrict__ pos_out, float* __restrict__ dir_out,
+    uint8_t* __restrict__ found_out, int32_t* __restrict__ work_out, ds::SkipArgs sk) {
+  static_assert(A == 4 || A == 8 || A == 16 || A == 32, "A: 4 to 32 attempts a round");
+  constexpr unsigned kFull = 0xffffffffu;
+  const ds::CellExit<Skip> jump = attempt_face_exit<Skip>(nx, ny, nz, c, sk);
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (A - 1);
+  const int shift = lane - gl;
+  const int64_t s = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / A;
+  ds::Ray R;
+  int steps = 0;  // the sample's steps so far (the same on its group's lanes)
+  bool done = s >= n;  // the group's sample written (or none to make)
+  for (int first = 0; first < ds::kMaxAttempts; first += A) {
+    if (!__any_sync(kFull, !done)) break;
+    const bool made = !done && first + gl < ds::kMaxAttempts;
+    if (made) ds::attempt_start(R, ds::attempt_ray(seed, (uint32_t)s, first + gl, c, min_dist), c);
+    bool marching = made && R.active;
+    unsigned accepted, need;
+    for (;;) {
+      const unsigned ended = (__ballot_sync(kFull, !marching) >> shift) & ds::lanes_below(A);
+      accepted = (__ballot_sync(kFull, made && !marching && ds::accepted(R, c)) >> shift) &
+                 ds::lanes_below(A);
+      need = accepted != 0u ? ds::lanes_below(ds::first_lane(accepted) + 1) : ds::lanes_below(A);
+      const bool open = marching && (ended & need) != need;
+      if (!__any_sync(kFull, open)) break;
+      if (open) {
+        ds::attempt_chunk_jump<K>(R, dens, nx, ny, nz, c, jump);
+        marching = R.active;
+      }
+    }
+    int counted = made && ((need >> gl) & 1u) ? R.steps : 0;
+#pragma unroll
+    for (int o = A / 2; o > 0; o >>= 1) counted += __shfl_xor_sync(kFull, counted, o);
+    if (!done) {
+      steps += counted;
+      if (accepted != 0u) {
+        const int winner = ds::first_lane(accepted);
+        if (gl == winner) {
+          ds::sample_end(s, true, R, c, first + winner + 1, steps, pos_out, dir_out, found_out,
+                         work_out);
+        }
+        done = true;
+      }
+    }
+  }
+  if (!done && gl == 0) {
+    ds::sample_end(s, false, R, c, ds::kMaxAttempts, steps, pos_out, dir_out, found_out,
+                   work_out);
+  }
+}
+
+// K7a with the cell jump at A attempts a group and lookahead K
+// (samples_threads_kernel): Skip kSkipCell (the face table) or
+// kSkipCellPow2.
+template <int A, int K, int Skip>
+static int samples_threads(const void* dens, int is_u8, int nx, int ny, int nz, uint32_t seed,
+                           int64_t n, const ds::MarchConsts& c, float min_dist, float* pos_out,
+                           float* dir_out, uint8_t* found_out, int32_t* work_out, cudaStream_t s,
+                           const ds::SkipArgs& sk) {
+  const int64_t threads = n * A;
+  const int64_t blocks = (threads + ds::kAttemptThreads - 1) / ds::kAttemptThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      Skip == ds::kSkipCell ? (size_t)ds::face_table_size(nx, ny, nz) * sizeof(float) : 0;
+  if (smem > (size_t)ds::kMaxFaceTableBytes) return (int)cudaErrorInvalidValue;
+  if (is_u8) {
+    samples_threads_kernel<A, K, uint8_t, Skip><<<(unsigned)blocks, ds::kAttemptThreads, smem, s>>>(
+        (const uint8_t*)dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out,
+        work_out, sk);
+  } else {
+    samples_threads_kernel<A, K, float, Skip><<<(unsigned)blocks, ds::kAttemptThreads, smem, s>>>(
+        (const float*)dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out,
+        work_out, sk);
+  }
+  return (int)cudaGetLastError();
+}
+
 // consts: ds_march's 18 floats (bbox, cloud AABB, step, dm; the light and
 // radiance entries are not read).  Outputs: pos_out,
 // dir_out [n, 3] float32, found_out [n] uint8, work_out [n, 2] int32
@@ -383,9 +590,14 @@ extern "C" int ds_samples_skip(const void* dens, int is_u8, int nx, int ny, int 
   const ds::MarchConsts c = ds::march_consts(consts, max_steps, 0);
   const cudaStream_t s = (cudaStream_t)stream;
   if (skip == ds::kSkipCell) {
-    return samples_rounds<ds::kSampleWarps, ds::kSkipCell>(dens, is_u8, nx, ny, nz, seed, n, c,
-                                                           min_dist, pos_out, dir_out,
-                                                           found_out, work_out, s, DS_SKIP_ARGS);
+    const ds::SkipArgs sk = ds::cell_recips(DS_SKIP_ARGS, nx, ny, nz, c.step);
+    return ds::pow2_cells(nx, ny, nz)
+               ? samples_threads<ds::kAttemptGroup, ds::kAttemptLookahead, ds::kSkipCellPow2>(
+                     dens, is_u8, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out,
+                     work_out, s, sk)
+               : samples_threads<ds::kAttemptGroup, ds::kAttemptLookahead, ds::kSkipCell>(
+                     dens, is_u8, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out, found_out,
+                     work_out, s, sk);
   }
   if (skip == ds::kSkipBlock && occ != nullptr) {
     return samples_rounds<ds::kSampleWarps, ds::kSkipBlock>(dens, is_u8, nx, ny, nz, seed, n,

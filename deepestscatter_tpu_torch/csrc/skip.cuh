@@ -15,7 +15,12 @@
 //   kSkipBlock: a step taken from a point whose dilated occupancy block
 //     (ops/grid.py::build_occupancy) holds no density is sk.long_steps
 //     lattice steps long, pos + dir * (step * long_steps); it samples the
-//     density where it lands, as every step does.
+//     density where it lands, as every step does.  K1 and K7a read the
+//     float32 occupancy at every step (block_steps); K4 reads it as bits
+//     (BitBlocks) and only where a sample holds no certificate
+//     (pathtrace.cuh::march_steps_block): a step that lands in a cell with
+//     a nonzero corner certifies that the next sk.sure_steps plain steps
+//     leave occupied blocks, which the occupancy would confirm.
 //
 // Float expressions follow ops/march.py (empty_cell_exit_steps, block_step,
 // step_length) term by term; the build uses -fmad=false.
@@ -52,6 +57,12 @@ struct SkipArgs {
   // one is not a power of two.
   float inv_cells[3];
   float inv_step;
+  // The block skip of K4 (BitBlocks, march_steps_block): the dilated
+  // occupancy as bits (ops/grid.py::occupancy_bits) and the plain steps a
+  // step into a cell with a nonzero corner certifies
+  // (ops/march.py::block_sure_steps; 0: none).
+  const uint32_t* bits;
+  int sure_steps;
 };
 
 // sk with the cell jump's reciprocals of an [nz, ny, nx] grid at `step`.
@@ -66,12 +77,17 @@ inline SkipArgs cell_recips(SkipArgs sk, int nx, int ny, int nz, float step) {
 // The arguments the *_skip entry points take after those of the entry point
 // they extend (ops/march.py::skip_args): the skip, the occupancy [bz, by,
 // bx] and its (x, y, z) size, the block edge, the long step's lattice steps,
-// and the lattice steps jumped a pixel (int64 [n], zeroed by the entry
-// point, then added to by the kernel; null where not counted).
+// the lattice steps jumped a pixel (int64 [n], zeroed by the entry point,
+// then added to by the kernel; null where not counted), the occupancy's
+// bits and the certified plain steps (K4's block skip).
 #define DS_SKIP_PARAMS                                                                     \
   int skip, const float *occ, int occ_x, int occ_y, int occ_z, int block, int long_steps, \
-      unsigned long long *jumped
-#define DS_SKIP_ARGS ds::SkipArgs{occ, occ_x, occ_y, occ_z, block, long_steps, jumped}
+      unsigned long long *jumped, const uint32_t *occ_bits, int sure_steps
+#define DS_SKIP_ARGS                                                                        \
+  ds::SkipArgs {                                                                            \
+    occ, occ_x, occ_y, occ_z, block, long_steps, jumped, {0.0f, 0.0f, 0.0f}, 0.0f, occ_bits, \
+        sure_steps                                                                          \
+  }
 
 // The occupancy block along one axis: floor(t) clipped to [0, b - 1].
 __device__ __forceinline__ int block_index(float t, int b) {
@@ -99,6 +115,42 @@ __device__ __forceinline__ int block_steps(const SkipArgs& sk, int nx, int ny, i
   if (!block_empty(sk, nx, ny, nz, ux, uy, uz)) return 1;
   const int m = sk.long_steps < room ? sk.long_steps : room;
   return m > 1 ? m : 1;
+}
+
+// The occupancy as one bit a block, as K4's block skip reads it
+// (pathtrace.cuh::march_steps_block): bit i & 31 of words[i >> 5] for
+// block i = (iz * by + iy) * bx + ix, set where the dilated block is
+// occupied (ops/grid.py::occupancy_bits); blocks of `block` cells, long
+// steps of long_steps lattice steps.  steps() is block_steps' value at
+// position (qx, qy, qz) of the box bbox (div_exact's recips inv), with
+// `room` lattice steps left before the cap.
+struct BitBlocks {
+  const uint32_t* words;
+  int bx, by, bz;
+  int block;
+  int long_steps;
+
+  // The occupancy block of position q along one axis (box edge bbox, n
+  // cells, nb blocks): block_empty's block_index((div_exact(q) * n) / b).
+  __device__ __forceinline__ int axis(float q, float bbox, float recip, int n, int nb) const {
+    return block_index((div_exact(q, bbox, recip) * (float)n) / (float)block, nb);
+  }
+
+  __device__ __forceinline__ int steps(int nx, int ny, int nz, const float* bbox,
+                                       const float* inv, float qx, float qy, float qz,
+                                       int room) const {
+    const int i = (axis(qz, bbox[2], inv[2], nz, bz) * by + axis(qy, bbox[1], inv[1], ny, by)) *
+                      bx +
+                  axis(qx, bbox[0], inv[0], nx, bx);
+    if ((words[i >> 5] >> (i & 31)) & 1u) return 1;
+    const int m = long_steps < room ? long_steps : room;
+    return m > 1 ? m : 1;
+  }
+};
+
+// sk's occupancy bits (sk.bits) as BitBlocks.
+__device__ __forceinline__ BitBlocks bit_blocks(const SkipArgs& sk) {
+  return BitBlocks{sk.bits, sk.bx, sk.by, sk.bz, sk.block, sk.long_steps};
 }
 
 // The exit distance along one axis of the cell whose lower corner is c

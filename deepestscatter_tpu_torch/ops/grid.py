@@ -102,6 +102,18 @@ def build_occupancy(density: np.ndarray, block: int = 8) -> np.ndarray:
     return out
 
 
+def occupancy_bits(occ: torch.Tensor) -> torch.Tensor:
+    """The occupancy [bz, by, bx] as one bit a block, int32 words on its
+    device (K4's block skip reads them, ``csrc/skip.cuh::BitBlocks``): bit
+    ``i & 31`` of word ``i >> 5`` for block ``i = (z * by + y) * bx + x``,
+    set where the block is occupied (not ``occ < 0.5``)."""
+    held = (~(occ < 0.5)).reshape(-1).to(torch.int64)
+    held = torch.nn.functional.pad(held, (0, (-held.numel()) % 32))
+    words = torch.bitwise_left_shift(held.view(-1, 32),
+                                     torch.arange(32, device=occ.device)).sum(dim=1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32).contiguous()
+
+
 def sample_occupancy(occ: torch.Tensor, u: torch.Tensor, grid_shape: Tuple[int, int, int],
                      block: int) -> torch.Tensor:
     """The occupancy at normalized density coordinates ``u`` [..., 3]:

@@ -90,6 +90,11 @@ def check_skip(params: SceneParams, static: SceneStatic, skip: int) -> None:
         if (occ is None or occ.dim() != 3 or occ.numel() == 0 or occ.dtype != torch.float32
                 or not occ.is_contiguous()):
             raise ValueError("the block skip needs the scene's contiguous float32 occupancy grid")
+        bits = params.occupancy_bits
+        if (bits is None or bits.dtype != torch.int32 or not bits.is_contiguous()
+                or bits.numel() != (occ.numel() + 31) // 32):
+            raise ValueError("the block skip needs the occupancy's bits (SceneParams."
+                             "occupancy_bits, ops.grid.occupancy_bits)")
     elif skip not in (SKIP_NONE, SKIP_CELL):
         raise ValueError(f"unknown skip {skip}")
 
@@ -279,25 +284,54 @@ def camera_march_plain(
     return CameraMarch(ev.transmittance, ev.scatter_pos, ok, direct)
 
 
+def block_sure_steps(static: SceneStatic) -> int:
+    """The plain steps K4's block skip takes without reading the occupancy
+    after a step that lands at p in a cell with a nonzero density corner
+    (``csrc/pathtrace.cuh::march_steps_block``): ``floor((block - 2) /
+    (step * max(n / bbox)))``, 0 where the step is too coarse.
+
+    A corner voxel v of p's cell lies within 1.5 voxels of p (each axis's
+    coordinate clamped into [0, n], as ``sample_occupancy``'s block index
+    clamps it), and L steps move the point at most L * step * n / bbox
+    voxels along an axis; with 1.5 + that at most block - 0.5, every point
+    up to L steps past p is within a block of v's block, which
+    ``build_occupancy``'s dilation marks occupied (v holds density).  The
+    half voxel left covers the rounding of the positions' serial sums.
+    ``tests/test_torch_block_host.py`` checks the rule on the occupancies
+    the skip runs on."""
+    if static.occupancy_skip_steps < 2:
+        return 0
+    nz, ny, nx = static.grid_shape
+    voxels_a_step = static.sample_step * max(n / b for n, b in zip((nx, ny, nz), static.bbox))
+    return max(int(math.floor((static.occupancy_block - 2) / voxels_a_step)), 0)
+
+
 #: The arguments the skipping entry points (``ds_march_skip``,
 #: ``ds_samples_skip``, ``ds_pathtrace_skip``, ``ds_radiance_skip``) take
 #: after those of the entry point they extend (``skip_args``).
-SKIP_ARGTYPES = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+SKIP_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
 
 
 def skip_args(params: SceneParams, static: SceneStatic, skip: int,
               jumped: Optional[torch.Tensor] = None) -> list:
     """``SKIP_ARGTYPES``' values: the skip, the occupancy grid and its
     (x, y, z) size (null and 0 but for the block skip), the block edge in
-    cells, the long step's lattice steps, and the int64 [N] counts of
-    lattice steps jumped a pixel that the kernel adds to (or null)."""
-    occ, dims = None, (0, 0, 0)
+    cells, the long step's lattice steps, the int64 [N] counts of lattice
+    steps jumped a pixel that the kernel adds to (or null), and for the
+    block skip the grid's bits (``SceneParams.occupancy_bits``) and the
+    plain steps a step into a cell with density certifies
+    (``block_sure_steps``; K4 reads both, K1 and K7a neither)."""
+    occ, dims, bits, sure = None, (0, 0, 0), None, 0
     if skip == SKIP_BLOCK:
         occ = params.occupancy
         check_on(params.density_mips[0].device, occ)
         dims = tuple(occ.shape[::-1])
+        bits = params.occupancy_bits
+        check_on(params.density_mips[0].device, bits)
+        sure = block_sure_steps(static)
     return [skip, cuda_build.ptr(occ), *dims, static.occupancy_block,
-            static.occupancy_skip_steps, cuda_build.ptr(jumped)]
+            static.occupancy_skip_steps, cuda_build.ptr(jumped), cuda_build.ptr(bits), sure]
 
 
 _ARGTYPES = [

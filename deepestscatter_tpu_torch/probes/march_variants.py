@@ -112,12 +112,14 @@ Run on the card::
 
     python -m deepestscatter_tpu_torch.probes.march_variants [--collector-only | --diff-only |
                                                               --path-only | --spatial-only |
-                                                              --jump-only]
+                                                              --jump-only | --skip-only]
 
 ``--collector-only`` runs K7a's and K7b's alternatives alone,
 ``--diff-only`` K8a's, K8b's, the sun march's and K8c's, ``--path-only``
 K8c's alone, ``--spatial-only`` K9's alone, ``--jump-only`` the cell
-jump's alone (the default run leaves K8c's, K9's and the jump's out).  Prints
+jump's of K4 and K7b alone, ``--skip-only`` K4's block skip's (at the PT
+cell's 256^3 and 64^3) and K7a's cell jump's (on the collector's 2,048
+samples) alone (the default run leaves K8c's, K9's and the skips' out).  Prints
 one line an alternative, then one JSON object as the last line; exits 1
 without a card or if an alternative disagrees.
 """
@@ -1408,6 +1410,171 @@ def jump_variants(dev) -> dict:
     return report
 
 
+#: K4's block-skip designs (``csrc/pathtrace_variants.cu``'s
+#: ``ds_block_variant`` codes), both with the same values: the first (the
+#: float32 occupancy read at every step) and the package's (the density
+#: certificate, the occupancy's bits).
+BLOCK_DESIGNS = {"first design": 0, "package": 1}
+#: K7a's cell-jump designs (``csrc/march_variants.cu``'s
+#: ``ds_cell_samples_variant`` codes), both with the same values: the first
+#: (8 warps a sample, each attempt in chunks of 32 lanes ended after the
+#: first lane in an empty cell) and the package's (a thread an attempt, 32
+#: a round, lookahead 4).
+CELL_SAMPLE_DESIGNS = {"first design": 0, "package": 1}
+
+
+def block_lib(lib):
+    """Types ``csrc/pathtrace_variants.cu``'s entry points, the block
+    skip's with the cell jump's."""
+    jump_lib(lib)
+    lib.ds_block_variant.argtypes = [ctypes.c_int]
+    lib.ds_block_variant.restype = None
+    lib.ds_block_attributes.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ds_block_attributes.restype = ctypes.c_int
+    return lib
+
+
+def block_attributes(lib, design: int, is_u8: bool) -> dict:
+    """Registers, local bytes (spills) and resident blocks a SM of a
+    block-skip design's kernel."""
+    out = (ctypes.c_int * 3)()
+    cuda_build.check(lib.ds_block_attributes(design, int(is_u8), out),
+                     "ds_block_attributes")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2])
+
+
+def k4_block_cell(params, default, block, entry, dirs, hit, ids, seed: int, sub_first: int,
+                  n_samples: int) -> dict:
+    """K4's launch on the given samples as ``block_compare`` takes it: the
+    scene, its static without a skip (``default``) and with the block skip
+    (``block``), ``run(static, lib)`` → (PixelMoments, SampleRecords,
+    counters) and the texel type."""
+    def run(st, lib=None):
+        return pathtracer.launch_entry(lib, "ds_pathtrace", pathtracer._ARGTYPES, sub_first,
+                                       params, st, entry, dirs, hit, ids, seed, n_samples, None,
+                                       march.skip_mode(st))
+    return dict(params=params, default=default, block=block, run=run,
+                uint8=params.density_mips[0].dtype == torch.uint8, hit=hit.to(torch.bool))
+
+
+def pt_block_cell(dev, res: int) -> dict:
+    """chip_smoke.py's PT cell at ``res``^3 with its occupancy built (as
+    ``pt_jump_cell``) for ``block_compare``."""
+    cfg = config.SceneConfig(
+        cloud=config.CloudModel(size_m=2000.0),
+        camera=config.CameraConfig(width=SIZE, height=SIZE),
+        rendering=config.CloudRendering(march_dtype="uint8", occupancy_skipping=True),
+    )
+    params, static = build_scene(cfg, procedural.cumulus(resolution=res, seed=11), device=dev)
+    params = with_baked_inscatter(params, static, device=dev)
+    o, d = camera.generate_rays(camera.camera_basis(cfg.camera), SIZE, SIZE, dev)
+    hit, t_hit = camera.intersect_box(o, d, static, params.bbox_size)
+    entry = camera.entry_points(o, d, t_hit, params.bbox_size)
+    default = dataclasses.replace(static, occupancy_skip_steps=0, march_empty_skip=False)
+    return k4_block_cell(params, default, static, entry, d, hit,
+                         torch.arange(o.shape[0], device=dev), 5, 1, SUBFRAMES)
+
+
+def block_compare(lib, cell: dict, designs: Dict[str, int], reps: int) -> dict:
+    """K4's block-skip ``designs`` (``BLOCK_DESIGNS``' codes) on a cell of
+    ``k4_block_cell``, beside the kernel without a skip ("default"), in
+    four turns by ``ahead_ms``: each one's mean ms and turns, steps sampled
+    and jumped, warp march iterations, SIMT efficiency of its march (steps
+    sampled over 32 lanes x slots), registers, spills and resident blocks;
+    every design bitwise the package's (records and folds, jumps
+    included)."""
+    run, k = cell["run"], lib_const(lib, "ds_jump_lookahead")
+    ref = run(cell["default"])
+    fns = {"default": lambda: run(cell["default"])}
+    slots = int(ref[2][1])
+    out: Dict[str, dict] = {"default": dict(steps=int(ref[0].steps.sum()), march_slots=slots,
+                                            warp_iterations=slots // k)}
+    out["default"]["simt_efficiency"] = out["default"]["steps"] / (32.0 * slots)
+    lib.ds_block_variant(1)
+    pkg = run(cell["block"], lib)
+    for name, code in designs.items():
+        def go(code=code):
+            lib.ds_block_variant(code)
+            return run(cell["block"], lib)
+        pm, rec, counters = go()
+        slots = int(counters[1])
+        steps, jumped = int(pm.steps.sum()), int(pm.jumped.sum())
+        out[name] = dict(code=code, equal=_same(pm, pkg[0]) and _same(rec, pkg[1],
+                                                                      rows=cell["hit"]),
+                         steps=steps, jumped=jumped, warp_iterations=slots // k, march_slots=slots,
+                         simt_efficiency=steps / (32.0 * slots),
+                         **block_attributes(lib, code, cell["uint8"]))
+        fns[name] = go
+        del pm, rec
+    times = in_turns(fns, reps, ahead_ms)
+    for name, ms in times.items():
+        out[name].update(ms=mean(ms), turns=ms)
+    lib.ds_block_variant(1)
+    return out
+
+
+def cell_samples_lib(lib):
+    """Types ``csrc/march_variants.cu``'s K7a cell-jump choice."""
+    lib.ds_cell_samples_variant.argtypes = [ctypes.c_int]
+    lib.ds_cell_samples_variant.restype = None
+    return lib
+
+
+def samples_compare(lib, params, default, cell, n: int, seed: int, designs: Dict[str, int],
+                    reps: int) -> dict:
+    """K7a's cell-jump ``designs`` (``CELL_SAMPLE_DESIGNS``' codes, from
+    ``lib``, ``csrc/march_variants.cu``) on ``n`` samples of the scene,
+    beside the package's own library with the jump ("package library") and
+    without a skip ("default"), in four turns by ``ahead_ms``: each one's
+    mean ms and turns, steps and attempts; every design bitwise the
+    package's (every field)."""
+    pkg = collectors._launch_samples(params, cell, n, seed)
+    ref = collectors._launch_samples(params, default, n, seed)
+    fns = {"package library": lambda: collectors._launch_samples(params, cell, n, seed),
+           "default": lambda: collectors._launch_samples(params, default, n, seed)}
+    out: Dict[str, dict] = {
+        "package library": dict(steps=int(pkg.steps.sum()), attempts=int(pkg.attempts.sum()),
+                                attempts_max=int(pkg.attempts.max())),
+        "default": dict(steps=int(ref.steps.sum()), attempts=int(ref.attempts.sum()))}
+    for name, code in designs.items():
+        def go(code=code):
+            lib.ds_cell_samples_variant(code)
+            return collectors._launch_samples(params, cell, n, seed, lib=lib)
+        got = go()
+        out[name] = dict(code=code, equal=_same(got, pkg), steps=int(got.steps.sum()))
+        fns[name] = go
+        del got
+    times = in_turns(fns, reps, ahead_ms)
+    for name, ms in times.items():
+        out[name].update(ms=mean(ms), turns=ms)
+    lib.ds_cell_samples_variant(1)
+    return out
+
+
+def skip_variants(dev) -> dict:
+    """K4's block skip in each design of ``BLOCK_DESIGNS`` at the PT
+    cell's 256^3 and 64^3 (``block_compare``, 5 calls a turn) and K7a's
+    cell jump in each of ``CELL_SAMPLE_DESIGNS`` on the collector's scene
+    and 2,048 samples (``samples_compare``, 20 calls a turn)."""
+    lib = block_lib(cuda_build.load("pathtrace_variants"))
+    report = {}
+    for res in JUMP_RES:
+        report[f"K4 block {res}^3"] = block_compare(lib, pt_block_cell(dev, res), BLOCK_DESIGNS,
+                                                    5)
+    params, static = collector_scene(dev, bake=False)
+    default = dataclasses.replace(static, occupancy_skip_steps=0, march_empty_skip=False)
+    report["K7a cell jump"] = samples_compare(
+        cell_samples_lib(cuda_build.load("march_variants")), params, default,
+        dataclasses.replace(default, march_empty_skip=True), records.BATCH_SIZE, 0,
+        CELL_SAMPLE_DESIGNS, 20)
+    for key, r in report.items():
+        for name, row in r.items():
+            print(f"skip {key} {name}: {json.dumps(row)}", flush=True)
+    report["ok"] = all(row["equal"] for r in report.values() for row in r.values()
+                       if isinstance(row, dict) and "equal" in row)
+    return report
+
+
 def lib_const(lib, name: str) -> int:
     """An int a library's entry point ``name()`` returns."""
     fn = getattr(lib, name)
@@ -1493,6 +1660,8 @@ def main(argv=None) -> int:
                       help="time only K9's designs (the slab march)")
     only.add_argument("--jump-only", action="store_true",
                       help="time only the cell jump's designs (K4, K7b)")
+    only.add_argument("--skip-only", action="store_true",
+                      help="time only K4's block-skip and K7a's cell-jump designs")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("march_variants: needs a CUDA card", file=sys.stderr)
@@ -1508,6 +1677,18 @@ def main(argv=None) -> int:
         print(f"build: {time.time() - t0:.1f}s ptxas={json.dumps(regs)}", flush=True)
         report = dict(card=card, jump=jump_variants(dev), ptxas=regs)
         report["ok"] = report["jump"]["ok"]
+        print(card, flush=True)
+        print(json.dumps(report), flush=True)
+        return 0 if report["ok"] else 1
+    if opts.skip_only:
+        cuda_build.build(["inscatter", "pathtrace", "samples", "pathtrace_variants",
+                          "march_variants"])
+        regs = {k: v for src in ("pathtrace_variants", "march_variants")
+                for k, v in ptxas((cuda_build.BUILD_DIR / f"{src}.log").read_text()).items()
+                if "<" in k}
+        print(f"build: {time.time() - t0:.1f}s ptxas={json.dumps(regs)}", flush=True)
+        report = dict(card=card, skip=skip_variants(dev), ptxas=regs)
+        report["ok"] = report["skip"]["ok"]
         print(card, flush=True)
         print(json.dumps(report), flush=True)
         return 0 if report["ok"] else 1

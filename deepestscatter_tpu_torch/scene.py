@@ -40,6 +40,9 @@ class SceneParams(NamedTuple):
     #: [bz, by, bx] float32 dilated block occupancy (``ops.grid.build_occupancy``)
     #: where ``CloudRendering.occupancy_skipping`` is on, else empty.
     occupancy: Optional[torch.Tensor] = None
+    #: ``occupancy`` as one bit a block (``ops.grid.occupancy_bits``), int32
+    #: words, where it is built, else empty.
+    occupancy_bits: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +228,7 @@ def build_scene(
         occupancy=(f32(grid_ops.build_occupancy(density, occ_block)) if skip_steps
                    else torch.zeros((0, 0, 0), dtype=torch.float32, device=dev)),
     )
+    params = params._replace(occupancy_bits=grid_ops.occupancy_bits(params.occupancy))
     return params, static
 
 
@@ -247,7 +251,8 @@ def params_to(params: SceneParams, device) -> SceneParams:
     moved = {f: getattr(params, f).to(dev) for f in (
         "inscatter", "bbox_size", "light_dir", "light_radiance", "sky_intensity",
         "ground_intensity")}
-    if params.occupancy is not None:
-        moved["occupancy"] = params.occupancy.to(dev)
+    for f in ("occupancy", "occupancy_bits"):
+        if getattr(params, f) is not None:
+            moved[f] = getattr(params, f).to(dev)
     phase = type(params.phase)(*(t.to(dev) for t in params.phase))
     return params._replace(density_mips=tuple(mips), mip_flat=flat, phase=phase, **moved)

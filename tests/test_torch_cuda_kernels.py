@@ -1820,3 +1820,120 @@ def test_jump_radiance_designs_equal_package(skip_scene, card, design):
     assert int(ref[0].jumped.sum()) > 0
     _all_equal(got[0], ref[0])
     _all_equal(got[1], ref[1])
+
+
+# -- K4's block skip and K7a's cell jump redesigned -----------------------------
+
+def _block_lib():
+    from deepestscatter_tpu_torch.probes import march_variants
+    return march_variants.block_lib(cuda_build.load("pathtrace_variants"))
+
+
+def _k4_block(lib, design, params, st, rays, cap=None):
+    lib.ds_block_variant(design)
+    try:
+        return pathtracer.launch_entry(lib, "ds_pathtrace", pathtracer._ARGTYPES, 1, params, st,
+                                       *rays, 5, 3, cap, march.SKIP_BLOCK)
+    finally:
+        lib.ds_block_variant(1)
+
+
+def test_block_pathtrace_first_design_equals_package(skip_scene, card):
+    """K4's block skip in its first design (``ds_block_variant(0)``: the
+    float32 occupancy read at every step) against the package's kernel (the
+    density certificate, the bits): records and folds bitwise, jumps
+    included, also with a cap of 30 lattice steps a sample."""
+    cfg, params, static = skip_scene
+    assert march.block_sure_steps(static) == 16
+    rays = _pt_rays(cfg, params, static, card)
+    lib = _block_lib()
+    for cap in (None, 30):
+        ref_pm, ref_rec, _ = _k4_block(lib, 1, params, static, rays, cap)
+        pm, rec, _ = _k4_block(lib, 0, params, static, rays, cap)
+        torch.cuda.synchronize()
+        assert int(ref_pm.jumped.sum()) > 0
+        _all_equal(pm, ref_pm)
+        _all_equal(rec, ref_rec, rows=rays[2])
+
+
+@pytest.fixture(scope="module")
+def block_scene_64(card):
+    """The two blobs in a 64^3 grid at step 1/512 with the occupancy built
+    (long steps of 64 lattice steps, 48 certified), uint8, baked; 64 x 32
+    rays."""
+    d = np.zeros((64, 64, 64), np.float32)
+    d[8:56, 8:56, 8:56] = _two_blobs()
+    cfg = config.SceneConfig(
+        cloud=config.CloudModel(size_m=2000.0),
+        camera=config.CameraConfig(width=64, height=32),
+        rendering=config.CloudRendering(march_dtype="uint8", sample_step=1.0 / 512.0,
+                                        occupancy_skipping=True, max_depth=40))
+    params, static = build_scene(cfg, d, device=card)
+    assert (static.occupancy_skip_steps, march.block_sure_steps(static)) == (64, 48)
+    return cfg, with_baked_inscatter(params, static, device=card), static
+
+
+def test_block_pathtrace_fine_step_matches_first_design_and_plain(block_scene_64, card):
+    """At step 1/512 on 64^3 (48 certified steps) the package's block skip
+    equals its first design bitwise and the plain twin at K4's tolerances
+    (steps and jumps on >= 99 % of pixels, there mean within 1e-5 and m2
+    within 1e-4 of their largest)."""
+    cfg, params, st = block_scene_64
+    rays = _pt_rays(cfg, params, st, card)
+    lib = _block_lib()
+    got, rec, _ = _k4_block(lib, 1, params, st, rays)
+    first, first_rec, _ = _k4_block(lib, 0, params, st, rays)
+    ref = pathtracer.scatter_loop_plain(params, st, *rays, 5, 1, 3)
+    torch.cuda.synchronize()
+    _all_equal(first, got)
+    _all_equal(first_rec, rec, rows=rays[2])
+    assert torch.equal(got.count, ref.count) and int(ref.jumped.sum()) > 0
+    same = (got.steps == ref.steps) & (got.jumped == ref.jumped)
+    assert same.float().mean().item() >= 0.99
+    for a, b, tol in ((got.mean, ref.mean, 1e-5), (got.m2, ref.m2, 1e-4)):
+        assert (a - b)[same].abs().max().item() <= tol * (b.abs().max().item() + 1e-12)
+
+
+def _cell_samples_lib():
+    from deepestscatter_tpu_torch.probes import march_variants
+    return march_variants.cell_samples_lib(cuda_build.load("march_variants"))
+
+
+def test_cell_samples_first_design_equals_package(skip_scene, card):
+    """K7a's cell jump in its first design (``ds_cell_samples_variant(0)``:
+    rounds of 8 warps, a jump ending a chunk of 32 lanes) equals the
+    package's (a thread an attempt, the exit from the face table of the
+    48^3 grid) bitwise on every field, and the plain version."""
+    _, params, static = skip_scene
+    st = _skip_static(static, "cell")
+    lib = _cell_samples_lib()
+    ref = collectors._launch_samples(params, st, 777, 3)
+    lib.ds_cell_samples_variant(0)
+    try:
+        got = collectors._launch_samples(params, st, 777, 3, lib=lib)
+    finally:
+        lib.ds_cell_samples_variant(1)
+    plain = collectors.generate_scatter_samples_plain(params, st, 777, 3)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(ref._fields, got, ref, plain):
+        assert torch.equal(a, b) and torch.equal(b, c), name
+
+
+def test_cell_samples_product_faces_match_plain(jump_scene_64, card):
+    """On a 64^3 grid (the faces by product, kSkipCellPow2) K7a's cell jump
+    equals its first design and its plain version bitwise on every field,
+    at step 1/128 and 1/512."""
+    _, params, static = jump_scene_64
+    lib = _cell_samples_lib()
+    for step in (1.0 / 128.0, 1.0 / 512.0):
+        st = dataclasses.replace(static, march_empty_skip=True, sample_step=step)
+        got = collectors._launch_samples(params, st, 512, 7)
+        lib.ds_cell_samples_variant(0)
+        try:
+            first = collectors._launch_samples(params, st, 512, 7, lib=lib)
+        finally:
+            lib.ds_cell_samples_variant(1)
+        ref = collectors.generate_scatter_samples_plain(params, st, 512, 7)
+        torch.cuda.synchronize()
+        for name, a, b, c in zip(ref._fields, got, first, ref):
+            assert torch.equal(a, b) and torch.equal(a, c), name

@@ -21,10 +21,10 @@
 // so the wrappers' _launch drives it on CPU tensors; host_set_pathtrace,
 // host_set_radiance, host_set_bake, host_set_march, host_set_descriptor,
 // host_set_probes, host_set_samples, host_set_diff,
-// host_set_diff_forward, host_set_path, host_set_spatial and host_set_jump
-// choose what they compute (host_path_list returns K8c's last work list;
-// host_face_table and host_exit_steps give the cell jump's face table and
-// exits).
+// host_set_diff_forward, host_set_path, host_set_spatial, host_set_jump and
+// host_set_block choose what they compute
+// (host_path_list returns K8c's last work list; host_face_table and
+// host_exit_steps give the cell jump's face table and exits).
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
@@ -56,7 +56,10 @@ int desc_mode = 1;  // 0: descriptor_element an element; 1: descriptor_column a 
 int probes_mode = 1;  // 0: probe_channel an element (first design); 1: probe_word a word
 // 0: sample_attempts a sample; 1: its attempts in order, each in chunks of
 // samples_lanes lanes (the first design); 2: rounds of samples_warps
-// attempts, each in chunks of 32 lanes (the kernel's).
+// attempts, each in chunks of 32 lanes (the kernel's without a skip and
+// with the block skip, and the cell jump's first design); 3: rounds of
+// kAttemptGroup attempts, each on a thread at lookahead kAttemptLookahead
+// (the cell jump's kernel, attempt_chunk_jump).
 int samples_mode = 2;
 int samples_lanes = 32;  // 1, 8 or 32
 int samples_warps = ds::kSampleWarps;  // W of mode 2
@@ -111,6 +114,23 @@ ds::SkipArgs skip_args = {};
 int jump_design = 1;
 std::vector<float> face_table;
 bool pow2_grid = false;  // the running launch's grid: every cell count a power of two
+// K4's block skip, csrc/pathtrace_variants.cu's ds_block_variant: 0 the
+// first design (march_steps_skip: the float32 occupancy read at every
+// step); 1 the kernels' (march_steps_block: the bits, read where the
+// density certificate does not cover a step).
+int block_design = 1;
+int block_sure = 0;  // the running sample's certified plain steps
+int64_t block_reads = 0;  // the occupancy reads of the last block-skip launch
+
+// BitBlocks counting its reads into block_reads.
+struct CountedBlocks {
+  ds::BitBlocks blocks;
+  int steps(int nx, int ny, int nz, const float* bbox, const float* inv, float qx, float qy,
+            float qz, int room) const {
+    ++block_reads;
+    return blocks.steps(nx, ny, nz, bbox, inv, qx, qy, qz, room);
+  }
+};
 
 // The running launch's exit of the kernels' design: by product
 // (kSkipCellPow2) or from the table (kSkipCell).
@@ -154,6 +174,11 @@ bool chunk_skip(ds::Sample& S, const T* dens, const T* insc, int nx, int ny, int
       return ds::march_chunk_skip<K, ds::kSkipCell>(S, dens, insc, nx, ny, nz, eval_rows, inv, c,
                                                    skip_args);
     case ds::kSkipBlock:
+      if (block_design == 1) {
+        return ds::march_chunk_block<K>(S, dens, insc, nx, ny, nz, eval_rows, inv, c,
+                                        CountedBlocks{ds::bit_blocks(skip_args)},
+                                        skip_args.sure_steps, block_sure);
+      }
       return ds::march_chunk_skip<K, ds::kSkipBlock>(S, dens, insc, nx, ny, nz, eval_rows, inv,
                                                     c, skip_args);
     default:
@@ -187,6 +212,7 @@ int steps_skip(ds::Sample& S, ds::Crossing& X, const T* dens, int nx, int ny, in
 
 void start_jumps(ds::Sample& S) {
   if (skip_mode != ds::kSkipNone) S.jumped = 0;
+  block_sure = 0;
 }
 
 void end_jumps(const ds::Sample& S, int64_t item, int64_t n) {
@@ -514,6 +540,58 @@ void sample_rounds(int W, const T* dens, int nx, int ny, int nz, uint32_t seed, 
   }
 }
 
+// Attempt R marched by one thread (attempt_chunk_jump at lookahead K) with
+// the running launch's face exit: by product where every cell count is a
+// power of two (kSkipCellPow2), else from the face table (kSkipCell).
+template <int K, typename T>
+void attempt_thread(ds::Ray& R, const T* dens, int nx, int ny, int nz, const ds::MarchConsts& c) {
+  if (pow2_grid) {
+    const auto jump = ds::face_exit_of<true>(face_table.data(), nx, ny, c.bbox, c.step, skip_args);
+    while (R.active) ds::attempt_chunk_jump<K>(R, dens, nx, ny, nz, c, jump);
+  } else {
+    const auto jump = ds::face_exit_of<false>(face_table.data(), nx, ny, c.bbox, c.step, skip_args);
+    while (R.active) ds::attempt_chunk_jump<K>(R, dens, nx, ny, nz, c, jump);
+  }
+}
+
+// K7a's cell-jump kernel: each sample's attempts in rounds of A, attempt
+// first + l on "lane" l marched to its end by attempt_thread, each round
+// closed by round_end (the kernel drops the work past the winner, which
+// changes no value).
+template <typename T>
+void sample_threads(int A, const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
+                    const ds::MarchConsts& c, float min_dist, float* pos_out, float* dir_out,
+                    uint8_t* found_out, int32_t* work_out) {
+  std::vector<ds::Ray> R(A);
+  std::vector<int> steps_l(A);
+  for (int64_t s = 0; s < n; ++s) {
+    int steps = 0;
+    bool done = false;
+    for (int first = 0; first < ds::kMaxAttempts && !done; first += A) {
+      unsigned accepted = 0u;
+      for (int l = 0; l < A; ++l) {
+        steps_l[l] = 0;
+        if (first + l >= ds::kMaxAttempts) continue;
+        ds::attempt_start(R[l], ds::attempt_ray(seed, (uint32_t)s, first + l, c, min_dist), c);
+        attempt_thread<ds::kAttemptLookahead>(R[l], dens, nx, ny, nz, c);
+        steps_l[l] = R[l].steps;
+        if (ds::accepted(R[l], c)) accepted |= 1u << l;
+      }
+      const ds::RoundEnd E = ds::round_end(first, A, accepted, steps_l.data());
+      steps += E.steps;
+      if (E.winner >= 0) {
+        ds::sample_end(s, true, R[E.winner - first], c, E.winner + 1, steps, pos_out, dir_out,
+                       found_out, work_out);
+        done = true;
+      }
+    }
+    if (!done) {
+      ds::sample_end(s, false, R[0], c, ds::kMaxAttempts, steps, pos_out, dir_out, found_out,
+                     work_out);
+    }
+  }
+}
+
 template <typename T>
 int samples(const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
             const ds::MarchConsts& c, float min_dist, float* pos_out, float* dir_out,
@@ -524,6 +602,12 @@ int samples(const T* dens, int nx, int ny, int nz, uint32_t seed, int64_t n,
       ds::sample_attempts(s, dens, nx, ny, nz, seed, c, min_dist, pos_out, dir_out, found_out,
                           work_out);
     }
+    return 0;
+  }
+  if (samples_mode == 3) {
+    if (skip_mode != ds::kSkipCell) return -1;
+    sample_threads(ds::kAttemptGroup, dens, nx, ny, nz, seed, n, c, min_dist, pos_out, dir_out,
+                   found_out, work_out);
     return 0;
   }
   if (samples_mode == 2) {
@@ -973,6 +1057,14 @@ void host_set_radiance(int mode, int park_at) {
 // the first design's exit, 3 the faces from the table on every grid.
 void host_set_jump(int design) { jump_design = design; }
 
+// K4's block skip: design 0 the first (the float32 occupancy at every
+// step), 1 the kernels' (march_steps_block on the bits, with the density
+// certificate).
+void host_set_block(int design) { block_design = design; }
+
+// The occupancy reads of the last block-skip launch of design 1.
+int64_t host_block_reads() { return block_reads; }
+
 // The face table of an [nz, ny, nx] grid of box edges bbox[3]
 // (skip.cuh::face_table_entry) into out [face_table_size].
 void host_face_table(int nx, int ny, int nz, const float* bbox, float* out) {
@@ -1095,13 +1187,14 @@ int ds_pathtrace_skip(const void* dens, const void* insc, int is_u8, int nx, int
                       float* mean_out, float* m2_out, float* count_out, int64_t* work_out,
                       void* stream, DS_SKIP_PARAMS) {
   if ((skip != ds::kSkipCell && skip != ds::kSkipBlock) || jumped == nullptr ||
-      (skip == ds::kSkipBlock && occ == nullptr)) {
+      (skip == ds::kSkipBlock && (occ == nullptr || occ_bits == nullptr))) {
     return 1;
   }
   for (int64_t i = 0; i < n; ++i) jumped[i] = 0;
   skip_mode = skip;
   skip_args = ds::cell_recips(DS_SKIP_ARGS, nx, ny, nz, consts[3]);
   fill_face_table(nx, ny, nz, consts);
+  block_reads = 0;
   const int err = ds_pathtrace(dens, insc, is_u8, nx, ny, nz, eval_rows, n_phase, inv_rows,
                                n_inv, entry, dirs, hit, ray_ids, n, consts, ground, max_steps,
                                max_depth, rr_start, flags, seed_base, sub_first, n_samples,
@@ -1301,7 +1394,8 @@ int ds_samples_skip(const void* dens, int is_u8, int nx, int ny, int nz, uint32_
                     void* stream, DS_SKIP_PARAMS) {
   if (skip != ds::kSkipCell && (skip != ds::kSkipBlock || occ == nullptr)) return 1;
   skip_mode = skip;
-  skip_args = DS_SKIP_ARGS;
+  skip_args = ds::cell_recips(DS_SKIP_ARGS, nx, ny, nz, consts[9]);
+  fill_face_table(nx, ny, nz, consts);
   const int err = ds_samples(dens, is_u8, nx, ny, nz, seed, n, consts, max_steps, min_dist,
                              pos_out, dir_out, found_out, work_out, stream);
   skip_mode = ds::kSkipNone;
